@@ -1,0 +1,119 @@
+"""Batch collation: bucketed padding + array stacking.
+
+Copies of ``grl_tpu/data/collate.py`` (``next_bucket``, ``BucketPadding``,
+``stack_batch``). :class:`BucketPadding` right-pads the node axis to a
+fixed bucket (a multiple of a quantum, or the next listed size), so
+batches fall into few shapes, and emits a ``node_mask`` so downstream
+losses and metrics ignore padding.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+
+
+class BaseCollate:
+    @classmethod
+    def _from_config(cls, config: Dict[str, Any]) -> "BaseCollate":
+        return cls(**dict(config or {}))
+
+    def __call__(self, batch: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        raise NotImplementedError
+
+
+def next_bucket(n: int, quantum: int = 64, buckets: Sequence[int] = ()) -> int:
+    """Smallest allowed padded size >= n."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return ((n + quantum - 1) // quantum) * quantum
+
+
+class BucketPadding(BaseCollate):
+    """Static-shape right padding of the node axis + explicit mask.
+
+    Pads ``textline_encoding (N,F) -> (Nb,F)``, ``adjacency_matrix
+    (N,L,N) -> (Nb,L,Nb)`` and ``node_label (N,) -> (Nb,)`` (with the
+    ignore value) to the same bucketed node count, and adds
+    ``node_mask (Nb,)``.
+    """
+
+    def __init__(
+        self,
+        quantum: int = 64,
+        buckets: Sequence[int] = (),
+        label_pad_value: float = -100,
+        only_selected_items: bool = False,
+        extra_keys: Dict[str, float] | None = None,
+        keep_keys: Sequence[str] = (),
+    ):
+        self.quantum = quantum
+        self.buckets = tuple(buckets)
+        self.label_pad_value = label_pad_value
+        self.only_selected_items = only_selected_items
+        self.extra_keys = dict(extra_keys or {})
+        self.keep_keys = tuple(keep_keys)
+
+    def __call__(self, batch: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        sizes = [item["textline_encoding"].shape[0] for item in batch]
+        target = next_bucket(max(sizes), self.quantum, self.buckets)
+        for item in batch:
+            n = item["textline_encoding"].shape[0]
+            pad = target - n
+            item["textline_encoding"] = np.pad(
+                item["textline_encoding"], ((0, pad), (0, 0))
+            )
+            if "adjacency_matrix" in item:
+                item["adjacency_matrix"] = np.pad(
+                    np.asarray(item["adjacency_matrix"], dtype=np.float32),
+                    ((0, pad), (0, 0), (0, pad)),
+                )
+            if "node_label" in item:
+                item["node_label"] = np.pad(
+                    item["node_label"], (0, pad),
+                    constant_values=int(self.label_pad_value),
+                )
+            for key, value in self.extra_keys.items():
+                if key in item:
+                    # Extra node-axis arrays may have their own (smaller)
+                    # node count (e.g. aug_* after node dropping); pad each
+                    # to the bucket independently, incl. square axis 2.
+                    arr = np.asarray(item[key])
+                    if arr.dtype == np.float16:
+                        arr = arr.astype(np.float32)
+                    pads = [(0, max(0, target - arr.shape[0]))] + [
+                        (0, 0)
+                    ] * (arr.ndim - 1)
+                    if arr.ndim == 3 and arr.shape[2] == arr.shape[0]:
+                        pads[2] = (0, max(0, target - arr.shape[2]))
+                    item[key] = np.pad(arr, pads, constant_values=value)
+            item["node_mask"] = np.concatenate(
+                [np.ones(n, dtype=np.float32), np.zeros(pad, dtype=np.float32)]
+            )
+        if self.only_selected_items:
+            keep = {
+                "textline_encoding",
+                "adjacency_matrix",
+                "node_label",
+                "node_mask",
+            } | set(self.extra_keys) | set(self.keep_keys)
+            batch = [{k: v for k, v in item.items() if k in keep} for item in batch]
+        return batch
+
+
+def stack_batch(batch: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """default_collate equivalent: stack same-shaped numpy arrays along a
+    new batch axis; pass through everything else as lists."""
+    out: Dict[str, Any] = {}
+    for key in batch[0]:
+        values = [item[key] for item in batch]
+        if isinstance(values[0], np.ndarray) and all(
+            isinstance(v, np.ndarray) and v.shape == values[0].shape for v in values
+        ):
+            out[key] = np.stack(values)
+        elif isinstance(values[0], (int, float, np.integer, np.floating)):
+            out[key] = np.asarray(values)
+        else:
+            out[key] = values
+    return out

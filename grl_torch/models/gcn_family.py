@@ -1,0 +1,177 @@
+"""The DropEdge GCN trunk and the flagship ``GraphCNNDropEdge``.
+
+Counterparts of ``grl_tpu/models/gcn_family.py:40-248`` on the dense
+path. Call convention: ``model((V, A), head_rows=None)`` with
+``V (B, N, F_in)`` and ``A (B, N, L, N)`` in the dataset layout; train or
+eval mode is the module's own (``model.train()`` / ``model.eval()``).
+
+``kernel_impl`` reads the same YAML values as ``grl_tpu``: ``"pallas"``
+runs the neighbor aggregation through the hand-written CUDA kernel K3
+(:func:`grl_torch.ops.relagg.neighbor_aggregate`); any other value runs
+the plain ``torch.matmul`` path, as ``grl_tpu`` runs XLA.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from grl_torch.models.base import register_model
+from grl_torch.models.layers import (
+    Dense,
+    EdgeDropout,
+    GraphConv,
+    LinearReLU,
+    NodeSelfAtten,
+    RanPAC,
+    check_dense_adjacency,
+    maybe_cast,
+)
+from grl_torch.ops.relagg import neighbor_aggregate
+from grl_torch.utils.device import DeviceLike, optional_dtype, resolve_device
+
+Inputs = Tuple[torch.Tensor, Any]
+
+
+def _default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
+class GCNTrunk(nn.Module):
+    """emb1 -> 3x GraphConv with skip-concats -> emb2 (-> self-attention)."""
+
+    def __init__(
+        self,
+        input_dim: int,
+        net_size: int = 256,
+        num_edges: int = 6,
+        dropout_rate: float = 0.5,
+        edge_dropout_rate: float = 0.3,
+        g1_first: bool = True,
+        use_attention: bool = True,
+        kernel_impl: str = "xla",
+        compute_dtype: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        gen = _default_generator(generator)
+        dtype = optional_dtype(compute_dtype)
+        self.dtype = dtype
+        self.g1_first = g1_first
+        self.kernel_impl = kernel_impl
+        self.edge_dropout_rate = edge_dropout_rate
+        # One generator draws every parameter, in construction order.
+        self.emb1 = LinearReLU(input_dim, net_size, dtype, gen)
+        self.gcn1 = GraphConv(net_size, net_size, num_edges, dtype=dtype, generator=gen)
+        self.gcn2 = GraphConv(net_size, net_size, num_edges, dtype=dtype, generator=gen)
+        self.gcn3 = GraphConv(2 * net_size, net_size, num_edges, dtype=dtype, generator=gen)
+        self.emb2 = LinearReLU(2 * net_size, net_size // 2, dtype, gen)
+        self.self_atten = NodeSelfAtten(net_size // 2, dtype, gen) if use_attention else None
+        self.edge_dropout = EdgeDropout(edge_dropout_rate)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def _kernel_agg(
+        self, feats: torch.Tensor, A: torch.Tensor, det: bool
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Kernel aggregation (``_pallas_agg``): ``(self_term, neigh (B,N,L,F))``."""
+        if det or self.edge_dropout_rate <= 0.0:
+            return feats, neighbor_aggregate(feats, A)
+        raise NotImplementedError(
+            "Training-mode fused DropEdge aggregation (kernels K1/K2) arrives "
+            "with the training slice (ROADMAP.md Queue 1, item 5)."
+        )
+
+    def _gcn(self, conv: GraphConv, feats: torch.Tensor, A: torch.Tensor, det: bool) -> torch.Tensor:
+        if self.kernel_impl == "pallas":
+            out = conv(feats, precomputed_neigh=self._kernel_agg(feats, A, det))
+        else:
+            A_used, self_scale = self.edge_dropout(A, det)
+            out = conv(feats, A_used, self_scale)
+        return self.dropout(F.relu(out))
+
+    def forward(self, inputs: Inputs) -> torch.Tensor:
+        V, A = inputs
+        check_dense_adjacency(A)
+        det = not self.training
+        V = maybe_cast(V, self.dtype)
+        A = maybe_cast(A, self.dtype)
+        embedding = self.dropout(self.emb1(V))
+        g1 = self._gcn(self.gcn1, embedding, A, det)
+        g2 = self._gcn(self.gcn2, g1, A, det)
+        cat12 = [g1, g2] if self.g1_first else [g2, g1]
+        g3 = self._gcn(self.gcn3, torch.cat(cat12, dim=-1), A, det)
+        cat13 = [g1, g3] if self.g1_first else [g3, g1]
+        new_v = self.emb2(torch.cat(cat13, dim=-1))
+        if self.self_atten is not None:
+            new_v = self.self_atten(new_v)
+        return new_v
+
+
+@register_model
+class GraphCNNDropEdge(nn.Module):
+    """The flagship KV-extraction model (``gcn_family.py:188-248``).
+
+    Trunk + frozen RanPAC expansion (``half_net * rp_factor``) + linear
+    classifier; logits are returned in float32. Parameters are drawn from
+    ``generator`` (a fresh one seeded 0 if omitted) and placed on
+    ``device`` (CUDA unless ``device="cpu"`` is passed).
+    """
+
+    def __init__(
+        self,
+        input_dim: int,
+        output_dim: int,
+        num_edges: int,
+        net_size: int = 256,
+        use_attention: bool = True,
+        attention_impl: str = "dense",
+        rp_factor: int = 10,
+        dropout_rate: float = 0.5,
+        edge_dropout_rate: float = 0.3,
+        kernel_impl: str = "xla",
+        compute_dtype: Optional[str] = None,
+        *,
+        device: DeviceLike = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        target = resolve_device(device)
+        gen = _default_generator(generator)
+        dtype = optional_dtype(compute_dtype)
+        # attention_impl selects the attention of the sparse path, which
+        # the port does not have yet; the dense path ignores it as grl_tpu does.
+        self.attention_impl = attention_impl
+        self.trunk = GCNTrunk(
+            input_dim,
+            net_size=net_size,
+            num_edges=num_edges,
+            dropout_rate=dropout_rate,
+            edge_dropout_rate=edge_dropout_rate,
+            g1_first=True,
+            use_attention=use_attention,
+            kernel_impl=kernel_impl,
+            compute_dtype=compute_dtype,
+            generator=gen,
+        )
+        half = net_size // 2
+        rp_size = half * rp_factor
+        self.w_rand = RanPAC(half, rp_size, dtype=dtype, generator=gen)
+        self.dropout = nn.Dropout(dropout_rate)
+        self.classifier = Dense(rp_size, output_dim, dtype, gen)
+        self.to(target)
+
+    def forward(
+        self, inputs: Inputs, head_rows: Optional[Tuple[int, int, int]] = None
+    ) -> torch.Tensor:
+        new_v = self.trunk(inputs)
+        if head_rows is not None:
+            # (groups, rows_per_group, keep): the head runs only on the
+            # first `keep` rows of each group (sampled-minibatch path).
+            G, rows, keep = head_rows
+            new_v = new_v.reshape(G, rows, new_v.shape[-1])[:, :keep]
+            new_v = new_v.reshape(G * keep, new_v.shape[-1])
+        new_v = self.dropout(F.relu(self.w_rand(new_v)))
+        # Loss/softmax always in float32.
+        return self.classifier(new_v).float()

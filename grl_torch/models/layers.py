@@ -1,0 +1,190 @@
+"""Core layers of the flagship, as ``nn.Module``s.
+
+Counterparts of ``grl_tpu/models/layers.py``. Parameter names, shapes and
+init distributions follow the flax modules, so a flax variables tree maps
+onto these state dicts one to one (:mod:`grl_torch.models.convert`):
+a flax ``Dense`` kernel ``(in, out)`` is a ``weight (out, in)`` here, and
+``GraphConv.h_weights`` keeps the JAX layout ``((L+1)F, C)``.
+
+Mixed precision follows ``maybe_cast``: parameters stay float32 master
+copies and are cast with the activations to the compute dtype at use.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from grl_torch.ops.relconv import relational_neighbor_aggregate
+
+
+def maybe_cast(x: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> Optional[torch.Tensor]:
+    """Cast ``x`` to the compute dtype when mixed precision is enabled."""
+    if x is None or dtype is None:
+        return x
+    return x.to(dtype)
+
+
+def _normal(shape, generator: torch.Generator) -> torch.Tensor:
+    return torch.randn(shape, generator=generator)
+
+
+def check_dense_adjacency(A) -> None:
+    """The port has only the dense path so far; refuse anything else."""
+    if not isinstance(A, torch.Tensor) or A.layout != torch.strided:
+        raise NotImplementedError(
+            "grl_torch takes a dense (B, N, L, N) adjacency only; the sparse "
+            "large-graph path arrives with ROADMAP.md Queue 1, slice 3."
+        )
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel + bias`` with ``weight = kernel.T``.
+
+    Init matches flax's defaults: truncated (+-2 std) lecun-normal kernel,
+    zero bias. With ``dtype`` set, input and parameters are cast to it.
+    """
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        # variance_scaling(1.0, "fan_in", "truncated_normal"): the std of a
+        # standard normal truncated to [-2, 2] is 0.87962566103423978.
+        std = (1.0 / in_features) ** 0.5 / 0.87962566103423978
+        weight = torch.empty(features, in_features)
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
+
+
+class LinearReLU(nn.Module):
+    """``Linear -> ReLU`` (``layers.py:50-58``)."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.linear = Dense(in_features, features, dtype, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.linear(x))
+
+
+class GraphConv(nn.Module):
+    """Multi-relational graph convolution (``layers.py:61-193``).
+
+    Projects ``[self | rel_0 | ... | rel_{L-1}]`` with one weight
+    ``h_weights ((L+1)F, C)`` split as ``w_self = h[:F]`` and
+    ``w_neigh = h[F:]``; the relation-major neighbor term ``(B, N, L*F)``
+    meets ``w_neigh``'s rows in that order. Dense branch and the
+    ``precomputed_neigh`` branch (the kernel path) only.
+    """
+
+    def __init__(self, in_features: int, features: int, num_relations: int,
+                 use_bias: bool = True, dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        fan_in, fan_out = in_features * (num_relations + 1), features
+        std = (2.0 / (fan_in + fan_out)) ** 0.5  # xavier-normal (layers.py:43-47)
+        self.h_weights = nn.Parameter(_normal((fan_in, fan_out), generator) * std)
+        self.bias = (
+            nn.Parameter(1e-4 + 5e-5 * _normal((features,), generator))
+            if use_bias else None
+        )
+
+    def forward(
+        self,
+        V: torch.Tensor,
+        A: Optional[torch.Tensor] = None,
+        self_scale: Optional[torch.Tensor] = None,
+        precomputed_neigh: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        F_in = V.shape[-1]
+        h_weights = maybe_cast(self.h_weights, self.dtype)
+        w_self, w_neigh = h_weights[:F_in], h_weights[F_in:]
+        if precomputed_neigh is not None:
+            # From the K3 kernel: (self_term, neigh (B, N, L, F)).
+            self_term, neigh = precomputed_neigh
+            neigh = neigh.reshape(*neigh.shape[:-2], -1)
+        else:
+            check_dense_adjacency(A)
+            neigh = relational_neighbor_aggregate(V, A)
+            self_term = V if self_scale is None else V * self_scale[..., None]
+        self_term = maybe_cast(self_term, self.dtype)
+        neigh = maybe_cast(neigh, self.dtype)
+        out = torch.matmul(self_term, w_self) + torch.matmul(neigh, w_neigh)
+        if self.bias is not None:
+            out = out + maybe_cast(self.bias, self.dtype)
+        return out
+
+
+class EdgeDropout(nn.Module):
+    """DropEdge on the preprocessed adjacency — deterministic branch only.
+
+    Returns ``(A, None)`` (no self-loop scale) in eval or at rate 0. The
+    random branch (``drop_edge`` and the fused K1/K2 kernels) arrives with
+    the training slice.
+    """
+
+    def __init__(self, rate: float = 0.3):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, A: torch.Tensor, deterministic: bool):
+        if deterministic or self.rate <= 0.0:
+            return A, None
+        raise NotImplementedError(
+            "Training-mode DropEdge (drop_edge, kernels K1/K2) arrives with the "
+            "training slice (ROADMAP.md Queue 1, item 5); use model.eval() or "
+            "edge_dropout_rate=0."
+        )
+
+
+class NodeSelfAtten(nn.Module):
+    """SAGAN-style global node self-attention (``layers.py:235-258``).
+
+    ``gamma * softmax(f(V) g(V)^T) h(V) + V``, softmax in float32.
+    """
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.f = LinearReLU(features, features // 8, dtype, generator)
+        self.g = LinearReLU(features, features // 8, dtype, generator)
+        self.h = LinearReLU(features, features, dtype, generator)
+        self.gamma = nn.Parameter(_normal((features,), generator))
+
+    def forward(self, V: torch.Tensor) -> torch.Tensor:
+        f_out, g_out, h_out = self.f(V), self.g(V), self.h(V)
+        scores = torch.matmul(f_out, g_out.transpose(-1, -2))
+        s = maybe_cast(torch.softmax(scores.float(), dim=-1), self.dtype)
+        o = torch.matmul(s, h_out)
+        return maybe_cast(self.gamma, self.dtype) * o + V
+
+
+class RanPAC(nn.Module):
+    """Frozen random projection (``layers.py:306-332``).
+
+    The ``(in, features)`` kernel is a buffer, not a parameter: it is saved
+    in the state dict but never optimised (flax keeps it in ``constants``).
+    """
+
+    def __init__(self, in_features: int, features: int, init_scale: float = 1.0,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("kernel", _normal((in_features, features), generator) * init_scale)
+
+    def forward(self, x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+        return torch.matmul(x, maybe_cast(self.kernel, self.dtype)) * scale

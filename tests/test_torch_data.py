@@ -1,0 +1,123 @@
+"""Host data path of grl_torch against grl_tpu: golden arrays.
+
+The port keeps its own copies of the numpy stages (grl_torch may not
+import grl_tpu), so these tests hold the copies to the originals on the
+same synthetic pages: identical arrays, dtypes included. grl_tpu's graph
+builder is its default, the native C++ one; the port's is the Python
+builder, which must give the same float16 (N, 6, N) adjacency.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+from grl_tpu.data import collate as jax_collate
+from grl_tpu.data import datasets as jax_datasets
+from grl_tpu.data.native import native_available
+from grl_tpu.data.normalize_text import normalize_text as jax_normalize_text
+from grl_tpu.data import synthetic as jax_synthetic
+from grl_torch.data import collate, datasets, synthetic
+from grl_torch.data.normalize_text import normalize_text
+
+PROCESS = {
+    "TextlineEncoding": {"is_normalized_text": True},
+    "HeuristicGraphBuilder": {"num_edges": 6, "edge_type": "normal_binary"},
+    "NodeLabeling": {},
+}
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    out = tmp_path_factory.mktemp("pages")
+    return jax_synthetic.synthetic_dataset_files(str(out), num_pages=4, seed=3)
+
+
+def make_config(files, process=PROCESS):
+    data_dir, classes_path, charset_path = files
+    return {
+        "data_path": [data_dir],
+        "class_path": classes_path,
+        "charset_path": charset_path,
+        "key_types": ["key", "value"],
+        "data_process": process,
+    }
+
+
+def both_samples(files, samples=None, process=PROCESS):
+    config = make_config(files, process)
+    kwargs = {} if samples is None else {"samples": samples}
+    ours = datasets.CassiaDataset(config, **kwargs)
+    theirs = jax_datasets.CassiaDataset(config, **kwargs)
+    assert len(ours) == len(theirs) > 0
+    return [ours[i] for i in range(len(ours))], [theirs[i] for i in range(len(theirs))]
+
+
+def assert_same_arrays(ours, theirs, keys):
+    for key in keys:
+        a, b = np.asarray(ours[key]), np.asarray(theirs[key])
+        assert a.dtype == b.dtype, key
+        np.testing.assert_array_equal(a, b, err_msg=key)
+
+
+@pytest.mark.parametrize("seed, rows, noise", [(0, 12, 6), (11, 40, 10), (7, 110, 10)])
+def test_synthetic_pages_match(seed, rows, noise):
+    assert synthetic.synthetic_page(seed, rows, noise) == jax_synthetic.synthetic_page(seed, rows, noise)
+
+
+def test_normalize_text_matches():
+    for text in ["Ｔｏｔａｌ　Ａｍｏｕｎｔ：", "ｶﾀｶﾅ ¥1,000 (10%)", "INV-0042", "  mixed\tCase  ", ""]:
+        assert normalize_text(text) == jax_normalize_text(text)
+
+
+def test_textline_encoding_matches(files):
+    ours, theirs = both_samples(files)
+    for a, b in zip(ours, theirs):
+        assert_same_arrays(a, b, ["textline_encoding", "node_label"])
+        assert a["textline_encoding"].dtype == np.float32
+
+
+@pytest.mark.parametrize("rows, noise", [(12, 6), (60, 8)])
+def test_graph_builder_matches_native(files, rows, noise):
+    """The port's Python builder against grl_tpu's default native builder."""
+    assert native_available()
+    pages = [jax_synthetic.synthetic_page(500 + i, rows, noise) for i in range(3)]
+    ours, theirs = both_samples(files, samples=pages)
+    for a, b in zip(ours, theirs):
+        n = len(a["label"])
+        assert a["adjacency_matrix"].shape == (n, 6, n)
+        assert a["adjacency_matrix"].dtype == np.float16
+        assert_same_arrays(a, b, ["adjacency_matrix", "textline_encoding", "node_label"])
+
+
+def test_inference_pages_match(files):
+    """Cassia pages as KVInference sends them: location and text only."""
+    pages = [
+        [{"location": box["location"], "text": box["text"]} for box in jax_synthetic.synthetic_page(900 + i)]
+        for i in range(2)
+    ]
+    process = {k: v for k, v in PROCESS.items() if k != "NodeLabeling"}
+    ours, theirs = both_samples(files, samples=pages, process=process)
+    for a, b in zip(ours, theirs):
+        assert_same_arrays(a, b, ["adjacency_matrix", "textline_encoding"])
+        assert a["label"] == b["label"]
+
+
+def test_bucket_padding_and_stack_batch_match(files):
+    ours, theirs = both_samples(files)
+    kwargs = {"quantum": 64, "only_selected_items": True}
+    ours = collate.stack_batch(collate.BucketPadding(**kwargs)(ours))
+    theirs = jax_collate.stack_batch(jax_collate.BucketPadding(**kwargs)(theirs))
+    assert set(ours) == set(theirs) == {"textline_encoding", "adjacency_matrix", "node_label", "node_mask"}
+    assert ours["adjacency_matrix"].shape[1] % 64 == 0
+    assert_same_arrays(ours, theirs, sorted(ours))
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 190, 230, 256, 300])
+def test_next_bucket_matches(n):
+    assert collate.next_bucket(n, quantum=64) == jax_collate.next_bucket(n, quantum=64)
+    assert collate.next_bucket(n, 64, (128, 256)) == jax_collate.next_bucket(n, 64, (128, 256))
+
+
+def test_unported_processors_raise(files):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        datasets.CassiaDataset(make_config(files, {"EdgeLabeling": {}}))
