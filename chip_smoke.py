@@ -12,13 +12,17 @@ before the result line is printed; no phase's failure is passed over.
    and CUDA versions, TF32 off, and the build of every CUDA source under
    ``grl_torch/csrc`` for ``sm_90a`` (one ``nvcc`` per source, all
    started together).
-2. ``kernel``: K3 (``grl_torch/csrc/relagg.cu``) against its plain
-   PyTorch version on the card, B=8, L=6, N in {64, 192, 256}, F in
-   {256, 512}, float32 and bfloat16. Each case is timed with CUDA events
-   (median of single launches, L2 flushed before each) beside the plain
-   version, the one PyTorch call that computes the same function
-   (``library_ms``), and the card's bound.
-3. ``serve``: the main path, ``GNNLearningWarper.predict`` ->
+2. ``kernel``: K3, K1 and K2 (``grl_torch/csrc/relagg.cu``) against their
+   plain PyTorch versions on the card, B=8, L=6, N in {64, 192, 256}, F in
+   {256, 512}, float32 and bfloat16, DropEdge rate 0.3. K1/K2 and their
+   plain versions hash the same mask, which is checked exactly by probing
+   the kernels with identity operands; the kept share, forward/backward
+   consistency and "K1 at keep 1 is K3" are checked too. Each case is
+   timed with CUDA events (median of single launches, L2 flushed before
+   each) beside the plain version, a PyTorch call for the same product
+   (``library_ms``: ``torch.matmul``, on an already-masked A for K1/K2),
+   and the card's bound.
+3. ``serve``: the serving path, ``GNNLearningWarper.predict`` ->
    ``KVInference`` -> ``GraphCNNDropEdge`` at the full sumi width
    (input_dim 4369, output_dim 53, 6 relations, net_size 256,
    ``kernel_impl: pallas``, bfloat16), batch 8, bucket 256, with random
@@ -26,6 +30,15 @@ before the result line is printed; no phase's failure is passed over.
    launch count, and holds the predictions against the plain
    (``kernel_impl: xla``) path with the same weights, in bfloat16 and in
    float32.
+4. ``train``: the training path, ``GNNLearningWarper.train`` ->
+   ``KVProcedure`` at the same width with DropEdge 0.3 and dropout 0.5,
+   two epochs over 64 synthetic pages (16 steps) with 16 validation pages
+   (4 batches). Checks the K1/K2/K3 launch counts, finite losses, changed
+   parameters and the checkpoint, which KVInference then serves; prints
+   steps/s, nodes/s, the device idle share of a traced window, and one
+   train step timed on the card. Then a learning check (20 steps on one
+   batch) and two full-width steps through the kernels against the same
+   steps through their plain versions, float32 and bfloat16.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -33,7 +46,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -76,6 +91,57 @@ NET_SIZE = 256
 # 1280-wide RanPAC head; a box whose two best logits are that close can
 # swap class.
 SERVE_AGREEMENT = {"float32": (0.999, 1e-4), "bfloat16": (0.99, 2e-2)}
+
+# DropEdge rate of the flagship (edge_dropout_rate), and the tolerance on
+# the kept share of a dense A's 1.57M nonzero entries at N=256 (27
+# standard deviations of a binomial share: only a biased mask misses it).
+RATE = 0.3
+KEEP_SHARE_TOL = 0.01
+
+TRAIN_PAGES, VAL_PAGES, EPOCHS = 64, 16, 2
+TRAIN_STEPS, VAL_BATCHES = EPOCHS * TRAIN_PAGES // B, EPOCHS * VAL_PAGES // B
+# The procedure traces these train steps (logging.profile): the last
+# four of the second epoch; the idle share is read from that trace.
+PROFILE_START, PROFILE_STEPS = TRAIN_STEPS - 4, 3
+TIMED_STEPS = 10
+# Learning check: 20 steps of the kernel path on one batch; the mean loss
+# of the last 5 must fall below this share of the first step's loss. The
+# first H100 run reached 0.543 (4.09 -> 2.22, with dropout and DropEdge
+# on); the bound leaves room for other cards and library versions, and a
+# gradient that does not fit the batch (a K2 that disagrees with K1, say)
+# stays near 1 or diverges.
+LEARN_STEPS, LEARN_SHARE = 20, 0.75
+# Kernel path against plain path: two Adam steps at STEP_LR. Limits per
+# dtype and step on (relative loss difference, largest parameter
+# difference of the largest parameter, share of the parameter entries the
+# plain path moved that the two leave further apart than STEP_LR / 10,
+# relative L2 difference of the clipped gradients).
+# float32: K1/K2 and their plain versions differ in summation order only
+# (~1e-6 relative), so the paths stay within 1e-4 and no entry drifts.
+# bfloat16: an output of K1 or K2 may round the other way in its last bit
+# (2**-8 relative). Adam moves an entry by about STEP_LR a step whatever
+# its gradient's size, so one near-zero gradient that changes sign moves
+# that entry by 2 * STEP_LR: the largest difference is not held, the
+# share of such entries is. Step 1 starts both paths from one state, so
+# its gradient holds K1 and K2 closely; step 2 starts from states that
+# may already differ in such entries, and its limits are looser.
+# tests/test_torch_training.py::test_step_limits runs these limits on a
+# small model on the CPU: last-bit flips in 0.5% of K1's or 5% of K2's
+# outputs pass, a mask from another seed or a rate of 0.25 for 0.3 in
+# either kernel fails. The first H100 run found both paths equal to the
+# bit in both dtypes: the heuristic graph's rows sum a handful of terms.
+STEP_LR = 5e-3
+STEP_LIMITS = {
+    "float32": [(1e-4, 1e-4, 0.0, 1e-3)] * 2,
+    "bfloat16": [(5e-3, math.inf, 1e-2, 2e-2), (5e-2, math.inf, 0.1, 0.1)],
+}
+
+
+def step_failures(rows, limits):
+    """The steps of ``compare_steps`` whose row exceeds its limits."""
+    keys = ("loss_rel_diff", "param_max_diff_of_scale", "moved_share_beyond_lr_10", "grad_rel_diff")
+    return [k for k, (row, limit) in enumerate(zip(rows, limits))
+            if any(row[key] > bound for key, bound in zip(keys, limit))]
 
 
 def log(message: str) -> None:
@@ -135,47 +201,148 @@ def time_ms(torch, fn, flush, reps: int = 40) -> float:
     return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
-def kernel_case(torch, dtype_name: str, N: int, F: int, density: float, flush, seed: int):
-    from grl_torch.ops.relagg import neighbor_aggregate, neighbor_aggregate_reference
+def bound(dtype_name: str, itemsize: int, N: int, F: int):
+    """(bound ms, what bounds it, bytes, flops) of one K3/K1/K2 call at
+    B, L: each moves A, an (N, F) panel and an (N, L, F) panel per batch
+    once, for 2*B*N*L*N*F operations."""
+    nbytes = itemsize * (B * N * L * N + B * N * F + B * N * L * F)
+    flops = 2 * B * N * L * N * F
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations"), nbytes, flops
 
+
+def check_close(torch, out, ref, dtype_name: str, what: str) -> float:
+    """Max abs error of ``out`` against ``ref``; fails past the tolerance."""
+    require(out.shape == ref.shape and out.dtype == ref.dtype, f"{what}: {out.shape} {out.dtype}")
+    require(bool(torch.isfinite(out).all()), f"{what}: output is not finite")
+    diff = (out.float() - ref.float()).abs()
+    scale = ref.float().abs()
+    limit = RTOL[dtype_name] * scale + ATOL_OF_MAX * float(scale.max())
+    max_abs_err = float(diff.max())
+    require(
+        float((diff - limit).max()) <= 0.0,
+        f"{what} disagrees with its plain version: max_abs_err={max_abs_err:.3e}",
+    )
+    return max_abs_err
+
+
+def operands(torch, dtype_name: str, N: int, F: int, density: float, seed: int):
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     V = torch.randn(B, N, F, generator=gen, device="cuda").to(dtype)
     A = (torch.rand(B, N, L, N, generator=gen, device="cuda") < density).to(dtype)
+    return V, A
 
-    ref = neighbor_aggregate_reference(V, A)
+
+def kernel_case(torch, dtype_name: str, N: int, F: int, density: float, flush, seed: int):
+    from grl_torch.ops.relagg import neighbor_aggregate, neighbor_aggregate_reference
+
+    V, A = operands(torch, dtype_name, N, F, density, seed)
     out = neighbor_aggregate(V, A)
     torch.cuda.synchronize()
-    require(out.shape == (B, N, L, F) and out.dtype == dtype, f"K3 output {out.shape} {out.dtype}")
-    require(bool(torch.isfinite(out).all()), "K3 output is not finite")
-    diff = (out.float() - ref.float()).abs()
-    scale = ref.float().abs()
-    limit = RTOL[dtype_name] * scale + ATOL_OF_MAX * float(scale.max())
-    worst = float((diff - limit).max())
-    max_abs_err = float(diff.max())
-    require(
-        worst <= 0.0,
-        f"K3 disagrees with its plain version: {dtype_name} N={N} F={F} "
-        f"density={density} max_abs_err={max_abs_err:.3e}",
-    )
+    what = f"K3 {dtype_name} N={N} F={F} density={density}"
+    max_abs_err = check_close(torch, out, neighbor_aggregate_reference(V, A), dtype_name, what)
 
     ms = time_ms(torch, lambda: neighbor_aggregate(V, A), flush)
     plain_ms = time_ms(torch, lambda: neighbor_aggregate_reference(V, A), flush)
     A2 = A.view(B, N * L, N)
     library_ms = time_ms(torch, lambda: torch.matmul(A2, V), flush)
-
-    itemsize = V.element_size()
-    nbytes = itemsize * (B * N * L * N + B * N * F + B * N * L * F)
-    flops = 2 * B * N * L * N * F
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    bound_ms, bound_by, nbytes, flops = bound(dtype_name, V.element_size(), N, F)
     return {
-        "dtype": dtype_name, "B": B, "N": N, "L": L, "F": F, "density": density,
+        "kernel": "K3", "dtype": dtype_name, "B": B, "N": N, "L": L, "F": F, "density": density,
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(bytes_ms, flops_ms),
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "flops": flops,
     }
+
+
+def dropedge_cases(torch, dtype_name: str, N: int, F: int, density: float, flush, seed: int):
+    """K1 and K2 against their plain versions, timed; two result rows."""
+    from grl_torch.ops import relagg
+
+    V, A = operands(torch, dtype_name, N, F, density, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 500)
+    g = torch.randn(B, N, L, F, generator=gen, device="cuda").to(V.dtype)
+    mask_seed = 7919 * (seed + 1)
+    out = relagg.dropedge_aggregate(V, A, mask_seed, RATE)
+    dV = relagg.dropedge_aggregate_grad(g, A, mask_seed, RATE)
+    torch.cuda.synchronize()
+    what = f"{dtype_name} N={N} F={F} density={density}"
+    err = {
+        "K1": check_close(torch, out, relagg.dropedge_aggregate_reference(V, A, mask_seed, RATE),
+                          dtype_name, f"K1 {what}"),
+        "K2": check_close(torch, dV, relagg.dropedge_aggregate_grad_reference(g, A, mask_seed, RATE),
+                          dtype_name, f"K2 {what}"),
+    }
+    # library_ms: one torch.matmul on an A already masked and rescaled (no
+    # single PyTorch call fuses the mask).
+    keep = relagg.keep_probability(RATE)
+    A_m = (torch.where(relagg.dropedge_keep_mask(mask_seed, A.shape, RATE, A.device), A.float(), 0.0)
+           / keep).to(V.dtype).view(B, N * L, N)
+    g2 = g.view(B, N * L, F)
+    calls = {
+        "K1": (lambda: relagg.dropedge_aggregate(V, A, mask_seed, RATE),
+               lambda: relagg.dropedge_aggregate_reference(V, A, mask_seed, RATE),
+               lambda: torch.matmul(A_m, V)),
+        "K2": (lambda: relagg.dropedge_aggregate_grad(g, A, mask_seed, RATE),
+               lambda: relagg.dropedge_aggregate_grad_reference(g, A, mask_seed, RATE),
+               lambda: torch.matmul(A_m.transpose(1, 2), g2)),
+    }
+    bound_ms, bound_by, nbytes, flops = bound(dtype_name, V.element_size(), N, F)
+    rows = []
+    for name, (kernel, plain, library) in calls.items():
+        rows.append({
+            "kernel": name, "dtype": dtype_name, "B": B, "N": N, "L": L, "F": F, "density": density,
+            "rate": RATE, "max_abs_err": err[name], "ms": time_ms(torch, kernel, flush),
+            "plain_ms": time_ms(torch, plain, flush), "library_ms": time_ms(torch, library, flush),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        })
+    return rows
+
+
+def mask_probe(torch, dtype_name: str, N: int, seed: int):
+    """The mask K1 and K2 draw, read out exactly: with V = I, K1 returns
+    A * mask / keep; with g = I over the N*L rows, K2 returns its
+    transpose. Both must equal the plain hash mask on A's support.
+    Returns the kept share of A's nonzero entries."""
+    from grl_torch.ops import relagg
+
+    dtype = getattr(torch, dtype_name)
+    _, A = operands(torch, dtype_name, N, 8, DENSE_DENSITY, seed)
+    expected = (A != 0) & relagg.dropedge_keep_mask(seed, A.shape, RATE, A.device)
+    eye = torch.eye(N, device="cuda", dtype=dtype).expand(B, N, N).contiguous()
+    seen_k1 = relagg.dropedge_aggregate(eye, A, seed, RATE) != 0  # (B, N, L, N)
+    g = torch.eye(N * L, device="cuda", dtype=dtype).expand(B, N * L, N * L).reshape(B, N, L, N * L)
+    dV = relagg.dropedge_aggregate_grad(g.contiguous(), A, seed, RATE)  # (B, N, N*L)
+    seen_k2 = dV.view(B, N, N, L).permute(0, 2, 3, 1) != 0  # (B, n, l, m)
+    torch.cuda.synchronize()
+    require(torch.equal(seen_k1, expected), f"K1's mask differs from the plain hash ({dtype_name}, N={N})")
+    require(torch.equal(seen_k2, expected), f"K2's mask differs from the plain hash ({dtype_name}, N={N})")
+    return float(expected.sum()) / float((A != 0).sum())
+
+
+def dropedge_invariants(torch):
+    """Forward and backward see one mask; K1 at keep 1 is K3 bit for bit;
+    the wrapper at rate 0 launches K3."""
+    from grl_torch.ops import relagg
+
+    V, A = operands(torch, "float32", 256, 256, DENSE_DENSITY, 77)
+    y = relagg.dropedge_aggregate(V, A, 5, RATE)
+    dV = relagg.dropedge_aggregate_grad(torch.ones_like(y), A, 5, RATE)
+    lhs, rhs = float((dV.double() * V.double()).sum()), float(y.double().sum())
+    # Linear in V, so equal in real arithmetic. The float32 roundings of
+    # the 3.1M outputs and 0.5M gradient entries have random signs: 9e-8 of
+    # the sum on the H100. A K2 mask other than K1's moves it by more than
+    # a tenth of the sum (tests/test_torch_dropedge.py).
+    require(abs(lhs - rhs) <= 1e-5 * abs(rhs), f"<K2(1), V> = {lhs} but sum K1(V) = {rhs}")
+    out = relagg._launch("grl_dropedge_forward", A, V, (B, 256, L, 256), 5, 1.0)
+    k3 = relagg.neighbor_aggregate.launches
+    plain = relagg.dropedge_aggregate(V, A, 5, 0.0)
+    torch.cuda.synchronize()
+    require(relagg.neighbor_aggregate.launches == k3 + 1, "rate 0 did not launch K3")
+    require(torch.equal(out, plain), "K1 at keep 1 differs from K3")
+    return {"k2_dot_v": lhs, "sum_k1": rhs}
 
 
 def phase_kernel(torch):
@@ -189,17 +356,32 @@ def phase_kernel(torch):
     ] + [("float32", 192, 512, DENSE_DENSITY), ("bfloat16", 192, 512, DENSE_DENSITY)]
     results = []
     for seed, case in enumerate(cases):
-        row = kernel_case(torch, *case, flush=flush, seed=seed)
-        results.append(row)
-        log(
-            f"[kernel] K3 {row['dtype']:>8} B={B} N={row['N']:3d} L={L} F={row['F']} "
-            f"density={row['density']}: max_abs_err {row['max_abs_err']:.3e} | "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"torch.matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})"
-        )
+        rows = [kernel_case(torch, *case, flush=flush, seed=seed)]
+        rows += dropedge_cases(torch, *case, flush=flush, seed=seed)
+        for row in rows:
+            results.append(row)
+            log(
+                f"[kernel] {row['kernel']} {row['dtype']:>8} B={B} N={row['N']:3d} L={L} F={row['F']} "
+                f"density={row['density']}: max_abs_err {row['max_abs_err']:.3e} | "
+                f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                f"torch.matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})"
+            )
     del flush
-    return results
+    shares = {}
+    for dtype_name in ("float32", "bfloat16"):
+        for N in KERNEL_NS:
+            shares[f"{dtype_name} N={N}"] = share = mask_probe(torch, dtype_name, N, seed=31 + N)
+            log(f"[kernel] K1/K2 mask = plain hash mask exactly ({dtype_name}, N={N}); kept share {share:.5f}")
+            if N == 256:
+                require(abs(share - (1 - RATE)) <= KEEP_SHARE_TOL,
+                        f"kept share {share} is not {1 - RATE} +- {KEEP_SHARE_TOL}")
+    invariants = dropedge_invariants(torch)
+    log(
+        f"[kernel] <K2(1), V> = {invariants['k2_dot_v']:.6f}, sum K1(V) = {invariants['sum_k1']:.6f} "
+        f"(f32, need within 1e-5 of the sum); K1 at keep 1 = K3 bit for bit; rate 0 launches K3"
+    )
+    return results, {"kept_share": shares, **invariants}
 
 
 # ---------------------------------------------------------------------------
@@ -448,6 +630,374 @@ def forward_device_ms(torch, inferencer, encoded):
 
 
 # ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+def write_training_files(tmp: str):
+    """64 training and 16 validation labelled pages in cassia format, with
+    26 classes and the charset of their text padded to 4365 characters,
+    as ``write_inputs`` does for the serve phase."""
+    from grl_torch.data.synthetic import DEFAULT_CLASSES, synthetic_page
+
+    classes = list(DEFAULT_CLASSES) + [
+        f"field_{i:02d}" for i in range(NUM_CLASSES - len(DEFAULT_CLASSES))
+    ]
+    chars = set("0()-.,")
+    dirs = {}
+    for split, count, seed0 in (("training", TRAIN_PAGES, 20_000), ("validation", VAL_PAGES, 30_000)):
+        dirs[split] = os.path.join(tmp, split)
+        os.makedirs(dirs[split])
+        for i in range(count):
+            page = synthetic_page(seed0 + i, num_rows=110, noise_lines=10, classes=classes)
+            for box in page:
+                chars.update(box["text"].lower())
+            with open(os.path.join(dirs[split], f"page_{i:04d}.json"), "w") as handle:
+                json.dump(page, handle)
+    pad = (chr(0x4E00 + i) for i in range(CHARSET_SIZE))
+    while len(chars) < CHARSET_SIZE:
+        chars.add(next(pad))
+    classes_path = os.path.join(tmp, "classes.json")
+    charset_path = os.path.join(tmp, "charset.json")
+    with open(classes_path, "w") as handle:
+        json.dump({"classes": classes}, handle)
+    with open(charset_path, "w") as handle:
+        json.dump({"charset": sorted(chars)}, handle)
+    return dirs, classes_path, charset_path
+
+
+def train_config(tmp, dirs, classes_path, charset_path):
+    """configs/synthetic_kv.yaml at the full sumi width, on the kernel path."""
+    def split(kind):
+        return {
+            "data_path": [dirs[kind]], "class_path": classes_path, "charset_path": charset_path,
+            "key_types": ["key", "value"], "batch_size": B, "shuffle": kind == "training",
+            "drop_last": False,
+            "data_collate": {"BucketPadding": {"quantum": 64, "only_selected_items": True}},
+            "data_process": {
+                "TextlineEncoding": {"is_normalized_text": True},
+                "HeuristicGraphBuilder": {"num_edges": 6, "edge_type": "normal_binary"},
+                "NodeLabeling": {},
+            },
+        }
+
+    args = {
+        "input_dim": CHARSET_SIZE + 4, "output_dim": NUM_CLASSES * 2 + 1, "num_edges": 6,
+        "net_size": NET_SIZE, "kernel_impl": "pallas", "compute_dtype": "bfloat16",
+        "dropout_rate": 0.5, "edge_dropout_rate": RATE,
+    }
+    return {
+        "experiment_name": "train", "seed": 0, "is_train": True, "checkpoint_path": None,
+        "output_dir": os.path.join(tmp, "out"), "num_epochs": EPOCHS, "max_grad_norm": 5.0,
+        "model": {"type": "GraphCNNDropEdge", "args": args},
+        "data_config": {
+            "dataset": {"type": "CassiaDataset",
+                        "args": {"node_label_padding_value": -100, "other_class_index": None}},
+            "training": split("training"), "validation": split("validation"),
+        },
+        "procedure": {"type": "KVProcedure", "args": {}},
+        "loss": {"type": "CrossEntropyLoss", "args": {}},
+        "lr_scheduler": {"type": "DecayLearningRate", "args": {"lr": 5e-3, "factor": 0.9, "num_epochs": 100}},
+        "optimizer": {"type": "BuiltinOptimizer", "args": {"type_optimizer": "Adam", "lr": 5e-3}},
+        "parallel": {"mesh": {"data": -1}},
+        "rng_impl": "rbg",
+        "logging": {"use_tensorboard": False, "summary_dir_name": "summary",
+                    "profile": {"start_step": PROFILE_START, "num_steps": PROFILE_STEPS}},
+    }
+
+
+def reset_counts(relagg) -> None:
+    relagg.neighbor_aggregate.launches = 0
+    relagg.dropedge_aggregate.launches = 0
+    relagg.dropedge_aggregate_grad.launches = 0
+
+
+def counts(relagg):
+    return {
+        "K3": relagg.neighbor_aggregate.launches,
+        "K1": relagg.dropedge_aggregate.launches,
+        "K2": relagg.dropedge_aggregate_grad.launches,
+    }
+
+
+def device_idle_share(trace_path: str):
+    """(idle share, busy ms, window ms) of a torch.profiler Chrome trace:
+    the union of kernel, copy and memset intervals on the device against
+    the span of every event in the trace; (None, 0, span) if the trace
+    holds no device event."""
+    with open(trace_path) as handle:
+        events = [e for e in json.load(handle)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    require(bool(events), f"no events in {trace_path}")
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    device = sorted(
+        (e["ts"], e["ts"] + e["dur"]) for e in events
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+    )
+    busy, reach = 0.0, None
+    for lo, hi in device:
+        if reach is None or lo > reach:
+            busy += hi - lo
+            reach = hi
+        elif hi > reach:
+            busy += hi - reach
+            reach = hi
+    window = end - start
+    return (1.0 - busy / window if device else None), busy / 1e3, window / 1e3
+
+
+def params_of(model):
+    return {name: p.detach().float().clone() for name, p in model.named_parameters()}
+
+
+def fixed_batches(procedure, count: int):
+    """The first ``count`` training batches, on the card."""
+    batches = []
+    for batch in procedure.train_loader:
+        batches.append(procedure._prepare_batch(batch))
+        if len(batches) == count:
+            break
+    return batches
+
+
+class plain_relagg:
+    """Swaps relagg's K1 and K2 launchers for their plain versions, for
+    the kernel-versus-plain comparison only; restored on exit."""
+
+    def __init__(self, relagg):
+        self.relagg = relagg
+
+    def __enter__(self):
+        self.saved = (self.relagg._dropedge_forward, self.relagg.dropedge_aggregate_grad)
+        self.relagg._dropedge_forward = self.relagg.dropedge_aggregate_reference
+        self.relagg.dropedge_aggregate_grad = self.relagg.dropedge_aggregate_grad_reference
+
+    def __exit__(self, *exc):
+        self.relagg._dropedge_forward, self.relagg.dropedge_aggregate_grad = self.saved
+
+
+def two_steps(torch, tmp, input_batches, dtype_name: str, plain: bool):
+    """Two full-width train steps from seed-0 weights, dropout off and
+    DropEdge 0.3, masks from generators seeded 7: losses, parameters
+    before the first step and after each step, and each step's clipped
+    gradients."""
+    from grl_torch.models import Rngs, create_model
+    from grl_torch.ops import relagg
+    from grl_torch.trainer.procedures import BaseProcedure
+
+    args = {
+        "input_dim": CHARSET_SIZE + 4, "output_dim": NUM_CLASSES * 2 + 1, "num_edges": 6,
+        "net_size": NET_SIZE, "kernel_impl": "pallas", "compute_dtype": dtype_name,
+        "dropout_rate": 0.0, "edge_dropout_rate": RATE,
+    }
+    model = create_model("GraphCNNDropEdge", **args, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    config = {
+        "output_dir": os.path.join(tmp, f"steps-{dtype_name}-{plain}"), "max_grad_norm": 5.0,
+        "optimizer": {"type": "BuiltinOptimizer", "args": {"type_optimizer": "Adam", "lr": STEP_LR}},
+        "logging": {"use_tensorboard": False},
+    }
+    procedure = BaseProcedure(model, config, device="cuda")
+    procedure.init_state()
+    step = procedure.build_train_step(NUM_CLASSES * 2 + 1, (-100,))
+    rngs = Rngs.from_seed(7, torch.device("cuda"))
+    dtype = getattr(torch, dtype_name)
+    before = counts(relagg)
+    losses, snapshots, grads = [], [params_of(model)], []
+    with plain_relagg(relagg) if plain else contextlib.nullcontext():
+        for V, A, labels in input_batches:
+            loss, _ = step(V.to(dtype), A.to(dtype), labels, rngs, 1.0)
+            losses.append(float(loss))
+            snapshots.append(params_of(model))
+            grads.append({name: p.grad.float().clone() for name, p in model.named_parameters()})
+    launched = {k: counts(relagg)[k] - before[k] for k in ("K1", "K2")}
+    expected = 0 if plain else 3 * len(input_batches)
+    require(launched == {"K1": expected, "K2": expected},
+            f"{'plain' if plain else 'kernel'} steps launched {launched}, expected {expected} each")
+    return losses, snapshots, grads
+
+
+def compare_steps(kernel, plain):
+    """Per step: the relative loss difference; the largest parameter
+    difference against the largest parameter magnitude; and, of the
+    parameter entries the plain path moved from their initial values, the
+    share the two paths leave further apart than a tenth of the learning
+    rate."""
+    rows = []
+    initial = plain[1][0]
+    for k_loss, p_loss, k_params, p_params, k_grads, p_grads in zip(
+            kernel[0], plain[0], kernel[1][1:], plain[1][1:], kernel[2], plain[2]):
+        grad_diff = math.sqrt(sum(float((k_grads[n] - v).square().sum()) for n, v in p_grads.items()))
+        grad_norm = math.sqrt(sum(float(v.square().sum()) for v in p_grads.values()))
+        scale = max(float(v.abs().max()) for v in p_params.values())
+        worst = max(float((k_params[n] - v).abs().max()) for n, v in p_params.items())
+        moved = sum(int((v != initial[n]).sum()) for n, v in p_params.items())
+        far = sum(int(((k_params[n] - v).abs() > STEP_LR / 10).sum()) for n, v in p_params.items())
+        rows.append({
+            "loss_kernel": k_loss, "loss_plain": p_loss,
+            "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
+            "param_max_diff": worst, "param_scale": scale, "param_max_diff_of_scale": worst / scale,
+            "moved": moved, "moved_share_beyond_lr_10": far / max(moved, 1),
+            "grad_rel_diff": grad_diff / grad_norm,
+        })
+    return rows
+
+
+def phase_train(torch, card: str):
+    import grl_torch
+    from grl_torch.models import Rngs, create_model
+    from grl_torch.ops import relagg
+    from grl_torch.trainer.procedures import BaseProcedure
+    from grl_torch.utils.checkpoint import CheckpointHandler
+
+    tmp = tempfile.mkdtemp(prefix="grl_torch_train_")
+    dirs, classes_path, charset_path = write_training_files(tmp)
+    config = train_config(tmp, dirs, classes_path, charset_path)
+    warper = grl_torch.GNNLearningWarper(config=config)
+    trainer = warper.trainer
+    initial = params_of(warper.model)
+    log(
+        f"[train] {TRAIN_PAGES} training + {VAL_PAGES} validation pages, batch {B}, {EPOCHS} epochs, "
+        f"kernel_impl=pallas bf16, edge_dropout_rate={RATE}, dropout_rate=0.5, Adam lr 5e-3, "
+        f"max_grad_norm 5.0, DecayLearningRate"
+    )
+
+    # The main path: every launch count starts at 0 here.
+    reset_counts(relagg)
+    start = time.perf_counter()
+    f1 = warper.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launched = counts(relagg)
+    expected = {"K1": 3 * TRAIN_STEPS, "K2": 3 * TRAIN_STEPS, "K3": 3 * VAL_BATCHES}
+    require(launched == expected, f"train path launched {launched}, expected {expected}")
+
+    series_path = os.path.join(warper.config["output_dir"], "experiment_series.jsonl")
+    with open(series_path) as handle:
+        records = [json.loads(line) for line in handle]
+    losses = [r["value"] for r in records if r["path"] == "Train/step_loss"]
+    nodes_per_s = [r["value"] for r in records if r["path"] == "Train/nodes_per_sec"]
+    val_loss = [r["value"] for r in records if r["path"] == "Validation/loss"]
+    require(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses + val_loss),
+            f"train losses {losses}, validation losses {val_loss}")
+    changed = sum(not torch.equal(initial[n], p) for n, p in params_of(warper.model).items())
+    require(changed == len(initial), f"only {changed} of {len(initial)} parameter tensors changed")
+    checkpoint = os.path.join(trainer.model_dir, CheckpointHandler.LATEST)
+    require(os.path.exists(checkpoint), f"no checkpoint at {checkpoint}")
+    # Every page has 230 boxes, so every batch is padded to the 256 bucket.
+    batches = fixed_batches(trainer, 2)
+    N = batches[0][0].shape[1]
+    require(all(V.shape == (B, N, CHARSET_SIZE + 4) for V, _, _ in batches) and N == 256,
+            f"training batches of shapes {[tuple(V.shape) for V, _, _ in batches]}")
+    nodes_per_step = B * N
+    steps_per_s = [v / nodes_per_step for v in nodes_per_s]
+    log(
+        f"[train] {card}: {TRAIN_STEPS} steps + {VAL_BATCHES} validation batches in {wall:.3f} s; "
+        f"launches {launched} = 3 x steps / 3 x validation batches; losses {[round(v, 4) for v in losses]}; "
+        f"validation loss {[round(v, 4) for v in val_loss]}, macro F1 {f1:.4f}"
+    )
+    log(
+        f"[train] per epoch: nodes/s {nodes_per_s}, steps/s {[round(v, 3) for v in steps_per_s]} "
+        f"({nodes_per_step} padded nodes a step; epoch 2 has steps {PROFILE_START}..{PROFILE_START + PROFILE_STEPS} "
+        f"under torch.profiler)"
+    )
+    trace = os.path.join(warper.config["output_dir"], "traces",
+                         f"steps_{PROFILE_START}_{PROFILE_START + PROFILE_STEPS}.json")
+    idle, busy_ms, window_ms = device_idle_share(trace)
+    log(
+        f"[train] traced steps {PROFILE_START}..{PROFILE_START + PROFILE_STEPS}: device busy {busy_ms:.3f} ms of "
+        f"{window_ms:.3f} ms, idle share "
+        + ("not measured (no device events in the trace)" if idle is None else f"{idle:.4f}")
+    )
+
+    # The checkpoint serves through the port's KVInference (K3).
+    val_pages = []
+    for name in sorted(os.listdir(dirs["validation"]))[:B]:
+        with open(os.path.join(dirs["validation"], name)) as handle:
+            val_pages.append([{"location": b["location"], "text": b["text"]} for b in json.load(handle)])
+    server = grl_torch.GNNLearningWarper(
+        config=serve_config(tmp, classes_path, charset_path, checkpoint, "pallas", "bfloat16")
+    )
+    reset_counts(relagg)
+    served = server.predict(val_pages)
+    torch.cuda.synchronize()
+    serve_launches = counts(relagg)
+    require(serve_launches == {"K3": 3, "K1": 0, "K2": 0}, f"serving the checkpoint launched {serve_launches}")
+    check_pages(served, val_pages, set(server.inferencer.id_to_class.values()))
+    log(f"[train] model_latest serves {len(val_pages)} pages through KVInference: launches {serve_launches}")
+
+    # One full-width train step timed on the card, host data excluded.
+    V, A, labels = batches[0]
+    step = trainer._train_fn
+    for _ in range(3):
+        step(V, A, labels, trainer.rngs, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(TIMED_STEPS):
+        step(V, A, labels, trainer.rngs, 1.0)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = begin.elapsed_time(end) / TIMED_STEPS
+    adj_per_s = 3 * B * (L + 1) * N * N / (step_ms / 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(
+        f"[train] {card}: one train step (forward, backward, clip, Adam; bf16, B={B}, N={N}) "
+        f"{step_ms:.3f} ms on the card (mean of {TIMED_STEPS}); dropedge_train_dense_adj_throughput "
+        f"{adj_per_s:.4e} adj_entries/s/chip; peak device memory {peak_gb:.2f} GB"
+    )
+
+    # Learning check: the kernel path fits one batch.
+    model = create_model("GraphCNNDropEdge", **config["model"]["args"], device="cuda",
+                         generator=torch.Generator().manual_seed(1))
+    learner = BaseProcedure(model, {**config, "output_dir": os.path.join(tmp, "learn")}, device="cuda")
+    learner.init_state()
+    learn_step = learner.build_train_step(NUM_CLASSES * 2 + 1, (-100,))
+    rngs = Rngs.from_seed(3, torch.device("cuda"))
+    learn = [float(learn_step(V, A, labels, rngs, 1.0)[0]) for _ in range(LEARN_STEPS)]
+    tail = sum(learn[-5:]) / 5
+    log(
+        f"[train] learning check, {LEARN_STEPS} steps on one batch: first loss {learn[0]:.4f}, "
+        f"mean of the last 5 {tail:.4f} = {tail / learn[0]:.4f} of it (need < {LEARN_SHARE})"
+    )
+
+    # Kernel path against plain path, two full-width steps.
+    comparison, failures = {}, []
+    for dtype_name in ("float32", "bfloat16"):
+        kernel = two_steps(torch, tmp, batches, dtype_name, plain=False)
+        plain = two_steps(torch, tmp, batches, dtype_name, plain=True)
+        comparison[dtype_name] = rows = compare_steps(kernel, plain)
+        for k, (row, limit) in enumerate(zip(rows, STEP_LIMITS[dtype_name])):
+            log(
+                f"[train] kernel vs plain, {dtype_name}, step {k + 1}: loss {row['loss_kernel']:.6f} vs "
+                f"{row['loss_plain']:.6f} (rel {row['loss_rel_diff']:.2e}, need <= {limit[0]}); params max diff "
+                f"{row['param_max_diff']:.3e} = {row['param_max_diff_of_scale']:.2e} of scale {row['param_scale']:.3f} "
+                f"(need <= {limit[1]}); of the {row['moved']} entries the plain path moved, a share "
+                f"{row['moved_share_beyond_lr_10']:.2e} are further apart than lr/10 (need <= {limit[2]}); "
+                f"gradient rel diff {row['grad_rel_diff']:.2e} (need <= {limit[3]})"
+            )
+        failures += [f"kernel vs plain {dtype_name} step {k + 1}: {rows[k]}"
+                     for k in step_failures(rows, STEP_LIMITS[dtype_name])]
+    require(tail < LEARN_SHARE * learn[0], f"learning check failed: {learn}")
+    require(not failures, "; ".join(failures))
+
+    return {
+        "train_steps": TRAIN_STEPS, "validation_batches": VAL_BATCHES, "wall_s": wall,
+        "launches": launched, "serve_launches": serve_launches, "losses": losses,
+        "validation_loss": val_loss, "macro_f1": f1, "nodes_per_s": nodes_per_s,
+        "steps_per_s": steps_per_s, "idle_share": idle, "traced_busy_ms": busy_ms,
+        "traced_window_ms": window_ms, "step_ms": step_ms,
+        "dropedge_train_dense_adj_throughput": adj_per_s, "peak_memory_gb": peak_gb,
+        "learning_losses": learn, "kernel_vs_plain": comparison,
+    }
+
+
+# ---------------------------------------------------------------------------
+def write_record(record) -> None:
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as handle:
+        json.dump(record, handle, indent=1)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "grl_torch")):
         log("FAIL: the grl_torch package is not beside chip_smoke.py; run from a checkout")
@@ -460,33 +1010,57 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.cuda.set_device(0)
 
-    card = phase_env(torch)
-    kernel_rows = phase_kernel(torch)
-    serve = phase_serve(torch)
+    # The record of every phase that finished is written even when a later
+    # one fails.
+    record = {}
+    try:
+        record["card"] = card = phase_env(torch)
+        kernel_rows, kernel_checks = phase_kernel(torch)
+        record.update(kernel_cases=kernel_rows, kernel_checks=kernel_checks)
+        record["serve"] = serve = phase_serve(torch)
+        record["train"] = train = phase_train(torch, card)
+    finally:
+        write_record(record)
 
-    main_row = next(
-        r for r in kernel_rows
-        if (r["dtype"], r["N"], r["F"], r["density"]) == ("bfloat16", 256, NET_SIZE, SPARSE_DENSITY)
-    )
-    kernels = [{
-        "name": "K3 relational neighbor aggregation",
-        "route": "cuda",
-        "source": "grl_torch/csrc/relagg.cu",
-        "replaces": "grl_tpu/ops/pallas/relagg.py:127 pallas_neighbor_aggregate",
-        "launches": serve["k3_launches"],
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "kernel_ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": "bf16 B=8 N=256 L=6 F=256",
-    }]
-    record = {"card": card, "kernel_cases": kernel_rows, "serve": serve, "kernels": kernels}
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as handle:
-        json.dump(record, handle, indent=1)
+    def main_row(kernel):
+        return next(
+            r for r in kernel_rows
+            if (r["kernel"], r["dtype"], r["N"], r["F"], r["density"])
+            == (kernel, "bfloat16", 256, NET_SIZE, SPARSE_DENSITY)
+        )
+
+    sources = {
+        "K3": ("K3 relational neighbor aggregation",
+               "grl_tpu/ops/pallas/relagg.py:127 pallas_neighbor_aggregate",
+               {"serve": serve["k3_launches"], "train": train["launches"]["K3"]}),
+        "K1": ("K1 DropEdge neighbor aggregation (forward)",
+               "grl_tpu/ops/pallas/relagg.py:220 pallas_dropedge_aggregate",
+               {"train": train["launches"]["K1"]}),
+        "K2": ("K2 DropEdge neighbor aggregation (backward, dV)",
+               "grl_tpu/ops/pallas/relagg.py:284 _dropedge_bwd",
+               {"train": train["launches"]["K2"]}),
+    }
+    kernels = []
+    for key, (name, replaces, by_path) in sources.items():
+        row = main_row(key)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "grl_torch/csrc/relagg.cu",
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "kernel_ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": "bf16 B=8 N=256 L=6 F=256" + (" rate=0.3" if key != "K3" else ""),
+        })
+    record["kernels"] = kernels
+    write_record(record)
     print(json.dumps({"kernels": kernels}), flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)

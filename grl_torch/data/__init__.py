@@ -1,5 +1,5 @@
 from grl_torch.data.collate import BucketPadding, next_bucket, stack_batch
-from grl_torch.data.dataloader import BaseDataLoader
+from grl_torch.data.dataloader import BaseDataLoader, DataLoader, prefetch_iter
 from grl_torch.data.datasets import (
     BaseDataset,
     CassiaDataset,
@@ -25,6 +25,8 @@ __all__ = [
     "next_bucket",
     "stack_batch",
     "BaseDataLoader",
+    "DataLoader",
+    "prefetch_iter",
     "BaseDataset",
     "CassiaDataset",
     "DatapileDataset",

@@ -1,17 +1,134 @@
-"""Config-driven dataset factory.
+"""Batch iteration: shuffling, collate chain, prefetch, config factory.
 
-The part of ``grl_tpu/data/dataloader.py`` that serving needs:
-:class:`BaseDataLoader` resolves dataset classes by name from the YAML
-config. The collate chain and the batch iterator (``DataLoader``,
-prefetching) arrive with the training slice.
+Counterpart of ``grl_tpu/data/dataloader.py`` (:29-183), numpy only:
+
+* shuffling is an explicit numpy permutation per epoch, seeded by
+  ``seed + epoch``, so both packages visit batches in the same order;
+* the collate chain runs processors then stacks numpy arrays;
+* every batch is read whole by the one process: ``grl_tpu``'s per-host
+  sharding (``host_id``/``num_hosts``) comes with the distributed runtime;
+* a background thread prefetches the next batch while the device computes.
+
+:class:`BaseDataLoader` resolves datasets and collate processors by name
+from the YAML config.
 """
 from __future__ import annotations
 
-from typing import Any
+import queue
+import threading
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
 
 from grl_torch.config import ConfigDict
+from grl_torch.data import collate as collate_module
 from grl_torch.data import datasets as datasets_module
+from grl_torch.data.collate import stack_batch
 from grl_torch.utils.logging import get_logger
+
+
+class DataLoader:
+    def __init__(
+        self,
+        dataset: Any,
+        batch_size: int = 1,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        collate_chain: Optional[Sequence[Callable]] = None,
+        seed: int = 0,
+        prefetch: int = 2,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.collate_chain = list(collate_chain or [])
+        self.seed = seed
+        self.prefetch = prefetch
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        b = self.batch_size
+        return n // b if self.drop_last else (n + b - 1) // b
+
+    def _epoch_order(self) -> np.ndarray:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(order)
+        return order
+
+    def _make_batch(self, indices: Sequence[int]) -> Dict[str, Any]:
+        items = [self.dataset[int(i)] for i in indices]
+        for collate in self.collate_chain:
+            items = collate(items)
+        return stack_batch(items)
+
+    def _batch_indices(self) -> Iterator[np.ndarray]:
+        order = self._epoch_order()
+        b = self.batch_size
+        for start in range(0, len(order), b):
+            chunk = order[start:start + b]
+            if len(chunk) < b and self.drop_last:
+                break
+            yield chunk
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        self.epoch += 1
+        if self.prefetch <= 0:
+            for idx in self._batch_indices():
+                yield self._make_batch(idx)
+            return
+        yield from prefetch_iter(
+            (self._make_batch(idx) for idx in self._batch_indices()), self.prefetch
+        )
+
+
+def prefetch_iter(iterable, depth: int = 2):
+    """Background-thread prefetch of any iterator: the producer (collate,
+    I/O) runs ``depth`` items ahead of the consumer. Worker exceptions
+    re-raise in the consumer.
+
+    Abandonment-safe: if the consumer drops the generator before it is
+    exhausted, ``GeneratorExit`` sets ``stop`` and the producer, which only
+    waits on ``q.put`` with a timeout, sees it and exits, so no thread or
+    buffered batch leaks."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+    sentinel = object()
+    stop = threading.Event()
+    error_holder: List[BaseException] = []
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer() -> None:
+        try:
+            for item in iterable:
+                if not _put(item):
+                    return
+        except BaseException as err:  # surfaced to the consumer below
+            error_holder.append(err)
+        finally:
+            _put(sentinel)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if error_holder:
+                    raise error_holder[0]
+                return
+            yield item
+    finally:
+        stop.set()
 
 
 class BaseDataLoader:
@@ -24,3 +141,29 @@ class BaseDataLoader:
     def _load_dataset(self, dataset_type: str, args: Any, **kwargs: Any):
         cls = getattr(datasets_module, dataset_type)
         return cls._from_config(ConfigDict(args), **kwargs)
+
+    def _load_collate_processors(self, collate_config: Any) -> List[Callable]:
+        chain: List[Callable] = []
+        for name, args in dict(collate_config or {}).items():
+            cls = getattr(collate_module, name, None)
+            if cls is None:
+                raise KeyError(
+                    f"Collate processor {name!r} is not in grl_torch.data.collate, "
+                    "which has BucketPadding (see ROADMAP.md for the others)."
+                )
+            chain.append(cls._from_config(args))
+        return chain
+
+    def _get_dataloader(self, dataset: Any, data_config: Any, **kwargs: Any) -> DataLoader:
+        data_config = ConfigDict(data_config)
+        chain = self._load_collate_processors(data_config.get("data_collate", {}))
+        return DataLoader(
+            dataset,
+            batch_size=int(data_config.get("batch_size", 1) or 1),
+            shuffle=bool(data_config.get("shuffle", False)),
+            drop_last=bool(data_config.get("drop_last", False)),
+            collate_chain=chain,
+            seed=int(self.config.get("seed", 0)),
+            prefetch=int(data_config.get("prefetch", 2)),
+            **kwargs,
+        )

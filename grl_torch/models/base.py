@@ -1,4 +1,4 @@
-"""Model registry (counterpart of ``grl_tpu/models/base.py:16-30``).
+"""Model registry and parameter count (``grl_tpu/models/base.py:16-61``).
 
 Networks register under their class name and are built by name from the
 YAML ``model: {type, args}`` block. Unlike flax, a torch module owns its
@@ -26,3 +26,9 @@ def create_model(type_name: str, **kwargs: Any) -> Any:
         )
     return MODEL_REGISTRY[type_name](**kwargs)
 
+
+def count_parameters(model: Any) -> int:
+    """Number of trainable parameters (``base.py:55-61``); buffers such as
+    the frozen RanPAC kernel are not counted, as flax's ``constants`` are
+    not."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)

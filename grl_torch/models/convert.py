@@ -14,11 +14,18 @@ The module names are the same in both packages, so the rule is generic:
 a 2-D ``kernel`` under ``params`` (a flax ``Dense``) is transposed into
 ``weight``; every other leaf keeps its path. ``batch_stats`` is accepted
 and must be empty: the flagship has no BatchNorm.
+
+:func:`optimizer_state_from_optax` carries the optimizer state across the
+same way, so a ``grl_tpu`` run can be resumed in the port: optax's Adam
+moments ``mu``/``nu`` (trees shaped like ``params``) become
+``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq`` under the same key
+mapping, ``count`` becomes ``step`` and the injected ``learning_rate``
+becomes the group's ``lr``.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,3 +59,56 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
             # np.array copies: restored arrays may be read-only views.
             state[".".join(path)] = torch.from_numpy(np.array(array, order="C"))
     return state
+
+
+def _adam_state(state: Any) -> Optional[Any]:
+    """The first node of an optax state tree with Adam's ``mu``, ``nu`` and
+    ``count`` (``ScaleByAdamState``), found through the tuples that
+    ``chain`` and ``inject_hyperparams`` nest it in."""
+    if all(hasattr(state, name) for name in ("mu", "nu", "count")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for item in state:
+            found = _adam_state(item)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state_from_optax(
+    opt_state: Any, model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer] = None
+) -> Dict[str, Any]:
+    """A ``torch.optim.Adam``/``AdamW`` ``state_dict`` for ``model`` from the
+    state of ``grl_tpu``'s ``inject_hyperparams(chain(clip, adam))``.
+
+    The hyperparameters other than ``lr`` (betas, eps, weight decay) are
+    not in optax's state: they come from ``optimizer`` when given, else
+    from ``torch.optim.Adam``'s defaults.
+    """
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in this optax state")
+    mu = state_dict_from_flax({"params": adam.mu})
+    nu = state_dict_from_flax({"params": adam.nu})
+    names = [name for name, p in model.named_parameters() if p.requires_grad]
+    missing = sorted(set(names) - set(mu))
+    if missing:
+        raise KeyError(f"optax state has no moments for {missing}")
+    step = float(np.asarray(adam.count))
+    state = {
+        index: {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name],
+            "exp_avg_sq": nu[name],
+        }
+        for index, name in enumerate(names)
+    }
+    base = optimizer if optimizer is not None else torch.optim.Adam([torch.zeros(1)])
+    groups = base.state_dict()["param_groups"]
+    if len(groups) != 1:
+        raise ValueError(f"expected one parameter group, found {len(groups)}")
+    group = {**groups[0], "params": list(range(len(names)))}
+    hyperparams = getattr(opt_state, "hyperparams", None) or {}
+    if "learning_rate" in hyperparams:
+        group["lr"] = float(np.asarray(hyperparams["learning_rate"]))
+    return {"state": state, "param_groups": [group]}

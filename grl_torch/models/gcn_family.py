@@ -1,14 +1,19 @@
 """The DropEdge GCN trunk and the flagship ``GraphCNNDropEdge``.
 
 Counterparts of ``grl_tpu/models/gcn_family.py:40-248`` on the dense
-path. Call convention: ``model((V, A), head_rows=None)`` with
+path. Call convention: ``model((V, A), head_rows=None, rngs=None)`` with
 ``V (B, N, F_in)`` and ``A (B, N, L, N)`` in the dataset layout; train or
-eval mode is the module's own (``model.train()`` / ``model.eval()``).
+eval mode is the module's own (``model.train()`` / ``model.eval()``), and
+a train-mode forward with dropout or DropEdge draws its masks from
+``rngs`` (:class:`grl_torch.models.layers.Rngs`), as flax draws them from
+``rngs={"dropout": key}``.
 
 ``kernel_impl`` reads the same YAML values as ``grl_tpu``: ``"pallas"``
-runs the neighbor aggregation through the hand-written CUDA kernel K3
-(:func:`grl_torch.ops.relagg.neighbor_aggregate`); any other value runs
-the plain ``torch.matmul`` path, as ``grl_tpu`` runs XLA.
+runs the neighbor aggregation through the hand-written CUDA kernels —
+K3 in eval (:func:`grl_torch.ops.relagg.neighbor_aggregate`), K1 with K2
+as its backward in training (:func:`grl_torch.ops.relagg.dropedge_aggregate`);
+any other value runs the plain ``torch.matmul`` path with
+:func:`grl_torch.ops.relconv.drop_edge`, as ``grl_tpu`` runs XLA.
 """
 from __future__ import annotations
 
@@ -21,15 +26,18 @@ from torch import nn
 from grl_torch.models.base import register_model
 from grl_torch.models.layers import (
     Dense,
+    Dropout,
     EdgeDropout,
     GraphConv,
     LinearReLU,
     NodeSelfAtten,
     RanPAC,
+    Rngs,
     check_dense_adjacency,
     maybe_cast,
+    require_rngs,
 )
-from grl_torch.ops.relagg import neighbor_aggregate
+from grl_torch.ops.relagg import dropedge_aggregate, neighbor_aggregate
 from grl_torch.utils.device import DeviceLike, optional_dtype, resolve_device
 
 Inputs = Tuple[torch.Tensor, Any]
@@ -70,38 +78,49 @@ class GCNTrunk(nn.Module):
         self.emb2 = LinearReLU(2 * net_size, net_size // 2, dtype, gen)
         self.self_atten = NodeSelfAtten(net_size // 2, dtype, gen) if use_attention else None
         self.edge_dropout = EdgeDropout(edge_dropout_rate)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def _kernel_agg(
-        self, feats: torch.Tensor, A: torch.Tensor, det: bool
+        self, feats: torch.Tensor, A: torch.Tensor, det: bool, rngs: Optional[Rngs]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Kernel aggregation (``_pallas_agg``): ``(self_term, neigh (B,N,L,F))``."""
+        """Kernel aggregation (``_pallas_agg``, ``gcn_family.py:74-99``):
+        ``(self_term, neigh (B,N,L,F))``.
+
+        In training, K1 draws the neighbor mask from a fresh host-drawn seed
+        (K2 regenerates it in the backward), and the self term takes a
+        ``(B, N)`` keep mask from the device generator: the diagonal of
+        relation 0 of the preprocessed operand, which the kernel never sees.
+        """
         if det or self.edge_dropout_rate <= 0.0:
             return feats, neighbor_aggregate(feats, A)
-        raise NotImplementedError(
-            "Training-mode fused DropEdge aggregation (kernels K1/K2) arrives "
-            "with the training slice (ROADMAP.md Queue 1, item 5)."
-        )
+        rngs = require_rngs(rngs)
+        neigh = dropedge_aggregate(feats, A, rngs.kernel_seed(), self.edge_dropout_rate)
+        keep = 1.0 - self.edge_dropout_rate
+        B, N, _ = feats.shape
+        self_mask = torch.rand((B, N), generator=rngs.device, device=feats.device) < keep
+        self_term = feats * (self_mask.to(feats.dtype) / keep)[..., None]
+        return self_term, neigh
 
-    def _gcn(self, conv: GraphConv, feats: torch.Tensor, A: torch.Tensor, det: bool) -> torch.Tensor:
+    def _gcn(self, conv: GraphConv, feats: torch.Tensor, A: torch.Tensor, det: bool,
+             rngs: Optional[Rngs]) -> torch.Tensor:
         if self.kernel_impl == "pallas":
-            out = conv(feats, precomputed_neigh=self._kernel_agg(feats, A, det))
+            out = conv(feats, precomputed_neigh=self._kernel_agg(feats, A, det, rngs))
         else:
-            A_used, self_scale = self.edge_dropout(A, det)
+            A_used, self_scale = self.edge_dropout(A, det, rngs)
             out = conv(feats, A_used, self_scale)
-        return self.dropout(F.relu(out))
+        return self.dropout(F.relu(out), rngs)
 
-    def forward(self, inputs: Inputs) -> torch.Tensor:
+    def forward(self, inputs: Inputs, rngs: Optional[Rngs] = None) -> torch.Tensor:
         V, A = inputs
         check_dense_adjacency(A)
         det = not self.training
         V = maybe_cast(V, self.dtype)
         A = maybe_cast(A, self.dtype)
-        embedding = self.dropout(self.emb1(V))
-        g1 = self._gcn(self.gcn1, embedding, A, det)
-        g2 = self._gcn(self.gcn2, g1, A, det)
+        embedding = self.dropout(self.emb1(V), rngs)
+        g1 = self._gcn(self.gcn1, embedding, A, det, rngs)
+        g2 = self._gcn(self.gcn2, g1, A, det, rngs)
         cat12 = [g1, g2] if self.g1_first else [g2, g1]
-        g3 = self._gcn(self.gcn3, torch.cat(cat12, dim=-1), A, det)
+        g3 = self._gcn(self.gcn3, torch.cat(cat12, dim=-1), A, det, rngs)
         cat13 = [g1, g3] if self.g1_first else [g3, g1]
         new_v = self.emb2(torch.cat(cat13, dim=-1))
         if self.self_atten is not None:
@@ -140,6 +159,9 @@ class GraphCNNDropEdge(nn.Module):
         target = resolve_device(device)
         gen = _default_generator(generator)
         dtype = optional_dtype(compute_dtype)
+        # Read by the procedures, as grl_tpu reads the flax module's fields.
+        self.output_dim = output_dim
+        self.compute_dtype = compute_dtype
         # attention_impl selects the attention of the sparse path, which
         # the port does not have yet; the dense path ignores it as grl_tpu does.
         self.attention_impl = attention_impl
@@ -158,20 +180,27 @@ class GraphCNNDropEdge(nn.Module):
         half = net_size // 2
         rp_size = half * rp_factor
         self.w_rand = RanPAC(half, rp_size, dtype=dtype, generator=gen)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.classifier = Dense(rp_size, output_dim, dtype, gen)
         self.to(target)
 
     def forward(
-        self, inputs: Inputs, head_rows: Optional[Tuple[int, int, int]] = None
+        self,
+        inputs: Inputs,
+        head_rows: Optional[Tuple[int, int, int]] = None,
+        rngs: Optional[Rngs] = None,
+        lambda_value: Optional[float] = None,
     ) -> torch.Tensor:
-        new_v = self.trunk(inputs)
+        # The procedure passes lambda_value to every network; this one does
+        # not read it.
+        del lambda_value
+        new_v = self.trunk(inputs, rngs)
         if head_rows is not None:
             # (groups, rows_per_group, keep): the head runs only on the
             # first `keep` rows of each group (sampled-minibatch path).
             G, rows, keep = head_rows
             new_v = new_v.reshape(G, rows, new_v.shape[-1])[:, :keep]
             new_v = new_v.reshape(G * keep, new_v.shape[-1])
-        new_v = self.dropout(F.relu(self.w_rand(new_v)))
+        new_v = self.dropout(F.relu(self.w_rand(new_v)), rngs)
         # Loss/softmax always in float32.
         return self.classifier(new_v).float()

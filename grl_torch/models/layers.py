@@ -8,6 +8,10 @@ a flax ``Dense`` kernel ``(in, out)`` is a ``weight (out, in)`` here, and
 
 Mixed precision follows ``maybe_cast``: parameters stay float32 master
 copies and are cast with the activations to the compute dtype at use.
+
+Randomness is explicit, as ``rngs={"dropout": key}`` is in flax: a
+train-mode forward takes an :class:`Rngs` whose generators draw every
+dropout and DropEdge mask; nothing reads PyTorch's global generator.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grl_torch.ops.relconv import relational_neighbor_aggregate
+from grl_torch.ops.relconv import drop_edge, relational_neighbor_aggregate
 
 
 def maybe_cast(x: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> Optional[torch.Tensor]:
@@ -25,6 +29,42 @@ def maybe_cast(x: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> Optio
     if x is None or dtype is None:
         return x
     return x.to(dtype)
+
+
+class Rngs:
+    """The random streams of a train-mode forward.
+
+    ``device`` is a generator on the tensors' device and draws every mask
+    (dropout, DropEdge on the plain path, the self-loop mask of the kernel
+    path). ``host`` is a CPU generator and draws the integer seeds of the
+    DropEdge kernels K1/K2, so that drawing a seed never waits on the
+    device. Both advance with every draw: one ``Rngs`` serves a run.
+    """
+
+    def __init__(self, device: torch.Generator, host: torch.Generator):
+        self.device = device
+        self.host = host
+
+    @classmethod
+    def from_seed(cls, seed: int, device: torch.device) -> "Rngs":
+        return cls(
+            torch.Generator(device=device).manual_seed(seed),
+            torch.Generator().manual_seed(seed),
+        )
+
+    def kernel_seed(self) -> int:
+        """A fresh int32 seed for one K1/K2 mask (``gcn_family.py:92``)."""
+        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+
+
+def require_rngs(rngs: Optional[Rngs]) -> Rngs:
+    """``rngs``, or a ``ValueError`` naming what a random forward needs."""
+    if rngs is None:
+        raise ValueError(
+            "a train-mode forward with dropout or DropEdge needs rngs=Rngs(...), "
+            "as grl_tpu needs rngs={'dropout': key}"
+        )
+    return rngs
 
 
 def _normal(shape, generator: torch.Generator) -> torch.Tensor:
@@ -112,7 +152,7 @@ class GraphConv(nn.Module):
         h_weights = maybe_cast(self.h_weights, self.dtype)
         w_self, w_neigh = h_weights[:F_in], h_weights[F_in:]
         if precomputed_neigh is not None:
-            # From the K3 kernel: (self_term, neigh (B, N, L, F)).
+            # From the kernel path (K3, or K1 in training): (self_term, neigh (B, N, L, F)).
             self_term, neigh = precomputed_neigh
             neigh = neigh.reshape(*neigh.shape[:-2], -1)
         else:
@@ -127,26 +167,40 @@ class GraphConv(nn.Module):
         return out
 
 
-class EdgeDropout(nn.Module):
-    """DropEdge on the preprocessed adjacency — deterministic branch only.
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode, ``where(mask, x / keep, 0)`` with
+    an iid keep mask drawn from ``rngs.device``; the identity in eval mode
+    or at rate 0."""
 
-    Returns ``(A, None)`` (no self-loop scale) in eval or at rate 0. The
-    random branch (``drop_edge`` and the fused K1/K2 kernels) arrives with
-    the training slice.
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, rngs: Optional[Rngs] = None) -> torch.Tensor:
+        if not self.training or self.rate <= 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=require_rngs(rngs).device, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class EdgeDropout(nn.Module):
+    """DropEdge on the (logically) preprocessed adjacency (``layers.py:196-232``).
+
+    ``nn.Dropout(p)`` on the reference's ``(B,(L+1)N,N)`` operand: iid
+    keep, ``1/(1-p)`` rescale, self-loops included (:func:`drop_edge`).
+    Returns ``(A, self_scale)`` for :class:`GraphConv`: ``(A, None)`` when
+    deterministic or at rate 0.
     """
 
     def __init__(self, rate: float = 0.3):
         super().__init__()
         self.rate = rate
 
-    def forward(self, A: torch.Tensor, deterministic: bool):
+    def forward(self, A: torch.Tensor, deterministic: bool, rngs: Optional[Rngs] = None):
         if deterministic or self.rate <= 0.0:
             return A, None
-        raise NotImplementedError(
-            "Training-mode DropEdge (drop_edge, kernels K1/K2) arrives with the "
-            "training slice (ROADMAP.md Queue 1, item 5); use model.eval() or "
-            "edge_dropout_rate=0."
-        )
+        return drop_edge(A, self.rate, require_rngs(rngs).device)
 
 
 class NodeSelfAtten(nn.Module):

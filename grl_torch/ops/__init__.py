@@ -1,5 +1,14 @@
-from grl_torch.ops.relagg import neighbor_aggregate, neighbor_aggregate_reference
+from grl_torch.ops.relagg import (
+    dropedge_aggregate,
+    dropedge_aggregate_grad,
+    dropedge_aggregate_grad_reference,
+    dropedge_aggregate_reference,
+    dropedge_keep_mask,
+    neighbor_aggregate,
+    neighbor_aggregate_reference,
+)
 from grl_torch.ops.relconv import (
+    drop_edge,
     preprocess_adjacency,
     relational_aggregate,
     relational_aggregate_dense,
@@ -7,8 +16,14 @@ from grl_torch.ops.relconv import (
 )
 
 __all__ = [
+    "dropedge_aggregate",
+    "dropedge_aggregate_grad",
+    "dropedge_aggregate_grad_reference",
+    "dropedge_aggregate_reference",
+    "dropedge_keep_mask",
     "neighbor_aggregate",
     "neighbor_aggregate_reference",
+    "drop_edge",
     "preprocess_adjacency",
     "relational_aggregate",
     "relational_aggregate_dense",

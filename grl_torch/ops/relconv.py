@@ -6,13 +6,12 @@ builder) aggregates neighbor features per relation; the identity "self"
 relation is applied as the features themselves, never as a dense
 identity block. These functions are the ``kernel_impl: "xla"`` path of
 the port (one batched ``torch.matmul``) and the plain versions the
-hand-written kernels are held against.
-
-``drop_edge`` waits for the training slice (see ROADMAP.md).
+hand-written kernels are held against. :func:`drop_edge` is DropEdge on
+that path, with ``nn.Dropout`` semantics on the preprocessed operand.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,6 +52,29 @@ def preprocess_adjacency(A: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(N, dtype=A.dtype, device=A.device)[None, :, None, :]
     stacked = torch.cat([eye.expand(B, N, 1, N), A], dim=2)  # (B, N, L+1, N)
     return stacked.reshape(B, (L + 1) * N, N)
+
+
+def drop_edge(
+    A: torch.Tensor, rate: float, generator: torch.Generator
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """DropEdge with ``nn.Dropout(rate)`` semantics on the preprocessed A.
+
+    Counterpart of ``grl_tpu/ops/relconv.py:drop_edge`` (:97-125): an iid
+    keep mask is drawn from ``generator`` over the logical
+    ``(B, N, L+1, N)`` tensor, survivors are scaled by ``1/keep``, and
+    relation 0's diagonal becomes the returned ``self_scale (B, N)``.
+    Returns ``(A_dropped, self_scale)``; ``rate <= 0`` returns ``(A, None)``.
+    """
+    if rate <= 0.0:
+        return A, None
+    B, N, L, _ = A.shape
+    keep = 1.0 - rate
+    draws = torch.rand((B, N, L + 1, N), generator=generator, device=A.device)
+    mask = draws < keep
+    scale = 1.0 / keep
+    A_dropped = A * (mask[:, :, 1:, :].to(A.dtype) * scale)
+    diag = torch.diagonal(mask[:, :, 0, :], dim1=1, dim2=2)  # (B, N)
+    return A_dropped, diag.to(A.dtype) * scale
 
 
 def relational_aggregate_dense(V: torch.Tensor, A_pre: torch.Tensor) -> torch.Tensor:

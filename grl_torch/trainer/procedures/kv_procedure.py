@@ -1,0 +1,264 @@
+"""KV node-classification training procedure — the main epoch loop.
+
+Counterpart of ``grl_tpu/trainer/procedures/kv_procedure.py`` (:35-482),
+stepwise:
+
+* one train step per batch (forward + backward + clip + update +
+  confusion counts on the device); the host reads the loss and the
+  ``C x C`` matrix once per step, as ``grl_tpu`` does, and derives macro
+  P/R/F1 from it;
+* the per-step cosine RanPAC lambda is passed to the model as a scalar;
+* validation sums the confusion matrices of the epoch for the epoch
+  report;
+* checkpoints hold model, optimizer and step, saved on the best
+  validation loss and every ``save_interval`` steps.
+
+``scan_steps > 1`` (``grl_tpu`` fuses K steps into one ``lax.scan``
+dispatch) raises: its analog here is CUDA-graph capture of K steps, a
+later item of ROADMAP.md. t-SNE of the representation space arrives with
+slice 2.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from grl_torch.config import ConfigDict
+from grl_torch.data.dataloader import BaseDataLoader
+from grl_torch.trainer.lr_schedulers import cosine_schedule_lambda
+from grl_torch.trainer.metrics import macro_scores, per_class_report
+from grl_torch.trainer.procedures.base_procedure import BaseProcedure
+from grl_torch.utils.device import optional_dtype
+from grl_torch.utils.metric_tracker import Dictlist
+from grl_torch.utils.profiling import Profiler
+
+
+class KVProcedure(BaseProcedure):
+    def __init__(self, model: torch.nn.Module, config: ConfigDict, **kwargs: Any):
+        super().__init__(model, config, **kwargs)
+        if int(self.config.get("scan_steps", 1)) > 1:
+            raise NotImplementedError(
+                "scan_steps > 1 fuses K steps into one dispatch in grl_tpu; its "
+                "analog, CUDA-graph capture of K steps, is queued in ROADMAP.md "
+                "(Queue 1, item 5). Use scan_steps: 1."
+            )
+        self.global_step = 0
+        self.train_loader, self.val_loader, self.class_names = self._init_dataloaders()
+        args = self.config.get_path("data_config.dataset.args", ConfigDict())
+        self.pad_value = int(args.get("node_label_padding_value", -100))
+        other = args.get("other_class_index")
+        self.other_class_index = None if other is None else int(other)
+        self.num_classes = int(getattr(self.model, "output_dim"))
+        self._ignore = tuple(
+            v for v in (self.pad_value, self.other_class_index) if v is not None
+        )
+        self._train_fn = None
+        self._eval_fn = None
+        self._last_ckpt_step = 0
+        profile_cfg = self.config.get_path("logging.profile", {}) or {}
+        self.profiler = Profiler(
+            self.config.get("output_dir", "."),
+            start_step=int(profile_cfg.get("start_step", -1)),
+            num_steps=int(profile_cfg.get("num_steps", 0)),
+        )
+        self.save_interval = self.config.get("save_interval")
+
+    # ------------------------------------------------------------------
+    def _init_dataloaders(self) -> Tuple[Any, Any, Tuple[str, ...]]:
+        """(reference: kv_procedure.py:30-59)."""
+        loader_factory = BaseDataLoader(self.config)
+        dataset_type = self.config.get_path("data_config.dataset.type", "DatapileDataset")
+        train_ds = loader_factory._load_dataset(
+            dataset_type, self.config.data_config.training, data_type="training"
+        )
+        train_loader = loader_factory._get_dataloader(train_ds, self.config.data_config.training)
+        val_ds = loader_factory._load_dataset(
+            dataset_type, self.config.data_config.validation, data_type="validation"
+        )
+        val_loader = loader_factory._get_dataloader(val_ds, self.config.data_config.validation)
+        pairs = sorted(train_ds.id_to_class.items())
+        class_names = tuple(["other"] + ["_".join(names) for _, names in pairs])
+        return train_loader, val_loader, class_names
+
+    # ------------------------------------------------------------------
+    def _prepare_batch(self, batch: Dict[str, Any]):
+        """``(V, A, labels)`` on the device. Features and adjacency are cast
+        to the compute dtype on the host, before the one copy to the device:
+        half the bytes under bf16, and no cast pass on the device."""
+        if "coo_senders" in batch:
+            raise NotImplementedError(
+                "COO batches (SparseBucketPadding) are the sparse path, ROADMAP.md "
+                "Queue 1, slice 3."
+            )
+        dtype = optional_dtype(getattr(self.model, "compute_dtype", None)) or torch.float32
+
+        def to_device(array, to_dtype):
+            return torch.from_numpy(np.ascontiguousarray(array)).to(to_dtype).to(self.device)
+
+        return (
+            to_device(batch["textline_encoding"], dtype),
+            to_device(batch["adjacency_matrix"], dtype),
+            to_device(batch["node_label"], torch.int64),
+        )
+
+    def _ensure_initialized(self) -> None:
+        if self.state is None:
+            self.init_state()
+            # Resume: continue the host-side step counters from the
+            # restored step so the lambda schedule and the checkpoint
+            # cadence pick up where the earlier run stopped.
+            restored = self.state.step
+            if restored and self.global_step == 0:
+                self.global_step = restored
+                self._last_ckpt_step = restored
+        if self._train_fn is None:
+            self._train_fn = self.build_train_step(self.num_classes, self._ignore)
+            self._eval_fn = self.build_eval_step(self.num_classes, self._ignore)
+
+    def _lambda_value(self, epoch: int) -> float:
+        """Per-step cosine lambda (reference: kv_procedure.py:201-204)."""
+        steps_per_epoch = max(1, len(self.train_loader))
+        lam = cosine_schedule_lambda(
+            self.global_step,
+            total_steps=int(self.config.get("num_epochs", 1)) * steps_per_epoch,
+            base_value=1e-4,
+            max_value=1.0,
+            warmup_steps=5 * steps_per_epoch,
+        )
+        self.tb_writer.add_scalar("RP/Lambda", lam, self.global_step)
+        if self.ems_exp:
+            self.ems_exp["RP/Lambda"].append(lam)
+        return lam
+
+    def _scores_from_cm(self, cm: np.ndarray, loss: float,
+                        item_name: str = "Node classification") -> Dict[str, float]:
+        scores = macro_scores(cm)
+        out = {f"{item_name}_{k}": v for k, v in scores.items()}
+        out["loss"] = float(loss)
+        return out
+
+    # ------------------------------------------------------------------
+    def _run_train_batch(self, batch: Dict[str, Any], epoch: int) -> Dict[str, float]:
+        self._ensure_initialized()
+        V, A, labels = self._prepare_batch(batch)
+        lam = self._lambda_value(epoch)
+        loss, cm = self._train_fn(V, A, labels, self.rngs, lam)
+        return self._scores_from_cm(cm.cpu().numpy(), float(loss))
+
+    def _run_val_batch(self, batch: Dict[str, Any]) -> Tuple[Dict[str, float], np.ndarray]:
+        self._ensure_initialized()
+        V, A, labels = self._prepare_batch(batch)
+        loss, cm, _ = self._eval_fn(V, A, labels, 1.0)
+        cm = cm.cpu().numpy()
+        return self._scores_from_cm(cm, float(loss)), cm
+
+    def _train_epoch_stepwise(self, epoch: int, train_metrics: Dictlist) -> int:
+        """One step per batch; returns the number of (padded) nodes seen."""
+        num_nodes = 0
+        for batch in self.train_loader:
+            self.profiler.maybe_start(self.global_step)
+            step_scores = self._run_train_batch(batch, epoch)
+            self.profiler.maybe_stop(self.global_step)
+            self._log_train_step(step_scores, train_metrics, self.global_step)
+            self.global_step += 1
+            num_nodes += int(np.prod(np.shape(batch["textline_encoding"])[:2]))
+            self._maybe_step_checkpoint(epoch)
+        return num_nodes
+
+    def _log_train_step(self, step_scores: Dict[str, float],
+                        train_metrics: Dictlist, gstep: int) -> None:
+        train_metrics.update_metrics(step_scores)
+        self.tb_writer.add_scalar("Train_step_loss", step_scores["loss"], gstep)
+        if self.ems_exp:
+            self.ems_exp["Train/step_loss"].append(step_scores["loss"])
+
+    def _maybe_step_checkpoint(self, epoch: int) -> None:
+        """Step checkpoint every ``save_interval`` applied steps."""
+        if not self.save_interval:
+            return
+        if self.state.step - self._last_ckpt_step >= int(self.save_interval):
+            self._last_ckpt_step = self.state.step
+            self.checkpointer.save_checkpoint(
+                self.state.state_dict(), self.model_dir,
+                meta={"epoch": epoch, "global_step": self.state.step},
+            )
+
+    def _optimize_per_epoch(self, epoch: int) -> Dict[str, float]:
+        """(reference: kv_procedure.py:180-244)."""
+        train_metrics = Dictlist()
+        epoch_start = time.time()
+        num_nodes = self._train_epoch_stepwise(epoch, train_metrics)
+        elapsed = time.time() - epoch_start
+        train_result = train_metrics.result()
+        train_result["nodes_per_sec"] = round(num_nodes / max(elapsed, 1e-9), 1)
+        self.logger.info(
+            f"Training epoch: {epoch} step: {self.global_step} metrics: {train_result}"
+        )
+        self.tb_writer.add_scalars(train_result, epoch, prefix="Train ")
+        if self.ems_exp:
+            for metric_name, score in train_result.items():
+                self.ems_exp[f"Train/{metric_name}"].append(score)
+
+        # Validation: per-step macro averages + epoch-level report from the
+        # summed confusion matrix (reference: kv_procedure.py:213-244).
+        val_metrics = Dictlist()
+        epoch_cm = np.zeros((self.num_classes, self.num_classes), np.float64)
+        for batch in self.val_loader:
+            scores, cm = self._run_val_batch(batch)
+            val_metrics.update_metrics(scores)
+            epoch_cm += cm
+
+        val_result = val_metrics.result() if val_metrics else {"loss": float("nan")}
+        self.logger.info(f"Validation metrics: {val_result}")
+        self.tb_writer.add_scalars(val_result, epoch, prefix="Val ")
+        if self.ems_exp:
+            for metric_name, score in val_result.items():
+                self.ems_exp[f"Validation/{metric_name}"].append(score)
+
+        macro_val = macro_scores(epoch_cm)
+        self.tb_writer.add_scalars(macro_val, epoch, prefix="Macro Val ")
+        if self.ems_exp:
+            for metric_name, score in macro_val.items():
+                self.ems_exp[f"Macro Validation/{metric_name}"].append(score)
+        self.logger.info("Classification report\n" + per_class_report(epoch_cm, self.class_names))
+        macro_val["loss"] = val_result["loss"]
+        return macro_val
+
+    def _log_parameter_histograms(self, epoch: int) -> None:
+        """Per-parameter histogram each epoch (reference:
+        kv_procedure.py:357-359), only when the tensorboard sink is on."""
+        if self.state is None or not getattr(self.tb_writer, "_tb", None):
+            return
+        for name, param in self.model.named_parameters():
+            self.tb_writer.add_histogram(name.replace(".", "/"), param.detach().float().cpu().numpy(), epoch)
+
+    # ------------------------------------------------------------------
+    def __call__(self) -> float:
+        """Epoch loop; returns the final validation macro F1 (reference:
+        kv_procedure.py:346-377)."""
+        self._ensure_initialized()
+        best_loss = float("inf")
+        self.logger.info("Start optimizing ...")
+        metrics: Dict[str, float] = {"f1-score": 0.0}
+        num_epochs = int(self.config.get("num_epochs", 1))
+        for epoch in range(num_epochs):
+            metrics = self._optimize_per_epoch(epoch)
+            self._update_learning_rate(epoch, self.global_step)
+            self._log_parameter_histograms(epoch)
+            if metrics["loss"] < best_loss:
+                best_loss = metrics["loss"]
+                self.checkpointer.save_checkpoint(
+                    self.state.state_dict(),
+                    self.model_dir,
+                    meta={
+                        "epoch": epoch,
+                        "config": self.config.to_dict(),
+                        "meta_data": metrics,
+                    },
+                )
+        self.logger.info("Finish optimizing!")
+        self.tb_writer.close()
+        return metrics["f1-score"]

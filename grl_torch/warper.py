@@ -1,10 +1,12 @@
-"""API facade: ``GNNLearningWarper`` — predict from a config.
+"""API facade: ``GNNLearningWarper`` — train or predict from a config.
 
 Counterpart of ``grl_tpu/warper.py``: loads the YAML config, builds the
 model from the registry (parameters drawn from a ``torch.Generator``
-seeded by ``config.seed``) and instantiates the configured procedure.
-This slice has the inference branch; ``is_train: true`` raises until the
-training slice lands.
+seeded by ``config.seed``) and instantiates the configured procedure —
+a training procedure (``KVProcedure``) when ``is_train`` is true, an
+inference procedure (``KVInference``) otherwise — and exposes
+``.train()`` / ``.predict(samples)``. Multi-process runs (``grl_tpu``'s
+``initialize_distributed``) arrive with slice 4 of ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -43,13 +45,6 @@ class GNNLearningWarper:
         self.device = resolve_device(device)
         self.seed = int(self.config.get("seed", 0))
 
-        if self.config.get("is_train", True):
-            raise NotImplementedError(
-                "Training (KVProcedure, kernels K1/K2, optimizer stack) arrives "
-                "with the training slice (ROADMAP.md Queue 1, item 5); "
-                "set is_train: false to serve."
-            )
-
         if model is None and "model" in self.config:
             from grl_torch.models import create_model
 
@@ -69,19 +64,45 @@ class GNNLearningWarper:
         os.makedirs(output_dir, exist_ok=True)
         self.config["output_dir"] = output_dir
 
-        from grl_torch.inferencer import inference_procedures
+        self.trainer = None
+        self.inferencer = None
+        if self.config.get("is_train", True):
+            from grl_torch.trainer import procedures
+            from grl_torch.utils.experiment import ExperimentRun
 
-        proc = self.config.get("procedure", {"type": "KVInference", "args": {}})
-        cls = getattr(inference_procedures, proc["type"])
-        self.inferencer = cls(
-            self.model, self.config, device=self.device, **dict(proc.get("args", {}) or {})
-        )
+            # Experiment-tracking handle threaded into the procedure
+            # (reference: cl_warper.py:52-53 passes the global NEPTUNE_RUN).
+            ems_exp = None
+            if self.config.get_path("logging.experiment_tracking", True):
+                ems_exp = ExperimentRun(output_dir)
+            proc = self.config.get("procedure", {"type": "KVProcedure", "args": {}})
+            cls = getattr(procedures, proc["type"])
+            self.trainer = cls(
+                self.model, self.config, ems_exp=ems_exp, device=self.device,
+                **dict(proc.get("args", {}) or {}),
+            )
+        else:
+            from grl_torch.inferencer import inference_procedures
+
+            proc = self.config.get("procedure", {"type": "KVInference", "args": {}})
+            cls = getattr(inference_procedures, proc["type"])
+            self.inferencer = cls(
+                self.model, self.config, device=self.device, **dict(proc.get("args", {}) or {})
+            )
 
     @staticmethod
     def _from_config(config_path: str) -> ConfigDict:
         """Load a YAML config (reference: cl_warper.py:62-79)."""
         return load_config(config_path)
 
+    def train(self) -> Any:
+        """Run the configured training procedure; returns its final metric."""
+        if self.trainer is None:
+            raise RuntimeError("Warper was built with is_train=False.")
+        return self.trainer()
+
     def predict(self, samples: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
         """Run the configured inference procedure on raw samples."""
+        if self.inferencer is None:
+            raise RuntimeError("Warper was built with is_train=True.")
         return self.inferencer(samples)

@@ -13,10 +13,12 @@ import pytest
 
 from grl_tpu.data import collate as jax_collate
 from grl_tpu.data import datasets as jax_datasets
+from grl_tpu.data.dataloader import BaseDataLoader as JaxBaseDataLoader
 from grl_tpu.data.native import native_available
 from grl_tpu.data.normalize_text import normalize_text as jax_normalize_text
 from grl_tpu.data import synthetic as jax_synthetic
 from grl_torch.data import collate, datasets, synthetic
+from grl_torch.data.dataloader import BaseDataLoader
 from grl_torch.data.normalize_text import normalize_text
 
 PROCESS = {
@@ -121,3 +123,25 @@ def test_next_bucket_matches(n):
 def test_unported_processors_raise(files):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         datasets.CassiaDataset(make_config(files, {"EdgeLabeling": {}}))
+
+
+@pytest.mark.parametrize("shuffle, drop_last, prefetch", [(True, False, 2), (False, True, 0)])
+def test_dataloader_matches_grl_tpu(files, shuffle, drop_last, prefetch):
+    """The config factory's loader: seeded shuffle (same order as grl_tpu's
+    over two epochs), the collate chain, drop_last, with and without the
+    prefetch thread."""
+    split = {**make_config(files), "batch_size": 3, "shuffle": shuffle, "drop_last": drop_last,
+             "prefetch": prefetch, "data_collate": {"BucketPadding": {"quantum": 64, "only_selected_items": True}}}
+    loaders = []
+    for factory in (BaseDataLoader, JaxBaseDataLoader):
+        maker = factory({"seed": 5})
+        loaders.append(maker._get_dataloader(maker._load_dataset("CassiaDataset", split), split))
+    ours, theirs = loaders
+    assert len(ours) == len(theirs) == (1 if drop_last else 2)
+    for _ in range(2):
+        batches = list(zip(ours, theirs))
+        assert len(batches) == len(ours)
+        for a, b in batches:
+            assert_same_arrays(a, b, sorted(a))
+    with pytest.raises(KeyError, match="BucketPadding"):
+        BaseDataLoader({})._load_collate_processors({"SparseBucketPadding": {}})

@@ -1,9 +1,9 @@
 """grl_torch stands alone: no JAX, no grl_tpu, and no quiet CPU fallback.
 
-A subprocess blocks ``jax`` and ``grl_tpu`` (``sys.modules[name] = None``
-makes any import of them fail), then imports grl_torch and serves one
-page on ``device="cpu"``. A scan of the sources finds no import of either
-package in grl_torch/ or chip_smoke.py.
+Subprocesses block ``jax`` and ``grl_tpu`` (``sys.modules[name] = None``
+makes any import of them fail), then import grl_torch and serve one page,
+or take one train step, on ``device="cpu"``. A scan of the sources finds
+no import of either package in grl_torch/ or chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -57,15 +57,55 @@ SERVE_ONE_PAGE = textwrap.dedent(
 )
 
 
-def test_serves_with_jax_and_grl_tpu_blocked(tmp_path):
-    script = SERVE_ONE_PAGE.format(blocked=BLOCKED, tmp=str(tmp_path))
-    env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+TRAIN_ONE_STEP = textwrap.dedent(
+    """
+    import sys
+    for name in {blocked!r}:
+        sys.modules[name] = None
+    import torch
+    from grl_torch.models import create_model
+    from grl_torch.trainer.procedures import BaseProcedure
+
+    args = dict(input_dim=24, output_dim=5, num_edges=6, net_size=16, kernel_impl="pallas",
+                dropout_rate=0.5, edge_dropout_rate=0.3)
+    model = create_model("GraphCNNDropEdge", **args, device="cpu")
+    proc = BaseProcedure(model, {{"output_dir": {tmp!r}, "max_grad_norm": 1.0,
+                                  "logging": {{"use_tensorboard": False}}}}, device="cpu")
+    proc.init_state()
+    before = [p.detach().clone() for p in model.parameters()]
+    gen = torch.Generator().manual_seed(0)
+    V = torch.rand(2, 64, 24, generator=gen)
+    A = (torch.rand(2, 64, 6, 64, generator=gen) < 0.1).float()
+    labels = torch.randint(0, 5, (2, 64), generator=gen)
+    loss, cm = proc.build_train_step(5, (-100,))(V, A, labels, proc.rngs, 1.0)
+    assert torch.isfinite(loss) and float(cm.sum()) == 128
+    assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("TRAINED", float(loss))
+    """
+)
+
+
+def run_blocked(script: str, tmp_path) -> str:
+    # One OpenMP thread: the suite's worker processes share the cores.
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
     result = subprocess.run(
-        [sys.executable, "-c", script], cwd=tmp_path, env=env,
-        capture_output=True, text=True, timeout=300,
+        [sys.executable, "-c", script.format(blocked=BLOCKED, tmp=str(tmp_path))],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
     )
     assert result.returncode == 0, result.stderr[-4000:]
-    assert "SERVED" in result.stdout
+    return result.stdout
+
+
+def test_serves_with_jax_and_grl_tpu_blocked(tmp_path):
+    assert "SERVED" in run_blocked(SERVE_ONE_PAGE, tmp_path)
+
+
+def test_trains_with_jax_and_grl_tpu_blocked(tmp_path):
+    """One CPU train step on the kernel path with dropout and DropEdge on."""
+    assert "TRAINED" in run_blocked(TRAIN_ONE_STEP, tmp_path)
 
 
 def imported_roots(path: Path):

@@ -21,6 +21,17 @@ from grl_tpu.ops.pallas import relagg as jax_relagg
 from grl_torch import models
 from grl_torch.models import layers
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite spreads files over worker processes on shared cores: one
+    intra-op thread per worker keeps them from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B, N, L, F_IN, NET, OUT = 2, 128, 6, 64, 32, 7
 
 
@@ -228,5 +239,13 @@ def test_linear_relu_and_edge_dropout():
     A = torch.ones(1, 4, L, 4)
     A_out, scale = layers.EdgeDropout(0.3)(A, deterministic=True)
     assert A_out is A and scale is None
-    with pytest.raises(NotImplementedError):
+    # The random branch is drop_edge with the generator of rngs.device:
+    # survivors 1/keep, a (B, N) self scale, and the same draw per seed.
+    rngs = lambda: layers.Rngs.from_seed(5, "cpu")  # noqa: E731
+    A_out, scale = layers.EdgeDropout(0.3)(A, deterministic=False, rngs=rngs())
+    assert set(torch.unique(A_out).tolist()) <= {0.0, float(torch.tensor(1 / 0.7))}
+    assert scale.shape == (1, 4)
+    again, _ = layers.EdgeDropout(0.3)(A, deterministic=False, rngs=rngs())
+    assert torch.equal(A_out, again)
+    with pytest.raises(ValueError, match="rngs"):
         layers.EdgeDropout(0.3)(A, deterministic=False)

@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from grl_tpu.data.synthetic import synthetic_dataset_files, synthetic_page
 from grl_tpu.models import create_model as jax_create_model
@@ -28,6 +29,17 @@ from grl_torch.models import state_dict_from_flax
 from grl_torch.utils.checkpoint import CheckpointHandler
 
 jsonschema = pytest.importorskip("jsonschema")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite spreads files over worker processes on shared cores: one
+    intra-op thread per worker keeps them from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 SCHEMAS = os.path.join(os.path.dirname(__file__), "assets", "schemas")
 MODEL_ARGS = {"output_dim": 15, "num_edges": 6, "net_size": 32}
@@ -168,9 +180,25 @@ def test_checkpoint_round_trip(served):
 
 
 def test_training_and_missing_checkpoint_raise(served):
+    """A serving warper refuses train(), a training warper refuses
+    predict(), and serving with no checkpoint raises."""
     cfg = config(served, served["torch_ckpt"])
-    with pytest.raises(NotImplementedError, match="training slice"):
-        GNNLearningWarper(config={**cfg, "is_train": True}, device="cpu")
+    with pytest.raises(RuntimeError, match="is_train=False"):
+        port_warper(served).train()
+    split = {
+        "data_path": [os.path.join(str(served["tmp"]), "pages")], "class_path": served["classes"],
+        "charset_path": served["charset"], "key_types": ["key", "value"], "batch_size": 2,
+        "data_process": {"TextlineEncoding": {}, "HeuristicGraphBuilder": {}, "NodeLabeling": {}},
+    }
+    training = {
+        **cfg, "is_train": True, "procedure": {"type": "KVProcedure", "args": {}},
+        "logging": {"use_tensorboard": False, "experiment_tracking": False},
+        "data_config": {"dataset": {"type": "CassiaDataset", "args": {}}, "training": split, "validation": split},
+    }
+    trainer = GNNLearningWarper(config=training, device="cpu")
+    assert trainer.inferencer is None and trainer.trainer is not None
+    with pytest.raises(RuntimeError, match="is_train=True"):
+        trainer.predict(pages([(3, 2)]))
     warper = GNNLearningWarper(config={**cfg, "checkpoint_path": None}, device="cpu")
     with pytest.raises(RuntimeError, match="checkpoint_path"):
         warper.predict(pages([(3, 2)]))
