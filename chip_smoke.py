@@ -39,6 +39,26 @@ before the result line is printed; no phase's failure is passed over.
    train step timed on the card. Then a learning check (20 steps on one
    batch) and two full-width steps through the kernels against the same
    steps through their plain versions, float32 and bfloat16.
+5. ``full_graph``: the sparse large-graph path, ``GNNLearningWarper.train``
+   -> ``FullGraphProcedure`` on ``configs/arxiv_full_graph.yaml`` as it is
+   (169,343 nodes, 1,184,773 edges, widths 128/256/40, bfloat16, DropEdge
+   0.3, dropout 0.5) with ``kernel_impl: pallas_csr``, sparse attention,
+   no ELL ``kernel_plan`` knobs, and 20 steps for the file's 200: K5
+   (``grl_torch/csrc/csr_spmm.cu``) aggregates forward and backward, K4
+   (``grl_torch/csrc/sparse_attention.cu``) attends. Checks the launch
+   counts, finite losses and changed parameters; prints steps/s and
+   edges/s, one train step timed on the card, the device idle share of a
+   traced window and peak memory; then a learning check (the config's 200
+   steps at lr 1e-3) and two full-width steps through the kernels against
+   two through their plain versions, float32 and bfloat16, beside two runs
+   of the plain versions and two runs with a fault planted in K5, which
+   must fail the limits (``FULL_GRAPH_PAIRS``).
+
+The ``kernel`` phase also holds K5 (forward and backward, on the arxiv
+graph at F = 256 and 512, and a small L = 3 graph) and K4 (on the arxiv
+graph at K = 16, F = 128, and a small graph with a hub and isolated
+receivers) against their plain versions, and reads K5's keep set back
+exactly with V = I.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -47,6 +67,8 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
+import functools
 import json
 import math
 import os
@@ -137,6 +159,60 @@ STEP_LIMITS = {
 }
 
 
+# The full-graph slice: configs/arxiv_full_graph.yaml with the overrides
+# below, made in memory. kernel_plan holds ELL planner knobs that the CSR
+# kernel does not take (grl_tpu raises TypeError on them too).
+FULL_GRAPH_YAML = os.path.join(REPO, "configs", "arxiv_full_graph.yaml")
+FULL_GRAPH_MODEL = {"kernel_impl": "pallas_csr", "use_attention": True, "attention_impl": "sparse"}
+FULL_GRAPH_STEPS = 20
+# Evals of a 20-step run with scan_steps 10: after the first chunk and at
+# the end, which is also the crossing of 20 (full_graph_procedure.py:382-386).
+FULL_GRAPH_EVALS = 2
+FULL_GRAPH_TIMED_STEPS = 10
+FULL_GRAPH_TRACED_STEPS = 3
+# K5 at the arxiv graph's widths: gcn1/gcn2 aggregate 256-wide features,
+# gcn3 the 512-wide concat. K4 at K = 128 / 8 = 16 and F = 128.
+K5_FS = (256, 512)
+K4_K, K4_F = 16, 128
+# Tolerances of K4 and K5 against their plain versions, as (relative,
+# share of the output's largest magnitude). float32: both sides sum in
+# float32 in another order (up to 21 terms a row on the arxiv graph; K4's
+# online softmax against a two-pass one), ~1e-7 relative. bfloat16: both
+# accumulate in float32 and round once, one bf16 rounding apart.
+SPARSE_TOL = {"float32": (0.0, 1e-5), "bfloat16": (1e-2, 1e-5)}
+# Kernel path against plain path over two full-graph Adam steps, dropout 0
+# and DropEdge 0.3 (one hash mask on both paths): the limits of STEP_LIMITS'
+# four measures. The held pair runs under
+# torch.use_deterministic_algorithms, where two runs of the plain path agree
+# to the bit (index_add_ otherwise sums in an order that changes from run to
+# run, in the plain K5 and K4 and in K4's backward on both paths), so what
+# is left is the kernels' own summation order. It starts from the weights
+# the learning check reached: from the main path's initial weights (logits
+# in the thousands, first loss ~2e3) two runs of the plain path outside
+# deterministic mode break the limits in both dtypes, as kernel against
+# plain does in either mode (the first H100 run of these pairs: f32 step 2
+# moved share 2.3e-2, bf16 step 1 gradient 4e-2). float32: a near-zero
+# full-batch gradient entry that changes sign is moved 2 lr apart by Adam,
+# as far as a wrong mask moves any entry (both 2e-3 at lr 1e-3), so the
+# largest difference is not held; the share of such entries is (1e-4, where
+# the two planted faults reach 0.25-0.65). bfloat16: as STEP_LIMITS; the
+# faults break the moved share (0.25-0.51).
+FULL_GRAPH_STEP_LIMITS = {
+    "float32": [(1e-4, math.inf, 1e-4, 1e-3)] * 2,
+    "bfloat16": STEP_LIMITS["bfloat16"],
+}
+# Learning check: the config's own 200 steps from the main path's initial
+# weights and seeds, at lr 1e-3; the validation accuracy after them must
+# pass FULL_GRAPH_LEARN_ACC (chance is 1/40). At the config's lr 0.01 the
+# exploding initial logits (first loss ~2e3) drive every ReLU of the trunk
+# dead within ~20 steps and the loss settles at ln 40, the prior: grl_tpu
+# does the same on this config (both packages reach 0.035 after 200 steps
+# at 3000 nodes on the CPU), while at lr 1e-3 the port reaches 0.65 there.
+FULL_GRAPH_LEARN_STEPS = 200
+FULL_GRAPH_LEARN_LR = 1e-3
+FULL_GRAPH_LEARN_ACC = 0.3
+
+
 def step_failures(rows, limits):
     """The steps of ``compare_steps`` whose row exceeds its limits."""
     keys = ("loss_rel_diff", "param_max_diff_of_scale", "moved_share_beyond_lr_10", "grad_rel_diff")
@@ -212,13 +288,16 @@ def bound(dtype_name: str, itemsize: int, N: int, F: int):
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations"), nbytes, flops
 
 
-def check_close(torch, out, ref, dtype_name: str, what: str) -> float:
-    """Max abs error of ``out`` against ``ref``; fails past the tolerance."""
+def check_close(torch, out, ref, dtype_name: str, what: str, tol=None) -> float:
+    """Max abs error of ``out`` against ``ref``; fails past the tolerance
+    ``tol = (relative, share of ref's largest magnitude)``, by default
+    ``(RTOL[dtype], ATOL_OF_MAX)``."""
     require(out.shape == ref.shape and out.dtype == ref.dtype, f"{what}: {out.shape} {out.dtype}")
     require(bool(torch.isfinite(out).all()), f"{what}: output is not finite")
+    rtol, share = tol or (RTOL[dtype_name], ATOL_OF_MAX)
     diff = (out.float() - ref.float()).abs()
     scale = ref.float().abs()
-    limit = RTOL[dtype_name] * scale + ATOL_OF_MAX * float(scale.max())
+    limit = rtol * scale + share * float(scale.max())
     max_abs_err = float(diff.max())
     require(
         float((diff - limit).max()) <= 0.0,
@@ -345,6 +424,205 @@ def dropedge_invariants(torch):
     return {"k2_dot_v": lhs, "sum_k1": rhs}
 
 
+# ---------------------------------------------------------------------------
+# kernel: K5 and K4 on the full-graph slice's graph
+# ---------------------------------------------------------------------------
+def full_graph_config(tmp: str):
+    """configs/arxiv_full_graph.yaml with the slice's overrides, in memory."""
+    from grl_torch.config import load_config
+
+    config = load_config(FULL_GRAPH_YAML)
+    config["model"]["args"].update(FULL_GRAPH_MODEL)
+    config["kernel_plan"] = {}
+    config["num_epochs"] = FULL_GRAPH_STEPS
+    config["output_dir"] = os.path.join(tmp, "out")
+    return config
+
+
+@functools.lru_cache(maxsize=None)
+def arxiv_graph():
+    """The slice's SBM graph (numpy), built as FullGraphProcedure builds it."""
+    from grl_torch.trainer.procedures.full_graph_procedure import large_graph_from_config
+
+    return large_graph_from_config(full_graph_config(tempfile.mkdtemp(prefix="grl_torch_graph_")))
+
+
+def sparse_bound(dtype_name: str, nbytes: int, flops: int):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def csr_library_ms(torch, layout, X, seed, flush):
+    """One torch.sparse.mm of the layout's matrix, masked and scaled
+    beforehand, with X: the PyTorch call for K5's product (never called by
+    the port)."""
+    from grl_torch.ops import csr_spmm
+
+    values = csr_spmm.edge_coefficients(layout, seed, RATE).to(X.dtype)
+    A = torch.sparse_csr_tensor(layout.rowptr.long(), layout.cols.long(), values,
+                                size=(layout.num_rows, X.shape[0]))
+    return time_ms(torch, lambda: torch.sparse.mm(A, X), flush)
+
+
+def k5_case(torch, layout, dtype_name: str, F: int, flush, seed: int, what: str):
+    """K5 on one layout against its plain version, timed; one result row."""
+    from grl_torch.ops import csr_spmm
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(layout.num_src_rows, F, generator=gen, device="cuda").to(dtype)
+    mask_seed = 104729 * (seed + 1)
+    out = csr_spmm.csr_accumulate(X, layout, mask_seed, RATE)
+    ref = csr_spmm.csr_accumulate_reference(X, layout, mask_seed, RATE)
+    torch.cuda.synchronize()
+    err = check_close(torch, out, ref, dtype_name, f"K5 {what} {dtype_name} F={F}", SPARSE_TOL[dtype_name])
+    kept = int((csr_spmm.edge_coefficients(layout, mask_seed, RATE) != 0).sum())
+    nnz = int(layout.cols.numel())
+    itemsize = X.element_size()
+    # V (or g) read once, out written once, 12 bytes of edge metadata and
+    # the row pointers read once; 2 FLOPs per kept edge and feature.
+    nbytes = itemsize * (layout.num_src_rows + layout.num_rows) * F + 12 * nnz + 4 * (layout.num_rows + 1)
+    flops = 2 * kept * F
+    bound_ms, bound_by = sparse_bound(dtype_name, nbytes, flops)
+    library_ms = csr_library_ms(torch, layout, X, mask_seed, flush)
+    return {
+        "kernel": f"K5 {what}", "dtype": dtype_name, "rows": layout.num_rows,
+        "src_rows": layout.num_src_rows, "edges": nnz, "kept_edges": kept, "F": F, "rate": RATE,
+        "max_abs_err": err, "differ_share": float((out != ref).float().mean()),
+        "ms": time_ms(torch, lambda: csr_spmm.csr_accumulate(X, layout, mask_seed, RATE), flush),
+        "plain_ms": time_ms(torch, lambda: csr_spmm.csr_accumulate_reference(X, layout, mask_seed, RATE), flush),
+        "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        # Every kept edge gathers one row of X from device memory when X
+        # does not stay in the 50 MB L2: the realistic floor.
+        "gather_floor_ms": (kept * F * itemsize + nbytes) / HBM_BYTES_PER_S * 1e3,
+    }
+
+
+def k5_mask_probe(torch, dtype_name: str):
+    """K5's keep set read back exactly: with V = I each forward output row
+    shows the edges kept into it, and with g = I over the N*L rows the
+    transposed walk shows the same set. Unique edges, N = 64, L = 3."""
+    import numpy as np
+
+    from grl_torch.ops import csr_spmm, hashing
+
+    N, L, E, seed = 64, 3, 3000, 2024
+    rng = np.random.RandomState(5)
+    cells = rng.choice(N * L * N, E, replace=False)
+    receivers, rest = np.divmod(cells, L * N)
+    relations, senders = np.divmod(rest, N)
+    kernel = csr_spmm.CSRGraphKernel(senders, receivers, relations, np.ones(E, np.float32), N, L,
+                                     device="cuda")
+    dtype = getattr(torch, dtype_name)
+    kept = hashing.keep_bits(torch.arange(E), seed, RATE).numpy()
+    expected = np.zeros((N, L, N), bool)
+    expected[receivers[kept], relations[kept], senders[kept]] = True
+    fwd = csr_spmm.csr_accumulate(torch.eye(N, device="cuda", dtype=dtype), kernel.forward_layout, seed, RATE)
+    bwd = csr_spmm.csr_accumulate(torch.eye(N * L, device="cuda", dtype=dtype), kernel.backward_layout,
+                                  seed, RATE)
+    torch.cuda.synchronize()
+    seen_fwd = (fwd != 0).view(N, L, N).cpu().numpy()
+    seen_bwd = (bwd != 0).view(N, N, L).permute(1, 2, 0).cpu().numpy()
+    require(np.array_equal(seen_fwd, expected), f"K5 forward keep set differs from the plain hash ({dtype_name})")
+    require(np.array_equal(seen_bwd, expected), f"K5 backward keep set differs from the plain hash ({dtype_name})")
+    return float(kept.mean())
+
+
+def k4_case(torch, kernel, dtype_name: str, flush, seed: int, what: str, timed: bool):
+    """K4 against its plain version (timed on the arxiv graph)."""
+    from grl_torch.ops import sparse_attention
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    N = kernel.num_nodes
+    f, g, h = (torch.randn(N, d, generator=gen, device="cuda").to(dtype) for d in (K4_K, K4_K, K4_F))
+    out = sparse_attention.attend_forward(f, g, h, kernel.plan)
+    ref = sparse_attention.attend_reference(f, g, h, kernel.plan)
+    torch.cuda.synchronize()
+    err = check_close(torch, out, ref, dtype_name, f"K4 {what} {dtype_name}", SPARSE_TOL[dtype_name])
+    isolated = kernel.plan.rowptr[1:] == kernel.plan.rowptr[:-1]
+    require(bool((out[isolated] == 0).all()), f"K4 {what}: a receiver with no edge got a nonzero row")
+    E = kernel.num_edges
+    degrees = (kernel.plan.rowptr[1:] - kernel.plan.rowptr[:-1]).max()
+    row = {"kernel": f"K4 {what}", "dtype": dtype_name, "N": N, "edges": E, "K": K4_K, "F": K4_F,
+           "max_degree": int(degrees), "isolated": int(isolated.sum()), "max_abs_err": err,
+           "differ_share": float((out != ref).float().mean())}
+    if not timed:
+        return row
+    itemsize = h.element_size()
+    # f, g, h read once, out written once, the CSR read once; per edge a
+    # K-wide dot, an exp and an F-wide scaled add.
+    nbytes = itemsize * (2 * N * K4_K + 2 * N * K4_F) + 4 * (N + 1) + 4 * E
+    flops = E * (2 * K4_K + 2 * K4_F)
+    bound_ms, bound_by = sparse_bound(dtype_name, nbytes, flops)
+    row.update({
+        "ms": time_ms(torch, lambda: sparse_attention.attend_forward(f, g, h, kernel.plan), flush),
+        "plain_ms": time_ms(torch, lambda: sparse_attention.attend_reference(f, g, h, kernel.plan), flush),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        "gather_floor_ms": (E * (K4_K + K4_F) * itemsize + nbytes) / HBM_BYTES_PER_S * 1e3,
+    })
+    return row
+
+
+def sparse_kernel_cases(torch, flush):
+    """K5 and K4 rows, the K5 keep-set probes and the small-graph cases."""
+    import numpy as np
+
+    from grl_torch.ops import csr_spmm, sparse_attention
+
+    start = time.perf_counter()
+    data = arxiv_graph()
+    N, E = len(data.features), len(data.senders)
+    csr = csr_spmm.CSRGraphKernel(data.senders, data.receivers, data.relations, data.weights,
+                                  N, data.num_relations, device="cuda")
+    atten = sparse_attention.SparseAttentionKernel(data.senders, data.receivers, N, device="cuda")
+    log(f"[kernel] arxiv SBM graph: {N} nodes, {E} edges, L={data.num_relations}, max in-degree "
+        f"{int(np.bincount(data.receivers, minlength=N).max())}; built and planned in "
+        f"{time.perf_counter() - start:.2f} s")
+    rows = []
+    for dtype_name in ("float32", "bfloat16"):
+        for F in K5_FS:
+            for layout, what in ((csr.forward_layout, "forward"), (csr.backward_layout, "backward")):
+                rows.append(k5_case(torch, layout, dtype_name, F, flush, seed=F + len(rows), what=what))
+        rows.append(k4_case(torch, atten, dtype_name, flush, seed=len(rows), what="arxiv", timed=True))
+    for row in rows:
+        if row["kernel"].startswith("K4"):
+            library = "none (no single PyTorch call)"
+        else:
+            library = f"torch.sparse.mm {row['library_ms']:.4f} ms"
+        log(
+            f"[kernel] {row['kernel']} {row['dtype']:>8} F={row['F']}: max_abs_err {row['max_abs_err']:.3e}, "
+            f"outputs that differ from the plain version's {row['differ_share']:.3e} | "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {library}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), gather floor {row['gather_floor_ms']:.4f} ms"
+        )
+    # Relation folding (L = 3) and K4's hub and isolated receivers, small.
+    rng = np.random.RandomState(11)
+    n, e = 4096, 40000
+    small = csr_spmm.CSRGraphKernel(rng.randint(0, n, e), rng.randint(0, n, e), rng.randint(0, 3, e),
+                                    (rng.rand(e) + 0.5).astype(np.float32), n, 3, device="cuda")
+    senders, receivers = rng.randint(0, n, e), rng.randint(0, n - 9, e)
+    receivers[:500] = 7  # a hub of degree >= 500; receivers n-9.. have no edge
+    hub = sparse_attention.SparseAttentionKernel(senders, receivers, n, device="cuda")
+    checks = []
+    for dtype_name in ("float32", "bfloat16"):
+        for layout, what in ((small.forward_layout, "forward L=3"), (small.backward_layout, "backward L=3")):
+            X = torch.randn(layout.num_src_rows, 256, device="cuda").to(getattr(torch, dtype_name))
+            out = csr_spmm.csr_accumulate(X, layout, 3, RATE)
+            ref = csr_spmm.csr_accumulate_reference(X, layout, 3, RATE)
+            err = check_close(torch, out, ref, dtype_name, f"K5 {what}", SPARSE_TOL[dtype_name])
+            checks.append({"kernel": f"K5 {what}", "dtype": dtype_name, "max_abs_err": err})
+        checks.append(k4_case(torch, hub, dtype_name, flush, seed=99, what="hub", timed=False))
+        share = k5_mask_probe(torch, dtype_name)
+        checks.append({"kernel": "K5 keep set", "dtype": dtype_name, "kept_share": share})
+    for row in checks:
+        log(f"[kernel] {row}")
+    log("[kernel] K5 keep set = plain hash keep set exactly (forward and transposed, f32 and bf16)")
+    return rows, checks
+
+
 def phase_kernel(torch):
     # 256 MiB, five times the H100's 50 MB L2, zeroed before each timed call.
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -367,7 +645,6 @@ def phase_kernel(torch):
                 f"torch.matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']})"
             )
-    del flush
     shares = {}
     for dtype_name in ("float32", "bfloat16"):
         for N in KERNEL_NS:
@@ -381,7 +658,9 @@ def phase_kernel(torch):
         f"[kernel] <K2(1), V> = {invariants['k2_dot_v']:.6f}, sum K1(V) = {invariants['sum_k1']:.6f} "
         f"(f32, need within 1e-5 of the sum); K1 at keep 1 = K3 bit for bit; rate 0 launches K3"
     )
-    return results, {"kept_share": shares, **invariants}
+    sparse_rows, sparse_checks = sparse_kernel_cases(torch, flush)
+    del flush
+    return results + sparse_rows, {"kept_share": shares, **invariants, "sparse": sparse_checks}
 
 
 # ---------------------------------------------------------------------------
@@ -815,12 +1094,12 @@ def two_steps(torch, tmp, input_batches, dtype_name: str, plain: bool):
     return losses, snapshots, grads
 
 
-def compare_steps(kernel, plain):
+def compare_steps(kernel, plain, lr: float = STEP_LR):
     """Per step: the relative loss difference; the largest parameter
     difference against the largest parameter magnitude; and, of the
     parameter entries the plain path moved from their initial values, the
     share the two paths leave further apart than a tenth of the learning
-    rate."""
+    rate ``lr``."""
     rows = []
     initial = plain[1][0]
     for k_loss, p_loss, k_params, p_params, k_grads, p_grads in zip(
@@ -830,7 +1109,7 @@ def compare_steps(kernel, plain):
         scale = max(float(v.abs().max()) for v in p_params.values())
         worst = max(float((k_params[n] - v).abs().max()) for n, v in p_params.items())
         moved = sum(int((v != initial[n]).sum()) for n, v in p_params.items())
-        far = sum(int(((k_params[n] - v).abs() > STEP_LR / 10).sum()) for n, v in p_params.items())
+        far = sum(int(((k_params[n] - v).abs() > lr / 10).sum()) for n, v in p_params.items())
         rows.append({
             "loss_kernel": k_loss, "loss_plain": p_loss,
             "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
@@ -992,6 +1271,312 @@ def phase_train(torch, card: str):
 
 
 # ---------------------------------------------------------------------------
+# full_graph
+# ---------------------------------------------------------------------------
+def sparse_counts():
+    from grl_torch.ops import csr_spmm, relagg, sparse_attention
+
+    return {
+        "K5 forward": csr_spmm.csr_accumulate.launches["forward"],
+        "K5 backward": csr_spmm.csr_accumulate.launches["backward"],
+        "K4": sparse_attention.attend_forward.launches,
+        **counts(relagg),
+    }
+
+
+def reset_sparse_counts() -> None:
+    from grl_torch.ops import csr_spmm, relagg, sparse_attention
+
+    csr_spmm.csr_accumulate.launches.update(forward=0, backward=0)
+    sparse_attention.attend_forward.launches = 0
+    reset_counts(relagg)
+
+
+class swapped:
+    """Sets module attributes for the kernel-versus-plain comparison only,
+    as ``(module, name, value)`` triples; restored on exit."""
+
+    def __init__(self, *changes):
+        self.changes = changes
+
+    def __enter__(self):
+        self.saved = [(module, name, getattr(module, name)) for module, name, _ in self.changes]
+        for module, name, value in self.changes:
+            setattr(module, name, value)
+
+    def __exit__(self, *exc):
+        for module, name, value in self.saved:
+            setattr(module, name, value)
+
+
+def plain_sparse():
+    """The K5 and K4 launchers swapped for their plain versions."""
+    from grl_torch.ops import csr_spmm, sparse_attention
+
+    return swapped((csr_spmm, "csr_accumulate", csr_spmm.csr_accumulate_reference),
+                   (sparse_attention, "attend_forward", sparse_attention.attend_reference))
+
+
+def faulty_k5(seed_shift: int = 0, rate=None):
+    """K5 (or, on CPU tensors, its plain version) with its mask drawn from
+    another seed or at another rate: a fault the step limits must catch."""
+    from grl_torch.ops import csr_spmm
+
+    launch = csr_spmm.csr_accumulate
+
+    def wrong(X, layout, seed=0, rate_=0.0):
+        return launch(X, layout, seed + seed_shift, rate_ if rate is None else rate)
+
+    wrong.launches = launch.launches  # K5 counts its launches through the module's name
+    return swapped((csr_spmm, "csr_accumulate", wrong))
+
+
+@contextlib.contextmanager
+def deterministic(torch, on: bool):
+    """torch.use_deterministic_algorithms set to ``on`` (warnings only
+    where an op has no deterministic version); restored on exit."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
+def procedure_copy(torch, trainer, seed: int, lr: float, **model_args):
+    """A shallow copy of ``trainer`` (the same planned graph, features and
+    labels) with a model of its own, drawn from ``seed``, a fresh Adam at
+    ``lr`` and generators seeded ``seed``."""
+    from grl_torch.models import Rngs, create_model
+    from grl_torch.trainer.optimizers import set_learning_rate
+
+    proc = copy.copy(trainer)
+    proc.model = create_model("GraphCNNDropEdge", **{**trainer.config["model"]["args"], **model_args},
+                              device=trainer.device, generator=torch.Generator().manual_seed(seed))
+    proc.state = None
+    proc.init_state()
+    set_learning_rate(proc.state.optimizer, lr)
+    proc.rngs = Rngs.from_seed(seed, trainer.device)
+    return proc
+
+
+def two_full_graph_steps(torch, trainer, start, dtype_name: str, lr: float, swap=None):
+    """Two full-graph train steps from the weights ``start`` at ``lr``,
+    dropout 0 and DropEdge 0.3, masks from generators seeded 7, inside
+    ``swap`` if given: losses, parameters before the first step and after
+    each, each step's clipped gradients, and the K5/K4 launches."""
+    proc = procedure_copy(torch, trainer, 7, lr, compute_dtype=dtype_name,
+                          dropout_rate=0.0, edge_dropout_rate=RATE)
+    proc.model.load_state_dict(start)
+    before = sparse_counts()
+    losses, snapshots, grads = [], [params_of(proc.model)], []
+    with swap if swap is not None else contextlib.nullcontext():
+        for _ in range(2):
+            losses.append(float(proc.train_step()))
+            snapshots.append(params_of(proc.model))
+            grads.append({n: p.grad.float().clone() for n, p in proc.model.named_parameters()})
+    launched = {k: sparse_counts()[k] - before[k] for k in ("K5 forward", "K5 backward", "K4")}
+    # The gradients reach through K4's and K5's backward to emb1.
+    for name in ("trunk.emb1.linear.weight", "trunk.gcn1.h_weights", "trunk.self_atten.f.linear.weight"):
+        require(bool((grads[0][name] != 0).any()), f"{name} got no gradient")
+    return losses, snapshots, grads, launched
+
+
+# Runs of the full-graph comparison: each is two steps, on the kernels or
+# their plain versions, or with a fault planted in K5.
+FULL_GRAPH_RUNS = {
+    "kernel": lambda: None,
+    "plain": plain_sparse,
+    "plain again": plain_sparse,
+    "K5 seed+1": lambda: faulty_k5(seed_shift=1),
+    "K5 rate 0.25": lambda: faulty_k5(rate=0.25),
+}
+# (start, deterministic, run, reference run, what the run must do against
+# the reference under FULL_GRAPH_STEP_LIMITS: "hold", "fail" or None, read
+# only). The held pair and the faults start from the learned weights; the
+# pairs from the main path's initial weights, and the runs outside
+# deterministic mode, show where the agreement of the paths is lost.
+FULL_GRAPH_PAIRS = [
+    ("init", False, "kernel", "plain", None),
+    ("init", False, "plain again", "plain", None),
+    ("init", True, "kernel", "plain", None),
+    ("init", True, "plain again", "plain", None),
+    ("learned", False, "kernel", "plain", None),
+    ("learned", False, "plain again", "plain", None),
+    ("learned", True, "plain again", "plain", None),
+    ("learned", True, "kernel", "plain", "hold"),
+    ("learned", True, "K5 seed+1", "plain", "fail"),
+    ("learned", True, "K5 rate 0.25", "plain", "fail"),
+]
+
+
+def full_graph_comparisons(torch, trainer, starts, dtype_names=("float32", "bfloat16")):
+    """Every pair of FULL_GRAPH_PAIRS in each dtype, from ``starts``
+    (name -> (weights, lr)): the ``compare_steps`` rows of each pair and
+    the failures of the pairs whose verdict is not what they must do."""
+    results, failures = [], []
+    for dtype_name in dtype_names:
+        runs = {}
+
+        def run(start, det, name):
+            key = (start, det, name)
+            if key not in runs:
+                weights, lr = starts[start]
+                with deterministic(torch, det):
+                    runs[key] = two_full_graph_steps(torch, trainer, weights, dtype_name, lr,
+                                                     FULL_GRAPH_RUNS[name]())
+                on_card = trainer.device.type == "cuda" and not name.startswith("plain")
+                expected = {"K5 forward": 6, "K5 backward": 6, "K4": 2} if on_card else dict.fromkeys(
+                    ("K5 forward", "K5 backward", "K4"), 0)
+                require(runs[key][3] == expected, f"{name} full-graph steps launched {runs[key][3]}, "
+                        f"expected {expected}")
+            return runs[key]
+
+        for start, det, name, reference, must in FULL_GRAPH_PAIRS:
+            lr = starts[start][1]
+            rows = compare_steps(run(start, det, name), run(start, det, reference), lr)
+            failed = step_failures(rows, FULL_GRAPH_STEP_LIMITS[dtype_name])
+            verdict = "fail" if failed else "hold"
+            results.append({"start": start, "deterministic": det, "run": name, "reference": reference,
+                            "dtype": dtype_name, "lr": lr, "must": must, "verdict": verdict, "rows": rows})
+            for k, (row, limit) in enumerate(zip(rows, FULL_GRAPH_STEP_LIMITS[dtype_name])):
+                log(
+                    f"[full_graph] {name} vs {reference}, {dtype_name}, from {start} weights at lr {lr}, "
+                    f"deterministic {det}, step {k + 1}: loss rel {row['loss_rel_diff']:.2e} (limit {limit[0]}); "
+                    f"params max diff {row['param_max_diff']:.3e} = {row['param_max_diff_of_scale']:.2e} of scale "
+                    f"{row['param_scale']:.3f}; moved share beyond lr/10 {row['moved_share_beyond_lr_10']:.2e} "
+                    f"of {row['moved']} (limit {limit[2]}); gradient rel diff {row['grad_rel_diff']:.2e} "
+                    f"(limit {limit[3]})"
+                )
+            log(f"[full_graph] {name} vs {reference}, {dtype_name}, {start}, deterministic {det}: "
+                f"{verdict}s the limits" + ("" if must is None else f" (must {must})"))
+            if must is not None and verdict != must:
+                failures.append(f"full graph {name} vs {reference} ({dtype_name}, {start}, deterministic "
+                                f"{det}) must {must} the limits: {rows}")
+    return results, failures
+
+
+def phase_full_graph(torch, card: str):
+    import grl_torch
+
+    tmp = tempfile.mkdtemp(prefix="grl_torch_full_graph_")
+    config = full_graph_config(tmp)
+    start = time.perf_counter()
+    warper = grl_torch.GNNLearningWarper(config=config)
+    setup_s = time.perf_counter() - start
+    trainer = warper.trainer
+    graph = trainer.graph
+    N, E = graph.num_nodes, graph.num_edges()
+    args = config["model"]["args"]
+    require(type(trainer).__name__ == "FullGraphProcedure", f"the warper built {type(trainer).__name__}")
+    require(graph.kernel is not None and graph.atten_kernel is not None, "the graph has no planned kernels")
+    log(
+        f"[full_graph] configs/arxiv_full_graph.yaml: {N} nodes, {E} edges, L={graph.num_relations}, "
+        f"input_dim {args['input_dim']}, net_size {args['net_size']}, output_dim {args['output_dim']}, "
+        f"{args['compute_dtype']}, kernel_impl={args['kernel_impl']}, attention_impl={args['attention_impl']}, "
+        f"{FULL_GRAPH_STEPS} steps (scan_steps {config['scan_steps']}); graph built and planned in {setup_s:.2f} s"
+    )
+    initial = params_of(warper.model)
+    init_state = {k: v.detach().clone() for k, v in warper.model.state_dict().items()}
+
+    # The main path: every launch count starts at 0 here.
+    reset_sparse_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    best_acc = warper.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launched = sparse_counts()
+    expected = {
+        "K5 forward": 3 * (FULL_GRAPH_STEPS + FULL_GRAPH_EVALS), "K5 backward": 3 * FULL_GRAPH_STEPS,
+        "K4": FULL_GRAPH_STEPS + FULL_GRAPH_EVALS, "K1": 0, "K2": 0, "K3": 0,
+    }
+    require(launched == expected, f"full-graph path launched {launched}, expected {expected}")
+    losses = [float(loss) for loss in trainer.losses]
+    require(len(losses) == FULL_GRAPH_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
+    changed = sum(not torch.equal(initial[n], p) for n, p in params_of(warper.model).items())
+    require(changed == len(initial), f"only {changed} of {len(initial)} parameter tensors changed")
+    log(
+        f"[full_graph] {card}: {FULL_GRAPH_STEPS} steps + {FULL_GRAPH_EVALS} evals in {wall:.3f} s: "
+        f"{FULL_GRAPH_STEPS / wall:.3f} steps/s, {E * FULL_GRAPH_STEPS / wall:.4e} edges/s; launches {launched}; "
+        f"peak device memory {peak_gb:.2f} GB; best val acc {best_acc:.4f}"
+    )
+    log(f"[full_graph] losses {[round(v, 4) for v in losses]}")
+
+    # One train step timed on the card, back to back.
+    for _ in range(3):
+        trainer.train_step()
+    torch.cuda.synchronize()
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host = time.perf_counter()
+    begin.record()
+    for _ in range(FULL_GRAPH_TIMED_STEPS):
+        trainer.train_step()
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - host) * 1e3 / FULL_GRAPH_TIMED_STEPS
+    step_ms = begin.elapsed_time(end) / FULL_GRAPH_TIMED_STEPS
+
+    # Device idle share and time by kernel of a traced window.
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = os.path.join(tmp, "full_graph_trace.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(FULL_GRAPH_TRACED_STEPS):
+            trainer.train_step()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    idle, busy_ms, window_ms = device_idle_share(trace)
+    by_kernel = sorted(
+        ((e.key, e.device_time_total / 1e3 / FULL_GRAPH_TRACED_STEPS, e.count // FULL_GRAPH_TRACED_STEPS)
+         for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0),
+        key=lambda item: -item[1],
+    )[:12]
+    log(
+        f"[full_graph] {card}: one train step {step_ms:.3f} ms on the card (CUDA events, mean of "
+        f"{FULL_GRAPH_TIMED_STEPS} back to back; {host_ms:.3f} ms host wall); {E / (step_ms / 1e3):.4e} edges/s; "
+        f"traced {FULL_GRAPH_TRACED_STEPS} steps: device busy {busy_ms:.3f} ms of {window_ms:.3f} ms, idle share "
+        + ("not measured (no device events in the trace)" if idle is None else f"{idle:.4f}")
+    )
+    for name, ms, count in by_kernel:
+        log(f"[full_graph]   {ms:8.3f} ms a step in {count:3d} launches: {name[:110]}")
+
+    # Learning check: the config's 200 steps, at lr 1e-3.
+    learner = procedure_copy(torch, trainer, int(config["seed"]), FULL_GRAPH_LEARN_LR)
+    for _ in range(FULL_GRAPH_LEARN_STEPS):
+        learn_loss = learner.train_step()
+    learn_acc = float(learner.eval_step(learner.val_labels))
+    log(
+        f"[full_graph] learning check, the config's {FULL_GRAPH_LEARN_STEPS} steps from the same initial weights "
+        f"at lr {FULL_GRAPH_LEARN_LR}: "
+        f"loss {float(learn_loss):.4f}, validation accuracy {learn_acc:.4f} (need > {FULL_GRAPH_LEARN_ACC}; "
+        f"chance {1 / int(args['output_dim']):.4f})"
+    )
+
+    # Kernel path against plain path, two full-width steps in each dtype
+    # (FULL_GRAPH_PAIRS).
+    starts = {
+        "init": (init_state, float(config["optimizer"]["args"]["lr"])),
+        "learned": ({k: v.detach().clone() for k, v in learner.model.state_dict().items()},
+                    FULL_GRAPH_LEARN_LR),
+    }
+    del learner
+    comparison, failures = full_graph_comparisons(torch, trainer, starts)
+    require(learn_acc > FULL_GRAPH_LEARN_ACC, f"full-graph learning check failed: accuracy {learn_acc}")
+    require(not failures, "; ".join(failures))
+    return {
+        "nodes": N, "edges": E, "steps": FULL_GRAPH_STEPS, "evals": FULL_GRAPH_EVALS, "setup_s": setup_s,
+        "wall_s": wall, "steps_per_s": FULL_GRAPH_STEPS / wall, "edges_per_s": E * FULL_GRAPH_STEPS / wall,
+        "launches": launched, "losses": losses, "best_val_acc": best_acc, "peak_memory_gb": peak_gb,
+        "step_ms": step_ms, "step_host_ms": host_ms, "idle_share": idle, "traced_busy_ms": busy_ms,
+        "traced_window_ms": window_ms, "device_ms_by_kernel": by_kernel, "kernel_vs_plain": comparison,
+        "learning_steps": FULL_GRAPH_LEARN_STEPS, "learning_val_acc": learn_acc,
+    }
+
+
+# ---------------------------------------------------------------------------
 def write_record(record) -> None:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as handle:
@@ -1019,34 +1604,48 @@ def main() -> int:
         record.update(kernel_cases=kernel_rows, kernel_checks=kernel_checks)
         record["serve"] = serve = phase_serve(torch)
         record["train"] = train = phase_train(torch, card)
+        record["full_graph"] = full_graph = phase_full_graph(torch, card)
     finally:
         write_record(record)
 
-    def main_row(kernel):
-        return next(
-            r for r in kernel_rows
-            if (r["kernel"], r["dtype"], r["N"], r["F"], r["density"])
-            == (kernel, "bfloat16", 256, NET_SIZE, SPARSE_DENSITY)
-        )
+    def main_row(kernel, **shape):
+        return next(r for r in kernel_rows
+                    if r["kernel"] == kernel and r["dtype"] == "bfloat16"
+                    and all(r.get(k) == v for k, v in shape.items()))
 
+    dense = {"N": 256, "F": NET_SIZE, "density": SPARSE_DENSITY}
+    fg = full_graph["launches"]
     sources = {
-        "K3": ("K3 relational neighbor aggregation",
-               "grl_tpu/ops/pallas/relagg.py:127 pallas_neighbor_aggregate",
-               {"serve": serve["k3_launches"], "train": train["launches"]["K3"]}),
-        "K1": ("K1 DropEdge neighbor aggregation (forward)",
-               "grl_tpu/ops/pallas/relagg.py:220 pallas_dropedge_aggregate",
-               {"train": train["launches"]["K1"]}),
-        "K2": ("K2 DropEdge neighbor aggregation (backward, dV)",
+        "K3": ("K3 relational neighbor aggregation", "grl_torch/csrc/relagg.cu",
+               "grl_tpu/ops/pallas/relagg.py:99 _agg_forward (pallas_neighbor_aggregate)",
+               {"serve": serve["k3_launches"], "train": train["launches"]["K3"], "full_graph": fg["K3"]},
+               main_row("K3", **dense), "bf16 B=8 N=256 L=6 F=256"),
+        "K1": ("K1 DropEdge neighbor aggregation (forward)", "grl_torch/csrc/relagg.cu",
+               "grl_tpu/ops/pallas/relagg.py:220 _dropedge_forward (pallas_dropedge_aggregate)",
+               {"train": train["launches"]["K1"], "full_graph": fg["K1"]},
+               main_row("K1", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
+        "K2": ("K2 DropEdge neighbor aggregation (backward, dV)", "grl_torch/csrc/relagg.cu",
                "grl_tpu/ops/pallas/relagg.py:284 _dropedge_bwd",
-               {"train": train["launches"]["K2"]}),
+               {"train": train["launches"]["K2"], "full_graph": fg["K2"]},
+               main_row("K2", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
+        "K5 forward": ("K5 CSR relational aggregation with DropEdge (forward)", "grl_torch/csrc/csr_spmm.cu",
+                       "grl_tpu/ops/pallas/csr_spmm.py:300 csr_accumulate",
+                       {"full_graph": fg["K5 forward"]}, main_row("K5 forward", F=NET_SIZE),
+                       "bf16 N=169343 E=1184773 L=1 F=256 rate=0.3"),
+        "K5 backward": ("K5 CSR relational aggregation with DropEdge (backward, transposed layout)",
+                        "grl_torch/csrc/csr_spmm.cu", "grl_tpu/ops/pallas/csr_spmm.py:300 csr_accumulate",
+                        {"full_graph": fg["K5 backward"]}, main_row("K5 backward", F=NET_SIZE),
+                        "bf16 N=169343 E=1184773 L=1 F=256 rate=0.3"),
+        "K4": ("K4 fused sparse attention (SDDMM + softmax + SpMM)", "grl_torch/csrc/sparse_attention.cu",
+               "grl_tpu/ops/pallas/sparse_attention.py:106 _bucket_forward_pallas",
+               {"full_graph": fg["K4"]}, main_row("K4 arxiv"), "bf16 N=169343 E=1184773 K=16 F=128"),
     }
     kernels = []
-    for key, (name, replaces, by_path) in sources.items():
-        row = main_row(key)
+    for name, source, replaces, by_path, row, shape in sources.values():
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "grl_torch/csrc/relagg.cu",
+            "source": source,
             "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -1057,7 +1656,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "shape": "bf16 B=8 N=256 L=6 F=256" + (" rate=0.3" if key != "K3" else ""),
+            "shape": shape,
         })
     record["kernels"] = kernels
     write_record(record)

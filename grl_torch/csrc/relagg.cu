@@ -20,7 +20,7 @@
 // gid = ((b*N + n)*L + l)*N + m is the element's index in A (the wrapper
 // refuses B*N*L*N >= 2^32): the two-injection murmur construction of
 // grl_tpu/ops/pallas/csr_spmm.py:_hash_keep (:190-213), keep the entry iff
-// (mix(mix(gid ^ s) + s) >> 8) * 2^-24 < keep. The TPU kernels seed the
+// (mix(mix(gid ^ s) + s) >> 8) * 2^-24 < keep (hash.cuh). The TPU kernels seed the
 // TPU's hardware PRNG per (b, l, i, k) tile instead (relagg.py:151-154),
 // whose bits cannot be reproduced here; keyed on the element, the mask is
 // the same whatever the tiling, so K1 and K2 tile differently and still see
@@ -73,28 +73,12 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hash.cuh"
+
 namespace {
 
 using namespace nvcuda;
-
-// murmur3 fmix32 round, as grl_tpu/ops/pallas/csr_spmm.py:_mix32.
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x *= 0x9E3779B9u;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// DropEdge keep bit of A's element gid: the seed goes in twice, by xor and
-// by add (a single xor injection makes every mask an xor-translate of one
-// fixed set; csr_spmm.py:196-204).
-__device__ __forceinline__ bool keep_edge(uint32_t gid, uint32_t seed, float keep) {
-  const uint32_t x = mix32(mix32(gid ^ seed) + seed);
-  return static_cast<float>(x >> 8) * (1.0f / 16777216.0f) < keep;
-}
+using grl::keep_edge;
 
 // How the A tile is indexed. kRows: the output rows are A's rows (K3, K1;
 // A is M x K). kCols: the output rows are A's columns (K2; A is K x M).

@@ -1,19 +1,25 @@
 """The DropEdge GCN trunk and the flagship ``GraphCNNDropEdge``.
 
-Counterparts of ``grl_tpu/models/gcn_family.py:40-248`` on the dense
-path. Call convention: ``model((V, A), head_rows=None, rngs=None)`` with
-``V (B, N, F_in)`` and ``A (B, N, L, N)`` in the dataset layout; train or
-eval mode is the module's own (``model.train()`` / ``model.eval()``), and
-a train-mode forward with dropout or DropEdge draws its masks from
-``rngs`` (:class:`grl_torch.models.layers.Rngs`), as flax draws them from
-``rngs={"dropout": key}``.
+Counterparts of ``grl_tpu/models/gcn_family.py:40-248``. Call convention:
+``model((V, A), head_rows=None, rngs=None)`` with ``V (B, N, F_in)`` and
+``A (B, N, L, N)`` in the dataset layout, or flat ``V (num_nodes, F_in)``
+and a :class:`grl_torch.ops.sparse.RelationalGraph` for the sparse path;
+train or eval mode is the module's own (``model.train()`` /
+``model.eval()``), and a train-mode forward with dropout or DropEdge draws
+its masks from ``rngs`` (:class:`grl_torch.models.layers.Rngs`), as flax
+draws them from ``rngs={"dropout": key}``.
 
-``kernel_impl`` reads the same YAML values as ``grl_tpu``: ``"pallas"``
-runs the neighbor aggregation through the hand-written CUDA kernels —
-K3 in eval (:func:`grl_torch.ops.relagg.neighbor_aggregate`), K1 with K2
-as its backward in training (:func:`grl_torch.ops.relagg.dropedge_aggregate`);
-any other value runs the plain ``torch.matmul`` path with
-:func:`grl_torch.ops.relconv.drop_edge`, as ``grl_tpu`` runs XLA.
+``kernel_impl`` reads the same YAML values as ``grl_tpu``. On the dense
+path ``"pallas"`` runs the neighbor aggregation through the hand-written
+CUDA kernels — K3 in eval (:func:`grl_torch.ops.relagg.neighbor_aggregate`),
+K1 with K2 as its backward in training
+(:func:`grl_torch.ops.relagg.dropedge_aggregate`); any other value runs the
+plain ``torch.matmul`` path with :func:`grl_torch.ops.relconv.drop_edge`,
+as ``grl_tpu`` runs XLA. On the sparse path the graph carries its planned
+kernel (:func:`grl_torch.ops.kernels.attach_kernel`: K5 for
+``"pallas_csr"``), and ``"xla"`` runs the COO segment sum.
+``attention_impl: sparse`` runs the edge-restricted attention on a sparse
+graph (K4 when the graph carries a planned ``atten_kernel``).
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ from grl_torch.models.layers import (
     NodeSelfAtten,
     RanPAC,
     Rngs,
-    check_dense_adjacency,
+    SparseNodeSelfAtten,
+    is_sparse_adjacency,
     maybe_cast,
     require_rngs,
 )
@@ -59,6 +66,7 @@ class GCNTrunk(nn.Module):
         edge_dropout_rate: float = 0.3,
         g1_first: bool = True,
         use_attention: bool = True,
+        attention_impl: str = "dense",
         kernel_impl: str = "xla",
         compute_dtype: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
@@ -68,6 +76,7 @@ class GCNTrunk(nn.Module):
         dtype = optional_dtype(compute_dtype)
         self.dtype = dtype
         self.g1_first = g1_first
+        self.attention_impl = attention_impl
         self.kernel_impl = kernel_impl
         self.edge_dropout_rate = edge_dropout_rate
         # One generator draws every parameter, in construction order.
@@ -76,7 +85,9 @@ class GCNTrunk(nn.Module):
         self.gcn2 = GraphConv(net_size, net_size, num_edges, dtype=dtype, generator=gen)
         self.gcn3 = GraphConv(2 * net_size, net_size, num_edges, dtype=dtype, generator=gen)
         self.emb2 = LinearReLU(2 * net_size, net_size // 2, dtype, gen)
-        self.self_atten = NodeSelfAtten(net_size // 2, dtype, gen) if use_attention else None
+        # One parameter set (f, g, h, gamma) whichever attention runs.
+        atten = SparseNodeSelfAtten if attention_impl == "sparse" else NodeSelfAtten
+        self.self_atten = atten(net_size // 2, dtype, gen) if use_attention else None
         self.edge_dropout = EdgeDropout(edge_dropout_rate)
         self.dropout = Dropout(dropout_rate)
 
@@ -101,9 +112,19 @@ class GCNTrunk(nn.Module):
         self_term = feats * (self_mask.to(feats.dtype) / keep)[..., None]
         return self_term, neigh
 
-    def _gcn(self, conv: GraphConv, feats: torch.Tensor, A: torch.Tensor, det: bool,
+    def _gcn(self, conv: GraphConv, feats: torch.Tensor, A: Any, sparse: bool, det: bool,
              rngs: Optional[Rngs]) -> torch.Tensor:
-        if self.kernel_impl == "pallas":
+        if sparse:
+            if self.kernel_impl != "xla" and getattr(A, "kernel", None) is None:
+                raise ValueError(
+                    f"kernel_impl={self.kernel_impl!r} on a sparse RelationalGraph with no "
+                    "planned kernel: attach one with grl_torch.ops.kernels.attach_kernel "
+                    "(static graphs / FullGraphProcedure do this automatically) or set "
+                    "kernel_impl='xla' for per-batch COO graphs."
+                )
+            edge_keep, self_scale = self.edge_dropout(A, det, rngs)
+            out = conv(feats, A, self_scale, edge_keep)
+        elif self.kernel_impl == "pallas":
             out = conv(feats, precomputed_neigh=self._kernel_agg(feats, A, det, rngs))
         else:
             A_used, self_scale = self.edge_dropout(A, det, rngs)
@@ -112,20 +133,33 @@ class GCNTrunk(nn.Module):
 
     def forward(self, inputs: Inputs, rngs: Optional[Rngs] = None) -> torch.Tensor:
         V, A = inputs
-        check_dense_adjacency(A)
+        sparse = is_sparse_adjacency(A)
         det = not self.training
         V = maybe_cast(V, self.dtype)
-        A = maybe_cast(A, self.dtype)
+        if not sparse:
+            A = maybe_cast(A, self.dtype)
         embedding = self.dropout(self.emb1(V), rngs)
-        g1 = self._gcn(self.gcn1, embedding, A, det, rngs)
-        g2 = self._gcn(self.gcn2, g1, A, det, rngs)
+        g1 = self._gcn(self.gcn1, embedding, A, sparse, det, rngs)
+        g2 = self._gcn(self.gcn2, g1, A, sparse, det, rngs)
         cat12 = [g1, g2] if self.g1_first else [g2, g1]
-        g3 = self._gcn(self.gcn3, torch.cat(cat12, dim=-1), A, det, rngs)
+        g3 = self._gcn(self.gcn3, torch.cat(cat12, dim=-1), A, sparse, det, rngs)
         cat13 = [g1, g3] if self.g1_first else [g3, g1]
         new_v = self.emb2(torch.cat(cat13, dim=-1))
-        if self.self_atten is not None:
-            new_v = self.self_atten(new_v)
-        return new_v
+        if self.self_atten is None:
+            return new_v
+        if sparse and self.attention_impl == "sparse":
+            return self.self_atten(new_v, A)
+        if sparse:
+            # Dense attention per document of a flat batch graph.
+            if A.batch_shape is None:
+                raise ValueError(
+                    "Dense NodeSelfAtten on a flat sparse graph needs batch_shape to "
+                    "unflatten; set attention_impl='sparse' or use_attention=False for "
+                    "single large graphs."
+                )
+            B_, N_ = A.batch_shape
+            return self.self_atten(new_v.reshape(B_, N_, -1)).reshape(B_ * N_, -1)
+        return self.self_atten(new_v)
 
 
 @register_model
@@ -162,9 +196,10 @@ class GraphCNNDropEdge(nn.Module):
         # Read by the procedures, as grl_tpu reads the flax module's fields.
         self.output_dim = output_dim
         self.compute_dtype = compute_dtype
-        # attention_impl selects the attention of the sparse path, which
-        # the port does not have yet; the dense path ignores it as grl_tpu does.
+        self.net_size = net_size
+        self.use_attention = use_attention
         self.attention_impl = attention_impl
+        self.kernel_impl = kernel_impl
         self.trunk = GCNTrunk(
             input_dim,
             net_size=net_size,
@@ -173,6 +208,7 @@ class GraphCNNDropEdge(nn.Module):
             edge_dropout_rate=edge_dropout_rate,
             g1_first=True,
             use_attention=use_attention,
+            attention_impl=attention_impl,
             kernel_impl=kernel_impl,
             compute_dtype=compute_dtype,
             generator=gen,

@@ -12,16 +12,23 @@ copies and are cast with the activations to the compute dtype at use.
 Randomness is explicit, as ``rngs={"dropout": key}`` is in flax: a
 train-mode forward takes an :class:`Rngs` whose generators draw every
 dropout and DropEdge mask; nothing reads PyTorch's global generator.
+
+The adjacency is a dense ``(B, N, L, N)`` tensor or a sparse
+:class:`~grl_torch.ops.sparse.RelationalGraph` with flat ``(num_nodes, F)``
+features; a graph with a planned K5 kernel
+(:class:`~grl_torch.ops.kernels.KernelAdjacency`) aggregates through it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from grl_torch.ops.relconv import drop_edge, relational_neighbor_aggregate
+from grl_torch.ops.segment import segment_softmax, segment_sum
+from grl_torch.ops.sparse import RelationalGraph, drop_edge_coo, relational_neighbor_coo
 
 
 def maybe_cast(x: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> Optional[torch.Tensor]:
@@ -53,7 +60,8 @@ class Rngs:
         )
 
     def kernel_seed(self) -> int:
-        """A fresh int32 seed for one K1/K2 mask (``gcn_family.py:92``)."""
+        """A fresh int32 seed for one K1/K2 or K5 mask (``gcn_family.py:92``,
+        ``layers.py:218-220``)."""
         return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
 
 
@@ -71,13 +79,24 @@ def _normal(shape, generator: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=generator)
 
 
-def check_dense_adjacency(A) -> None:
-    """The port has only the dense path so far; refuse anything else."""
-    if not isinstance(A, torch.Tensor) or A.layout != torch.strided:
-        raise NotImplementedError(
-            "grl_torch takes a dense (B, N, L, N) adjacency only; the sparse "
-            "large-graph path arrives with ROADMAP.md Queue 1, slice 3."
-        )
+def is_sparse_adjacency(A: Any) -> bool:
+    """True for a :class:`RelationalGraph`, False for a dense strided
+    tensor; any other adjacency raises, naming where it is queued."""
+    if isinstance(A, RelationalGraph):
+        return True
+    if isinstance(A, torch.Tensor) and A.layout == torch.strided:
+        return False
+    raise NotImplementedError(
+        f"grl_torch takes a dense (B, N, L, N) tensor or a RelationalGraph, not "
+        f"{type(A).__name__} (layout {getattr(A, 'layout', None)}); node-partitioned "
+        "shards arrive with ROADMAP.md Queue 1, slice 4, and the sampled path's "
+        "TreeGraph with item 11."
+    )
+
+
+def has_kernel(A: Any) -> bool:
+    """A sparse graph with a planned aggregation kernel (K5)."""
+    return isinstance(A, RelationalGraph) and getattr(A, "kernel", None) is not None
 
 
 class Dense(nn.Module):
@@ -144,8 +163,9 @@ class GraphConv(nn.Module):
     def forward(
         self,
         V: torch.Tensor,
-        A: Optional[torch.Tensor] = None,
+        A: Any = None,
         self_scale: Optional[torch.Tensor] = None,
+        edge_keep: Any = None,
         precomputed_neigh: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
         F_in = V.shape[-1]
@@ -156,8 +176,15 @@ class GraphConv(nn.Module):
             self_term, neigh = precomputed_neigh
             neigh = neigh.reshape(*neigh.shape[:-2], -1)
         else:
-            check_dense_adjacency(A)
-            neigh = relational_neighbor_aggregate(V, A)
+            if has_kernel(A):
+                # K5: DropEdge is fused in the kernel by the per-edge hash,
+                # so EdgeDropout hands over (seed, rate).
+                seed, rate = (0, 0.0) if edge_keep is None else edge_keep
+                neigh = A.kernel.neighbor_aggregate(V, seed, rate)
+            elif is_sparse_adjacency(A):
+                neigh = relational_neighbor_coo(V, A, edge_keep)
+            else:
+                neigh = relational_neighbor_aggregate(V, A)
             self_term = V if self_scale is None else V * self_scale[..., None]
         self_term = maybe_cast(self_term, self.dtype)
         neigh = maybe_cast(neigh, self.dtype)
@@ -188,19 +215,36 @@ class EdgeDropout(nn.Module):
     """DropEdge on the (logically) preprocessed adjacency (``layers.py:196-232``).
 
     ``nn.Dropout(p)`` on the reference's ``(B,(L+1)N,N)`` operand: iid
-    keep, ``1/(1-p)`` rescale, self-loops included (:func:`drop_edge`).
-    Returns ``(A, self_scale)`` for :class:`GraphConv`: ``(A, None)`` when
-    deterministic or at rate 0.
+    keep, ``1/(1-p)`` rescale, self-loops included. Returns, for
+    :class:`GraphConv`:
+
+    * dense A: ``(A_dropped, self_scale (B, N))`` (:func:`drop_edge`), or
+      ``(A, None)`` when deterministic or at rate 0;
+    * a graph with a planned kernel: ``((seed, rate), self_scale (num_nodes,))``
+      — K5 regenerates the edge mask from the seed, drawn on the host as
+      K1's is; only the self-loop mask is drawn here;
+    * a plain RelationalGraph: ``(edge_keep (E,), self_scale (num_nodes,))``
+      (:func:`drop_edge_coo`);
+    * a sparse graph when deterministic or at rate 0: ``(None, None)``.
     """
 
     def __init__(self, rate: float = 0.3):
         super().__init__()
         self.rate = rate
 
-    def forward(self, A: torch.Tensor, deterministic: bool, rngs: Optional[Rngs] = None):
+    def forward(self, A: Any, deterministic: bool, rngs: Optional[Rngs] = None):
+        sparse = is_sparse_adjacency(A)
         if deterministic or self.rate <= 0.0:
-            return A, None
-        return drop_edge(A, self.rate, require_rngs(rngs).device)
+            return (None, None) if sparse else (A, None)
+        rngs = require_rngs(rngs)
+        if has_kernel(A):
+            seed = rngs.kernel_seed()
+            keep = 1.0 - self.rate
+            self_mask = torch.rand((A.num_nodes,), generator=rngs.device, device=A.device) < keep
+            return (seed, self.rate), self_mask.to(torch.float32) / keep
+        if sparse:
+            return drop_edge_coo(A, self.rate, rngs.device)
+        return drop_edge(A, self.rate, rngs.device)
 
 
 class NodeSelfAtten(nn.Module):
@@ -224,6 +268,33 @@ class NodeSelfAtten(nn.Module):
         s = maybe_cast(torch.softmax(scores.float(), dim=-1), self.dtype)
         o = torch.matmul(s, h_out)
         return maybe_cast(self.gamma, self.dtype) * o + V
+
+
+class SparseNodeSelfAtten(NodeSelfAtten):
+    """Edge-restricted node self-attention over a :class:`RelationalGraph`
+    (``layers.py:261-303``), with :class:`NodeSelfAtten`'s parameters.
+
+    Scores only on edges (receiver attends to sender), a softmax per
+    receiver, and the weighted sum of sender values: through K4 when the
+    graph carries a planned ``atten_kernel``, else the segment path in the
+    compute dtype. ``graph=None`` is the dense layer, which ``grl_tpu``
+    runs on a dense adjacency whatever ``attention_impl`` says.
+    """
+
+    def forward(self, V: torch.Tensor, graph: Optional[RelationalGraph] = None) -> torch.Tensor:
+        if graph is None:
+            return super().forward(V)
+        f_out, g_out, h_out = self.f(V), self.g(V), self.h(V)
+        atten_kernel = getattr(graph, "atten_kernel", None)
+        if atten_kernel is not None:
+            o = atten_kernel.attend(f_out, g_out, h_out)
+        else:
+            send, recv = graph.senders.long(), graph.receivers.long()
+            scores = torch.sum(f_out[recv] * g_out[send], dim=-1)
+            alpha = segment_softmax(scores.float(), recv, graph.num_nodes, mask=graph.mask)
+            alpha = alpha.to(self.dtype or V.dtype)
+            o = segment_sum(h_out[send] * alpha[:, None], recv, graph.num_nodes)
+        return maybe_cast(self.gamma, self.dtype) * o.to(V.dtype) + V
 
 
 class RanPAC(nn.Module):

@@ -3,8 +3,9 @@
 Each ``grl_torch/csrc/<name>.cu`` has a plain C interface and is compiled
 by ``nvcc`` for ``sm_90a`` into ``build/grl_torch/lib<name>-<hash>.so`` at
 the root of the checkout (listed in ``.gitignore``), then loaded with
-``ctypes``. The hash covers the source, the flags and the compiler path,
-so an edited source is rebuilt and an unchanged one is reused. Importing
+``ctypes``. The hash covers the source, the shared headers
+(``csrc/*.cuh``), the flags and the compiler path, so an edited source or
+header is rebuilt and an unchanged one is reused. Importing
 this module needs no ``nvcc``: the compiler is looked up only when a
 kernel is first launched, so the CPU tests collect without it.
 """
@@ -21,12 +22,16 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "grl_torch"
-# Every CUDA source of the port (csrc/<name>.cu).
-SOURCES = ("relagg",)
+# Every CUDA source of the port (csrc/<name>.cu); each may include the
+# shared headers csrc/*.cuh.
+SOURCES = ("relagg", "csr_spmm", "sparse_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The dtype argument of every entry point.
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -48,6 +53,9 @@ def find_nvcc() -> str:
 def _library_path(name: str, nvcc: str) -> Path:
     digest = hashlib.sha256()
     digest.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     digest.update(nvcc.encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -86,11 +94,21 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded shared library of ``csrc/<name>.cu``, built if needed.
+    Every source exports ``grl_cuda_error_string``, declared here."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             path = build([name])[name]
             lib = ctypes.CDLL(str(path))
+            lib.grl_cuda_error_string.restype = ctypes.c_char_p
+            lib.grl_cuda_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib
         return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise ``RuntimeError`` for the cudaError_t ``err`` an entry point
+    returned (a refused launch never runs, and no synchronise reports it)."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.grl_cuda_error_string(err).decode()} ({err})")

@@ -23,7 +23,8 @@ accumulation.
 
 The DropEdge mask is a pure function of the seed and the element's index
 ``gid = ((b*N + n)*L + l)*N + m`` in A (:func:`dropedge_keep_mask`), the
-two-injection murmur hash of ``grl_tpu/ops/pallas/csr_spmm.py:_hash_keep``.
+two-injection murmur hash of ``grl_tpu/ops/pallas/csr_spmm.py:_hash_keep``
+(:mod:`grl_torch.ops.hashing`, shared with K5).
 The TPU kernels draw per-tile bits from the TPU's hardware PRNG instead,
 which no other device reproduces; keyed on the element, K1 and K2 see one
 mask whatever their tiling, and the plain versions here compute the
@@ -54,8 +55,9 @@ import math
 import torch
 
 from grl_torch.ops import _build
+from grl_torch.ops.hashing import keep_bits, keep_probability
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
 _MAX_GRID_YZ = 65535
 _TILE_ROWS = 64  # output rows per block (kF32BM == kBM in relagg.cu)
 _MAX_ELEMENTS = 2**32  # gid is a uint32 in the kernels
@@ -64,32 +66,6 @@ _MAX_ELEMENTS = 2**32  # gid is a uint32 in the kernels
 # ---------------------------------------------------------------------------
 # The DropEdge mask
 # ---------------------------------------------------------------------------
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``(x * c) mod 2^32`` for int64 ``x`` in ``[0, 2^32)``, in two halves
-    of ``c`` so that no int64 product overflows."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & 0xFFFFFFFF
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """murmur3 fmix32 round on uint32 values held in int64."""
-    x = _mul32(x, 0x9E3779B9)
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
-
-
-def keep_probability(rate: float) -> float:
-    """``1 - rate`` rounded to float32, as the kernels compare with it."""
-    rate = float(rate)
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"DropEdge rate must be in [0, 1); got {rate}")
-    return float(torch.tensor(1.0 - rate, dtype=torch.float32))
-
-
 def dropedge_keep_mask(seed: int, shape, rate: float, device=None) -> torch.Tensor:
     """Boolean keep mask over a tensor of ``shape``: element ``gid`` (its
     row-major index) is kept iff
@@ -98,12 +74,8 @@ def dropedge_keep_mask(seed: int, shape, rate: float, device=None) -> torch.Tens
     numel = math.prod(shape)
     if numel >= _MAX_ELEMENTS:
         raise ValueError(f"DropEdge mask over {numel} elements: the element index must fit 32 bits")
-    keep = keep_probability(rate)
-    s = int(seed) & 0xFFFFFFFF
     gid = torch.arange(numel, dtype=torch.int64, device=device).reshape(tuple(shape))
-    x = _mix32((_mix32(gid ^ s) + s) & 0xFFFFFFFF)
-    u = (x >> 8).to(torch.float32) * 2.0**-24
-    return u < keep
+    return keep_bits(gid, seed, rate)
 
 
 def _masked_float(A: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
@@ -190,8 +162,6 @@ def _library() -> ctypes.CDLL:
         getattr(lib, name).argtypes = head + [ctypes.c_uint32, ctypes.c_float] + tail
     for name in ("grl_relagg_forward", "grl_dropedge_forward", "grl_dropedge_backward"):
         getattr(lib, name).restype = ctypes.c_int
-    lib.grl_cuda_error_string.restype = ctypes.c_char_p
-    lib.grl_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -218,10 +188,7 @@ def _launch(entry: str, A: torch.Tensor, X: torch.Tensor, out_shape, *mask_args)
         A.data_ptr(), X.data_ptr(), out.data_ptr(), B, N, L, F,
         _DTYPE_CODES[X.dtype], *mask_args, X.device.index, stream,
     )
-    if err != 0:
-        raise RuntimeError(
-            f"{entry} launch failed: {lib.grl_cuda_error_string(err).decode()} ({err})"
-        )
+    _build.check_launch(lib, err, entry)
     return out
 
 

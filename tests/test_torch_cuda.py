@@ -1,4 +1,4 @@
-"""K3, K1 and K2 on the card: the CUDA kernels against their plain versions.
+"""K1-K5 on the card: the CUDA kernels against their plain versions.
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file
 imports neither JAX nor grl_tpu, so it runs on a machine without them,
@@ -11,7 +11,9 @@ from __future__ import annotations
 import pytest
 import torch
 
-from grl_torch.ops import relagg
+import numpy as np
+
+from grl_torch.ops import csr_spmm, hashing, relagg, sparse_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +119,91 @@ def test_dropedge_autograd_runs_k2_and_rate_zero_is_k3():
     torch.testing.assert_close(plain, relagg.neighbor_aggregate_reference(V.detach(), A), rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):
         relagg.dropedge_aggregate(V.detach(), A, 9, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K4. float32: both sides accumulate in float32 in another order,
+# within 1e-5 of the output's scale. bfloat16: both accumulate in float32
+# and round once, so one bf16 rounding apart (1e-2 relative).
+# ---------------------------------------------------------------------------
+def assert_close_to_plain(out, ref):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    scale = float(ref.float().abs().max())
+    rtol = 1e-2 if ref.dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=1e-5 * scale)
+
+
+def csr_graph(N, L, E, seed=0):
+    rng = np.random.RandomState(seed)
+    edges = (rng.randint(0, N, E), rng.randint(0, N - 5, E), rng.randint(0, L, E),
+             (rng.rand(E) + 0.5).astype(np.float32))
+    edges[3][:20] = 0.0  # masked-out edges
+    return csr_spmm.CSRGraphKernel(*edges, N, L, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L, F", [(1, 256), (1, 512), (3, 40), (2, 8), (1, 1040)])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_k5_matches_plain_version(L, F, dtype, rate):
+    kernel = csr_graph(2000, L, 12000, seed=F + L)
+    V = torch.randn(2000, F, device="cuda").to(dtype).requires_grad_()
+    launched = dict(csr_spmm.csr_accumulate.launches)
+    out = kernel.neighbor_aggregate(V, 17, rate)
+    g = torch.randn_like(out)
+    (dV,) = torch.autograd.grad(out, V, g)
+    torch.cuda.synchronize()
+    assert csr_spmm.csr_accumulate.launches == {k: v + 1 for k, v in launched.items()}
+    fwd, bwd = kernel.forward_layout, kernel.backward_layout
+    assert_close_to_plain(out.view(-1, F), csr_spmm.csr_accumulate_reference(V.detach(), fwd, 17, rate))
+    assert_close_to_plain(dV, csr_spmm.csr_accumulate_reference(g.reshape(-1, F), bwd, 17, rate))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_keep_set_is_the_plain_hash(dtype):
+    """V = I: each output row shows exactly the edges the kernel kept."""
+    N, L = 64, 3
+    rng = np.random.RandomState(1)
+    cells = rng.choice(N * L * N, 2000, replace=False)
+    receivers, rest = np.divmod(cells, L * N)
+    relations, senders = np.divmod(rest, N)
+    kernel = csr_spmm.CSRGraphKernel(senders, receivers, relations, np.ones(2000, np.float32),
+                                     N, L, device="cuda")
+    eye = torch.eye(N, device="cuda", dtype=dtype)
+    seen = kernel.neighbor_aggregate(eye, 99, 0.3).view(N, L, N) != 0
+    kept = hashing.keep_bits(torch.arange(2000), 99, 0.3).numpy()
+    expected = np.zeros((N, L, N), bool)
+    expected[receivers[kept], relations[kept], senders[kept]] = True
+    assert np.array_equal(seen.cpu().numpy(), expected)
+
+
+def attention_problem(N, E, K, F, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    senders = rng.randint(0, N, E)
+    receivers = rng.randint(0, N - 7, E)  # 7 receivers with no edge
+    receivers[:300] = 3  # a hub far wider than 32
+    kernel = sparse_attention.SparseAttentionKernel(senders, receivers, N, device="cuda")
+    f, g, h = (torch.randn(N, d, device="cuda").to(dtype) for d in (K, K, F))
+    return kernel, f, g, h
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K, F", [(16, 128), (2, 16), (12, 264), (16, 1040)])
+def test_k4_matches_plain_version(K, F, dtype):
+    kernel, f, g, h = attention_problem(3000, 20000, K, F, dtype, seed=K + F)
+    launched = sparse_attention.attend_forward.launches
+    out = kernel.attend(f, g, h)
+    torch.cuda.synchronize()
+    assert sparse_attention.attend_forward.launches == launched + 1
+    assert_close_to_plain(out, sparse_attention.attend_reference(f, g, h, kernel.plan))
+    assert torch.all(out[-7:] == 0)
+
+
+def test_k4_gradients_are_the_plain_backward():
+    kernel, f, g, h = attention_problem(500, 4000, 16, 128, torch.float32)
+    args = [t.clone().requires_grad_() for t in (f, g, h)]
+    w = torch.randn(500, 128, device="cuda")
+    (kernel.attend(*args) * w).sum().backward()
+    ref = [t.clone().requires_grad_() for t in (f, g, h)]
+    (sparse_attention.attend_reference(*ref, kernel.plan) * w).sum().backward()
+    for a, b in zip(args, ref):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-5 * float(b.grad.abs().max()))

@@ -2,8 +2,10 @@
 
 Subprocesses block ``jax`` and ``grl_tpu`` (``sys.modules[name] = None``
 makes any import of them fail), then import grl_torch and serve one page,
-or take one train step, on ``device="cpu"``. A scan of the sources finds
-no import of either package in grl_torch/ or chip_smoke.py.
+take one train step, or train the sparse flagship through
+FullGraphProcedure (K5, K4 and the sparse modules), on ``device="cpu"``.
+A scan of the sources finds no import of either package in grl_torch/ or
+chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -87,6 +89,37 @@ TRAIN_ONE_STEP = textwrap.dedent(
 )
 
 
+TRAIN_FULL_GRAPH = textwrap.dedent(
+    """
+    import sys
+    for name in {blocked!r}:
+        sys.modules[name] = None
+    import grl_torch
+    from grl_torch.ops import csr_spmm, hashing, kernels, segment, sparse, sparse_attention
+
+    config = {{
+        "seed": 0, "output_dir": {tmp!r}, "num_epochs": 3, "scan_steps": 2, "max_grad_norm": 5.0,
+        "model": {{"type": "GraphCNNDropEdge", "args": {{
+            "input_dim": 8, "output_dim": 3, "num_edges": 2, "net_size": 32,
+            "kernel_impl": "pallas_csr", "use_attention": True, "attention_impl": "sparse"}}}},
+        "data_config": {{"large_graph": {{"type": "sbm", "args": {{
+            "num_nodes": 120, "num_classes": 3, "num_relations": 2, "avg_degree": 4,
+            "feature_dim": 8}}}}}},
+        "procedure": {{"type": "FullGraphProcedure", "args": {{}}}},
+        "logging": {{"use_tensorboard": False, "experiment_tracking": False}},
+    }}
+    warper = grl_torch.GNNLearningWarper(config=config, device="cpu")
+    acc = warper.train()
+    trainer = warper.trainer
+    assert trainer.state.step == 3 and trainer.graph.kernel is not None
+    assert trainer.graph.atten_kernel is not None and 0.0 <= acc <= 1.0
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("FULL GRAPH", acc)
+    """
+)
+
+
 def run_blocked(script: str, tmp_path) -> str:
     # One OpenMP thread: the suite's worker processes share the cores.
     env = {**os.environ, "OMP_NUM_THREADS": "1",
@@ -106,6 +139,11 @@ def test_serves_with_jax_and_grl_tpu_blocked(tmp_path):
 def test_trains_with_jax_and_grl_tpu_blocked(tmp_path):
     """One CPU train step on the kernel path with dropout and DropEdge on."""
     assert "TRAINED" in run_blocked(TRAIN_ONE_STEP, tmp_path)
+
+
+def test_full_graph_trains_with_jax_and_grl_tpu_blocked(tmp_path):
+    """Three full-graph steps on the K5 + K4 path, DropEdge and dropout on."""
+    assert "FULL GRAPH" in run_blocked(TRAIN_FULL_GRAPH, tmp_path)
 
 
 def imported_roots(path: Path):
@@ -150,9 +188,16 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 def test_wrapper_refuses_other_devices():
     """CPU tensors take the plain version; any other device either launches
     the kernel (CUDA) or raises, never falling back."""
+    from grl_torch.ops import csr_spmm, sparse_attention
     from grl_torch.ops.relagg import neighbor_aggregate
 
     V = torch.zeros(1, 4, 8, device="meta")
     A = torch.zeros(1, 4, 6, 4, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         neighbor_aggregate(V, A)
+    kernel = csr_spmm.CSRGraphKernel([0, 1], [1, 2], [0, 0], [1.0, 1.0], 4, 1, device="cpu")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        kernel.neighbor_aggregate(torch.zeros(4, 8, device="meta"))
+    atten = sparse_attention.SparseAttentionKernel([0, 1], [1, 2], 4, device="cpu")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        atten.attend(*[torch.zeros(4, d, device="meta") for d in (2, 2, 8)])
