@@ -54,11 +54,28 @@ before the result line is printed; no phase's failure is passed over.
    of the plain versions and two runs with a fault planted in K5, which
    must fail the limits (``FULL_GRAPH_PAIRS``).
 
+6. ``ell``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
+   ``configs/arxiv_full_graph.yaml`` as written (``kernel_impl: ell``, its
+   ``kernel_plan``: project-first tables, arithmetic widths of quantum 2,
+   the degree reorder; no attention), 20 steps for the file's 200: K6
+   (``grl_torch/csrc/ell.cu``) aggregates in all four directions. The same
+   checks and measurements as ``full_graph`` (and the tables' planning
+   seconds), with K6 with a wrong seed or rate planted as the faults.
+7. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
+   counterpart of ``scripts/probe_gather.py``: index_select rates (A-D) and
+   the four Pallas probes as CUDA kernels (``grl_torch/csrc/
+   gather_probe.cu``), each held against its plain version (E1, E2, F
+   exactly, G within 1e-5); M rows/s and GB/s beside the HBM peak, and the
+   measured gather floors of K5, K6 (A rate) and K4 (C rate).
+
 The ``kernel`` phase also holds K5 (forward and backward, on the arxiv
-graph at F = 256 and 512, and a small L = 3 graph) and K4 (on the arxiv
+graph at F = 256 and 512, and a small L = 3 graph), K4 (on the arxiv
 graph at K = 16, F = 128, and a small graph with a hub and isolated
-receivers) against their plain versions, and reads K5's keep set back
-exactly with V = I.
+receivers) and K6 (all four directions on the arxiv graph planned with
+the config's ``kernel_plan`` at F = 256 and 512, and a small L = 3 graph
+with geometric widths) against their plain versions, reads K5's keep set
+back exactly with V = I, and holds K6 against K5 on one seed: within one
+bf16 rounding on the arxiv graph, the keep sets equal with V = I.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -159,9 +176,10 @@ STEP_LIMITS = {
 }
 
 
-# The full-graph slice: configs/arxiv_full_graph.yaml with the overrides
+# The full_graph phase: configs/arxiv_full_graph.yaml with the overrides
 # below, made in memory. kernel_plan holds ELL planner knobs that the CSR
-# kernel does not take (grl_tpu raises TypeError on them too).
+# kernel does not take (grl_tpu raises TypeError on them too). The ell
+# phase reads the file as written, with the same step count.
 FULL_GRAPH_YAML = os.path.join(REPO, "configs", "arxiv_full_graph.yaml")
 FULL_GRAPH_MODEL = {"kernel_impl": "pallas_csr", "use_attention": True, "attention_impl": "sparse"}
 FULL_GRAPH_STEPS = 20
@@ -208,6 +226,8 @@ FULL_GRAPH_STEP_LIMITS = {
 # dead within ~20 steps and the loss settles at ln 40, the prior: grl_tpu
 # does the same on this config (both packages reach 0.035 after 200 steps
 # at 3000 nodes on the CPU), while at lr 1e-3 the port reaches 0.65 there.
+# 100 steps are too few on the full_graph phase's model with attention
+# (0.18 on the H100, PERF.md).
 FULL_GRAPH_LEARN_STEPS = 200
 FULL_GRAPH_LEARN_LR = 1e-3
 FULL_GRAPH_LEARN_ACC = 0.3
@@ -623,6 +643,164 @@ def sparse_kernel_cases(torch, flush):
     return rows, checks
 
 
+def ell_library_ms(torch, tables, X, seed, flush):
+    """One torch.sparse.mm of the tables' matrix (row perm[j], column idx of
+    each live cell), masked and scaled beforehand, with X: the PyTorch call
+    for K6's product (never called by the port)."""
+    from grl_torch.ops import hashing
+
+    first_rows = tables.buckets[:, 0].tolist()
+    table_row = torch.cat([torch.arange(r0, r0 + rows, device=X.device).repeat_interleave(width)
+                           for r0, (rows, width) in zip(first_rows, tables.shapes)])
+    live = tables.weight != 0
+    values = (tables.weight * hashing.hash_keep(tables.gid, seed, RATE))[live]
+    rows, cols = tables.perm.long()[table_row][live], tables.idx.long()[live]
+    order = torch.argsort(rows * X.shape[0] + cols)
+    rowptr = torch.zeros(tables.num_rows + 1, dtype=torch.int64, device=X.device)
+    rowptr[1:] = torch.cumsum(torch.bincount(rows, minlength=tables.num_rows), 0)
+    A = torch.sparse_csr_tensor(rowptr, cols[order], values[order].to(X.dtype),
+                                size=(tables.num_rows, X.shape[0]))
+    return time_ms(torch, lambda: torch.sparse.mm(A, X), flush)
+
+
+def k6_case(torch, tables, dtype_name: str, F: int, flush, seed: int, what: str, timed: bool = True):
+    """K6 on one planned direction against its plain version (timed when
+    ``timed``); one result row."""
+    from grl_torch.ops import ell, hashing
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(tables.num_src_rows, F, generator=gen, device="cuda").to(dtype)
+    mask_seed = 104729 * (seed + 1)
+    out = ell.ell_accumulate(X, tables, mask_seed, RATE)
+    ref = ell.ell_accumulate_reference(X, tables, mask_seed, RATE)
+    torch.cuda.synchronize()
+    err = check_close(torch, out, ref, dtype_name, f"K6 {what} {dtype_name} F={F}", SPARSE_TOL[dtype_name])
+    row = {"kernel": f"K6 {what}", "dtype": dtype_name, "rows": tables.num_rows, "src_rows": tables.num_src_rows,
+           "cells": tables.num_cells, "buckets": len(tables.shapes), "F": F, "rate": RATE, "max_abs_err": err,
+           "differ_share": float((out != ref).float().mean())}
+    if not timed:
+        return row
+    live = tables.weight != 0
+    kept = int((live & (hashing.hash_keep(tables.gid, mask_seed, RATE) != 0)).sum())
+    itemsize = X.element_size()
+    # X read once, out written once, 12 bytes a table cell (padding
+    # included: the tables are inputs), perm and the bucket table; 2 FLOPs
+    # per kept edge and feature.
+    nbytes = (itemsize * (tables.num_src_rows + tables.num_rows) * F + 12 * tables.num_cells
+              + 4 * tables.num_rows + 12 * len(tables.shapes))
+    bound_ms, bound_by = sparse_bound(dtype_name, nbytes, 2 * kept * F)
+    row.update({
+        "edges": int(live.sum()), "kept_edges": kept,
+        "ms": time_ms(torch, lambda: ell.ell_accumulate(X, tables, mask_seed, RATE), flush),
+        # The plain version takes 15-25 ms a call: the median of 10.
+        "plain_ms": time_ms(torch, lambda: ell.ell_accumulate_reference(X, tables, mask_seed, RATE), flush,
+                            reps=10),
+        "library_ms": ell_library_ms(torch, tables, X, mask_seed, flush),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": 2 * kept * F,
+        "gather_floor_ms": (kept * F * itemsize + nbytes) / HBM_BYTES_PER_S * 1e3,
+    })
+    return row
+
+
+def ell_directions(tables):
+    """(name, GatherTables) of the four planned directions of ELLTables."""
+    return (("forward", tables.fwd), ("backward", tables.bwd), ("projected forward", tables.proj.fwd),
+            ("projected backward", tables.proj.bwd))
+
+
+def ell_kernel_cases(torch, flush):
+    """K6 rows on the arxiv graph planned with the config's kernel_plan (all
+    four directions, F = 256 and 512), the small L = 3 graph, and K6 against
+    K5 on one seed: values within one bf16 rounding on the arxiv graph, the
+    keep set exactly with V = I on a small one."""
+    import numpy as np
+
+    from grl_torch.config import load_config
+    from grl_torch.ops import csr_spmm, ell
+
+    data = arxiv_graph()
+    N = len(data.features)
+    plan = dict(load_config(FULL_GRAPH_YAML)["kernel_plan"])
+    start = time.perf_counter()
+    kernel = ell.ELLGraphKernel(data.senders, data.receivers, data.relations, data.weights, N,
+                                data.num_relations, device="cuda", **plan)
+    directions = ell_directions(kernel.tables)
+    log(f"[kernel] arxiv graph planned as ELL ({plan}) in {time.perf_counter() - start:.2f} s "
+        f"({', '.join(f'{k} {v:.2f} s' for k, v in kernel.plan_seconds.items())}); node_perm "
+        f"{'set' if kernel.node_perm is not None else 'none'}; "
+        + "; ".join(f"{name}: {tables.num_rows} rows, {len(tables.shapes)} buckets, {tables.num_cells} cells, "
+                    f"stitch {'identity' if tables.inv_perm is None else 'a permutation'}"
+                    for name, tables in directions))
+    rows = []
+    for dtype_name in ("float32", "bfloat16"):
+        for F in K5_FS:
+            for name, tables in directions:
+                rows.append(k6_case(torch, tables, dtype_name, F, flush, seed=F + len(rows), what=name))
+    for row in rows:
+        log(
+            f"[kernel] {row['kernel']} {row['dtype']:>8} F={row['F']}: max_abs_err {row['max_abs_err']:.3e}, "
+            f"outputs that differ from the plain version's {row['differ_share']:.3e} | kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), gather floor {row['gather_floor_ms']:.4f} ms"
+        )
+    checks = []
+    # Relation-channelled rows and geometric widths without the reorder (L = 3).
+    rng = np.random.RandomState(12)
+    n, e = 4096, 40000
+    small = ell.ELLGraphKernel(rng.randint(0, n, e), rng.randint(0, n - 9, e), rng.randint(0, 3, e),
+                               (rng.rand(e) + 0.5).astype(np.float32), n, 3, plan_projected=True,
+                               width_quantum=4, bucket_growth=2, device="cuda")
+    for dtype_name in ("float32", "bfloat16"):
+        for name, tables in ell_directions(small.tables):
+            checks.append(k6_case(torch, tables, dtype_name, 256, flush, seed=3, what=f"{name} L=3", timed=False))
+    # K6 against K5 on the arxiv graph, one seed: K5 walks the graph as
+    # built, K6 the degree-reordered one, features placed through node_perm.
+    csr = csr_spmm.CSRGraphKernel(data.senders, data.receivers, data.relations, data.weights, N,
+                                  data.num_relations, device="cuda")
+    perm = torch.from_numpy(kernel.node_perm).cuda()
+    for dtype_name in ("float32", "bfloat16"):
+        V = torch.randn(N, NET_SIZE, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda")
+        V = V.to(getattr(torch, dtype_name))
+        placed = torch.empty_like(V)
+        placed[perm] = V
+        k5 = csr.neighbor_aggregate(V, 4242, RATE)
+        k6 = kernel.neighbor_aggregate(placed, 4242, RATE)[perm]
+        err = check_close(torch, k6, k5, dtype_name, f"K6 against K5 ({dtype_name})", SPARSE_TOL[dtype_name])
+        checks.append({"kernel": "K6 against K5 arxiv", "dtype": dtype_name, "max_abs_err": err,
+                       "differ_share": float((k6 != k5).float().mean())})
+        checks.append({"kernel": "K6 keep set = K5's", "dtype": dtype_name, "kept_share": k6_k5_keep_sets(torch, dtype_name)})
+    for row in checks:
+        log(f"[kernel] {row}")
+    log("[kernel] K6 keep set = K5 keep set exactly (V = I, degree-reordered, f32 and bf16); K6 forward = K5 "
+        "forward within one bf16 rounding on the arxiv graph")
+    return rows, checks
+
+
+def k6_k5_keep_sets(torch, dtype_name: str) -> float:
+    """V = I: K6 on the degree-reordered graph keeps exactly K5's edges on
+    the graph as built, row-permuted by node_perm. Unique edges, N = 512."""
+    import numpy as np
+
+    from grl_torch.config import load_config
+    from grl_torch.ops import csr_spmm, ell
+
+    N, E, seed = 512, 6000, 2025
+    rng = np.random.RandomState(6)
+    receivers, senders = np.divmod(rng.choice(N * N, E, replace=False), N)
+    edges = (senders, receivers, np.zeros(E, np.int64), np.ones(E, np.float32))
+    k6 = ell.ELLGraphKernel(*edges, N, 1, device="cuda", **dict(load_config(FULL_GRAPH_YAML)["kernel_plan"]))
+    k5 = csr_spmm.CSRGraphKernel(*edges, N, 1, device="cuda")
+    require(k6.node_perm is not None, "the keep-set graph was not reordered")
+    eye = torch.eye(N, device="cuda", dtype=getattr(torch, dtype_name))
+    perm = torch.from_numpy(k6.node_perm).cuda()
+    seen6 = (k6.neighbor_aggregate(eye, seed, RATE) != 0)[perm][:, perm]
+    seen5 = k5.neighbor_aggregate(eye, seed, RATE) != 0
+    torch.cuda.synchronize()
+    require(torch.equal(seen6, seen5), f"K6's keep set differs from K5's ({dtype_name})")
+    return float(seen5.sum()) / E
+
+
 def phase_kernel(torch):
     # 256 MiB, five times the H100's 50 MB L2, zeroed before each timed call.
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -659,8 +837,10 @@ def phase_kernel(torch):
         f"(f32, need within 1e-5 of the sum); K1 at keep 1 = K3 bit for bit; rate 0 launches K3"
     )
     sparse_rows, sparse_checks = sparse_kernel_cases(torch, flush)
+    ell_rows, ell_checks = ell_kernel_cases(torch, flush)
     del flush
-    return results + sparse_rows, {"kept_share": shares, **invariants, "sparse": sparse_checks}
+    return results + sparse_rows + ell_rows, {"kept_share": shares, **invariants, "sparse": sparse_checks,
+                                              "ell": ell_checks}
 
 
 # ---------------------------------------------------------------------------
@@ -1271,25 +1451,50 @@ def phase_train(torch, card: str):
 
 
 # ---------------------------------------------------------------------------
-# full_graph
+# full_graph and ell
 # ---------------------------------------------------------------------------
 def sparse_counts():
-    from grl_torch.ops import csr_spmm, relagg, sparse_attention
+    from grl_torch.ops import csr_spmm, ell, relagg, sparse_attention
 
     return {
         "K5 forward": csr_spmm.csr_accumulate.launches["forward"],
         "K5 backward": csr_spmm.csr_accumulate.launches["backward"],
         "K4": sparse_attention.attend_forward.launches,
+        **{f"K6 {direction}": ell.ell_accumulate.launches[direction] for direction in ell.DIRECTIONS},
         **counts(relagg),
     }
 
 
 def reset_sparse_counts() -> None:
-    from grl_torch.ops import csr_spmm, relagg, sparse_attention
+    from grl_torch.ops import csr_spmm, ell, relagg, sparse_attention
 
     csr_spmm.csr_accumulate.launches.update(forward=0, backward=0)
     sparse_attention.attend_forward.launches = 0
+    ell.ell_accumulate.launches.update(dict.fromkeys(ell.DIRECTIONS, 0))
     reset_counts(relagg)
+
+
+def expected_launches(trainer, steps: int, evals: int):
+    """The kernel launches of ``steps`` train steps and ``evals`` eval
+    forwards of ``trainer``'s model on its planned graph: a forward runs
+    three GraphConvs (gcn3 through the projected tables where the kernel
+    planned them) and K4 when the graph carries it; the backward takes
+    each GraphConv's input gradient (gcn1's too: emb1 is trained)."""
+    from grl_torch.ops.ell import ELLGraphKernel
+
+    expected = dict.fromkeys(sparse_counts(), 0)
+    graph = trainer.graph
+    forwards = steps + evals
+    if isinstance(graph.kernel, ELLGraphKernel):
+        plain_convs = 2 if graph.kernel.tables.proj is not None else 3
+        expected.update({"K6 forward": plain_convs * forwards, "K6 backward": plain_convs * steps,
+                         "K6 projected forward": (3 - plain_convs) * forwards,
+                         "K6 projected backward": (3 - plain_convs) * steps})
+    elif graph.kernel is not None:
+        expected.update({"K5 forward": 3 * forwards, "K5 backward": 3 * steps})
+    if graph.atten_kernel is not None:
+        expected["K4"] = forwards
+    return expected
 
 
 class swapped:
@@ -1310,25 +1515,28 @@ class swapped:
 
 
 def plain_sparse():
-    """The K5 and K4 launchers swapped for their plain versions."""
-    from grl_torch.ops import csr_spmm, sparse_attention
+    """The K5, K4 and K6 launchers swapped for their plain versions."""
+    from grl_torch.ops import csr_spmm, ell, sparse_attention
 
     return swapped((csr_spmm, "csr_accumulate", csr_spmm.csr_accumulate_reference),
-                   (sparse_attention, "attend_forward", sparse_attention.attend_reference))
+                   (sparse_attention, "attend_forward", sparse_attention.attend_reference),
+                   (ell, "ell_accumulate", ell.ell_accumulate_reference))
 
 
-def faulty_k5(seed_shift: int = 0, rate=None):
-    """K5 (or, on CPU tensors, its plain version) with its mask drawn from
-    another seed or at another rate: a fault the step limits must catch."""
-    from grl_torch.ops import csr_spmm
+def faulty(kernel: str, seed_shift: int = 0, rate=None):
+    """K5 or K6 (or, on CPU tensors, its plain version) with its mask drawn
+    from another seed or at another rate: a fault the step limits must
+    catch."""
+    from grl_torch.ops import csr_spmm, ell
 
-    launch = csr_spmm.csr_accumulate
+    module, name = {"K5": (csr_spmm, "csr_accumulate"), "K6": (ell, "ell_accumulate")}[kernel]
+    launch = getattr(module, name)
 
-    def wrong(X, layout, seed=0, rate_=0.0):
-        return launch(X, layout, seed + seed_shift, rate_ if rate is None else rate)
+    def wrong(X, tables, seed=0, rate_=0.0):
+        return launch(X, tables, seed + seed_shift, rate_ if rate is None else rate)
 
-    wrong.launches = launch.launches  # K5 counts its launches through the module's name
-    return swapped((csr_spmm, "csr_accumulate", wrong))
+    wrong.launches = launch.launches  # the launcher counts through the module's name
+    return swapped((module, name, wrong))
 
 
 @contextlib.contextmanager
@@ -1365,7 +1573,7 @@ def two_full_graph_steps(torch, trainer, start, dtype_name: str, lr: float, swap
     """Two full-graph train steps from the weights ``start`` at ``lr``,
     dropout 0 and DropEdge 0.3, masks from generators seeded 7, inside
     ``swap`` if given: losses, parameters before the first step and after
-    each, each step's clipped gradients, and the K5/K4 launches."""
+    each, each step's clipped gradients, and the sparse kernels' launches."""
     proc = procedure_copy(torch, trainer, 7, lr, compute_dtype=dtype_name,
                           dropout_rate=0.0, edge_dropout_rate=RATE)
     proc.model.load_state_dict(start)
@@ -1376,21 +1584,23 @@ def two_full_graph_steps(torch, trainer, start, dtype_name: str, lr: float, swap
             losses.append(float(proc.train_step()))
             snapshots.append(params_of(proc.model))
             grads.append({n: p.grad.float().clone() for n, p in proc.model.named_parameters()})
-    launched = {k: sparse_counts()[k] - before[k] for k in ("K5 forward", "K5 backward", "K4")}
-    # The gradients reach through K4's and K5's backward to emb1.
+    launched = {k: v - before[k] for k, v in sparse_counts().items()}
+    # The gradients reach through the kernels' backward to emb1 (and K4's).
     for name in ("trunk.emb1.linear.weight", "trunk.gcn1.h_weights", "trunk.self_atten.f.linear.weight"):
-        require(bool((grads[0][name] != 0).any()), f"{name} got no gradient")
+        require(name not in grads[0] or bool((grads[0][name] != 0).any()), f"{name} got no gradient")
     return losses, snapshots, grads, launched
 
 
 # Runs of the full-graph comparison: each is two steps, on the kernels or
-# their plain versions, or with a fault planted in K5.
+# their plain versions, or with a fault planted in K5 or K6.
 FULL_GRAPH_RUNS = {
     "kernel": lambda: None,
     "plain": plain_sparse,
     "plain again": plain_sparse,
-    "K5 seed+1": lambda: faulty_k5(seed_shift=1),
-    "K5 rate 0.25": lambda: faulty_k5(rate=0.25),
+    "K5 seed+1": lambda: faulty("K5", seed_shift=1),
+    "K5 rate 0.25": lambda: faulty("K5", rate=0.25),
+    "K6 seed+1": lambda: faulty("K6", seed_shift=1),
+    "K6 rate 0.25": lambda: faulty("K6", rate=0.25),
 }
 # (start, deterministic, run, reference run, what the run must do against
 # the reference under FULL_GRAPH_STEP_LIMITS: "hold", "fail" or None, read
@@ -1409,12 +1619,21 @@ FULL_GRAPH_PAIRS = [
     ("learned", True, "K5 seed+1", "plain", "fail"),
     ("learned", True, "K5 rate 0.25", "plain", "fail"),
 ]
+# The ell phase holds K6 the same way: from the learned weights in
+# deterministic mode, where the plain path reproduces itself.
+ELL_PAIRS = [
+    ("learned", True, "plain again", "plain", None),
+    ("learned", True, "kernel", "plain", "hold"),
+    ("learned", True, "K6 seed+1", "plain", "fail"),
+    ("learned", True, "K6 rate 0.25", "plain", "fail"),
+]
 
 
-def full_graph_comparisons(torch, trainer, starts, dtype_names=("float32", "bfloat16")):
-    """Every pair of FULL_GRAPH_PAIRS in each dtype, from ``starts``
-    (name -> (weights, lr)): the ``compare_steps`` rows of each pair and
-    the failures of the pairs whose verdict is not what they must do."""
+def full_graph_comparisons(torch, trainer, starts, dtype_names=("float32", "bfloat16"), pairs=FULL_GRAPH_PAIRS,
+                           tag: str = "full_graph"):
+    """Every pair of ``pairs`` in each dtype, from ``starts`` (name ->
+    (weights, lr)): the ``compare_steps`` rows of each pair and the failures
+    of the pairs whose verdict is not what they must do."""
     results, failures = [], []
     for dtype_name in dtype_names:
         runs = {}
@@ -1427,13 +1646,13 @@ def full_graph_comparisons(torch, trainer, starts, dtype_names=("float32", "bflo
                     runs[key] = two_full_graph_steps(torch, trainer, weights, dtype_name, lr,
                                                      FULL_GRAPH_RUNS[name]())
                 on_card = trainer.device.type == "cuda" and not name.startswith("plain")
-                expected = {"K5 forward": 6, "K5 backward": 6, "K4": 2} if on_card else dict.fromkeys(
-                    ("K5 forward", "K5 backward", "K4"), 0)
+                expected = (expected_launches(trainer, 2, 0) if on_card
+                            else dict.fromkeys(sparse_counts(), 0))
                 require(runs[key][3] == expected, f"{name} full-graph steps launched {runs[key][3]}, "
                         f"expected {expected}")
             return runs[key]
 
-        for start, det, name, reference, must in FULL_GRAPH_PAIRS:
+        for start, det, name, reference, must in pairs:
             lr = starts[start][1]
             rows = compare_steps(run(start, det, name), run(start, det, reference), lr)
             failed = step_failures(rows, FULL_GRAPH_STEP_LIMITS[dtype_name])
@@ -1442,26 +1661,38 @@ def full_graph_comparisons(torch, trainer, starts, dtype_names=("float32", "bflo
                             "dtype": dtype_name, "lr": lr, "must": must, "verdict": verdict, "rows": rows})
             for k, (row, limit) in enumerate(zip(rows, FULL_GRAPH_STEP_LIMITS[dtype_name])):
                 log(
-                    f"[full_graph] {name} vs {reference}, {dtype_name}, from {start} weights at lr {lr}, "
+                    f"[{tag}] {name} vs {reference}, {dtype_name}, from {start} weights at lr {lr}, "
                     f"deterministic {det}, step {k + 1}: loss rel {row['loss_rel_diff']:.2e} (limit {limit[0]}); "
                     f"params max diff {row['param_max_diff']:.3e} = {row['param_max_diff_of_scale']:.2e} of scale "
                     f"{row['param_scale']:.3f}; moved share beyond lr/10 {row['moved_share_beyond_lr_10']:.2e} "
                     f"of {row['moved']} (limit {limit[2]}); gradient rel diff {row['grad_rel_diff']:.2e} "
                     f"(limit {limit[3]})"
                 )
-            log(f"[full_graph] {name} vs {reference}, {dtype_name}, {start}, deterministic {det}: "
+            log(f"[{tag}] {name} vs {reference}, {dtype_name}, {start}, deterministic {det}: "
                 f"{verdict}s the limits" + ("" if must is None else f" (must {must})"))
             if must is not None and verdict != must:
-                failures.append(f"full graph {name} vs {reference} ({dtype_name}, {start}, deterministic "
+                failures.append(f"{tag} {name} vs {reference} ({dtype_name}, {start}, deterministic "
                                 f"{det}) must {must} the limits: {rows}")
     return results, failures
 
 
-def phase_full_graph(torch, card: str):
+def ell_config(tmp: str):
+    """configs/arxiv_full_graph.yaml as written, 20 steps for its 200, its
+    outputs under ``tmp``."""
+    from grl_torch.config import load_config
+
+    config = load_config(FULL_GRAPH_YAML)
+    config["num_epochs"] = FULL_GRAPH_STEPS
+    config["output_dir"] = os.path.join(tmp, "out")
+    return config
+
+
+def train_sparse_path(torch, card: str, tag: str, config, pairs):
+    """``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on ``config``:
+    the main path with its launch counts, then a step timed on the card, a
+    traced window, the learning check and the kernel-versus-plain pairs."""
     import grl_torch
 
-    tmp = tempfile.mkdtemp(prefix="grl_torch_full_graph_")
-    config = full_graph_config(tmp)
     start = time.perf_counter()
     warper = grl_torch.GNNLearningWarper(config=config)
     setup_s = time.perf_counter() - start
@@ -1470,13 +1701,19 @@ def phase_full_graph(torch, card: str):
     N, E = graph.num_nodes, graph.num_edges()
     args = config["model"]["args"]
     require(type(trainer).__name__ == "FullGraphProcedure", f"the warper built {type(trainer).__name__}")
-    require(graph.kernel is not None and graph.atten_kernel is not None, "the graph has no planned kernels")
+    require(graph.kernel is not None, "the graph has no planned kernel")
+    require(not args.get("use_attention", True) or graph.atten_kernel is not None, "no attention kernel")
     log(
-        f"[full_graph] configs/arxiv_full_graph.yaml: {N} nodes, {E} edges, L={graph.num_relations}, "
+        f"[{tag}] configs/arxiv_full_graph.yaml: {N} nodes, {E} edges, L={graph.num_relations}, "
         f"input_dim {args['input_dim']}, net_size {args['net_size']}, output_dim {args['output_dim']}, "
-        f"{args['compute_dtype']}, kernel_impl={args['kernel_impl']}, attention_impl={args['attention_impl']}, "
-        f"{FULL_GRAPH_STEPS} steps (scan_steps {config['scan_steps']}); graph built and planned in {setup_s:.2f} s"
+        f"{args['compute_dtype']}, kernel_impl={args['kernel_impl']}, use_attention={args.get('use_attention')}, "
+        f"kernel_plan {dict(config.get('kernel_plan') or {})}, {FULL_GRAPH_STEPS} steps (scan_steps "
+        f"{config['scan_steps']}); graph built and planned in {setup_s:.2f} s"
     )
+    plan_seconds = getattr(graph.kernel, "plan_seconds", None)
+    if plan_seconds:
+        log(f"[{tag}] planning seconds of the tables: {plan_seconds}; node_perm "
+            f"{'set' if getattr(graph.kernel, 'node_perm', None) is not None else 'none'}")
     initial = params_of(warper.model)
     init_state = {k: v.detach().clone() for k, v in warper.model.state_dict().items()}
 
@@ -1489,21 +1726,19 @@ def phase_full_graph(torch, card: str):
     wall = time.perf_counter() - start
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launched = sparse_counts()
-    expected = {
-        "K5 forward": 3 * (FULL_GRAPH_STEPS + FULL_GRAPH_EVALS), "K5 backward": 3 * FULL_GRAPH_STEPS,
-        "K4": FULL_GRAPH_STEPS + FULL_GRAPH_EVALS, "K1": 0, "K2": 0, "K3": 0,
-    }
-    require(launched == expected, f"full-graph path launched {launched}, expected {expected}")
+    expected = expected_launches(trainer, FULL_GRAPH_STEPS, FULL_GRAPH_EVALS)
+    require(launched == expected, f"{tag} path launched {launched}, expected {expected}")
     losses = [float(loss) for loss in trainer.losses]
     require(len(losses) == FULL_GRAPH_STEPS and all(math.isfinite(v) for v in losses), f"losses {losses}")
     changed = sum(not torch.equal(initial[n], p) for n, p in params_of(warper.model).items())
     require(changed == len(initial), f"only {changed} of {len(initial)} parameter tensors changed")
     log(
-        f"[full_graph] {card}: {FULL_GRAPH_STEPS} steps + {FULL_GRAPH_EVALS} evals in {wall:.3f} s: "
-        f"{FULL_GRAPH_STEPS / wall:.3f} steps/s, {E * FULL_GRAPH_STEPS / wall:.4e} edges/s; launches {launched}; "
-        f"peak device memory {peak_gb:.2f} GB; best val acc {best_acc:.4f}"
+        f"[{tag}] {card}: {FULL_GRAPH_STEPS} steps + {FULL_GRAPH_EVALS} evals in {wall:.3f} s: "
+        f"{FULL_GRAPH_STEPS / wall:.3f} steps/s, {E * FULL_GRAPH_STEPS / wall:.4e} edges/s; launches "
+        f"{ {k: v for k, v in launched.items() if v} } (every other kernel 0); peak device memory "
+        f"{peak_gb:.2f} GB; best val acc {best_acc:.4f}"
     )
-    log(f"[full_graph] losses {[round(v, 4) for v in losses]}")
+    log(f"[{tag}] losses {[round(v, 4) for v in losses]}")
 
     # One train step timed on the card, back to back.
     for _ in range(3):
@@ -1522,7 +1757,7 @@ def phase_full_graph(torch, card: str):
     # Device idle share and time by kernel of a traced window.
     from torch.profiler import ProfilerActivity, profile
 
-    trace = os.path.join(tmp, "full_graph_trace.json")
+    trace = os.path.join(config["output_dir"], f"{tag}_trace.json")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(FULL_GRAPH_TRACED_STEPS):
             trainer.train_step()
@@ -1535,13 +1770,13 @@ def phase_full_graph(torch, card: str):
         key=lambda item: -item[1],
     )[:12]
     log(
-        f"[full_graph] {card}: one train step {step_ms:.3f} ms on the card (CUDA events, mean of "
+        f"[{tag}] {card}: one train step {step_ms:.3f} ms on the card (CUDA events, mean of "
         f"{FULL_GRAPH_TIMED_STEPS} back to back; {host_ms:.3f} ms host wall); {E / (step_ms / 1e3):.4e} edges/s; "
         f"traced {FULL_GRAPH_TRACED_STEPS} steps: device busy {busy_ms:.3f} ms of {window_ms:.3f} ms, idle share "
         + ("not measured (no device events in the trace)" if idle is None else f"{idle:.4f}")
     )
     for name, ms, count in by_kernel:
-        log(f"[full_graph]   {ms:8.3f} ms a step in {count:3d} launches: {name[:110]}")
+        log(f"[{tag}]   {ms:8.3f} ms a step in {count:3d} launches: {name[:110]}")
 
     # Learning check: the config's 200 steps, at lr 1e-3.
     learner = procedure_copy(torch, trainer, int(config["seed"]), FULL_GRAPH_LEARN_LR)
@@ -1549,31 +1784,100 @@ def phase_full_graph(torch, card: str):
         learn_loss = learner.train_step()
     learn_acc = float(learner.eval_step(learner.val_labels))
     log(
-        f"[full_graph] learning check, the config's {FULL_GRAPH_LEARN_STEPS} steps from the same initial weights "
+        f"[{tag}] learning check, the config's {FULL_GRAPH_LEARN_STEPS} steps from the same initial weights "
         f"at lr {FULL_GRAPH_LEARN_LR}: "
         f"loss {float(learn_loss):.4f}, validation accuracy {learn_acc:.4f} (need > {FULL_GRAPH_LEARN_ACC}; "
         f"chance {1 / int(args['output_dim']):.4f})"
     )
 
-    # Kernel path against plain path, two full-width steps in each dtype
-    # (FULL_GRAPH_PAIRS).
+    # Kernel path against plain path, two full-width steps in each dtype.
     starts = {
         "init": (init_state, float(config["optimizer"]["args"]["lr"])),
         "learned": ({k: v.detach().clone() for k, v in learner.model.state_dict().items()},
                     FULL_GRAPH_LEARN_LR),
     }
     del learner
-    comparison, failures = full_graph_comparisons(torch, trainer, starts)
-    require(learn_acc > FULL_GRAPH_LEARN_ACC, f"full-graph learning check failed: accuracy {learn_acc}")
+    comparison, failures = full_graph_comparisons(torch, trainer, starts, pairs=pairs, tag=tag)
+    require(learn_acc > FULL_GRAPH_LEARN_ACC, f"{tag} learning check failed: accuracy {learn_acc}")
     require(not failures, "; ".join(failures))
     return {
         "nodes": N, "edges": E, "steps": FULL_GRAPH_STEPS, "evals": FULL_GRAPH_EVALS, "setup_s": setup_s,
+        "plan_seconds": plan_seconds,
         "wall_s": wall, "steps_per_s": FULL_GRAPH_STEPS / wall, "edges_per_s": E * FULL_GRAPH_STEPS / wall,
         "launches": launched, "losses": losses, "best_val_acc": best_acc, "peak_memory_gb": peak_gb,
         "step_ms": step_ms, "step_host_ms": host_ms, "idle_share": idle, "traced_busy_ms": busy_ms,
         "traced_window_ms": window_ms, "device_ms_by_kernel": by_kernel, "kernel_vs_plain": comparison,
         "learning_steps": FULL_GRAPH_LEARN_STEPS, "learning_val_acc": learn_acc,
     }
+
+
+def phase_full_graph(torch, card: str):
+    """The arxiv config with kernel_impl pallas_csr and sparse attention (K5, K4)."""
+    return train_sparse_path(torch, card, "full_graph", full_graph_config(tempfile.mkdtemp(prefix="grl_torch_fg_")),
+                             FULL_GRAPH_PAIRS)
+
+
+def phase_ell(torch, card: str):
+    """The arxiv config as written: kernel_impl ell with its kernel_plan (K6)."""
+    config = ell_config(tempfile.mkdtemp(prefix="grl_torch_ell_"))
+    args = config["model"]["args"]
+    require(args["kernel_impl"] == "ell" and not args["use_attention"] and config["kernel_plan"]["plan_projected"],
+            f"configs/arxiv_full_graph.yaml is not the file this phase expects: {args}")
+    return train_sparse_path(torch, card, "ell", config, ELL_PAIRS)
+
+
+# ---------------------------------------------------------------------------
+# gather_probe
+# ---------------------------------------------------------------------------
+def phase_gather_probe(torch, card: str, kernel_rows):
+    """``grl_torch.probes.gather`` at full size (path B): the probe's
+    measurement is the main path; its kernels are then held against their
+    plain versions. Prints each probe's M rows/s and GB/s beside the HBM
+    peak, and the measured gather floor of K5, K6 (the A rate at 512-byte
+    rows) and K4 (the C rate at its 256-byte h rows)."""
+    from grl_torch.probes import gather
+
+    start = time.perf_counter()
+    inputs = gather.make_inputs("cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    # The main path: every launch count starts at 0 here.
+    gather.reset_launches()
+    record = gather.measure(inputs)
+    torch.cuda.synchronize()
+    launches = {name: kernel.launches for name, kernel in gather.KERNELS.items()}
+    require(all(launches.values()), f"the probe launched {launches}")
+    errors = gather.check_kernels(inputs)
+    for key, err in errors.items():
+        record["kernels"][key]["max_abs_err"] = err
+    peak_rows = record["hbm_peak_rows_per_s_f32"]
+    log(f"[gather_probe] {card}: inputs made in {setup_s:.2f} s; shapes {record['shapes']}; HBM peak "
+        f"{peak_rows} M rows/s of 512 B ({HBM_BYTES_PER_S / 1e9:.0f} GB/s); launches {launches}")
+    for name, rate in record["results"].items():
+        log(f"[gather_probe] {name}: {rate} M rows/s, {record['gb_per_s'][name]} GB/s "
+            f"({record['gb_per_s'][name] * 1e9 / HBM_BYTES_PER_S:.3f} of the HBM peak)")
+    for key, row in record["kernels"].items():
+        log(f"[gather_probe] P-{key}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err {row['max_abs_err']:.3e}")
+    log("[gather_probe] E1, E2, F = plain versions exactly; G within 1e-5 of the largest sum")
+    a_rate = record["results"]["A_index_select_random_f32"] * 1e6
+    c_rate = record["results"]["C_index_select_random_bf16"] * 1e6
+    floors = {}
+    for row in kernel_rows:
+        if row["dtype"] != "bfloat16" or "ms" not in row or not row["kernel"].startswith(("K4", "K5", "K6")):
+            continue
+        if row["kernel"].startswith("K4"):
+            floor_ms = row["edges"] / c_rate * 1e3
+        elif row["F"] == NET_SIZE:  # 512-byte bf16 rows, as A's float32 ones
+            floor_ms = row["kept_edges"] / a_rate * 1e3
+        else:
+            continue
+        floors[row["kernel"]] = {"measured_gather_floor_ms": floor_ms, "kernel_ms": row["ms"]}
+        log(f"[gather_probe] measured gather floor of {row['kernel']} bf16: {floor_ms:.4f} ms "
+            f"({'E / C' if row['kernel'].startswith('K4') else 'kept edges / A'} rate) against the kernel's "
+            f"{row['ms']:.4f} ms and the HBM-peak estimate {row['gather_floor_ms']:.4f} ms")
+    record.update(setup_s=setup_s, launches=launches, measured_gather_floors=floors)
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -1597,16 +1901,33 @@ def main() -> int:
 
     # The record of every phase that finished is written even when a later
     # one fails.
-    record = {}
+    record = {"phase_seconds": {}}
+    clock = [time.perf_counter()]
+
+    def timed(name):
+        now = time.perf_counter()
+        record["phase_seconds"][name] = now - clock[0]
+        clock[0] = now
+
     try:
         record["card"] = card = phase_env(torch)
+        timed("env")
         kernel_rows, kernel_checks = phase_kernel(torch)
         record.update(kernel_cases=kernel_rows, kernel_checks=kernel_checks)
+        timed("kernel")
         record["serve"] = serve = phase_serve(torch)
+        timed("serve")
         record["train"] = train = phase_train(torch, card)
+        timed("train")
         record["full_graph"] = full_graph = phase_full_graph(torch, card)
+        timed("full_graph")
+        record["ell"] = ell_path = phase_ell(torch, card)
+        timed("ell")
+        record["gather_probe"] = probe = phase_gather_probe(torch, card, kernel_rows)
+        timed("gather_probe")
     finally:
         write_record(record)
+    log(f"[done] seconds by phase: { {k: round(v, 1) for k, v in record['phase_seconds'].items()} }")
 
     def main_row(kernel, **shape):
         return next(r for r in kernel_rows
@@ -1614,32 +1935,51 @@ def main() -> int:
                     and all(r.get(k) == v for k, v in shape.items()))
 
     dense = {"N": 256, "F": NET_SIZE, "density": SPARSE_DENSITY}
-    fg = full_graph["launches"]
+    fg, el = full_graph["launches"], ell_path["launches"]
     sources = {
         "K3": ("K3 relational neighbor aggregation", "grl_torch/csrc/relagg.cu",
                "grl_tpu/ops/pallas/relagg.py:99 _agg_forward (pallas_neighbor_aggregate)",
-               {"serve": serve["k3_launches"], "train": train["launches"]["K3"], "full_graph": fg["K3"]},
+               {"serve": serve["k3_launches"], "train": train["launches"]["K3"], "full_graph": fg["K3"],
+                "ell": el["K3"]},
                main_row("K3", **dense), "bf16 B=8 N=256 L=6 F=256"),
         "K1": ("K1 DropEdge neighbor aggregation (forward)", "grl_torch/csrc/relagg.cu",
                "grl_tpu/ops/pallas/relagg.py:220 _dropedge_forward (pallas_dropedge_aggregate)",
-               {"train": train["launches"]["K1"], "full_graph": fg["K1"]},
+               {"train": train["launches"]["K1"], "full_graph": fg["K1"], "ell": el["K1"]},
                main_row("K1", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
         "K2": ("K2 DropEdge neighbor aggregation (backward, dV)", "grl_torch/csrc/relagg.cu",
                "grl_tpu/ops/pallas/relagg.py:284 _dropedge_bwd",
-               {"train": train["launches"]["K2"], "full_graph": fg["K2"]},
+               {"train": train["launches"]["K2"], "full_graph": fg["K2"], "ell": el["K2"]},
                main_row("K2", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
         "K5 forward": ("K5 CSR relational aggregation with DropEdge (forward)", "grl_torch/csrc/csr_spmm.cu",
                        "grl_tpu/ops/pallas/csr_spmm.py:300 csr_accumulate",
-                       {"full_graph": fg["K5 forward"]}, main_row("K5 forward", F=NET_SIZE),
+                       {"full_graph": fg["K5 forward"], "ell": el["K5 forward"]}, main_row("K5 forward", F=NET_SIZE),
                        "bf16 N=169343 E=1184773 L=1 F=256 rate=0.3"),
         "K5 backward": ("K5 CSR relational aggregation with DropEdge (backward, transposed layout)",
                         "grl_torch/csrc/csr_spmm.cu", "grl_tpu/ops/pallas/csr_spmm.py:300 csr_accumulate",
-                        {"full_graph": fg["K5 backward"]}, main_row("K5 backward", F=NET_SIZE),
+                        {"full_graph": fg["K5 backward"], "ell": el["K5 backward"]}, main_row("K5 backward", F=NET_SIZE),
                         "bf16 N=169343 E=1184773 L=1 F=256 rate=0.3"),
         "K4": ("K4 fused sparse attention (SDDMM + softmax + SpMM)", "grl_torch/csrc/sparse_attention.cu",
                "grl_tpu/ops/pallas/sparse_attention.py:106 _bucket_forward_pallas",
-               {"full_graph": fg["K4"]}, main_row("K4 arxiv"), "bf16 N=169343 E=1184773 K=16 F=128"),
+               {"full_graph": fg["K4"], "ell": el["K4"]}, main_row("K4 arxiv"), "bf16 N=169343 E=1184773 K=16 F=128"),
     }
+    for direction in ("forward", "backward", "projected forward", "projected backward"):
+        sources[f"K6 {direction}"] = (
+            f"K6 ELL gather-table aggregation with DropEdge ({direction})", "grl_torch/csrc/ell.cu",
+            "grl_tpu/ops/ell.py:244-320 ell_aggregate / ell_aggregate_projected (XLA gathers; a hand kernel "
+            "for XLA code)", {"ell": el[f"K6 {direction}"], "full_graph": fg[f"K6 {direction}"]},
+            main_row(f"K6 {direction}", F=NET_SIZE),
+            f"bf16 N=169343 E=1184773 L=1 F=256 rate=0.3, the config's kernel_plan ({direction} tables)")
+    pallas_lines = {"E1": ":154 vmem_take_kernel", "E2": ":177 vmem_tala_kernel", "F": ":219 windowed_kernel",
+                    "G": ":285 dma_kernel"}
+    shapes = probe["shapes"]
+    for key, line in pallas_lines.items():
+        row = probe["kernels"][key]
+        sources[f"P-{key}"] = (
+            f"P-{key} gather-rate probe ({row['name']})", "grl_torch/csrc/gather_probe.cu",
+            f"scripts/probe_gather.py{line}", {"gather_probe": probe["launches"][key]},
+            row,
+            f"f32 F=128, {row['rows']} rows gathered, window {shapes['window_rows']} rows"
+            + (f", {shapes['G_blocks'][0]} blocks of {shapes['G_rows_per_block']} rows" if key == "G" else ""))
     kernels = []
     for name, source, replaces, by_path, row, shape in sources.values():
         kernels.append({

@@ -16,8 +16,9 @@ K1 with K2 as its backward in training
 (:func:`grl_torch.ops.relagg.dropedge_aggregate`); any other value runs the
 plain ``torch.matmul`` path with :func:`grl_torch.ops.relconv.drop_edge`,
 as ``grl_tpu`` runs XLA. On the sparse path the graph carries its planned
-kernel (:func:`grl_torch.ops.kernels.attach_kernel`: K5 for
-``"pallas_csr"``), and ``"xla"`` runs the COO segment sum.
+kernel (:func:`grl_torch.ops.kernels.attach_kernel`: K6 for ``"ell"`` and
+``"pallas"``, K5 for ``"pallas_csr"``), and ``"xla"`` runs the COO
+segment sum.
 ``attention_impl: sparse`` runs the edge-restricted attention on a sparse
 graph (K4 when the graph carries a planned ``atten_kernel``).
 """

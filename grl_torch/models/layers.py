@@ -15,7 +15,7 @@ dropout and DropEdge mask; nothing reads PyTorch's global generator.
 
 The adjacency is a dense ``(B, N, L, N)`` tensor or a sparse
 :class:`~grl_torch.ops.sparse.RelationalGraph` with flat ``(num_nodes, F)``
-features; a graph with a planned K5 kernel
+features; a graph with a planned K5 or K6 kernel
 (:class:`~grl_torch.ops.kernels.KernelAdjacency`) aggregates through it.
 """
 from __future__ import annotations
@@ -143,8 +143,9 @@ class GraphConv(nn.Module):
     Projects ``[self | rel_0 | ... | rel_{L-1}]`` with one weight
     ``h_weights ((L+1)F, C)`` split as ``w_self = h[:F]`` and
     ``w_neigh = h[F:]``; the relation-major neighbor term ``(B, N, L*F)``
-    meets ``w_neigh``'s rows in that order. Dense branch and the
-    ``precomputed_neigh`` branch (the kernel path) only.
+    meets ``w_neigh``'s rows in that order. Dense, ``precomputed_neigh``
+    (K3/K1) and sparse branches; on a graph whose kernel planned projected
+    tables (ELL's ``plan_projected``), a width-reducing conv projects first.
     """
 
     def __init__(self, in_features: int, features: int, num_relations: int,
@@ -152,6 +153,8 @@ class GraphConv(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
+        self.features = features
+        self.num_relations = num_relations
         fan_in, fan_out = in_features * (num_relations + 1), features
         std = (2.0 / (fan_in + fan_out)) ** 0.5  # xavier-normal (layers.py:43-47)
         self.h_weights = nn.Parameter(_normal((fan_in, fan_out), generator) * std)
@@ -177,9 +180,22 @@ class GraphConv(nn.Module):
             neigh = neigh.reshape(*neigh.shape[:-2], -1)
         else:
             if has_kernel(A):
-                # K5: DropEdge is fused in the kernel by the per-edge hash,
-                # so EdgeDropout hands over (seed, rate).
+                # K5/K6: DropEdge is fused in the kernel by the per-edge
+                # hash, so EdgeDropout hands over (seed, rate).
                 seed, rate = (0, 0.0) if edge_keep is None else edge_keep
+                if getattr(getattr(A.kernel, "tables", None), "proj", None) is not None \
+                        and F_in > self.features:
+                    # Project first (layers.py:126-158): sum_r A_r (V W_r)
+                    # gathers at the output width C instead of L*F_in.
+                    self_term = V if self_scale is None else V * self_scale[..., None]
+                    L = self.num_relations
+                    Wr = w_neigh.reshape(L, F_in, self.features)
+                    Vr = torch.einsum("nf,lfc->nlc", maybe_cast(V, self.dtype), Wr)
+                    neigh_term = A.kernel.neighbor_aggregate_projected(
+                        Vr.reshape(L * V.shape[0], self.features), seed, rate)
+                    out = (torch.matmul(maybe_cast(self_term, self.dtype), w_self)
+                           + maybe_cast(neigh_term, self.dtype))
+                    return self._add_bias(out)
                 neigh = A.kernel.neighbor_aggregate(V, seed, rate)
             elif is_sparse_adjacency(A):
                 neigh = relational_neighbor_coo(V, A, edge_keep)
@@ -189,6 +205,9 @@ class GraphConv(nn.Module):
         self_term = maybe_cast(self_term, self.dtype)
         neigh = maybe_cast(neigh, self.dtype)
         out = torch.matmul(self_term, w_self) + torch.matmul(neigh, w_neigh)
+        return self._add_bias(out)
+
+    def _add_bias(self, out: torch.Tensor) -> torch.Tensor:
         if self.bias is not None:
             out = out + maybe_cast(self.bias, self.dtype)
         return out

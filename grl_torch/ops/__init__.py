@@ -1,3 +1,10 @@
+from grl_torch.ops.ell import (
+    ELLGraphKernel,
+    ell_accumulate,
+    ell_accumulate_reference,
+    ell_aggregate,
+    ell_aggregate_projected,
+)
 from grl_torch.ops.relagg import (
     dropedge_aggregate,
     dropedge_aggregate_grad,
@@ -16,6 +23,11 @@ from grl_torch.ops.relconv import (
 )
 
 __all__ = [
+    "ELLGraphKernel",
+    "ell_accumulate",
+    "ell_accumulate_reference",
+    "ell_aggregate",
+    "ell_aggregate_projected",
     "dropedge_aggregate",
     "dropedge_aggregate_grad",
     "dropedge_aggregate_grad_reference",

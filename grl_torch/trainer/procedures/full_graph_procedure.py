@@ -4,9 +4,11 @@ Counterpart of ``grl_tpu/trainer/procedures/full_graph_procedure.py`` on
 one device: a single static COO graph, flat node features, masked
 full-batch cross-entropy. At construction the graph is planned once
 (:func:`grl_torch.ops.kernels.attach_kernel`): the model's ``kernel_impl``
-picks the aggregation kernel (``pallas_csr``: K5), and a model with
-``use_attention`` and ``attention_impl: sparse`` gets the fused attention
-(K4). A train step is forward → ``cross_entropy`` with -100 masking →
+picks the aggregation kernel (``ell``/``pallas``: K6, ``pallas_csr``: K5)
+with the config's ``kernel_plan``, and a model with ``use_attention`` and
+``attention_impl: sparse`` gets the fused attention (K4). Where the kernel
+reordered the nodes (``node_perm``), features and labels are placed in its
+order once. A train step is forward → ``cross_entropy`` with -100 masking →
 backward → global-norm clip → Adam, all enqueued without a host sync; an
 eval step is the masked accuracy on the validation nodes.
 
@@ -21,7 +23,7 @@ path) raises, naming slice 4.
 from __future__ import annotations
 
 import time
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +66,22 @@ def large_graph_from_config(config: ConfigDict) -> LargeGraphData:
     raise ValueError(f"Unknown large_graph type: {kind}")
 
 
+def scatter_node_arrays(
+    node_perm: np.ndarray, features: Optional[np.ndarray], labels: np.ndarray,
+    num_nodes_padded: int, label_pad: int = -100,
+) -> Tuple[Optional[np.ndarray], np.ndarray]:
+    """Row ``node_perm[i]`` holds original node ``i``; unassigned rows get
+    zero features and ignored labels (``sharded_flagship.py:52-69``).
+    ``features=None`` places the labels only."""
+    out_l = np.full(num_nodes_padded, label_pad, labels.dtype)
+    out_l[node_perm] = labels
+    if features is None:
+        return None, out_l
+    out_f = np.zeros((num_nodes_padded, features.shape[1]), features.dtype)
+    out_f[node_perm] = features
+    return out_f, out_l
+
+
 class FullGraphProcedure(BaseProcedure):
     """Train ``model`` on one LargeGraphData graph; returns the best
     validation accuracy. ``losses`` holds each train step's loss as a
@@ -91,9 +109,20 @@ class FullGraphProcedure(BaseProcedure):
                 **dict(self.config.get("kernel_plan", {}) or {}),
             )
         self.graph = graph
-        self.features = torch.from_numpy(np.asarray(features, np.float32)).to(self.device)
-        self.train_labels = torch.from_numpy(np.where(data.train_mask, labels, -100)).to(self.device)
-        self.val_labels = torch.from_numpy(np.where(data.val_mask, labels, -100)).to(self.device)
+        features = np.asarray(features, np.float32)
+        train_labels = np.where(data.train_mask, labels, -100)
+        val_labels = np.where(data.val_mask, labels, -100)
+        node_perm = getattr(getattr(graph, "kernel", None), "node_perm", None)
+        if node_perm is not None:
+            # The kernel reordered the node space at plan time (ELL's
+            # reorder: degree): place features and labels there once
+            # (full_graph_procedure.py:159-178); the masked accuracy is the
+            # same over the permuted label multiset.
+            features, train_labels = scatter_node_arrays(node_perm, features, train_labels, len(features))
+            _, val_labels = scatter_node_arrays(node_perm, None, val_labels, len(features))
+        self.features = torch.from_numpy(features).to(self.device)
+        self.train_labels = torch.from_numpy(train_labels).to(self.device)
+        self.val_labels = torch.from_numpy(val_labels).to(self.device)
         self._scan_k = max(1, int(self.config.get("scan_steps", 1)))
         self.losses: List[torch.Tensor] = []
 

@@ -1,4 +1,4 @@
-"""K1-K5 on the card: the CUDA kernels against their plain versions.
+"""K1-K6 and P on the card: the CUDA kernels against their plain versions.
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file
 imports neither JAX nor grl_tpu, so it runs on a machine without them,
@@ -13,7 +13,8 @@ import torch
 
 import numpy as np
 
-from grl_torch.ops import csr_spmm, hashing, relagg, sparse_attention
+from grl_torch.ops import csr_spmm, ell, hashing, relagg, sparse_attention
+from grl_torch.probes import gather
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +208,75 @@ def test_k4_gradients_are_the_plain_backward():
     (sparse_attention.attend_reference(*ref, kernel.plan) * w).sum().backward()
     for a, b in zip(args, ref):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-5 * float(b.grad.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# K6 (the ELL tables, configs/arxiv_full_graph.yaml's plan) and P.
+# ---------------------------------------------------------------------------
+CONFIG_PLAN = dict(plan_projected=True, width_quantum=2, bucket_growth=1, reorder="degree")
+
+
+def ell_graph(N, L, E, seed=0):
+    """Random edges with a hub of degree 300, 5 receivers with no edge and
+    20 masked-out edges."""
+    rng = np.random.RandomState(seed)
+    receivers = rng.randint(0, N - 5, E)
+    receivers[:300] = 7
+    edges = (rng.randint(0, N, E), receivers, rng.randint(0, L, E), (rng.rand(E) + 0.5).astype(np.float32))
+    edges[3][300:320] = 0.0
+    return ell.ELLGraphKernel(*edges, N, L, device="cuda", **CONFIG_PLAN)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L, F", [(1, 256), (1, 512), (3, 40), (2, 8)])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_k6_matches_plain_version(L, F, dtype, rate):
+    """All four directions: forward, backward, projected forward and
+    projected backward, each one launch."""
+    kernel = ell_graph(2000, L, 12000, seed=F + L)
+    launched = dict(ell.ell_accumulate.launches)
+    V = torch.randn(2000, F, device="cuda").to(dtype).requires_grad_()
+    out = kernel.neighbor_aggregate(V, 17, rate)
+    g = torch.randn_like(out)
+    (dV,) = torch.autograd.grad(out, V, g)
+    Vr = torch.randn(2000 * L, F, device="cuda").to(dtype).requires_grad_()
+    out_p = kernel.neighbor_aggregate_projected(Vr, 17, rate)
+    g_p = torch.randn_like(out_p)
+    (dVr,) = torch.autograd.grad(out_p, Vr, g_p)
+    torch.cuda.synchronize()
+    assert ell.ell_accumulate.launches == {k: v + 1 for k, v in launched.items()}
+    t = kernel.tables
+    assert_close_to_plain(out.view(-1, F), ell.ell_accumulate_reference(V.detach(), t.fwd, 17, rate))
+    assert_close_to_plain(dV, ell.ell_accumulate_reference(g.reshape(-1, F), t.bwd, 17, rate))
+    assert_close_to_plain(out_p, ell.ell_accumulate_reference(Vr.detach(), t.proj.fwd, 17, rate))
+    assert_close_to_plain(dVr, ell.ell_accumulate_reference(g_p, t.proj.bwd, 17, rate))
+    assert torch.all(out.view(2000, L, F)[kernel.node_perm[-5:] if kernel.node_perm is not None
+                                          else slice(-5, None)] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_keep_set_is_k5s(dtype):
+    """V = I: K6 (degree-reordered) keeps exactly K5's edges, row-permuted
+    by node_perm."""
+    N = 64
+    rng = np.random.RandomState(2)
+    cells = rng.choice(N * N, 1500, replace=False)
+    receivers, senders = np.divmod(cells, N)
+    edges = (senders, receivers, np.zeros(1500, np.int64), np.ones(1500, np.float32))
+    k6 = ell.ELLGraphKernel(*edges, N, 1, device="cuda", **CONFIG_PLAN)
+    k5 = csr_spmm.CSRGraphKernel(*edges, N, 1, device="cuda")
+    eye = torch.eye(N, device="cuda", dtype=dtype)
+    perm = torch.from_numpy(k6.node_perm).cuda()
+    seen6 = k6.neighbor_aggregate(eye, 99, 0.3) != 0
+    seen5 = k5.neighbor_aggregate(eye, 99, 0.3) != 0
+    assert torch.equal(seen6[perm][:, perm], seen5)
+
+
+def test_probe_kernels_match_plain_versions():
+    inputs = gather.make_inputs("cuda", quick=True)
+    before = {name: kernel.launches for name, kernel in gather.KERNELS.items()}
+    errors = gather.check_kernels(inputs)
+    torch.cuda.synchronize()
+    assert errors["E1"] == errors["E2"] == errors["F"] == 0.0
+    assert {name: kernel.launches - before[name] for name, kernel in gather.KERNELS.items()} == {
+        "E1": 1, "E2": 1, "F": 1, "G": 2}

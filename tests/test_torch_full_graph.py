@@ -250,9 +250,12 @@ def test_attach_kernel_refusals_and_the_missing_kernel_error():
     assert kernels.attach_kernel(graph, "xla") is graph
     only_atten = kernels.attach_kernel(graph, "xla", attention=True)
     assert only_atten.kernel is None and only_atten.atten_kernel is not None
-    for impl, item in (("ell", "K6"), ("pallas", "K6"), ("tile", "K7")):
-        with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
-            kernels.attach_kernel(graph, impl)
+    # ell and pallas plan K6, as grl_tpu plans its ELL tables; tile is K7.
+    for impl in ("ell", "pallas"):
+        assert type(kernels.attach_kernel(graph, impl).kernel).__name__ == "ELLGraphKernel"
+        assert type(jax_kernels.attach_kernel(jgraph, impl).kernel).__name__ == "ELLGraphKernel"
+    with pytest.raises(NotImplementedError, match="K7.*ROADMAP"):
+        kernels.attach_kernel(graph, "tile")
     with pytest.raises(ValueError, match="Unknown sparse kernel_impl"):
         kernels.attach_kernel(graph, "nope")
     with pytest.raises(TypeError):

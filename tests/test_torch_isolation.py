@@ -3,7 +3,8 @@
 Subprocesses block ``jax`` and ``grl_tpu`` (``sys.modules[name] = None``
 makes any import of them fail), then import grl_torch and serve one page,
 take one train step, or train the sparse flagship through
-FullGraphProcedure (K5, K4 and the sparse modules), on ``device="cpu"``.
+FullGraphProcedure (K5, K4 and the sparse modules; K6 with the arxiv
+config's plan, and the gather probe's checks), on ``device="cpu"``.
 A scan of the sources finds no import of either package in grl_torch/ or
 chip_smoke.py.
 """
@@ -120,6 +121,42 @@ TRAIN_FULL_GRAPH = textwrap.dedent(
 )
 
 
+TRAIN_ELL_AND_PROBE = textwrap.dedent(
+    """
+    import sys
+    for name in {blocked!r}:
+        sys.modules[name] = None
+    import grl_torch
+    from grl_torch.ops import ell
+    from grl_torch.probes import gather
+
+    config = {{
+        "seed": 0, "output_dir": {tmp!r}, "num_epochs": 3, "scan_steps": 2, "max_grad_norm": 5.0,
+        "model": {{"type": "GraphCNNDropEdge", "args": {{
+            "input_dim": 8, "output_dim": 3, "num_edges": 1, "net_size": 32, "kernel_impl": "ell",
+            "use_attention": False}}}},
+        "kernel_plan": {{"plan_projected": True, "width_quantum": 2, "bucket_growth": 1,
+                         "reorder": "degree"}},
+        "data_config": {{"large_graph": {{"type": "sbm", "args": {{
+            "num_nodes": 120, "num_classes": 3, "num_relations": 1, "avg_degree": 4,
+            "feature_dim": 8}}}}}},
+        "procedure": {{"type": "FullGraphProcedure", "args": {{}}}},
+        "logging": {{"use_tensorboard": False, "experiment_tracking": False}},
+    }}
+    warper = grl_torch.GNNLearningWarper(config=config, device="cpu")
+    acc = warper.train()
+    kernel = warper.trainer.graph.kernel
+    assert isinstance(kernel, ell.ELLGraphKernel) and kernel.node_perm is not None
+    assert kernel.tables.proj is not None and warper.trainer.state.step == 3
+    inputs = gather.make_inputs("cpu", quick=True)
+    assert all(err == 0 for err in gather.check_kernels(inputs).values())
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("ELL", acc)
+    """
+)
+
+
 def run_blocked(script: str, tmp_path) -> str:
     # One OpenMP thread: the suite's worker processes share the cores.
     env = {**os.environ, "OMP_NUM_THREADS": "1",
@@ -144,6 +181,12 @@ def test_trains_with_jax_and_grl_tpu_blocked(tmp_path):
 def test_full_graph_trains_with_jax_and_grl_tpu_blocked(tmp_path):
     """Three full-graph steps on the K5 + K4 path, DropEdge and dropout on."""
     assert "FULL GRAPH" in run_blocked(TRAIN_FULL_GRAPH, tmp_path)
+
+
+def test_ell_path_and_probe_run_with_jax_and_grl_tpu_blocked(tmp_path):
+    """Three full-graph steps on K6 with the arxiv config's kernel_plan
+    (project-first gcn3, the degree reorder), and the probe's checks."""
+    assert "ELL" in run_blocked(TRAIN_ELL_AND_PROBE, tmp_path)
 
 
 def imported_roots(path: Path):
@@ -188,8 +231,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 def test_wrapper_refuses_other_devices():
     """CPU tensors take the plain version; any other device either launches
     the kernel (CUDA) or raises, never falling back."""
-    from grl_torch.ops import csr_spmm, sparse_attention
+    from grl_torch.ops import csr_spmm, ell, sparse_attention
     from grl_torch.ops.relagg import neighbor_aggregate
+    from grl_torch.probes import gather
 
     V = torch.zeros(1, 4, 8, device="meta")
     A = torch.zeros(1, 4, 6, 4, device="meta")
@@ -201,3 +245,10 @@ def test_wrapper_refuses_other_devices():
     atten = sparse_attention.SparseAttentionKernel([0, 1], [1, 2], 4, device="cpu")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         atten.attend(*[torch.zeros(4, d, device="meta") for d in (2, 2, 8)])
+    table = ell.ELLGraphKernel([0, 1], [1, 2], [0, 0], [1.0, 1.0], 4, 1, plan_projected=True, device="cpu")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        table.neighbor_aggregate(torch.zeros(4, 8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        table.neighbor_aggregate_projected(torch.zeros(4, 8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        gather.row_dma_sum(torch.zeros(4, 8, device="meta"), torch.zeros(1, 2, dtype=torch.int32, device="meta"))
