@@ -12,16 +12,23 @@ before the result line is printed; no phase's failure is passed over.
    and CUDA versions, TF32 off, and the build of every CUDA source under
    ``grl_torch/csrc`` for ``sm_90a`` (one ``nvcc`` per source, all
    started together).
-2. ``kernel``: K3, K1 and K2 (``grl_torch/csrc/relagg.cu``) against their
-   plain PyTorch versions on the card, B=8, L=6, N in {64, 192, 256}, F in
-   {256, 512}, float32 and bfloat16, DropEdge rate 0.3. K1/K2 and their
-   plain versions hash the same mask, which is checked exactly by probing
-   the kernels with identity operands; the kept share, forward/backward
-   consistency and "K1 at keep 1 is K3" are checked too. Each case is
-   timed with CUDA events (median of single launches, L2 flushed before
-   each) beside the plain version, a PyTorch call for the same product
-   (``library_ms``: ``torch.matmul``, on an already-masked A for K1/K2),
-   and the card's bound.
+2. ``kernel``: K3 (``grl_torch/csrc/relagg.cu``), K1 and K2 (bfloat16:
+   ``grl_torch/csrc/dropedge_sm90.cu``; float32: ``relagg.cu``) against
+   their plain PyTorch versions on the card, B=8, L=6, N in {64, 192, 256},
+   F in {256, 512}, float32 and bfloat16, DropEdge rate 0.3; bf16 K1/K2
+   also at F = 64 and 1536, untimed. K1/K2 and their plain versions hash
+   the same mask, which is checked exactly by probing the kernels with
+   identity operands; the kept share, forward/backward consistency, "K1 at
+   keep 1 is K3" (f32 bit for bit, bf16 within one rounding), two launches
+   of bf16 K1 and K2 giving equal bits, and how many of K2's clusters the
+   card holds are checked too; bf16 K2 is also timed under every split S at
+   the main shape. Each case is timed with CUDA events (median of single
+   launches, L2 flushed before each) beside the plain version, a PyTorch
+   call for the same product (``library_ms``: ``torch.matmul``, on an
+   already-masked A for K1/K2), and the card's bound. K3/K1/K2 rows also
+   hold ``device_ms`` (the card kept busy until the call is enqueued, so
+   the host's enqueue stays outside the events; for the kernel and
+   ``torch.matmul``) and ``enqueue_ms``, the host time of one wrapper call.
 3. ``serve``: the serving path, ``GNNLearningWarper.predict`` ->
    ``KVInference`` -> ``GraphCNNDropEdge`` at the full sumi width
    (input_dim 4369, output_dim 53, 6 relations, net_size 256,
@@ -35,8 +42,8 @@ before the result line is printed; no phase's failure is passed over.
    two epochs over 64 synthetic pages (16 steps) with 16 validation pages
    (4 batches). Checks the K1/K2/K3 launch counts, finite losses, changed
    parameters and the checkpoint, which KVInference then serves; prints
-   steps/s, nodes/s, the device idle share of a traced window, and one
-   train step timed on the card. Then a learning check (20 steps on one
+   steps/s, nodes/s, the device idle share of a traced window with K1's
+   and K2's device ms a step in it, and one train step timed on the card. Then a learning check (20 steps on one
    batch) and two full-width steps through the kernels against the same
    steps through their plain versions, float32 and bfloat16.
 5. ``full_graph``: the sparse large-graph path, ``GNNLearningWarper.train``
@@ -105,6 +112,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 B, L = 8, 6
 KERNEL_NS = (64, 192, 256)
 KERNEL_FS = (256, 512)
+# Widths bf16 K1/K2 are also held at, untimed: a single 64-wide tile, and
+# F = N*L (BN 256 over six column tiles, K2 unsplit).
+BF16_CHECK_FS = (64, 1536)
 # Nonzero share of the heuristic graph's (N, 6, N) adjacency on the
 # synthetic 230-box pages the serve phase sends (about 0.5 neighbours per
 # node and relation); one denser case per dtype exercises long sums.
@@ -272,7 +282,8 @@ def phase_env(torch) -> str:
     log(f"[env] built {sorted(paths)} for sm_90a in {build_s:.2f} s")
     for name, text in sorted(_build.build_logs.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            # dropedge_sm90.cu in full: each kernel's name, registers and spills.
+            if name == "dropedge_sm90" or "registers" in line or "spill" in line or "smem" in line:
                 log(f"[env] ptxas {name}: {line.strip()}")
     return card
 
@@ -280,8 +291,19 @@ def phase_env(torch) -> str:
 # ---------------------------------------------------------------------------
 # kernel
 # ---------------------------------------------------------------------------
-def time_ms(torch, fn, flush, reps: int = 40) -> float:
-    """Median device time of one call, L2 flushed before each call."""
+# Cycles the card spins (torch.cuda._sleep) between the flush and the start
+# event under ``time_ms(cover=True)``, ~1 ms: long enough for the host to
+# enqueue a call's launches behind it.
+HOST_COVER_CYCLES = 2_000_000
+
+
+def time_ms(torch, fn, flush, reps: int = 40, cover: bool = False) -> float:
+    """Median time of one call between CUDA events, L2 flushed before each
+    call. By default the start event follows the flush directly, so a call
+    whose host side takes longer to enqueue its kernel than the flush takes
+    to run is timed with that host gap inside (the ``ms`` of every kernel
+    row). ``cover=True`` keeps the card busy after the flush until the call
+    is enqueued, so the events hold the device's work alone (``device_ms``)."""
     for _ in range(3):
         fn()
     events = [
@@ -290,11 +312,41 @@ def time_ms(torch, fn, flush, reps: int = 40) -> float:
     ]
     for start, end in events:
         flush.zero_()
+        if cover:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def enqueue_ms(torch, fn, reps: int = 40) -> float:
+    """Median host time of one call of ``fn`` (its Python wrapper, checks
+    and launches), the card kept busy meanwhile so that no call waits on
+    it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10 * HOST_COVER_CYCLES)
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - start)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def dense_timings(torch, kernel, plain, library, flush) -> dict:
+    """The timings of a K3/K1/K2 row: kernel, plain version and library
+    call as every kernel row is timed, and the kernel and library call's
+    device time alone, and the kernel wrapper's host enqueue time."""
+    return {
+        "ms": time_ms(torch, kernel, flush), "plain_ms": time_ms(torch, plain, flush),
+        "library_ms": time_ms(torch, library, flush), "device_ms": time_ms(torch, kernel, flush, cover=True),
+        "library_device_ms": time_ms(torch, library, flush, cover=True), "enqueue_ms": enqueue_ms(torch, kernel),
+    }
 
 
 def bound(dtype_name: str, itemsize: int, N: int, F: int):
@@ -343,15 +395,13 @@ def kernel_case(torch, dtype_name: str, N: int, F: int, density: float, flush, s
     what = f"K3 {dtype_name} N={N} F={F} density={density}"
     max_abs_err = check_close(torch, out, neighbor_aggregate_reference(V, A), dtype_name, what)
 
-    ms = time_ms(torch, lambda: neighbor_aggregate(V, A), flush)
-    plain_ms = time_ms(torch, lambda: neighbor_aggregate_reference(V, A), flush)
     A2 = A.view(B, N * L, N)
-    library_ms = time_ms(torch, lambda: torch.matmul(A2, V), flush)
+    timings = dense_timings(torch, lambda: neighbor_aggregate(V, A), lambda: neighbor_aggregate_reference(V, A),
+                            lambda: torch.matmul(A2, V), flush)
     bound_ms, bound_by, nbytes, flops = bound(dtype_name, V.element_size(), N, F)
     return {
         "kernel": "K3", "dtype": dtype_name, "B": B, "N": N, "L": L, "F": F, "density": density,
-        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": max_abs_err, **timings, "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "flops": flops,
     }
 
@@ -393,8 +443,7 @@ def dropedge_cases(torch, dtype_name: str, N: int, F: int, density: float, flush
     for name, (kernel, plain, library) in calls.items():
         rows.append({
             "kernel": name, "dtype": dtype_name, "B": B, "N": N, "L": L, "F": F, "density": density,
-            "rate": RATE, "max_abs_err": err[name], "ms": time_ms(torch, kernel, flush),
-            "plain_ms": time_ms(torch, plain, flush), "library_ms": time_ms(torch, library, flush),
+            "rate": RATE, "max_abs_err": err[name], **dense_timings(torch, kernel, plain, library, flush),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
         })
     return rows
@@ -422,8 +471,9 @@ def mask_probe(torch, dtype_name: str, N: int, seed: int):
 
 
 def dropedge_invariants(torch):
-    """Forward and backward see one mask; K1 at keep 1 is K3 bit for bit;
-    the wrapper at rate 0 launches K3."""
+    """Forward and backward see one mask; K1 at keep 1 is K3 (float32 bit
+    for bit, bfloat16 within one rounding); the wrapper at rate 0 launches
+    K3; two launches of bf16 K1 and of bf16 K2 give equal bits."""
     from grl_torch.ops import relagg
 
     V, A = operands(torch, "float32", 256, 256, DENSE_DENSITY, 77)
@@ -441,7 +491,76 @@ def dropedge_invariants(torch):
     torch.cuda.synchronize()
     require(relagg.neighbor_aggregate.launches == k3 + 1, "rate 0 did not launch K3")
     require(torch.equal(out, plain), "K1 at keep 1 differs from K3")
-    return {"k2_dot_v": lhs, "sum_k1": rhs}
+    # bf16: K1 (dropedge_sm90.cu) and K3 (relagg.cu) sum in other orders.
+    V, A = operands(torch, "bfloat16", 256, 256, DENSE_DENSITY, 78)
+    keep_one_err = check_close(torch, relagg._launch_sm90(False, A, V, 5, 1.0), relagg.neighbor_aggregate(V, A),
+                               "bfloat16", "bf16 K1 at keep 1 against K3")
+    g = torch.randn(B, 256, L, 256, generator=torch.Generator(device="cuda").manual_seed(79),
+                    device="cuda").to(torch.bfloat16)
+    for name, run in (("K1", lambda: relagg.dropedge_aggregate(V, A, 6, RATE)),
+                      ("K2", lambda: relagg.dropedge_aggregate_grad(g, A, 6, RATE))):
+        require(torch.equal(run(), run()), f"two launches of bf16 {name} differ")
+    return {"k2_dot_v": lhs, "sum_k1": rhs, "bf16_k1_keep1_vs_k3_max_abs_err": keep_one_err}
+
+
+def bf16_dropedge_checks(torch):
+    """bf16 K1/K2 at F = 64 and F = N*L, untimed, against their plain
+    versions; and how many clusters of each K2 plan of the kernel phase the
+    card holds at once."""
+    from grl_torch.ops import relagg
+
+    checks = []
+    for N in KERNEL_NS:
+        for F in BF16_CHECK_FS:
+            V, A = operands(torch, "bfloat16", N, F, SPARSE_DENSITY * 10, N + F)
+            g = torch.randn(B, N, L, F, device="cuda").to(torch.bfloat16)
+            out = relagg.dropedge_aggregate(V, A, 13, RATE)
+            dV = relagg.dropedge_aggregate_grad(g, A, 13, RATE)
+            torch.cuda.synchronize()
+            what = f"bfloat16 N={N} F={F}"
+            checks.append({
+                "N": N, "F": F,
+                "K1_max_abs_err": check_close(torch, out, relagg.dropedge_aggregate_reference(V, A, 13, RATE),
+                                              "bfloat16", f"K1 {what}"),
+                "K2_max_abs_err": check_close(torch, dV, relagg.dropedge_aggregate_grad_reference(g, A, 13, RATE),
+                                              "bfloat16", f"K2 {what}"),
+            })
+    clusters = {}
+    for N in KERNEL_NS:
+        for F in KERNEL_FS + BF16_CHECK_FS:
+            plan = relagg.dropedge_plan(B, N, L, F)
+            blocks = math.prod(plan.backward_grid)
+            clusters[f"N={N} F={F}"] = held = {
+                "BN": plan.BN, "S": plan.splits, "blocks": blocks,
+                "max_active_clusters": relagg.sm90_max_clusters(plan)}
+            require(held["max_active_clusters"] > 0, f"the card holds no K2 cluster of {plan.splits} at {held}")
+    return checks, clusters
+
+
+def k2_split_sweep(torch, flush):
+    """bf16 K2 at the main shape (N=256, F = 256 and 512) under every split
+    S the kernel takes (divisors of the 24 row steps, at most 8), against
+    its plain version, device time alone: what the planner's rule (the
+    smallest S that gives 66 blocks) costs against the others."""
+    import dataclasses
+
+    from grl_torch.ops import relagg
+
+    rows = []
+    for F in KERNEL_FS:
+        V, A = operands(torch, "bfloat16", 256, F, SPARSE_DENSITY, 300 + F)
+        g = torch.randn(B, 256, L, F, generator=torch.Generator(device="cuda").manual_seed(F),
+                        device="cuda").to(torch.bfloat16)
+        ref = relagg.dropedge_aggregate_grad_reference(g, A, 17, RATE)
+        keep = relagg.keep_probability(RATE)
+        planned = relagg.dropedge_plan(B, 256, L, F)
+        for S in (s for s in range(1, 9) if planned.steps % s == 0):
+            plan = dataclasses.replace(planned, splits=S)
+            run = functools.partial(relagg._launch_sm90, True, A, g, 17, keep, plan)
+            err = check_close(torch, run(), ref, "bfloat16", f"K2 F={F} S={S}")
+            rows.append({"F": F, "S": S, "planned": S == planned.splits, "blocks": math.prod(plan.backward_grid),
+                         "max_abs_err": err, "device_ms": time_ms(torch, run, flush, cover=True)})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -821,7 +940,8 @@ def phase_kernel(torch):
                 f"density={row['density']}: max_abs_err {row['max_abs_err']:.3e} | "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                 f"torch.matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']})"
+                f"({row['bound_by']}) | device alone: kernel {row['device_ms']:.4f} ms, torch.matmul "
+                f"{row['library_device_ms']:.4f} ms; kernel wrapper enqueue {1e3 * row['enqueue_ms']:.1f} us"
             )
     shares = {}
     for dtype_name in ("float32", "bfloat16"):
@@ -834,13 +954,28 @@ def phase_kernel(torch):
     invariants = dropedge_invariants(torch)
     log(
         f"[kernel] <K2(1), V> = {invariants['k2_dot_v']:.6f}, sum K1(V) = {invariants['sum_k1']:.6f} "
-        f"(f32, need within 1e-5 of the sum); K1 at keep 1 = K3 bit for bit; rate 0 launches K3"
+        f"(f32, need within 1e-5 of the sum); K1 at keep 1 = K3 bit for bit (f32), within one rounding "
+        f"(bf16, max abs err {invariants['bf16_k1_keep1_vs_k3_max_abs_err']:.3e}); rate 0 launches K3; "
+        f"two launches of bf16 K1 and of bf16 K2 give equal bits"
     )
+    bf16_checks, clusters = bf16_dropedge_checks(torch)
+    for row in bf16_checks:
+        log(f"[kernel] bf16 K1/K2 at N={row['N']} F={row['F']}: max abs err K1 {row['K1_max_abs_err']:.3e}, "
+            f"K2 {row['K2_max_abs_err']:.3e}")
+    sweep = k2_split_sweep(torch, flush)
+    for row in sweep:
+        log(f"[kernel] bf16 K2 N=256 F={row['F']} at S={row['S']} ({row['blocks']} blocks"
+            f"{', planned' if row['planned'] else ''}): device {row['device_ms']:.4f} ms, "
+            f"max abs err {row['max_abs_err']:.3e}")
+    for shape, held in clusters.items():
+        log(f"[kernel] bf16 K2 plan at {shape}: BN {held['BN']}, S {held['S']}, {held['blocks']} blocks; the card "
+            f"holds {held['max_active_clusters']} clusters of {held['S']} at once")
     sparse_rows, sparse_checks = sparse_kernel_cases(torch, flush)
     ell_rows, ell_checks = ell_kernel_cases(torch, flush)
     del flush
-    return results + sparse_rows + ell_rows, {"kept_share": shares, **invariants, "sparse": sparse_checks,
-                                              "ell": ell_checks}
+    return results + sparse_rows + ell_rows, {"kept_share": shares, **invariants, "bf16_dropedge": bf16_checks,
+                                              "k2_clusters": clusters, "k2_split_sweep": sweep,
+                                              "sparse": sparse_checks, "ell": ell_checks}
 
 
 # ---------------------------------------------------------------------------
@@ -1203,6 +1338,23 @@ def device_idle_share(trace_path: str):
     return (1.0 - busy / window if device else None), busy / 1e3, window / 1e3
 
 
+def trace_kernel_ms(trace_path: str, names):
+    """{name: (device ms, launches)} of the kernels in a torch.profiler
+    Chrome trace whose names contain each of ``names``."""
+    with open(trace_path) as handle:
+        events = [e for e in json.load(handle)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "kernel" and "dur" in e]
+    found = {}
+    for name in names:
+        hits = [e["dur"] for e in events if name in e.get("name", "")]
+        found[name] = (sum(hits) / 1e3, len(hits))
+    return found
+
+
+# Kernel names of bf16 K1 and K2 in a trace.
+K1_BF16, K2_BF16 = "dropedge_fwd_sm90_kernel", "dropedge_bwd_sm90_kernel"
+
+
 def params_of(model):
     return {name: p.detach().float().clone() for name, p in model.named_parameters()}
 
@@ -1361,10 +1513,20 @@ def phase_train(torch, card: str):
     trace = os.path.join(warper.config["output_dir"], "traces",
                          f"steps_{PROFILE_START}_{PROFILE_START + PROFILE_STEPS}.json")
     idle, busy_ms, window_ms = device_idle_share(trace)
+    # The profiler stops after step PROFILE_START + PROFILE_STEPS has run:
+    # PROFILE_STEPS + 1 steps are traced.
+    traced_steps = PROFILE_STEPS + 1
+    traced = trace_kernel_ms(trace, (K1_BF16, K2_BF16))
+    per_step = {k: {"ms": traced[name][0] / traced_steps, "launches": traced[name][1] / traced_steps}
+                for k, name in (("K1", K1_BF16), ("K2", K2_BF16))}
+    require(all(v["launches"] == 3 for v in per_step.values()),
+            f"the {traced_steps} traced steps launched bf16 K1/K2 {per_step} times a step, expected 3 each")
     log(
-        f"[train] traced steps {PROFILE_START}..{PROFILE_START + PROFILE_STEPS}: device busy {busy_ms:.3f} ms of "
+        f"[train] traced steps {PROFILE_START}..{PROFILE_START + PROFILE_STEPS} (inclusive): device busy {busy_ms:.3f} ms of "
         f"{window_ms:.3f} ms, idle share "
         + ("not measured (no device events in the trace)" if idle is None else f"{idle:.4f}")
+        + f"; bf16 K1 {per_step['K1']['ms']:.4f} ms and K2 {per_step['K2']['ms']:.4f} ms of device time a step "
+        f"(3 launches each)"
     )
 
     # The checkpoint serves through the port's KVInference (K3).
@@ -1401,7 +1563,8 @@ def phase_train(torch, card: str):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(
         f"[train] {card}: one train step (forward, backward, clip, Adam; bf16, B={B}, N={N}) "
-        f"{step_ms:.3f} ms on the card (mean of {TIMED_STEPS}); dropedge_train_dense_adj_throughput "
+        f"{step_ms:.3f} ms on the card (mean of {TIMED_STEPS}), of which bf16 K1 {per_step['K1']['ms']:.4f} ms "
+        f"and K2 {per_step['K2']['ms']:.4f} ms (traced window); dropedge_train_dense_adj_throughput "
         f"{adj_per_s:.4e} adj_entries/s/chip; peak device memory {peak_gb:.2f} GB"
     )
 
@@ -1444,7 +1607,7 @@ def phase_train(torch, card: str):
         "launches": launched, "serve_launches": serve_launches, "losses": losses,
         "validation_loss": val_loss, "macro_f1": f1, "nodes_per_s": nodes_per_s,
         "steps_per_s": steps_per_s, "idle_share": idle, "traced_busy_ms": busy_ms,
-        "traced_window_ms": window_ms, "step_ms": step_ms,
+        "traced_window_ms": window_ms, "traced_kernels_per_step": per_step, "step_ms": step_ms,
         "dropedge_train_dense_adj_throughput": adj_per_s, "peak_memory_gb": peak_gb,
         "learning_losses": learn, "kernel_vs_plain": comparison,
     }
@@ -1942,11 +2105,11 @@ def main() -> int:
                {"serve": serve["k3_launches"], "train": train["launches"]["K3"], "full_graph": fg["K3"],
                 "ell": el["K3"]},
                main_row("K3", **dense), "bf16 B=8 N=256 L=6 F=256"),
-        "K1": ("K1 DropEdge neighbor aggregation (forward)", "grl_torch/csrc/relagg.cu",
+        "K1": ("K1 DropEdge neighbor aggregation (forward)", "grl_torch/csrc/dropedge_sm90.cu",
                "grl_tpu/ops/pallas/relagg.py:220 _dropedge_forward (pallas_dropedge_aggregate)",
                {"train": train["launches"]["K1"], "full_graph": fg["K1"], "ell": el["K1"]},
                main_row("K1", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
-        "K2": ("K2 DropEdge neighbor aggregation (backward, dV)", "grl_torch/csrc/relagg.cu",
+        "K2": ("K2 DropEdge neighbor aggregation (backward, dV)", "grl_torch/csrc/dropedge_sm90.cu",
                "grl_tpu/ops/pallas/relagg.py:284 _dropedge_bwd",
                {"train": train["launches"]["K2"], "full_graph": fg["K2"], "ell": el["K2"]},
                main_row("K2", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
@@ -1992,6 +2155,8 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "kernel_ms": row["ms"],
+            "device_ms": row.get("device_ms"),
+            "enqueue_ms": row.get("enqueue_ms"),
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],

@@ -1,0 +1,738 @@
+// K1 and K2 in bfloat16 on Hopper (sm_90a): the DropEdge neighbor
+// aggregation and its gradient in V, with TMA rings, wgmma and, for K2, a
+// split-K reduced inside a thread-block cluster.
+//
+// K1 replaces grl_tpu/ops/pallas/relagg.py:220 (_dropedge_forward, body
+// _dropedge_kernel :157-180), per batch b the (N*L x N) @ (N x F) product
+//
+//     out[b, n, l, :] = sum_m A[b, n, l, m] * keep(gid) / keep * V[b, m, :]
+//
+// K2 replaces relagg.py:284 (_dropedge_bwd, body _dropedge_bwd_kernel
+// :183-210), per batch the (N x N*L) @ (N*L x F) product
+//
+//     dV[b, m, :] = sum_{n, l} A[b, n, l, m] * keep(gid) / keep * g[b, n, l, :]
+//
+// A (B, N, L, N), V (B, N, F), g and out (B, N, L, F), dV (B, N, F), all
+// bfloat16, accumulated in float32, scaled by 1/keep once and rounded to
+// bfloat16 once. The mask is grl::keep_edge of gid = ((b*N + n)*L + l)*N + m
+// (hash.cuh), the element's index in A: the mask of relagg.cu's float32
+// kernels and of the plain versions in grl_torch/ops/relagg.py.
+//
+// What bounds them. At the flagship's shape (B=8, N=256, L=6, F=256) a call
+// is 2*B*N*L*N*F = 1.6 GFLOP against 13.6 MB that must cross device memory
+// (A 6.3 MB, the (N*L, F) operand 6.3 MB, the (N, F) one 1 MB): about 120
+// FLOP/byte, under the H100's bf16 ridge of ~295, so bytes bound them, at
+// 0.0041 ms (0.0063 ms at F=512). At that size a kernel lives or dies by
+// latency: a call is a few microseconds of traffic spread over 132 SMs.
+//
+// What the design does about it.
+// - One producer warp keeps TMA loads in flight into a ring of two stages
+//   in dynamic shared memory (one full and one empty mbarrier a stage), so
+//   the next step's load overlaps this step's product. A stage holds a
+//   64 x 64 box of A (64 rows of A's (N*L, N) view, 128-byte swizzled) and
+//   64 rows of the other operand as BN/64 boxes of 64 x 64. Two stages keep
+//   a block at ~82 KB of shared memory at BN = 256, so two blocks share an
+//   SM and the main shape's grids (and K2's clusters) run in one wave;
+//   four stages halved the clusters the card holds. Three-dimensional
+//   tensor maps (columns, rows, batch) make TMA zero-fill past a batch's
+//   rows and columns, so ragged edges need no code in the main loop.
+// - One consumer warpgroup applies the mask to the staged A tile: each
+//   thread reads its four 16-byte chunks and notes the nonzero entries
+//   (about one in 500 at the main path's density of 0.002); only those are
+//   hashed on their gid, recovered through TMA's 128-byte swizzle (chunk c
+//   of row r lies at chunk c ^ (r % 8)), and dropped entries are written
+//   back as zero. A fence.proxy.async (by the threads that wrote) and a
+//   warpgroup barrier make those writes visible to wgmma. Each A element
+//   is staged and hashed once per output-column tile of BN = min(F, 256)
+//   columns.
+// - wgmma.m64nBNk16 multiplies from shared memory into float32 registers.
+//   K1 reads the A tile K-major, exactly as staged, and V MN-major; K2 reads
+//   the same tile transposed (MN-major, which bf16 allows) and g MN-major,
+//   so no transpose of A ever touches device memory.
+// - K2's reduction runs over N*L rows (1536 at the main shape), too long
+//   for one block and too short for a second pass: the launcher splits it
+//   into S equal runs of whole 64-row steps (S divides the step count and
+//   is at most 8), one block each, and the S blocks of an output tile form
+//   a cluster. Each block leaves its float32 partial in its own shared
+//   memory; after a cluster barrier block s sums its share of the tile's
+//   rows over all S partials through distributed shared memory (16-byte
+//   remote loads, every rank's issued before any is added) in the fixed
+//   order 0..S-1, so the result is deterministic, with no workspace in
+//   device memory and no atomics. (Pushing 8-byte accumulator pairs from
+//   registers into the owners' shared memory instead was slower on the
+//   H100.)
+// - The epilogues write bfloat16 with 16-byte stores: K1 through a staging
+//   tile in shared memory, K2 straight from its cluster sum.
+//
+// The launchers encode the tensor maps on the host at every call (a map
+// holds the base pointer) through the CUDA driver API's cuTensorMapEncodeTiled,
+// reached with cudaGetDriverEntryPointByVersion (CUDA 12.5 or later), and
+// pass them as __grid_constant__ parameters; each kernel's shared-memory
+// limit is raised once per device, at its first launch there. TMA needs
+// 16-byte global strides: N % 8 == 0 and F % 8 == 0, and 16-byte aligned
+// base pointers. The Python planner (grl_torch/ops/relagg.py:dropedge_plan)
+// picks BN and S.
+
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstddef>
+#include <cstdint>
+
+#include "hash.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using grl::keep_edge;
+
+constexpr int kTile = 64;                     // A's box is 64 x 64: rows x columns
+constexpr int kBoxBytes = kTile * kTile * 2;  // 8 KB of bf16, 128-byte rows
+constexpr int kConsumers = 128;               // one warpgroup: mask pass, wgmma, epilogue
+constexpr int kThreads = kConsumers + 32;     // and one producer warp
+constexpr int kStages = 2;  // ring depth: ~82 KB a block at BN = 256, two blocks an SM
+constexpr int kMaxSplits = 8;                 // the portable cluster size
+
+__host__ __device__ constexpr int stage_bytes(int BN) { return kBoxBytes * (1 + BN / 64); }
+__host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
+// Dynamic shared memory: 1024 bytes of alignment slack, the ring (reused by
+// the epilogue's tile) and a full and an empty barrier a stage.
+__host__ __device__ constexpr int ring_bytes(int BN, int epilogue_bytes) {
+  return max_of(kStages * stage_bytes(BN), epilogue_bytes);
+}
+__host__ __device__ constexpr int fwd_ring(int BN) { return ring_bytes(BN, kTile * (BN + 8) * 2); }  // bf16 staging tile
+__host__ __device__ constexpr int bwd_ring(int BN) { return ring_bytes(BN, kTile * (BN + 8) * 4); }  // float32 partial
+__host__ __device__ constexpr int smem_bytes(int ring) { return 1024 + ring + 2 * kStages * 8; }
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete. A phase that never
+// completes (a load that never lands) traps after ~2^26 tries, seconds
+// where a real wait takes microseconds: the launch then fails with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 26)) __trap();
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// One box of a three-dimensional tensor map into shared memory, completing
+// on `bar`: coordinates (column, row, batch).
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The consumer warpgroup's own barrier (id 1; id 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 128;" ::: "memory"); }
+
+// wgmma shared-memory matrix descriptor of a 128-byte-swizzled tile whose
+// 1024-byte swizzle atoms start 1024-aligned. K-major (rows of 64 K values):
+// sbo = 1024, the stride of 8-row groups; lbo is unused. MN-major (rows of
+// 64 M or N values, one row per K): lbo is the stride between 64-wide
+// column blocks, sbo = 1024 the stride between groups of 8 K rows.
+__device__ __forceinline__ uint64_t descriptor(const void* tile, uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = smem_u32(tile);
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma instructions.
+template <int R>
+__device__ __forceinline__ void fence_registers(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma.m64nNk16.f32.bf16.bf16, A and B from shared memory; kTransA /
+// kTransB: 0 = K-major, 1 = MN-major. Every accumulator register is listed.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+template <int BN, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t a, uint64_t b) {
+  if constexpr (BN == 64) wgmma_m64n64k16<kTransA, kTransB>(d, a, b);
+  else if constexpr (BN == 128) wgmma_m64n128k16<kTransA, kTransB>(d, a, b);
+  else if constexpr (BN == 192) wgmma_m64n192k16<kTransA, kTransB>(d, a, b);
+  else wgmma_m64n256k16<kTransA, kTransB>(d, a, b);
+}
+
+// ---------------------------------------------------------------------------
+// The mask pass over a staged 64 x 64 A tile
+// ---------------------------------------------------------------------------
+// The tile holds A's rows row0.. (of batch b, row0 = b*N*L + first row) and
+// columns col0..; TMA wrote logical 16-byte chunk c of row r at chunk
+// c ^ (r % 8) of that row. Entries the hash drops become zero; zero entries
+// (+0 or -0) stay as they are and are not hashed.
+//
+// Each thread reads its 4 chunks and notes their nonzero entries as bits;
+// only those entries are hashed, in one compact loop that keeps the rarely
+// taken path small (a fully unrolled hash of every entry of each nonzero
+// chunk cost more than the step's four products on the H100).
+__device__ __forceinline__ void mask_tile(uint8_t* tile, int tid, uint32_t row0, uint32_t N,
+                                          uint32_t col0, uint32_t seed, float keep) {
+  constexpr int kChunks = kTile * 8 / kConsumers;  // 16-byte chunks a thread
+  uint32_t nonzero = 0;  // bit 8 * i + e: entry e of the thread's chunk i
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const uint4 v = *reinterpret_cast<const uint4*>(tile + (tid + i * kConsumers) * 16);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if ((w[e >> 1] >> (16 * (e & 1))) & 0x7FFFu) nonzero |= 1u << (8 * i + e);
+  }
+  bool wrote = false;
+#pragma unroll 1
+  while (nonzero != 0u) {
+    const int bit = __ffs(nonzero) - 1;
+    nonzero &= nonzero - 1u;
+    const int q = tid + (bit >> 3) * kConsumers;  // physical chunk q: row q / 8, slot q % 8
+    const int r = q >> 3, e = bit & 7;
+    const uint32_t c = static_cast<uint32_t>((q & 7) ^ (r & 7));
+    if (!keep_edge((row0 + r) * N + col0 + c * 8 + e, seed, keep)) {
+      reinterpret_cast<uint16_t*>(tile + q * 16)[e] = 0;
+      wrote = true;
+    }
+  }
+  // A thread's generic-proxy writes, before wgmma (the async proxy) reads
+  // the tile and before TMA refills it.
+  if (wrote) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  consumers_sync();
+}
+
+// Accumulator element i of thread t in a warpgroup's m64nN fragment lies at
+// row 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2), column
+// 8 * (i / 4) + 2 * (t % 4) + i % 2.
+__device__ __forceinline__ int frag_row(int tid, int i) { return 16 * (tid >> 5) + ((tid & 31) >> 2) + 8 * ((i >> 1) & 1); }
+__device__ __forceinline__ int frag_col(int tid, int i) { return 8 * (i >> 2) + 2 * (tid & 3); }
+
+struct Ring {
+  uint8_t* base;  // 1024-aligned
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+// Carves the ring and its barriers out of dynamic shared memory and
+// initialises the barriers: full expects the producer's one arrival (with
+// the stage's bytes), empty the arrival of every consumer thread.
+__device__ __forceinline__ Ring make_ring(uint8_t* raw, int region_bytes) {
+  Ring ring;
+  const uint32_t raw_addr = smem_u32(raw);
+  ring.base = raw + (((raw_addr + 1023u) & ~1023u) - raw_addr);
+  ring.full = reinterpret_cast<uint64_t*>(ring.base + region_bytes);
+  ring.empty = ring.full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.full + s, 1);
+      mbar_init(ring.empty + s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return ring;
+}
+
+// The producer's step k: one A box at (a_col, a_row, b) and BN / 64 boxes
+// of the other operand at (x_col + 64 j, x_row, b).
+template <int BN>
+__device__ __forceinline__ void produce(const Ring& ring, int k, const CUtensorMap* map_a,
+                                        const CUtensorMap* map_x, int a_col, int a_row, int x_col,
+                                        int x_row, int b) {
+  const int stage = k % kStages;
+  mbar_wait(ring.empty + stage, ((k / kStages) & 1) ^ 1);
+  uint8_t* a = ring.base + stage * stage_bytes(BN);
+  mbar_expect_tx(ring.full + stage, stage_bytes(BN));
+  tma_load(a, map_a, ring.full + stage, a_col, a_row, b);
+#pragma unroll
+  for (int j = 0; j < BN / 64; ++j)
+    tma_load(a + kBoxBytes * (1 + j), map_x, ring.full + stage, x_col + 64 * j, x_row, b);
+}
+
+// ---------------------------------------------------------------------------
+// K1: out (N*L x F) = (A * mask) (N*L x N) @ V (N x F), per batch.
+// Grid (ceil(F / BN), ceil(N*L / 64), B): block (x, y, z) owns output rows
+// 64 y.. and columns BN x.. of batch z and walks ceil(N / 64) steps of 64
+// columns of A (rows of V).
+// ---------------------------------------------------------------------------
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+dropedge_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
+                         int N, int NL, int F, uint32_t seed, float keep) {
+  constexpr int kStride = BN + 8;  // staging row, bf16: shifts rows by 4 banks
+  extern __shared__ uint8_t smem_raw[];
+  const Ring ring = make_ring(smem_raw, fwd_ring(BN));
+  const int f0 = blockIdx.x * BN, r0 = blockIdx.y * kTile, b = blockIdx.z;
+  const int steps = (N + kTile - 1) / kTile;
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers)
+      for (int k = 0; k < steps; ++k)
+        produce<BN>(ring, k, &map_a, &map_v, k * kTile, r0, f0, k * kTile, b);
+    return;
+  }
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int k = 0; k < steps; ++k) {
+    const int stage = k % kStages;
+    mbar_wait(ring.full + stage, (k / kStages) & 1);
+    uint8_t* a = ring.base + stage * stage_bytes(BN);
+    mask_tile(a, tid, static_cast<uint32_t>(b * NL + r0), N, k * kTile, seed, keep);
+    fence_registers(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)  // A K-major: 16 columns = 32 bytes on
+      wgmma<BN, 0, 1>(acc, descriptor(a + 32 * kk, 16, 1024),
+                      descriptor(a + kBoxBytes + 2048 * kk, kBoxBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_registers(acc);
+    mbar_arrive(ring.empty + stage);
+  }
+
+  // Epilogue: 1/keep, bf16, through a staging tile over the ring (every
+  // product has read its stage once all consumers pass the barrier).
+  consumers_sync();
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring.base);
+  const float scale = 1.0f / keep;
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2)
+    *reinterpret_cast<__nv_bfloat162*>(tile + frag_row(tid, i) * kStride + frag_col(tid, i)) =
+        __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+  consumers_sync();
+  constexpr int kChunks = BN / 8;  // 16-byte chunks a row
+  for (int q = tid; q < kTile * kChunks; q += kConsumers) {
+    const int row = q / kChunks, c = q % kChunks;
+    const int r = r0 + row, f = f0 + 8 * c;
+    if (r < NL && f < F)
+      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * NL + r) * F + f) =
+          *reinterpret_cast<const uint4*>(tile + row * kStride + 8 * c);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: dV (N x F) = (A * mask)^T (N x N*L) @ g (N*L x F), per batch.
+// Grid (S * ceil(F / BN), ceil(N / 64), B) in clusters of (S, 1, 1): the S
+// blocks of a cluster share output rows 64 y.. and columns BN (x / S)..;
+// block s of the cluster walks 64-row steps s * steps_per_split.. of the
+// N*L reduction rows.
+// ---------------------------------------------------------------------------
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+dropedge_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_g, __nv_bfloat16* __restrict__ dV,
+                         int N, int NL, int F, int steps_per_split, uint32_t seed, float keep) {
+  constexpr int kStride = BN + 8;  // partial row, float32: shifts rows by 8 banks
+  extern __shared__ uint8_t smem_raw[];
+  const Ring ring = make_ring(smem_raw, bwd_ring(BN));
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int split = static_cast<int>(cluster.block_rank());
+  const int f0 = (blockIdx.x / S) * BN, m0 = blockIdx.y * kTile, b = blockIdx.z;
+  const int step0 = split * steps_per_split;
+  const int tid = threadIdx.x;
+  float* partial = reinterpret_cast<float*>(ring.base);
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers)
+      for (int k = 0; k < steps_per_split; ++k) {
+        const int r = (step0 + k) * kTile;
+        produce<BN>(ring, k, &map_a, &map_g, m0, r, f0, r, b);
+      }
+  } else {
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int k = 0; k < steps_per_split; ++k) {
+      const int stage = k % kStages;
+      mbar_wait(ring.full + stage, (k / kStages) & 1);
+      uint8_t* a = ring.base + stage * stage_bytes(BN);
+      mask_tile(a, tid, static_cast<uint32_t>(b * NL + (step0 + k) * kTile), N, m0, seed, keep);
+      fence_registers(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)  // both MN-major: 16 K rows = 2048 bytes on
+        wgmma<BN, 1, 1>(acc, descriptor(a + 2048 * kk, kBoxBytes, 1024),
+                        descriptor(a + kBoxBytes + 2048 * kk, kBoxBytes, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_registers(acc);
+      mbar_arrive(ring.empty + stage);
+    }
+    consumers_sync();  // every product has read its stage: the ring becomes the partial
+#pragma unroll
+    for (int i = 0; i < BN / 2; i += 2)
+      *reinterpret_cast<float2*>(partial + frag_row(tid, i) * kStride + frag_col(tid, i)) =
+          make_float2(acc[i], acc[i + 1]);
+  }
+  __syncwarp();
+  cluster.sync();  // every partial of the cluster is written
+
+  if (tid < kConsumers) {
+    // Block s sums rows [s * per, (s + 1) * per) of the tile over the S
+    // partials, in rank order.
+    const int per = (kTile + S - 1) / S;
+    const int row_lo = split * per;
+    const int rows = min(kTile, row_lo + per) - row_lo;
+    constexpr int kChunks = BN / 8;
+    const float scale = 1.0f / keep;
+    for (int q = tid; q < rows * kChunks; q += kConsumers) {
+      const int row = row_lo + q / kChunks, c = q % kChunks;
+      const int m = m0 + row, f = f0 + 8 * c;
+      if (m >= N || f >= F) continue;
+      // Every rank's 8 values are requested before any is added, so the
+      // remote reads overlap; the sum then runs in rank order.
+      float4 part[kMaxSplits][2];
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s) {
+        if (s < S) {
+          const float4* p = reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(partial + row * kStride + 8 * c, s));
+          part[s][0] = p[0];
+          part[s][1] = p[1];
+        }
+      }
+      float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int s = 0; s < kMaxSplits; ++s) {
+        if (s < S) {
+          const float4 lo = part[s][0], hi = part[s][1];
+          sum[0] += lo.x; sum[1] += lo.y; sum[2] += lo.z; sum[3] += lo.w;
+          sum[4] += hi.x; sum[5] += hi.y; sum[6] += hi.z; sum[7] += hi.w;
+        }
+      }
+      uint4 packed;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(sum[2 * e] * scale, sum[2 * e + 1] * scale);
+        w[e] = *reinterpret_cast<const uint32_t*>(&pair);
+      }
+      *reinterpret_cast<uint4*>(dV + (static_cast<size_t>(b) * N + m) * F + f) = packed;
+    }
+  }
+  __syncwarp();
+  cluster.sync();  // no block leaves while another still reads its partial
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The CUDA driver API's cuTensorMapEncodeTiled (the libraries do not link libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 (B, rows, cols) row-major tensor as a tensor map with 64 x 64
+// boxes, 128-byte swizzle and zero fill past every edge.
+bool encode(CUtensorMap* map, const void* ptr, int cols, int rows, int batches) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batches)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(cols) * rows * 2};
+  const cuuint32_t box[3] = {kTile, kTile, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
+
+bool valid_shape(const void* A, const void* X, const void* out, int B, int N, int L, int F) {
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return B > 0 && N > 0 && L > 0 && F > 0 && N % 8 == 0 && F % 8 == 0 && aligned(A) &&
+         aligned(X) && aligned(out) &&
+         static_cast<unsigned long long>(B) * N * L * N < (1ull << 32) && B <= 65535 &&
+         cdiv(N * L, kTile) <= 65535u;
+}
+
+// Lets K1 (kBackward false) or K2 at width BN use its dynamic shared memory
+// (past the default 48 KB) on `device`. The attribute holds for the
+// process, so it is set at the kernel's first launch on each device (bit d
+// of `raised`) and later launches make no driver call for it.
+template <int BN, bool kBackward>
+cudaError_t raise_smem_limit(int device) {
+  static std::atomic<uint64_t> raised{0};
+  const uint64_t bit = device >= 0 && device < 64 ? 1ull << device : 0;
+  if (raised.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  cudaError_t err;
+  if constexpr (kBackward)
+    err = cudaFuncSetAttribute(dropedge_bwd_sm90_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes(bwd_ring(BN)));
+  else
+    err = cudaFuncSetAttribute(dropedge_fwd_sm90_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes(fwd_ring(BN)));
+  if (err == cudaSuccess) raised.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <int BN>
+int launch_forward(const void* A, const void* V, void* out, int B, int N, int L, int F,
+                   uint32_t seed, float keep, int device, cudaStream_t stream) {
+  CUtensorMap map_a, map_v;
+  if (!encode(&map_a, A, N, N * L, B) || !encode(&map_v, V, F, N, B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = raise_smem_limit<BN, false>(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = smem_bytes(fwd_ring(BN));
+  const dim3 grid(cdiv(F, BN), cdiv(N * L, kTile), static_cast<unsigned>(B));
+  dropedge_fwd_sm90_kernel<BN><<<grid, kThreads, smem, stream>>>(
+      map_a, map_v, static_cast<__nv_bfloat16*>(out), N, N * L, F, seed, keep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+cudaLaunchConfig_t cluster_config(dim3 grid, int smem, int S, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(S);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+template <int BN>
+int launch_backward(const void* A, const void* g, void* dV, int B, int N, int L, int F, int S,
+                    uint32_t seed, float keep, int device, cudaStream_t stream) {
+  const int steps = static_cast<int>(cdiv(N * L, kTile));
+  if (S < 1 || S > kMaxSplits || steps % S != 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_a, map_g;
+  if (!encode(&map_a, A, N, N * L, B) || !encode(&map_g, g, F, N * L, B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = raise_smem_limit<BN, true>(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = smem_bytes(bwd_ring(BN));
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = cluster_config(
+      dim3(S * cdiv(F, BN), cdiv(N, kTile), static_cast<unsigned>(B)), smem, S, stream, &attr);
+  err = cudaLaunchKernelEx(&config, dropedge_bwd_sm90_kernel<BN>, map_a, map_g, static_cast<__nv_bfloat16*>(dV), N, N * L, F,
+                           steps / S, seed, keep);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+int max_clusters(int S, int device, int* clusters) {
+  const cudaError_t err = raise_smem_limit<BN, true>(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = smem_bytes(bwd_ring(BN));
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = cluster_config(dim3(S, 1, 1), smem, S, nullptr, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, dropedge_bwd_sm90_kernel<BN>, &config));
+}
+
+// Dispatch on BN in {64, 128, 192, 256}: `return CALL(<BN>)`.
+#define GRL_DISPATCH(BN, CALL)                               \
+  switch (BN) {                                              \
+    case 64: return CALL(64);                                \
+    case 128: return CALL(128);                              \
+    case 192: return CALL(192);                              \
+    case 256: return CALL(256);                              \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+}  // namespace
+
+// Each launcher runs on `stream` of `device`, does not synchronise,
+// allocates nothing, and returns cudaGetLastError() (cudaErrorInvalidValue
+// for a shape, pointer or plan it does not take). All operands bfloat16,
+// contiguous, 16-byte aligned; N % 8 == 0, F % 8 == 0; BN in {64, 128, 192,
+// 256}. A is (B, N, L, N), V (B, N, F), g and out (B, N, L, F), dV (B, N, F).
+
+// K1: out = (A * keep(gid) / keep) @ V.
+extern "C" int grl_dropedge_sm90_forward(const void* A, const void* V, void* out, int B, int N, int L,
+                                         int F, int BN, uint32_t seed, float keep, int device,
+                                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!valid_shape(A, V, out, B, N, L, F)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GRL_FORWARD(bn) launch_forward<bn>(A, V, out, B, N, L, F, seed, keep, device, s)
+  GRL_DISPATCH(BN, GRL_FORWARD)
+#undef GRL_FORWARD
+}
+
+// K2: dV = (A * keep(gid) / keep)^T @ g over A's (N*L, N) view, the N*L
+// rows split S ways, S a divisor of ceil(N*L / 64) and at most 8.
+extern "C" int grl_dropedge_sm90_backward(const void* A, const void* g, void* dV, int B, int N, int L,
+                                          int F, int BN, int S, uint32_t seed, float keep,
+                                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!valid_shape(A, g, dV, B, N, L, F)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GRL_BACKWARD(bn) launch_backward<bn>(A, g, dV, B, N, L, F, S, seed, keep, device, s)
+  GRL_DISPATCH(BN, GRL_BACKWARD)
+#undef GRL_BACKWARD
+}
+
+// How many clusters of S blocks of K2 at width BN the card can hold at once
+// (cudaOccupancyMaxActiveClusters; 0 means it cannot launch them).
+extern "C" int grl_dropedge_sm90_max_clusters(int BN, int S, int device, int* clusters) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define GRL_CLUSTERS(bn) max_clusters<bn>(S, device, clusters)
+  GRL_DISPATCH(BN, GRL_CLUSTERS)
+#undef GRL_CLUSTERS
+}
+
+extern "C" const char* grl_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,5 +1,6 @@
-// Relational neighbor aggregation on Hopper (sm_90a): K3, and K1/K2 with
-// DropEdge fused in.
+// Relational neighbor aggregation on Hopper (sm_90a): K3 in float32 and
+// bfloat16, and K1/K2 (DropEdge fused in) in float32. The bfloat16 K1/K2
+// are dropedge_sm90.cu's TMA + wgmma kernels.
 //
 // K3 replaces grl_tpu/ops/pallas/relagg.py:pallas_neighbor_aggregate
 // (_agg_forward :92-123, body _agg_kernel :76-89):
@@ -13,8 +14,8 @@
 //
 //     dV[b, m, :] = sum_{n, l} A[b, n, l, m] * keep(gid) / keep * g[b, n, l, :]
 //
-// with A (B, N, L, N), V (B, N, F) and g (B, N, L, F) all float32 or all
-// bfloat16, accumulated in float32 and written once in the operand dtype.
+// with A (B, N, L, N), V (B, N, F) and g (B, N, L, F) all in one dtype,
+// accumulated in float32 and written once in the operand dtype.
 //
 // The DropEdge mask is a pure function of (seed, gid), where
 // gid = ((b*N + n)*L + l)*N + m is the element's index in A (the wrapper
@@ -36,10 +37,9 @@
 // (N*L x N) @ (N x F) -> (N*L x F), with the output row (b, n, l) written in
 // place at ((b*N + n)*L + l)*F. K2 is per batch A^T (N x N*L) @ g (N*L x F):
 // the reduction runs over the N*L rows of the same free view, and the A tile
-// is staged row-major as loaded and read transposed from shared memory
-// (WMMA matrix_a in col_major), so no transpose of the dominant operand A
-// ever touches device memory (the TPU kernel's round-1 version lost to XLA
-// exactly by paying those extra passes, relagg.py:1-11).
+// is staged transposed in shared memory, so no transpose of the dominant
+// operand A ever touches device memory (the TPU kernel's round-1 version
+// lost to XLA exactly by paying those extra passes, relagg.py:1-11).
 //
 // Grid. One block owns one (BM x BN) tile of one batch's output; it walks
 // the whole reduction dimension itself in shared-memory tiles. That loop
@@ -60,11 +60,11 @@
 // the F/BN re-reads of the band's A rows hit the 50 MB L2; a batch's V panel
 // (<= 256 KB) stays in L2 too; each output element is written once, in the
 // operand dtype. The mask costs two integer hashes per nonzero A entry
-// staged, no bytes. The bf16 path runs on the tensor cores through WMMA
+// staged, no bytes. bf16 K3 runs on the tensor cores through WMMA
 // (mma.sync) 16x16x16 fragments with float accumulators; float32 runs as a
 // register-tiled SIMT product in full float32 (no TF32), because the f32
 // path is held to ~1e-4 relative. wgmma, TMA and a pipelined smem ring are
-// the later, fast version.
+// the later, fast version of K3 (dropedge_sm90.cu has them for K1/K2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,7 +93,6 @@ __device__ __forceinline__ size_t a_index(int b, int row, int k, int M, int K) {
 }
 
 __device__ __forceinline__ bool is_zero(float a) { return a == 0.f; }
-__device__ __forceinline__ bool is_zero(__nv_bfloat16 a) { return __bfloat162float(a) == 0.f; }
 
 // A's entry with DropEdge applied (unscaled). Zero entries stay zero
 // whatever their bit, so only nonzero ones are hashed.
@@ -186,8 +185,8 @@ relagg_f32_kernel(const float* __restrict__ A, const float* __restrict__ X,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: 64x64 output tile, 4 warps in a 2x2 layout, each warp 32x32 as
-// 2x2 WMMA 16x16x16 fragments with float accumulators.
+// bfloat16 K3: 64x64 output tile, 4 warps in a 2x2 layout, each warp 32x32
+// as 2x2 WMMA 16x16x16 fragments with float accumulators.
 // ---------------------------------------------------------------------------
 constexpr int kBM = 64;
 constexpr int kBN = 64;
@@ -196,19 +195,15 @@ constexpr int kBf16Threads = 128;
 // Row pads keep every fragment pointer 32-byte aligned and the leading
 // dimensions multiples of 8 (bf16) / 4 (float), as WMMA requires, while
 // shifting rows across shared-memory banks.
-constexpr int kAStride = kBK + 8;   // kRows: As[row][k], 40 bf16 = 80 bytes
-constexpr int kAtStride = kBM + 8;  // kCols: As[k][row], 72 bf16 = 144 bytes
+constexpr int kAStride = kBK + 8;   // As[row][k], 40 bf16 = 80 bytes
 constexpr int kXStride = kBN + 8;   // 72 bf16 = 144 bytes
 constexpr int kCStride = kBN + 4;   // 68 float = 272 bytes
-constexpr int kATile = kBM * kAStride > kBK * kAtStride ? kBM * kAStride : kBK * kAtStride;
 
-template <AOrder kOrder, bool kDrop>
 __global__ void __launch_bounds__(kBf16Threads)
 relagg_bf16_kernel(const __nv_bfloat16* __restrict__ A,
                    const __nv_bfloat16* __restrict__ X,
-                   __nv_bfloat16* __restrict__ out, int M, int K, int F,
-                   uint32_t seed, float keep) {
-  __shared__ __align__(32) __nv_bfloat16 As[kATile];
+                   __nv_bfloat16* __restrict__ out, int M, int K, int F) {
+  __shared__ __align__(32) __nv_bfloat16 As[kBM * kAStride];
   __shared__ __align__(32) __nv_bfloat16 Xs[kBK * kXStride];
   __shared__ __align__(32) float Cs[kBM * kCStride];
 
@@ -232,19 +227,10 @@ relagg_bf16_kernel(const __nv_bfloat16* __restrict__ A,
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
     for (int i = tid; i < kBM * kBK; i += kBf16Threads) {
-      const int r = kOrder == AOrder::kRows ? i / kBK : i % kBM;
-      const int c = kOrder == AOrder::kRows ? i % kBK : i / kBM;
+      const int r = i / kBK, c = i % kBK;
       const int gr = row0 + r, gc = k0 + c;
-      __nv_bfloat16 a = zero;
-      if (gr < M && gc < K) {
-        const size_t gid = a_index<kOrder>(b, gr, gc, M, K);
-        a = masked<kDrop>(A[gid], gid, seed, keep, zero);
-      }
-      // Staged as loaded: row-major [row][k] for kRows, [k][row] for kCols.
-      if (kOrder == AOrder::kRows)
-        As[r * kAStride + c] = a;
-      else
-        As[c * kAtStride + r] = a;
+      As[r * kAStride + c] =
+          (gr < M && gc < K) ? A[a_index<AOrder::kRows>(b, gr, gc, M, K)] : zero;
     }
     for (int i = tid; i < kBK * kBN; i += kBf16Threads) {
       const int r = i / kBN, c = i % kBN;
@@ -259,26 +245,14 @@ relagg_bf16_kernel(const __nv_bfloat16* __restrict__ A,
 #pragma unroll
       for (int j = 0; j < 2; ++j)
         wmma::load_matrix_sync(fx[j], Xs + kk * kXStride + wn * 32 + j * 16, kXStride);
-      if constexpr (kOrder == AOrder::kRows) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * kAStride + kk, kAStride);
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * kAStride + kk, kAStride);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fx[j], acc[i][j]);
-      } else {
-        // The [k][row] tile read as the col_major (row x k) operand: A^T.
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], As + kk * kAtStride + wm * 32 + i * 16, kAtStride);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fx[j], acc[i][j]);
-      }
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fx[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -291,18 +265,18 @@ relagg_bf16_kernel(const __nv_bfloat16* __restrict__ A,
                               acc[i][j], kCStride, wmma::mem_row_major);
   __syncthreads();
 
-  const float scale = kDrop ? 1.0f / keep : 1.0f;
   for (int i = tid; i < kBM * kBN; i += kBf16Threads) {
     const int r = i / kBN, c = i % kBN;
     const int gr = row0 + r, gc = col0 + c;
     if (gr < M && gc < F)
-      Ob[static_cast<size_t>(gr) * F + gc] = __float2bfloat16(Cs[r * kCStride + c] * scale);
+      Ob[static_cast<size_t>(gr) * F + gc] = __float2bfloat16(Cs[r * kCStride + c]);
   }
 }
 
 inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
 
-// out (B x M x F) = op(A) @ X over B batches; dtype 0 = float32, 1 = bfloat16.
+// out (B x M x F) = op(A) @ X over B batches; dtype 0 = float32, 1 = bfloat16
+// (K3 only: the bfloat16 K1/K2 are dropedge_sm90.cu's).
 template <AOrder kOrder, bool kDrop>
 int launch(const void* A, const void* X, void* out, int B, int M, int K, int F,
            int dtype, uint32_t seed, float keep, int device, void* stream) {
@@ -314,11 +288,12 @@ int launch(const void* A, const void* X, void* out, int B, int M, int K, int F,
     relagg_f32_kernel<kOrder, kDrop><<<grid, kF32Threads, 0, s>>>(
         static_cast<const float*>(A), static_cast<const float*>(X),
         static_cast<float*>(out), M, K, F, seed, keep);
-  } else if (dtype == 1) {
+  } else if constexpr (kOrder == AOrder::kRows && !kDrop) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(cdiv(F, kBN), cdiv(M, kBM), static_cast<unsigned>(B));
-    relagg_bf16_kernel<kOrder, kDrop><<<grid, kBf16Threads, 0, s>>>(
+    relagg_bf16_kernel<<<grid, kBf16Threads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(X),
-        static_cast<__nv_bfloat16*>(out), M, K, F, seed, keep);
+        static_cast<__nv_bfloat16*>(out), M, K, F);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -329,7 +304,8 @@ int launch(const void* A, const void* X, void* out, int B, int M, int K, int F,
 
 // Each entry point launches on `stream` of `device`, does not synchronise,
 // allocates nothing, and returns cudaGetLastError(). dtype: 0 = float32,
-// 1 = bfloat16. A is (B, N, L, N), V (B, N, F), g and out (B, N, L, F).
+// 1 = bfloat16 (K3 only). A is (B, N, L, N), V (B, N, F), g and out
+// (B, N, L, F).
 
 // K3: out = A @ V.
 extern "C" int grl_relagg_forward(const void* A, const void* V, void* out, int B,
@@ -339,7 +315,7 @@ extern "C" int grl_relagg_forward(const void* A, const void* V, void* out, int B
                                       device, stream);
 }
 
-// K1: out = (A * keep(gid) / keep) @ V.
+// K1, float32: out = (A * keep(gid) / keep) @ V.
 extern "C" int grl_dropedge_forward(const void* A, const void* V, void* out, int B,
                                     int N, int L, int F, int dtype, uint32_t seed,
                                     float keep, int device, void* stream) {
@@ -347,7 +323,7 @@ extern "C" int grl_dropedge_forward(const void* A, const void* V, void* out, int
                                      device, stream);
 }
 
-// K2: dV = (A * keep(gid) / keep)^T @ g, per batch over A's (N*L, N) view.
+// K2, float32: dV = (A * keep(gid) / keep)^T @ g, per batch over A's (N*L, N) view.
 extern "C" int grl_dropedge_backward(const void* A, const void* g, void* dV, int B,
                                      int N, int L, int F, int dtype, uint32_t seed,
                                      float keep, int device, void* stream) {

@@ -1,7 +1,12 @@
 """K3, K1 and K2: relational neighbor aggregation, hand-written in CUDA.
 
-The kernels are ``grl_torch/csrc/relagg.cu``, compiled for ``sm_90a`` at
-first use (:mod:`grl_torch.ops._build`) and called through ``ctypes``.
+The kernels are compiled for ``sm_90a`` at first use
+(:mod:`grl_torch.ops._build`) and called through ``ctypes``:
+``grl_torch/csrc/relagg.cu`` holds K3 (float32 and bfloat16) and the
+float32 K1/K2; ``grl_torch/csrc/dropedge_sm90.cu`` holds the bfloat16
+K1/K2 (TMA rings, ``wgmma``, and a split-K for K2 reduced inside a
+thread-block cluster), launched as :func:`dropedge_plan` lays them out.
+The route is fixed by the dtype.
 
 * K3 replaces ``grl_tpu/ops/pallas/relagg.py`` · ``pallas_neighbor_aggregate``
   (``_agg_forward`` :92-123, body ``_agg_kernel`` :76-89)::
@@ -35,8 +40,8 @@ F=256 each call is ~1.6 GFLOP against ~13.6 MB moved in bf16, ~120
 FLOP/byte — below the card's bf16 ridge of ~295 FLOP/byte, so
 device-memory bandwidth is the floor. The kernels read A in the dataset
 layout with no transpose and write their output in place in the operand
-dtype, so each operand crosses device memory once (see the note at the
-top of the source).
+dtype, so each operand crosses device memory once (see the notes at the
+top of the sources).
 
 Every wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors, or raises; it counts launches in ``.launches``:
@@ -49,8 +54,10 @@ kernel for CUDA tensors, or raises; it counts launches in ``.launches``:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -59,8 +66,15 @@ from grl_torch.ops.hashing import keep_bits, keep_probability
 
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
 _MAX_GRID_YZ = 65535
-_TILE_ROWS = 64  # output rows per block (kF32BM == kBM in relagg.cu)
+_TILE_ROWS = 64  # output rows per block (kF32BM == kBM in relagg.cu; kTile in dropedge_sm90.cu)
 _MAX_ELEMENTS = 2**32  # gid is a uint32 in the kernels
+# dropedge_sm90.cu: wgmma's widest N and the portable cluster size.
+_MAX_BN = 256
+_MAX_SPLITS = 8
+# K2's split aims at one block for every two of the H100's 132 SMs: past
+# that, the cluster's sum of S partials costs more than the shorter walk
+# saves (chip_smoke.py times K2 under every S at the main shape).
+_SPLIT_BLOCKS = 132 // 2
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +126,100 @@ def dropedge_aggregate_grad_reference(g: torch.Tensor, A: torch.Tensor, seed: in
     A_m = _masked_float(A, seed, rate).reshape(B, N * L, N)
     dV = torch.matmul(A_m.transpose(1, 2), g.float().reshape(B, N * L, F))
     return (dV * (1.0 / keep_probability(rate))).to(g.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The launch plan of the bfloat16 K1/K2 (dropedge_sm90.cu)
+# ---------------------------------------------------------------------------
+def check_sm90_shape(N: int, F: int) -> None:
+    """bf16 K1/K2 read A, V and g through TMA, whose global strides must be
+    multiples of 16 bytes: raise ``ValueError`` unless N % 8 == 0 and
+    F % 8 == 0."""
+    unmet = [f"{name} % 8 == 0 (got {name}={value})" for name, value in (("N", N), ("F", F)) if value % 8]
+    if unmet:
+        raise ValueError(
+            "bfloat16 K1/K2 read their operands through TMA, whose global strides are "
+            "multiples of 16 bytes: they need " + " and ".join(unmet)
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class DropEdgePlan:
+    """How dropedge_sm90.cu tiles K1 and K2 for A (B, N, L, N) and F
+    feature columns.
+
+    Both kernels step through A's (N*L, N) view in 64 x 64 tiles and write
+    output tiles of 64 rows by ``BN`` columns.
+
+    * K1, ``forward_grid`` = (f_tiles, row_tiles, B): block (x, y, z) owns
+      output rows 64y.. of batch z's N*L and columns BN*x.., over the
+      ceil(N / 64) column steps of A.
+    * K2, ``backward_grid`` = (splits * f_tiles, m_tiles, B) in clusters of
+      ``cluster`` = (splits, 1, 1): the blocks of a cluster share output
+      rows 64y.. of batch z's N and columns BN*(x // splits)..; block
+      x % splits walks ``steps // splits`` consecutive 64-row steps of the
+      N*L reduction rows and the cluster sums the partials.
+    """
+
+    B: int
+    N: int
+    L: int
+    F: int
+    BN: int
+    splits: int
+
+    @property
+    def f_tiles(self) -> int:
+        return -(-self.F // self.BN)
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.N * self.L // _TILE_ROWS)
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.N // _TILE_ROWS)
+
+    @property
+    def steps(self) -> int:
+        """K2's 64-row steps over the N*L reduction rows."""
+        return self.row_tiles
+
+    @property
+    def forward_grid(self) -> Tuple[int, int, int]:
+        return (self.f_tiles, self.row_tiles, self.B)
+
+    @property
+    def backward_grid(self) -> Tuple[int, int, int]:
+        return (self.splits * self.f_tiles, self.m_tiles, self.B)
+
+    @property
+    def cluster(self) -> Tuple[int, int, int]:
+        return (self.splits, 1, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def dropedge_plan(B: int, N: int, L: int, F: int) -> DropEdgePlan:
+    """The tiles, split and grids of the bfloat16 K1/K2 for A (B, N, L, N).
+
+    ``BN`` = min(F, 256) rounded up to a multiple of 64 (TMA zero-fills the
+    F edge; the epilogues mask it). K2 splits its ceil(N*L / 64) row steps
+    ``S`` ways, S a divisor of the step count and at most 8: the smallest S
+    whose grid reaches 66 blocks, half the H100's 132 SMs, else the largest.
+    Raises ``ValueError`` for N % 8, F % 8 (:func:`check_sm90_shape`) or a
+    grid past the card's limits. Cached: the wrappers ask at every launch.
+    """
+    if min(B, N, L, F) < 1:
+        raise ValueError(f"empty shape B={B}, N={N}, L={L}, F={F}")
+    check_sm90_shape(N, F)
+    BN = min(-(-F // 64) * 64, _MAX_BN)
+    steps = -(-N * L // _TILE_ROWS)
+    if B > _MAX_GRID_YZ or steps > _MAX_GRID_YZ:
+        raise ValueError(f"shape B={B}, N*L={N * L} exceeds the kernels' grid limits")
+    tiles = B * -(-N // _TILE_ROWS) * -(-F // BN)
+    divisors = [s for s in range(1, _MAX_SPLITS + 1) if steps % s == 0]
+    splits = next((s for s in divisors if tiles * s >= _SPLIT_BLOCKS), divisors[-1])
+    return DropEdgePlan(B, N, L, F, BN, splits)
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +277,7 @@ def _launch(entry: str, A: torch.Tensor, X: torch.Tensor, out_shape, *mask_args)
     """Launch ``entry`` of relagg.cu on the current stream; no synchronisation.
 
     ``X`` is V for K3/K1 and g for K2; ``mask_args`` is ``(seed, keep)``
-    for K1/K2.
+    for K1/K2 (float32 only there).
     """
     if X.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA relagg takes float32 or bfloat16, not {X.dtype}")
@@ -190,6 +298,59 @@ def _launch(entry: str, A: torch.Tensor, X: torch.Tensor, out_shape, *mask_args)
     )
     _build.check_launch(lib, err, entry)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90_library() -> ctypes.CDLL:
+    """dropedge_sm90.cu's library with its C signatures declared (once)."""
+    lib = _build.load_library("dropedge_sm90")
+    head = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5  # A, X, out, B, N, L, F, BN
+    mask = [ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # seed, keep, device, stream
+    lib.grl_dropedge_sm90_forward.argtypes = head + mask
+    lib.grl_dropedge_sm90_backward.argtypes = head + [ctypes.c_int] + mask  # ... S
+    lib.grl_dropedge_sm90_max_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    for name in ("grl_dropedge_sm90_forward", "grl_dropedge_sm90_backward", "grl_dropedge_sm90_max_clusters"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _launch_sm90(backward: bool, A: torch.Tensor, X: torch.Tensor, seed: int, keep: float,
+                 plan: DropEdgePlan = None) -> torch.Tensor:
+    """The bfloat16 K1 (``X`` = V) or K2 (``X`` = g) of dropedge_sm90.cu on
+    the current stream, laid out by ``plan`` (default
+    :func:`dropedge_plan`'s); no synchronisation. ``keep`` 1.0 launches K1
+    with no entry dropped."""
+    if not (X.is_contiguous() and A.is_contiguous()):
+        raise ValueError("CUDA relagg needs contiguous operands (dataset layout)")
+    if A.data_ptr() % 16 or X.data_ptr() % 16:
+        raise ValueError("bfloat16 K1/K2 need 16-byte aligned operands (TMA)")
+    B, N, L, _ = A.shape
+    F = X.shape[-1]
+    shape = (B, N, F) if backward else (B, N, L, F)
+    if math.prod(shape) == 0:
+        return torch.empty(shape, dtype=X.dtype, device=X.device)
+    plan = plan or dropedge_plan(B, N, L, F)
+    out = torch.empty(shape, dtype=X.dtype, device=X.device)
+    lib = _sm90_library()
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    head = (A.data_ptr(), X.data_ptr(), out.data_ptr(), B, N, L, F, plan.BN)
+    tail = (int(seed) & 0xFFFFFFFF, keep, X.device.index, stream)
+    if backward:
+        err = lib.grl_dropedge_sm90_backward(*head, plan.splits, *tail)
+    else:
+        err = lib.grl_dropedge_sm90_forward(*head, *tail)
+    _build.check_launch(lib, err, "bf16 K2" if backward else "bf16 K1")
+    return out
+
+
+def sm90_max_clusters(plan: DropEdgePlan, device: int = 0) -> int:
+    """How many of K2's clusters under ``plan`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: none launch)."""
+    lib = _sm90_library()
+    clusters = ctypes.c_int(0)
+    err = lib.grl_dropedge_sm90_max_clusters(plan.BN, plan.splits, device, ctypes.byref(clusters))
+    _build.check_launch(lib, err, "cudaOccupancyMaxActiveClusters")
+    return clusters.value
 
 
 def _by_device(tensor: torch.Tensor) -> str:
@@ -243,31 +404,39 @@ neighbor_aggregate.launches = 0
 # K1 and K2
 # ---------------------------------------------------------------------------
 def _dropedge_forward(V: torch.Tensor, A: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """K1 for CUDA tensors, its plain version for CPU tensors."""
+    """K1 for CUDA tensors (bfloat16: dropedge_sm90.cu; float32:
+    relagg.cu), its plain version for CPU tensors."""
     if _by_device(V) == "cpu":
         return dropedge_aggregate_reference(V, A, seed, rate)
-    B, N, L, _ = A.shape
-    out = _launch(
-        "grl_dropedge_forward", A, V, (B, N, L, V.shape[-1]),
-        int(seed) & 0xFFFFFFFF, keep_probability(rate),
-    )
+    if V.dtype == torch.bfloat16:
+        out = _launch_sm90(False, A, V, seed, keep_probability(rate))
+    else:
+        B, N, L, _ = A.shape
+        out = _launch(
+            "grl_dropedge_forward", A, V, (B, N, L, V.shape[-1]),
+            int(seed) & 0xFFFFFFFF, keep_probability(rate),
+        )
     dropedge_aggregate.launches += 1
     return out
 
 
 def dropedge_aggregate_grad(g: torch.Tensor, A: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """``dV (B, N, F)`` of :func:`dropedge_aggregate` for the output
-    cotangent ``g (B, N, L, F)``: the K2 kernel on CUDA tensors (counted in
+    cotangent ``g (B, N, L, F)``: the K2 kernel on CUDA tensors (bfloat16:
+    dropedge_sm90.cu; float32: relagg.cu; counted in
     ``dropedge_aggregate_grad.launches``), its plain version on CPU ones."""
     _check_grad(g, A)
     _check_mask(A, rate)
     if _by_device(g) == "cpu":
         return dropedge_aggregate_grad_reference(g, A, seed, rate)
-    B, N, _, F = g.shape
-    dV = _launch(
-        "grl_dropedge_backward", A, g, (B, N, F),
-        int(seed) & 0xFFFFFFFF, keep_probability(rate),
-    )
+    if g.dtype == torch.bfloat16:
+        dV = _launch_sm90(True, A, g, seed, keep_probability(rate))
+    else:
+        B, N, _, F = g.shape
+        dV = _launch(
+            "grl_dropedge_backward", A, g, (B, N, F),
+            int(seed) & 0xFFFFFFFF, keep_probability(rate),
+        )
     dropedge_aggregate_grad.launches += 1
     return dV
 

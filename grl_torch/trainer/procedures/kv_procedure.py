@@ -27,7 +27,10 @@ import numpy as np
 import torch
 
 from grl_torch.config import ConfigDict
+from grl_torch.data.collate import BucketPadding
 from grl_torch.data.dataloader import BaseDataLoader
+from grl_torch.models.gcn_family import GCNTrunk
+from grl_torch.ops.relagg import check_sm90_shape
 from grl_torch.trainer.lr_schedulers import cosine_schedule_lambda
 from grl_torch.trainer.metrics import macro_scores, per_class_report
 from grl_torch.trainer.procedures.base_procedure import BaseProcedure
@@ -47,6 +50,7 @@ class KVProcedure(BaseProcedure):
             )
         self.global_step = 0
         self.train_loader, self.val_loader, self.class_names = self._init_dataloaders()
+        self._check_dropedge_shapes()
         args = self.config.get_path("data_config.dataset.args", ConfigDict())
         self.pad_value = int(args.get("node_label_padding_value", -100))
         other = args.get("other_class_index")
@@ -82,6 +86,31 @@ class KVProcedure(BaseProcedure):
         pairs = sorted(train_ds.id_to_class.items())
         class_names = tuple(["other"] + ["_".join(names) for _, names in pairs])
         return train_loader, val_loader, class_names
+
+    def _check_dropedge_shapes(self) -> None:
+        """Refuse, when the config is read, padding that bf16 K1/K2 cannot
+        take: with ``kernel_impl: pallas``, DropEdge on and bfloat16, every
+        padded node count N (BucketPadding's quantum and buckets) and every
+        width F of the trunk's convolutions must be divisible by 8
+        (:func:`grl_torch.ops.relagg.check_sm90_shape`)."""
+        trunks = [m for m in self.model.modules() if isinstance(m, GCNTrunk)
+                  and m.kernel_impl == "pallas" and m.edge_dropout_rate > 0.0 and m.dtype == torch.bfloat16]
+        if not trunks:
+            return
+        pads = [p for loader in (self.train_loader, self.val_loader) for p in loader.collate_chain
+                if isinstance(p, BucketPadding)]
+        sizes = sorted({p.quantum for p in pads} | {b for p in pads for b in p.buckets})
+        widths = sorted({conv.h_weights.shape[0] // (conv.num_relations + 1)
+                         for trunk in trunks for conv in (trunk.gcn1, trunk.gcn2, trunk.gcn3)})
+        for N in sizes or [8]:
+            for F in widths:
+                try:
+                    check_sm90_shape(N, F)
+                except ValueError as err:
+                    raise ValueError(
+                        f"kernel_impl: pallas in bfloat16 with DropEdge pads to N={N} (BucketPadding "
+                        f"quantum/buckets) at width F={F}: {err}"
+                    ) from None
 
     # ------------------------------------------------------------------
     def _prepare_batch(self, batch: Dict[str, Any]):

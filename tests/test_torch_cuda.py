@@ -1,4 +1,5 @@
-"""K1-K6 and P on the card: the CUDA kernels against their plain versions.
+"""K1-K6 and P on the card: the CUDA kernels against their plain versions
+(bf16 K1/K2: dropedge_sm90.cu; the rest as named in their modules).
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file
 imports neither JAX nor grl_tpu, so it runs on a machine without them,
@@ -79,6 +80,11 @@ def test_kernel_refuses_what_it_cannot_take():
 def test_dropedge_kernels_match_plain_versions(N, F, dtype):
     V, A = operands(N, F, dtype, density=0.2, seed=N + F)
     g = torch.randn(B, N, L, F, device="cuda").to(dtype)
+    if dtype == torch.bfloat16 and N % 8:
+        # bf16 K1/K2 read through TMA: N % 8 == 0 (test_bf16_dropedge_shape_check).
+        with pytest.raises(ValueError, match="N % 8 == 0"):
+            relagg.dropedge_aggregate(V, A, 11, RATE)
+        return
     k1, k2 = relagg.dropedge_aggregate.launches, relagg.dropedge_aggregate_grad.launches
     out = relagg.dropedge_aggregate(V, A, 11, RATE)
     dV = relagg.dropedge_aggregate_grad(g, A, 11, RATE)
@@ -120,6 +126,74 @@ def test_dropedge_autograd_runs_k2_and_rate_zero_is_k3():
     torch.testing.assert_close(plain, relagg.neighbor_aggregate_reference(V.detach(), A), rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):
         relagg.dropedge_aggregate(V.detach(), A, 9, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# bf16 K1/K2 (dropedge_sm90.cu: TMA, wgmma, K2's cluster split-K) at the
+# main path's shapes, the checks' widths (F = N with V = I, F = N*L with
+# g = I) and F = 64. Both sides accumulate in float32 and round once to
+# bf16, in another order: one bf16 rounding apart (1e-2 relative), plus
+# 1e-5 of the largest output for sums that cancel.
+# ---------------------------------------------------------------------------
+def assert_one_rounding_apart(out, ref):
+    assert out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-5 * float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("N", [64, 192, 256])
+@pytest.mark.parametrize("F", [64, 256, 512, 1536])
+def test_bf16_dropedge_kernels_match_plain_versions(N, F):
+    V, A = operands(N, F, torch.bfloat16, density=0.05, seed=7 * N + F)
+    g = torch.randn(B, N, L, F, device="cuda").to(torch.bfloat16)
+    k1, k2 = relagg.dropedge_aggregate.launches, relagg.dropedge_aggregate_grad.launches
+    out = relagg.dropedge_aggregate(V, A, 23, RATE)
+    dV = relagg.dropedge_aggregate_grad(g, A, 23, RATE)
+    torch.cuda.synchronize()
+    assert relagg.dropedge_aggregate.launches == k1 + 1
+    assert relagg.dropedge_aggregate_grad.launches == k2 + 1
+    assert_one_rounding_apart(out, relagg.dropedge_aggregate_reference(V, A, 23, RATE))
+    assert_one_rounding_apart(dV, relagg.dropedge_aggregate_grad_reference(g, A, 23, RATE))
+
+
+@pytest.mark.parametrize("N", [64, 192, 256])
+def test_bf16_dropedge_masks_read_back_exactly(N):
+    """V = I: K1 returns A * mask / keep; g = I over the N*L rows: K2 returns
+    its transpose. Both show exactly the plain hash mask on A's support."""
+    _, A = operands(N, 8, torch.bfloat16, density=0.5, seed=N)
+    expected = (A != 0) & relagg.dropedge_keep_mask(41, A.shape, RATE, A.device)
+    eye = torch.eye(N, device="cuda", dtype=torch.bfloat16).expand(B, N, N).contiguous()
+    seen_k1 = relagg.dropedge_aggregate(eye, A, 41, RATE) != 0
+    g = torch.eye(N * L, device="cuda", dtype=torch.bfloat16).expand(B, N * L, N * L).reshape(B, N, L, N * L)
+    dV = relagg.dropedge_aggregate_grad(g.contiguous(), A, 41, RATE)
+    seen_k2 = dV.view(B, N, N, L).permute(0, 2, 3, 1) != 0
+    assert torch.equal(seen_k1, expected)
+    assert torch.equal(seen_k2, expected)
+
+
+def test_bf16_dropedge_launches_are_deterministic():
+    """K2 sums its cluster's partials in a fixed order: no atomics, so two
+    launches of each kernel give the same bits."""
+    V, A = operands(256, 256, torch.bfloat16, density=0.2, seed=5)
+    g = torch.randn(B, 256, L, 256, device="cuda").to(torch.bfloat16)
+    for run in (lambda: relagg.dropedge_aggregate(V, A, 3, RATE),
+                lambda: relagg.dropedge_aggregate_grad(g, A, 3, RATE)):
+        assert torch.equal(run(), run())
+
+
+def test_bf16_k1_at_keep_one_is_k3_within_one_rounding():
+    V, A = operands(256, 256, torch.bfloat16, density=0.2, seed=6)
+    assert_one_rounding_apart(relagg._launch_sm90(False, A, V, 3, 1.0), relagg.neighbor_aggregate(V, A))
+
+
+def test_bf16_dropedge_shape_check():
+    V, A = operands(100, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="N % 8 == 0"):
+        relagg.dropedge_aggregate(V, A, 1, RATE)
+    with pytest.raises(ValueError, match="N % 8 == 0"):
+        relagg.dropedge_aggregate_grad(torch.zeros(B, 100, L, 64, device="cuda", dtype=torch.bfloat16), A, 1, RATE)
+    V, A = operands(64, 44, torch.bfloat16)
+    with pytest.raises(ValueError, match="F % 8 == 0"):
+        relagg.dropedge_aggregate(V, A, 1, RATE)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 
 import pytest
 import torch
@@ -121,6 +122,36 @@ def test_resume_restores_model_optimizer_and_step(trained):
     for index, entry in before["state"].items():
         for key, value in entry.items():
             assert torch.equal(after["state"][index][key], value), (index, key)
+
+
+# (BucketPadding, model args, the refusal expected or None)
+PADDING_CASES = {
+    "bf16 quantum 64": ({"quantum": 64}, {"compute_dtype": "bfloat16"}, None),
+    "bf16 quantum 60": ({"quantum": 60}, {"compute_dtype": "bfloat16"}, "N % 8 == 0 (got N=60)"),
+    "bf16 bucket 100": ({"quantum": 64, "buckets": [100, 192]}, {"compute_dtype": "bfloat16"}, "N % 8 == 0 (got N=100)"),
+    "bf16 width 36": ({"quantum": 64}, {"compute_dtype": "bfloat16", "net_size": 36}, "F % 8 == 0 (got F=36)"),
+    "f32 quantum 60": ({"quantum": 60}, {}, None),
+    "bf16 quantum 60 without DropEdge": ({"quantum": 60}, {"compute_dtype": "bfloat16", "edge_dropout_rate": 0.0}, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PADDING_CASES))
+def test_procedure_refuses_padding_bf16_dropedge_cannot_take(trained, tmp_path, case):
+    """bf16 K1/K2 (kernel_impl: pallas with DropEdge) read through TMA and
+    need N % 8 == 0 and F % 8 == 0: a config whose BucketPadding or widths
+    break that fails when the procedure is set up, not at its first step on
+    the card."""
+    padding, model_args, refusal = PADDING_CASES[case]
+    config = dict(trained["config"], output_dir=str(tmp_path))
+    config["model"] = dict(config["model"], args={**config["model"]["args"], **model_args})
+    split = dict(config["data_config"]["training"],
+                 data_collate={"BucketPadding": {**padding, "only_selected_items": True}})
+    config["data_config"] = dict(config["data_config"], training=split, validation=dict(split, shuffle=False))
+    if refusal is None:
+        GNNLearningWarper(config=config, device="cpu")
+        return
+    with pytest.raises(ValueError, match=re.escape(refusal)):
+        GNNLearningWarper(config=config, device="cpu")
 
 
 def test_checkpoint_serves_through_kv_inference(trained):
