@@ -12,17 +12,19 @@ before the result line is printed; no phase's failure is passed over.
    and CUDA versions, TF32 off, and the build of every CUDA source under
    ``grl_torch/csrc`` for ``sm_90a`` (one ``nvcc`` per source, all
    started together).
-2. ``kernel``: K3 (``grl_torch/csrc/relagg.cu``), K1 and K2 (bfloat16:
-   ``grl_torch/csrc/dropedge_sm90.cu``; float32: ``relagg.cu``) against
-   their plain PyTorch versions on the card, B=8, L=6, N in {64, 192, 256},
-   F in {256, 512}, float32 and bfloat16, DropEdge rate 0.3; bf16 K1/K2
-   also at F = 64 and 1536, untimed. K1/K2 and their plain versions hash
+2. ``kernel``: K3, K1 and K2 against their plain PyTorch versions on the
+   card, B=8, L=6, N in {64, 192, 256}, F in {256, 512}, float32 and
+   bfloat16, DropEdge rate 0.3: bf16 K3 (N % 8 == 0 and F % 8 == 0), K1
+   and K2 in ``grl_torch/csrc/dropedge_sm90.cu``, float32 K2 in
+   ``dropedge_f32.cu``, float32 K3 and K1 in ``relagg.cu``, and bf16 K3 at
+   the ragged N = 230 on ``relagg.cu``'s WMMA route; bf16 K1/K2 also at
+   F = 64 and 1536, untimed. K1/K2 and their plain versions hash
    the same mask, which is checked exactly by probing the kernels with
    identity operands; the kept share, forward/backward consistency, "K1 at
-   keep 1 is K3" (f32 bit for bit, bf16 within one rounding), two launches
-   of bf16 K1 and K2 giving equal bits, and how many of K2's clusters the
-   card holds are checked too; bf16 K2 is also timed under every split S at
-   the main shape. Each case is timed with CUDA events (median of single
+   keep 1 is K3" (bit for bit in both dtypes), two launches of bf16 K1 and
+   K2 and of f32 K2 giving equal bits, and how many of each K2's clusters
+   the card holds are checked too; bf16 and f32 K2 are also timed under
+   every split S at the main shape. Each case is timed with CUDA events (median of single
    launches, L2 flushed before each) beside the plain version, a PyTorch
    call for the same product (``library_ms``: ``torch.matmul``, on an
    already-masked A for K1/K2), and the card's bound. K3/K1/K2 rows also
@@ -46,6 +48,12 @@ before the result line is printed; no phase's failure is passed over.
    and K2's device ms a step in it, and one train step timed on the card. Then a learning check (20 steps on one
    batch) and two full-width steps through the kernels against the same
    steps through their plain versions, float32 and bfloat16.
+   Then two paths of their own, each one epoch of 8 steps and 2
+   validation batches through ``GNNLearningWarper.train`` with its launch
+   counts set to 0 just before it and read just after: the same config in
+   float32 (``compute_dtype`` left at its default, so float32 K1, K2 and
+   K3 run), and in bfloat16 without DropEdge at ``BucketPadding`` quantum 2
+   (230-node batches: every K3 takes the WMMA route).
 5. ``full_graph``: the sparse large-graph path, ``GNNLearningWarper.train``
    -> ``FullGraphProcedure`` on ``configs/arxiv_full_graph.yaml`` as it is
    (169,343 nodes, 1,184,773 edges, widths 128/256/40, bfloat16, DropEdge
@@ -112,6 +120,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 B, L = 8, 6
 KERNEL_NS = (64, 192, 256)
 KERNEL_FS = (256, 512)
+# A node count TMA cannot read (230 % 8 != 0): bf16 K3 takes relagg.cu's
+# WMMA route there. Every synthetic page has 230 boxes, so it is also the
+# batches' N when they are padded at quantum 2.
+RAGGED_N = 230
 # Widths bf16 K1/K2 are also held at, untimed: a single 64-wide tile, and
 # F = N*L (BN 256 over six column tiles, K2 unsplit).
 BF16_CHECK_FS = (64, 1536)
@@ -282,8 +294,8 @@ def phase_env(torch) -> str:
     log(f"[env] built {sorted(paths)} for sm_90a in {build_s:.2f} s")
     for name, text in sorted(_build.build_logs.items()):
         for line in text.splitlines():
-            # dropedge_sm90.cu in full: each kernel's name, registers and spills.
-            if name == "dropedge_sm90" or "registers" in line or "spill" in line or "smem" in line:
+            # dropedge_sm90.cu and dropedge_f32.cu in full: each kernel's name, registers and spills.
+            if name in ("dropedge_sm90", "dropedge_f32") or "registers" in line or "spill" in line or "smem" in line:
                 log(f"[env] ptxas {name}: {line.strip()}")
     return card
 
@@ -390,9 +402,11 @@ def kernel_case(torch, dtype_name: str, N: int, F: int, density: float, flush, s
     from grl_torch.ops.relagg import neighbor_aggregate, neighbor_aggregate_reference
 
     V, A = operands(torch, dtype_name, N, F, density, seed)
+    before = dict(neighbor_aggregate.routes)
     out = neighbor_aggregate(V, A)
     torch.cuda.synchronize()
-    what = f"K3 {dtype_name} N={N} F={F} density={density}"
+    route = next(k for k, v in neighbor_aggregate.routes.items() if v != before[k])
+    what = f"K3 {dtype_name} N={N} F={F} density={density} ({route})"
     max_abs_err = check_close(torch, out, neighbor_aggregate_reference(V, A), dtype_name, what)
 
     A2 = A.view(B, N * L, N)
@@ -400,7 +414,7 @@ def kernel_case(torch, dtype_name: str, N: int, F: int, density: float, flush, s
                             lambda: torch.matmul(A2, V), flush)
     bound_ms, bound_by, nbytes, flops = bound(dtype_name, V.element_size(), N, F)
     return {
-        "kernel": "K3", "dtype": dtype_name, "B": B, "N": N, "L": L, "F": F, "density": density,
+        "kernel": "K3", "route": route, "dtype": dtype_name, "B": B, "N": N, "L": L, "F": F, "density": density,
         "max_abs_err": max_abs_err, **timings, "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "flops": flops,
     }
@@ -471,9 +485,10 @@ def mask_probe(torch, dtype_name: str, N: int, seed: int):
 
 
 def dropedge_invariants(torch):
-    """Forward and backward see one mask; K1 at keep 1 is K3 (float32 bit
-    for bit, bfloat16 within one rounding); the wrapper at rate 0 launches
-    K3; two launches of bf16 K1 and of bf16 K2 give equal bits."""
+    """Forward and backward see one mask; K1 at keep 1 is K3 bit for bit
+    (float32: relagg.cu's kernel with the mask on and off; bfloat16:
+    dropedge_sm90.cu's); the wrapper at rate 0 launches K3; two launches
+    of bf16 K1, of bf16 K2 and of f32 K2 give equal bits."""
     from grl_torch.ops import relagg
 
     V, A = operands(torch, "float32", 256, 256, DENSE_DENSITY, 77)
@@ -491,22 +506,27 @@ def dropedge_invariants(torch):
     torch.cuda.synchronize()
     require(relagg.neighbor_aggregate.launches == k3 + 1, "rate 0 did not launch K3")
     require(torch.equal(out, plain), "K1 at keep 1 differs from K3")
-    # bf16: K1 (dropedge_sm90.cu) and K3 (relagg.cu) sum in other orders.
+    # bf16: K3 at N % 8 == 0 is dropedge_sm90.cu's K1 with the mask compiled
+    # out; at keep 1 K1 drops nothing and scales by exactly 1.
     V, A = operands(torch, "bfloat16", 256, 256, DENSE_DENSITY, 78)
-    keep_one_err = check_close(torch, relagg._launch_sm90(False, A, V, 5, 1.0), relagg.neighbor_aggregate(V, A),
-                               "bfloat16", "bf16 K1 at keep 1 against K3")
+    keep_one = relagg._launch_sm90(False, A, V, 5, 1.0)
+    k3 = relagg.neighbor_aggregate(V, A)
+    keep_one_err = float((keep_one.float() - k3.float()).abs().max())
+    require(torch.equal(keep_one, k3), f"bf16 K1 at keep 1 differs from K3 (max abs err {keep_one_err:.3e})")
     g = torch.randn(B, 256, L, 256, generator=torch.Generator(device="cuda").manual_seed(79),
                     device="cuda").to(torch.bfloat16)
-    for name, run in (("K1", lambda: relagg.dropedge_aggregate(V, A, 6, RATE)),
-                      ("K2", lambda: relagg.dropedge_aggregate_grad(g, A, 6, RATE))):
-        require(torch.equal(run(), run()), f"two launches of bf16 {name} differ")
+    g32, A32 = g.float(), A.float()
+    for name, run in (("bf16 K1", lambda: relagg.dropedge_aggregate(V, A, 6, RATE)),
+                      ("bf16 K2", lambda: relagg.dropedge_aggregate_grad(g, A, 6, RATE)),
+                      ("f32 K2", lambda: relagg.dropedge_aggregate_grad(g32, A32, 6, RATE))):
+        require(torch.equal(run(), run()), f"two launches of {name} differ")
     return {"k2_dot_v": lhs, "sum_k1": rhs, "bf16_k1_keep1_vs_k3_max_abs_err": keep_one_err}
 
 
 def bf16_dropedge_checks(torch):
     """bf16 K1/K2 at F = 64 and F = N*L, untimed, against their plain
-    versions; and how many clusters of each K2 plan of the kernel phase the
-    card holds at once."""
+    versions; how many clusters of each K2 plan of the kernel phase the
+    card holds at once, bf16 and f32; and the f32 K2's capacity by S."""
     from grl_torch.ops import relagg
 
     checks = []
@@ -530,36 +550,51 @@ def bf16_dropedge_checks(torch):
         for F in KERNEL_FS + BF16_CHECK_FS:
             plan = relagg.dropedge_plan(B, N, L, F)
             blocks = math.prod(plan.backward_grid)
-            clusters[f"N={N} F={F}"] = held = {
+            clusters[f"bfloat16 N={N} F={F}"] = held = {
                 "BN": plan.BN, "S": plan.splits, "blocks": blocks,
                 "max_active_clusters": relagg.sm90_max_clusters(plan)}
             require(held["max_active_clusters"] > 0, f"the card holds no K2 cluster of {plan.splits} at {held}")
-    return checks, clusters
+    capacity = relagg.f32_capacity(0)
+    for N in KERNEL_NS + (RAGGED_N,):
+        for F in KERNEL_FS:
+            plan = relagg.dropedge_f32_plan(B, N, L, F, capacity)
+            clusters[f"float32 N={N} F={F}"] = held = {
+                "BN": 128, "S": plan.splits, "blocks": math.prod(plan.grid),
+                "max_active_clusters": capacity[plan.splits - 1] // plan.splits}
+            require(held["max_active_clusters"] > 0, f"the card holds no f32 K2 cluster of {plan.splits} at {held}")
+    return checks, clusters, capacity
 
 
 def k2_split_sweep(torch, flush):
-    """bf16 K2 at the main shape (N=256, F = 256 and 512) under every split
-    S the kernel takes (divisors of the 24 row steps, at most 8), against
-    its plain version, device time alone: what the planner's rule (the
-    smallest S that gives 66 blocks) costs against the others."""
+    """bf16 and f32 K2 at the main shape (N=256, F = 256 and 512) under
+    every split S each kernel takes (divisors of its row steps, 24 of 64
+    rows or 48 of 32, at most 8), against the plain version, device time
+    alone: what each planner's rule costs against the other splits."""
     import dataclasses
 
     from grl_torch.ops import relagg
 
     rows = []
-    for F in KERNEL_FS:
-        V, A = operands(torch, "bfloat16", 256, F, SPARSE_DENSITY, 300 + F)
-        g = torch.randn(B, 256, L, F, generator=torch.Generator(device="cuda").manual_seed(F),
-                        device="cuda").to(torch.bfloat16)
-        ref = relagg.dropedge_aggregate_grad_reference(g, A, 17, RATE)
-        keep = relagg.keep_probability(RATE)
-        planned = relagg.dropedge_plan(B, 256, L, F)
-        for S in (s for s in range(1, 9) if planned.steps % s == 0):
-            plan = dataclasses.replace(planned, splits=S)
-            run = functools.partial(relagg._launch_sm90, True, A, g, 17, keep, plan)
-            err = check_close(torch, run(), ref, "bfloat16", f"K2 F={F} S={S}")
-            rows.append({"F": F, "S": S, "planned": S == planned.splits, "blocks": math.prod(plan.backward_grid),
-                         "max_abs_err": err, "device_ms": time_ms(torch, run, flush, cover=True)})
+    keep = relagg.keep_probability(RATE)
+    for dtype_name in ("bfloat16", "float32"):
+        for F in KERNEL_FS:
+            V, A = operands(torch, dtype_name, 256, F, SPARSE_DENSITY, 300 + F)
+            g = torch.randn(B, 256, L, F, generator=torch.Generator(device="cuda").manual_seed(F),
+                            device="cuda").to(V.dtype)
+            ref = relagg.dropedge_aggregate_grad_reference(g, A, 17, RATE)
+            if dtype_name == "bfloat16":
+                planned, launch = relagg.dropedge_plan(B, 256, L, F), functools.partial(relagg._launch_sm90, True)
+            else:
+                planned = relagg.dropedge_f32_plan(B, 256, L, F, relagg.f32_capacity(0))
+                launch = relagg._launch_f32_grad
+            for S in (s for s in range(1, 9) if planned.steps % s == 0):
+                plan = dataclasses.replace(planned, splits=S)
+                run = functools.partial(launch, A, g, 17, keep, plan)
+                err = check_close(torch, run(), ref, dtype_name, f"{dtype_name} K2 F={F} S={S}")
+                grid = plan.backward_grid if dtype_name == "bfloat16" else plan.grid
+                rows.append({"dtype": dtype_name, "F": F, "S": S, "planned": S == planned.splits,
+                             "blocks": math.prod(grid), "max_abs_err": err,
+                             "device_ms": time_ms(torch, run, flush, cover=True)})
     return rows
 
 
@@ -929,14 +964,18 @@ def phase_kernel(torch):
         for N in KERNEL_NS
         for F in KERNEL_FS
     ] + [("float32", 192, 512, DENSE_DENSITY), ("bfloat16", 192, 512, DENSE_DENSITY)]
+    # bf16 K3 at a ragged N, on relagg.cu's WMMA route (bf16 K1/K2 refuse it).
+    ragged = [("bfloat16", RAGGED_N, F, SPARSE_DENSITY) for F in KERNEL_FS]
     results = []
-    for seed, case in enumerate(cases):
+    for seed, case in enumerate(cases + ragged):
         rows = [kernel_case(torch, *case, flush=flush, seed=seed)]
-        rows += dropedge_cases(torch, *case, flush=flush, seed=seed)
+        if case not in ragged:
+            rows += dropedge_cases(torch, *case, flush=flush, seed=seed)
         for row in rows:
             results.append(row)
             log(
-                f"[kernel] {row['kernel']} {row['dtype']:>8} B={B} N={row['N']:3d} L={L} F={row['F']} "
+                f"[kernel] {row['kernel']}{' (' + row['route'] + ')' if 'route' in row else ''} "
+                f"{row['dtype']:>8} B={B} N={row['N']:3d} L={L} F={row['F']} "
                 f"density={row['density']}: max_abs_err {row['max_abs_err']:.3e} | "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
                 f"torch.matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
@@ -954,27 +993,28 @@ def phase_kernel(torch):
     invariants = dropedge_invariants(torch)
     log(
         f"[kernel] <K2(1), V> = {invariants['k2_dot_v']:.6f}, sum K1(V) = {invariants['sum_k1']:.6f} "
-        f"(f32, need within 1e-5 of the sum); K1 at keep 1 = K3 bit for bit (f32), within one rounding "
-        f"(bf16, max abs err {invariants['bf16_k1_keep1_vs_k3_max_abs_err']:.3e}); rate 0 launches K3; "
-        f"two launches of bf16 K1 and of bf16 K2 give equal bits"
+        f"(f32, need within 1e-5 of the sum); K1 at keep 1 = K3 bit for bit (f32 and bf16); rate 0 launches "
+        f"K3; two launches of bf16 K1, bf16 K2 and f32 K2 give equal bits"
     )
-    bf16_checks, clusters = bf16_dropedge_checks(torch)
+    bf16_checks, clusters, f32_capacity = bf16_dropedge_checks(torch)
     for row in bf16_checks:
         log(f"[kernel] bf16 K1/K2 at N={row['N']} F={row['F']}: max abs err K1 {row['K1_max_abs_err']:.3e}, "
             f"K2 {row['K2_max_abs_err']:.3e}")
     sweep = k2_split_sweep(torch, flush)
     for row in sweep:
-        log(f"[kernel] bf16 K2 N=256 F={row['F']} at S={row['S']} ({row['blocks']} blocks"
+        log(f"[kernel] {row['dtype']} K2 N=256 F={row['F']} at S={row['S']} ({row['blocks']} blocks"
             f"{', planned' if row['planned'] else ''}): device {row['device_ms']:.4f} ms, "
             f"max abs err {row['max_abs_err']:.3e}")
     for shape, held in clusters.items():
-        log(f"[kernel] bf16 K2 plan at {shape}: BN {held['BN']}, S {held['S']}, {held['blocks']} blocks; the card "
+        log(f"[kernel] K2 plan at {shape}: BN {held['BN']}, S {held['S']}, {held['blocks']} blocks; the card "
             f"holds {held['max_active_clusters']} clusters of {held['S']} at once")
+    log(f"[kernel] f32 K2: blocks the card runs at once in clusters of S = 1..8: {f32_capacity}")
     sparse_rows, sparse_checks = sparse_kernel_cases(torch, flush)
     ell_rows, ell_checks = ell_kernel_cases(torch, flush)
     del flush
     return results + sparse_rows + ell_rows, {"kept_share": shares, **invariants, "bf16_dropedge": bf16_checks,
-                                              "k2_clusters": clusters, "k2_split_sweep": sweep,
+                                              "k2_clusters": clusters, "f32_k2_capacity": f32_capacity,
+                                              "k2_split_sweep": sweep,
                                               "sparse": sparse_checks, "ell": ell_checks}
 
 
@@ -1104,37 +1144,39 @@ def phase_serve(torch):
     torch.cuda.synchronize()
 
     # The main path: every launch count starts at 0 here.
-    relagg.neighbor_aggregate.launches = 0
+    reset_counts(relagg)
     walls = []
     for _ in range(SERVE_REPEATS):
         start = time.perf_counter()
         out = main.predict(samples)
         walls.append(time.perf_counter() - start)
     launches = relagg.neighbor_aggregate.launches
+    routes = route_counts(relagg)["K3"]
     expected = 3 * batches * SERVE_REPEATS
     require(
-        launches == expected,
-        f"K3 launched {launches} times on the main path, expected {expected} "
-        f"(3 GraphConvs x {batches} batches x {SERVE_REPEATS} requests)",
+        launches == expected and routes["sm90"] == expected,
+        f"K3 launched {launches} times on the main path ({routes} by route), expected {expected} "
+        f"(3 GraphConvs x {batches} batches x {SERVE_REPEATS} requests), all on dropedge_sm90.cu",
     )
     check_pages(out, samples, valid_keys)
     best = min(walls)
     log(
         f"[serve] {torch.cuda.get_device_name(0)}, kernel_impl=pallas bf16: best of {SERVE_REPEATS} requests {best:.3f} s "
         f"({[round(w, 3) for w in walls]}): {PAGES / best:.2f} pages/s, "
-        f"{boxes / best:.1f} boxes/s; K3 launches {launches} = 3 x {batches} x {SERVE_REPEATS}"
+        f"{boxes / best:.1f} boxes/s; K3 launches {launches} = 3 x {batches} x {SERVE_REPEATS} (by route {routes})"
     )
 
     # Where the request's time goes: the host's processors (text features,
     # the Python graph builder), padding and the copy to the card, and the
     # device time of the model forward over all batches.
     encode_s, stage_s = timed_encode(main.inferencer, samples)
-    copy_s, device_ms = forward_device_ms(torch, main.inferencer, encoded)
+    copy_s, device_ms, device_alone_ms = forward_device_ms(torch, main.inferencer, encoded)
     stages = ", ".join(f"{name} {sec:.3f} s" for name, sec in stage_s.items())
     log(
         f"[serve] breakdown of the {best:.3f} s request: host encode {encode_s:.3f} s ({stages}); "
         f"pad + copy to the card {copy_s:.3f} s; device forward of {batches} batches "
-        f"{device_ms:.3f} ms (device idle share {1 - device_ms / 1e3 / best:.4f})"
+        f"{device_ms:.3f} ms as enqueued, {device_alone_ms:.3f} ms of device "
+        f"work alone (device idle share {1 - device_alone_ms / 1e3 / best:.4f})"
     )
 
     agreement = {}
@@ -1161,8 +1203,8 @@ def phase_serve(torch):
         "nodes_min": min(sizes), "nodes_max": max(sizes),
         "request_s": walls, "pages_per_s": PAGES / best, "boxes_per_s": boxes / best,
         "host_encode_s": encode_s, "host_stage_s": stage_s, "pad_copy_s": copy_s,
-        "device_forward_ms": device_ms,
-        "k3_launches": launches, "agreement": agreement,
+        "device_forward_ms": device_ms, "device_forward_alone_ms": device_alone_ms,
+        "k3_launches": launches, "k3_routes": routes, "agreement": agreement,
     }
 
 
@@ -1189,9 +1231,16 @@ def timed_encode(inferencer, samples):
         dataset.data_processors = processors
 
 
+# Cycles the card spins before a request's forwards (~30 ms at 1.98 GHz),
+# longer than the host takes to enqueue all of them.
+FORWARD_COVER_CYCLES = 60_000_000
+
+
 def forward_device_ms(torch, inferencer, encoded):
     """(host seconds to pad and copy a request's batches to the card,
-    device milliseconds of the model forward over them)."""
+    milliseconds of the model forward over them between CUDA events as
+    the request enqueues them, the same with the card kept busy until all
+    are enqueued: the device's work alone)."""
     import numpy as np
 
     from grl_torch.data.collate import next_bucket
@@ -1211,16 +1260,21 @@ def forward_device_ms(torch, inferencer, encoded):
         tensors.append((torch.from_numpy(V).cuda(), torch.from_numpy(A).cuda()))
     torch.cuda.synchronize()
     copy_s = time.perf_counter() - start_s
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
     with torch.inference_mode():
         inferencer._forward(*tensors[0])
         torch.cuda.synchronize()
-        start.record()
-        for V, A in tensors:
-            inferencer._forward(V, A)
-        end.record()
-        torch.cuda.synchronize()
-    return copy_s, start.elapsed_time(end)
+        for cover in (False, True):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if cover:
+                torch.cuda._sleep(FORWARD_COVER_CYCLES)
+            start.record()
+            for V, A in tensors:
+                inferencer._forward(V, A)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    return (copy_s, *times)
 
 
 # ---------------------------------------------------------------------------
@@ -1302,6 +1356,14 @@ def reset_counts(relagg) -> None:
     relagg.neighbor_aggregate.launches = 0
     relagg.dropedge_aggregate.launches = 0
     relagg.dropedge_aggregate_grad.launches = 0
+    for routes in (relagg.neighbor_aggregate.routes, relagg.dropedge_aggregate_grad.routes):
+        routes.update(dict.fromkeys(routes, 0))
+
+
+def route_counts(relagg):
+    """K3's and K2's launches by route (``relagg.k3_route``; K2: the bf16
+    kernel of dropedge_sm90.cu or the f32 one of dropedge_f32.cu)."""
+    return {"K3": dict(relagg.neighbor_aggregate.routes), "K2": dict(relagg.dropedge_aggregate_grad.routes)}
 
 
 def counts(relagg):
@@ -1478,8 +1540,11 @@ def phase_train(torch, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launched = counts(relagg)
+    routes = route_counts(relagg)
     expected = {"K1": 3 * TRAIN_STEPS, "K2": 3 * TRAIN_STEPS, "K3": 3 * VAL_BATCHES}
-    require(launched == expected, f"train path launched {launched}, expected {expected}")
+    require(launched == expected and routes["K3"]["sm90"] == expected["K3"]
+            and routes["K2"]["sm90"] == expected["K2"],
+            f"train path launched {launched} ({routes} by route), expected {expected}, all bf16 on dropedge_sm90.cu")
 
     series_path = os.path.join(warper.config["output_dir"], "experiment_series.jsonl")
     with open(series_path) as handle:
@@ -1604,13 +1669,89 @@ def phase_train(torch, card: str):
 
     return {
         "train_steps": TRAIN_STEPS, "validation_batches": VAL_BATCHES, "wall_s": wall,
-        "launches": launched, "serve_launches": serve_launches, "losses": losses,
+        "launches": launched, "routes": routes, "serve_launches": serve_launches, "losses": losses,
         "validation_loss": val_loss, "macro_f1": f1, "nodes_per_s": nodes_per_s,
         "steps_per_s": steps_per_s, "idle_share": idle, "traced_busy_ms": busy_ms,
         "traced_window_ms": window_ms, "traced_kernels_per_step": per_step, "step_ms": step_ms,
         "dropedge_train_dense_adj_throughput": adj_per_s, "peak_memory_gb": peak_gb,
         "learning_losses": learn, "kernel_vs_plain": comparison,
     }
+
+
+# ---------------------------------------------------------------------------
+# train_variants: the float32 path and the ragged-N bf16 path
+# ---------------------------------------------------------------------------
+VARIANT_EPOCHS = 1
+VARIANT_STEPS, VARIANT_VAL_BATCHES = VARIANT_EPOCHS * TRAIN_PAGES // B, VARIANT_EPOCHS * VAL_PAGES // B
+# (model args, BucketPadding quantum, launches expected, K3 and K2 launches
+# by route expected) of each path.
+VARIANTS = {
+    # compute_dtype left at its default: float32 K1 and K3 (relagg.cu) and
+    # K2 (dropedge_f32.cu).
+    "float32": ({"compute_dtype": None}, 64,
+                {"K1": 3 * VARIANT_STEPS, "K2": 3 * VARIANT_STEPS, "K3": 3 * VARIANT_VAL_BATCHES},
+                {"K3": {"sm90": 0, "wmma": 0, "float32": 3 * VARIANT_VAL_BATCHES},
+                 "K2": {"sm90": 0, "float32": 3 * VARIANT_STEPS}}),
+    # bf16 without DropEdge, padded at quantum 2: 230-node batches, which
+    # TMA cannot read, so every K3 (train and validation) takes relagg.cu's
+    # WMMA kernel.
+    "bfloat16 ragged": ({"compute_dtype": "bfloat16", "edge_dropout_rate": 0.0}, 2,
+                        {"K1": 0, "K2": 0, "K3": 3 * (VARIANT_STEPS + VARIANT_VAL_BATCHES)},
+                        {"K3": {"sm90": 0, "wmma": 3 * (VARIANT_STEPS + VARIANT_VAL_BATCHES), "float32": 0},
+                         "K2": {"sm90": 0, "float32": 0}}),
+}
+
+
+def variant_config(config, tmp, name):
+    """The train phase's config as the path ``name`` of VARIANTS runs it:
+    one epoch, no profiler window."""
+    model_args, quantum = VARIANTS[name][:2]
+    config = copy.deepcopy(config)
+    config.update(experiment_name=f"train-{name.replace(' ', '-')}", num_epochs=VARIANT_EPOCHS,
+                  output_dir=os.path.join(tmp, name.replace(" ", "-")))
+    config["model"]["args"].update(model_args)
+    for split in ("training", "validation"):
+        config["data_config"][split]["data_collate"]["BucketPadding"]["quantum"] = quantum
+    config["logging"] = {"use_tensorboard": False, "summary_dir_name": "summary"}
+    return config
+
+
+def phase_train_variants(torch, card: str):
+    """Each path of VARIANTS through ``GNNLearningWarper.train``, its launch
+    counts set to 0 just before and read just after: the launches by route,
+    the padded N, finite losses and changed parameters."""
+    import grl_torch
+    from grl_torch.ops import relagg
+
+    tmp = tempfile.mkdtemp(prefix="grl_torch_variants_")
+    dirs, classes_path, charset_path = write_training_files(tmp)
+    base = train_config(tmp, dirs, classes_path, charset_path)
+    record = {}
+    for name, (_, quantum, expected, expected_routes) in VARIANTS.items():
+        warper = grl_torch.GNNLearningWarper(config=variant_config(base, tmp, name))
+        initial = params_of(warper.model)
+        reset_counts(relagg)
+        start = time.perf_counter()
+        warper.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launched, routes = counts(relagg), route_counts(relagg)
+        require(launched == expected and routes == expected_routes,
+                f"{name} path launched {launched} ({routes} by route), expected {expected} ({expected_routes})")
+        series_path = os.path.join(warper.config["output_dir"], "experiment_series.jsonl")
+        with open(series_path) as handle:
+            records = [json.loads(line) for line in handle]
+        losses = [r["value"] for r in records if r["path"] == "Train/step_loss"]
+        require(len(losses) == VARIANT_STEPS and all(math.isfinite(v) for v in losses), f"{name} losses {losses}")
+        changed = sum(not torch.equal(initial[n], p) for n, p in params_of(warper.model).items())
+        require(changed == len(initial), f"{name}: only {changed} of {len(initial)} parameter tensors changed")
+        N = fixed_batches(warper.trainer, 1)[0][0].shape[1]
+        require(N == (256 if quantum == 64 else RAGGED_N), f"{name} batches padded to N={N}")
+        log(f"[train_variants] {card}, {name} (BucketPadding quantum {quantum}, N={N}): {VARIANT_STEPS} steps + "
+            f"{VARIANT_VAL_BATCHES} validation batches in {wall:.3f} s; launches {launched}, by route {routes}; "
+            f"losses {[round(v, 4) for v in losses]}")
+        record[name] = {"N": N, "wall_s": wall, "launches": launched, "routes": routes, "losses": losses}
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -2082,6 +2223,8 @@ def main() -> int:
         timed("serve")
         record["train"] = train = phase_train(torch, card)
         timed("train")
+        record["train_variants"] = variants = phase_train_variants(torch, card)
+        timed("train_variants")
         record["full_graph"] = full_graph = phase_full_graph(torch, card)
         timed("full_graph")
         record["ell"] = ell_path = phase_ell(torch, card)
@@ -2092,27 +2235,43 @@ def main() -> int:
         write_record(record)
     log(f"[done] seconds by phase: { {k: round(v, 1) for k, v in record['phase_seconds'].items()} }")
 
-    def main_row(kernel, **shape):
+    def main_row(kernel, dtype="bfloat16", **shape):
         return next(r for r in kernel_rows
-                    if r["kernel"] == kernel and r["dtype"] == "bfloat16"
+                    if r["kernel"] == kernel and r["dtype"] == dtype
                     and all(r.get(k) == v for k, v in shape.items()))
 
     dense = {"N": 256, "F": NET_SIZE, "density": SPARSE_DENSITY}
     fg, el = full_graph["launches"], ell_path["launches"]
+    f32, ragged = variants["float32"], variants["bfloat16 ragged"]
+    k3_replaces = "grl_tpu/ops/pallas/relagg.py:99 _agg_forward (pallas_neighbor_aggregate)"
+    k1_replaces = "grl_tpu/ops/pallas/relagg.py:220 _dropedge_forward (pallas_dropedge_aggregate)"
+    k2_replaces = "grl_tpu/ops/pallas/relagg.py:284 _dropedge_bwd"
+    # Launches of a path per kernel: K3 and K2 by route, K1 by dtype (the
+    # full-graph paths run none of them).
     sources = {
-        "K3": ("K3 relational neighbor aggregation", "grl_torch/csrc/relagg.cu",
-               "grl_tpu/ops/pallas/relagg.py:99 _agg_forward (pallas_neighbor_aggregate)",
-               {"serve": serve["k3_launches"], "train": train["launches"]["K3"], "full_graph": fg["K3"],
-                "ell": el["K3"]},
+        "K3": ("K3 relational neighbor aggregation (bf16, N % 8 == 0 and F % 8 == 0)",
+               "grl_torch/csrc/dropedge_sm90.cu", k3_replaces,
+               {"serve": serve["k3_routes"]["sm90"], "train": train["routes"]["K3"]["sm90"],
+                "full_graph": fg["K3"], "ell": el["K3"]},
                main_row("K3", **dense), "bf16 B=8 N=256 L=6 F=256"),
-        "K1": ("K1 DropEdge neighbor aggregation (forward)", "grl_torch/csrc/dropedge_sm90.cu",
-               "grl_tpu/ops/pallas/relagg.py:220 _dropedge_forward (pallas_dropedge_aggregate)",
+        "K3 ragged": ("K3 relational neighbor aggregation (bf16, other N and F: WMMA)", "grl_torch/csrc/relagg.cu",
+                      k3_replaces, {"train_variants bfloat16 ragged": ragged["routes"]["K3"]["wmma"]},
+                      main_row("K3", N=RAGGED_N, F=NET_SIZE), f"bf16 B=8 N={RAGGED_N} L=6 F=256"),
+        "K3 f32": ("K3 relational neighbor aggregation (float32)", "grl_torch/csrc/relagg.cu", k3_replaces,
+                   {"train_variants float32": f32["routes"]["K3"]["float32"]},
+                   main_row("K3", "float32", **dense), "f32 B=8 N=256 L=6 F=256"),
+        "K1": ("K1 DropEdge neighbor aggregation (forward, bf16)", "grl_torch/csrc/dropedge_sm90.cu", k1_replaces,
                {"train": train["launches"]["K1"], "full_graph": fg["K1"], "ell": el["K1"]},
                main_row("K1", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
-        "K2": ("K2 DropEdge neighbor aggregation (backward, dV)", "grl_torch/csrc/dropedge_sm90.cu",
-               "grl_tpu/ops/pallas/relagg.py:284 _dropedge_bwd",
-               {"train": train["launches"]["K2"], "full_graph": fg["K2"], "ell": el["K2"]},
+        "K1 f32": ("K1 DropEdge neighbor aggregation (forward, float32)", "grl_torch/csrc/relagg.cu", k1_replaces,
+                   {"train_variants float32": f32["launches"]["K1"]},
+                   main_row("K1", "float32", **dense), "f32 B=8 N=256 L=6 F=256 rate=0.3"),
+        "K2": ("K2 DropEdge neighbor aggregation (backward, dV, bf16)", "grl_torch/csrc/dropedge_sm90.cu",
+               k2_replaces, {"train": train["routes"]["K2"]["sm90"], "full_graph": fg["K2"], "ell": el["K2"]},
                main_row("K2", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
+        "K2 f32": ("K2 DropEdge neighbor aggregation (backward, dV, float32)", "grl_torch/csrc/dropedge_f32.cu",
+                   k2_replaces, {"train_variants float32": f32["routes"]["K2"]["float32"]},
+                   main_row("K2", "float32", **dense), "f32 B=8 N=256 L=6 F=256 rate=0.3"),
         "K5 forward": ("K5 CSR relational aggregation with DropEdge (forward)", "grl_torch/csrc/csr_spmm.cu",
                        "grl_tpu/ops/pallas/csr_spmm.py:300 csr_accumulate",
                        {"full_graph": fg["K5 forward"], "ell": el["K5 forward"]}, main_row("K5 forward", F=NET_SIZE),

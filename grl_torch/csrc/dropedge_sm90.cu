@@ -1,11 +1,17 @@
 // K1 and K2 in bfloat16 on Hopper (sm_90a): the DropEdge neighbor
 // aggregation and its gradient in V, with TMA rings, wgmma and, for K2, a
-// split-K reduced inside a thread-block cluster.
+// split-K reduced inside a thread-block cluster; and K3, the aggregation
+// without DropEdge, which is K1's kernel with the mask compiled out.
 //
 // K1 replaces grl_tpu/ops/pallas/relagg.py:220 (_dropedge_forward, body
 // _dropedge_kernel :157-180), per batch b the (N*L x N) @ (N x F) product
 //
 //     out[b, n, l, :] = sum_m A[b, n, l, m] * keep(gid) / keep * V[b, m, :]
+//
+// K3 replaces relagg.py:99 (_agg_forward, body _agg_kernel :76-89), the same
+// product over A itself: forward_body<BN, false>, with no mask pass, no
+// proxy fence and no 1/keep in the epilogue. K1 at keep 1 drops nothing and
+// multiplies by exactly 1, so it gives K3's bits.
 //
 // K2 replaces relagg.py:284 (_dropedge_bwd, body _dropedge_bwd_kernel
 // :183-210), per batch the (N x N*L) @ (N*L x F) product
@@ -61,8 +67,8 @@
 //   device memory and no atomics. (Pushing 8-byte accumulator pairs from
 //   registers into the owners' shared memory instead was slower on the
 //   H100.)
-// - The epilogues write bfloat16 with 16-byte stores: K1 through a staging
-//   tile in shared memory, K2 straight from its cluster sum.
+// - The epilogues write bfloat16 with 16-byte stores: K1 and K3 through a
+//   staging tile in shared memory, K2 straight from its cluster sum.
 //
 // The launchers encode the tensor maps on the host at every call (a map
 // holds the base pointer) through the CUDA driver API's cuTensorMapEncodeTiled,
@@ -70,8 +76,8 @@
 // pass them as __grid_constant__ parameters; each kernel's shared-memory
 // limit is raised once per device, at its first launch there. TMA needs
 // 16-byte global strides: N % 8 == 0 and F % 8 == 0, and 16-byte aligned
-// base pointers. The Python planner (grl_torch/ops/relagg.py:dropedge_plan)
-// picks BN and S.
+// base pointers. The Python planners (grl_torch/ops/relagg.py:
+// aggregate_plan for K3, dropedge_plan for K1/K2) pick BN and S.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -381,16 +387,16 @@ __device__ __forceinline__ void produce(const Ring& ring, int k, const CUtensorM
 }
 
 // ---------------------------------------------------------------------------
-// K1: out (N*L x F) = (A * mask) (N*L x N) @ V (N x F), per batch.
-// Grid (ceil(F / BN), ceil(N*L / 64), B): block (x, y, z) owns output rows
-// 64 y.. and columns BN x.. of batch z and walks ceil(N / 64) steps of 64
-// columns of A (rows of V).
+// K1 (kMask) and K3: out (N*L x F) = (A * mask) (N*L x N) @ V (N x F), per
+// batch. Grid (ceil(F / BN), ceil(N*L / 64), B): block (x, y, z) owns output
+// rows 64 y.. and columns BN x.. of batch z and walks ceil(N / 64) steps of
+// 64 columns of A (rows of V). map_a and map_v point at the kernel's
+// __grid_constant__ parameters.
 // ---------------------------------------------------------------------------
-template <int BN>
-__global__ void __launch_bounds__(kThreads, 1)
-dropedge_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
-                         const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
-                         int N, int NL, int F, uint32_t seed, float keep) {
+template <int BN, bool kMask>
+__device__ __forceinline__ void forward_body(const CUtensorMap* map_a, const CUtensorMap* map_v,
+                                             __nv_bfloat16* __restrict__ out, int N, int NL, int F,
+                                             uint32_t seed, float keep) {
   constexpr int kStride = BN + 8;  // staging row, bf16: shifts rows by 4 banks
   extern __shared__ uint8_t smem_raw[];
   const Ring ring = make_ring(smem_raw, fwd_ring(BN));
@@ -401,7 +407,7 @@ dropedge_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
   if (tid >= kConsumers) {
     if (tid == kConsumers)
       for (int k = 0; k < steps; ++k)
-        produce<BN>(ring, k, &map_a, &map_v, k * kTile, r0, f0, k * kTile, b);
+        produce<BN>(ring, k, map_a, map_v, k * kTile, r0, f0, k * kTile, b);
     return;
   }
 
@@ -412,7 +418,7 @@ dropedge_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
     const int stage = k % kStages;
     mbar_wait(ring.full + stage, (k / kStages) & 1);
     uint8_t* a = ring.base + stage * stage_bytes(BN);
-    mask_tile(a, tid, static_cast<uint32_t>(b * NL + r0), N, k * kTile, seed, keep);
+    if constexpr (kMask) mask_tile(a, tid, static_cast<uint32_t>(b * NL + r0), N, k * kTile, seed, keep);
     fence_registers(acc);
     wgmma_fence();
 #pragma unroll
@@ -425,15 +431,19 @@ dropedge_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
     mbar_arrive(ring.empty + stage);
   }
 
-  // Epilogue: 1/keep, bf16, through a staging tile over the ring (every
+  // Epilogue: K1's 1/keep, bf16, through a staging tile over the ring (every
   // product has read its stage once all consumers pass the barrier).
   consumers_sync();
   __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring.base);
-  const float scale = 1.0f / keep;
+  if constexpr (kMask) {
+    const float scale = 1.0f / keep;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] *= scale;
+  }
 #pragma unroll
   for (int i = 0; i < BN / 2; i += 2)
     *reinterpret_cast<__nv_bfloat162*>(tile + frag_row(tid, i) * kStride + frag_col(tid, i)) =
-        __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+        __floats2bfloat162_rn(acc[i], acc[i + 1]);
   consumers_sync();
   constexpr int kChunks = BN / 8;  // 16-byte chunks a row
   for (int q = tid; q < kTile * kChunks; q += kConsumers) {
@@ -443,6 +453,24 @@ dropedge_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * NL + r) * F + f) =
           *reinterpret_cast<const uint4*>(tile + row * kStride + 8 * c);
   }
+}
+
+// K1. A kernel of its own name, so that a trace tells K1 and K3 apart.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+dropedge_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
+                         int N, int NL, int F, uint32_t seed, float keep) {
+  forward_body<BN, true>(&map_a, &map_v, out, N, NL, F, seed, keep);
+}
+
+// K3.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+relagg_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
+                       const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
+                       int N, int NL, int F) {
+  forward_body<BN, false>(&map_a, &map_v, out, N, NL, F, 0u, 1.0f);
 }
 
 // ---------------------------------------------------------------------------
@@ -597,38 +625,47 @@ bool valid_shape(const void* A, const void* X, const void* out, int B, int N, in
          cdiv(N * L, kTile) <= 65535u;
 }
 
-// Lets K1 (kBackward false) or K2 at width BN use its dynamic shared memory
-// (past the default 48 KB) on `device`. The attribute holds for the
-// process, so it is set at the kernel's first launch on each device (bit d
-// of `raised`) and later launches make no driver call for it.
-template <int BN, bool kBackward>
+enum class Kernel { kK1, kK2, kK3 };
+
+// Lets K1, K2 or K3 at width BN use its dynamic shared memory (past the
+// default 48 KB) on `device`. The attribute holds for the process, so it is
+// set at the kernel's first launch on each device (bit d of `raised`) and
+// later launches skip it.
+template <int BN, Kernel kKernel>
 cudaError_t raise_smem_limit(int device) {
   static std::atomic<uint64_t> raised{0};
   const uint64_t bit = device >= 0 && device < 64 ? 1ull << device : 0;
   if (raised.load(std::memory_order_acquire) & bit) return cudaSuccess;
   cudaError_t err;
-  if constexpr (kBackward)
+  if constexpr (kKernel == Kernel::kK2)
     err = cudaFuncSetAttribute(dropedge_bwd_sm90_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes(bwd_ring(BN)));
-  else
+  else if constexpr (kKernel == Kernel::kK1)
     err = cudaFuncSetAttribute(dropedge_fwd_sm90_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes(fwd_ring(BN)));
+  else
+    err = cudaFuncSetAttribute(relagg_fwd_sm90_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes(fwd_ring(BN)));
   if (err == cudaSuccess) raised.fetch_or(bit, std::memory_order_release);
   return err;
 }
 
-template <int BN>
+// K1 (kMask) or K3.
+template <int BN, bool kMask>
 int launch_forward(const void* A, const void* V, void* out, int B, int N, int L, int F,
                    uint32_t seed, float keep, int device, cudaStream_t stream) {
   CUtensorMap map_a, map_v;
   if (!encode(&map_a, A, N, N * L, B) || !encode(&map_v, V, F, N, B))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = raise_smem_limit<BN, false>(device);
+  const cudaError_t err = raise_smem_limit<BN, kMask ? Kernel::kK1 : Kernel::kK3>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int smem = smem_bytes(fwd_ring(BN));
   const dim3 grid(cdiv(F, BN), cdiv(N * L, kTile), static_cast<unsigned>(B));
-  dropedge_fwd_sm90_kernel<BN><<<grid, kThreads, smem, stream>>>(
-      map_a, map_v, static_cast<__nv_bfloat16*>(out), N, N * L, F, seed, keep);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if constexpr (kMask)
+    dropedge_fwd_sm90_kernel<BN><<<grid, kThreads, smem, stream>>>(map_a, map_v, o, N, N * L, F, seed, keep);
+  else
+    relagg_fwd_sm90_kernel<BN><<<grid, kThreads, smem, stream>>>(map_a, map_v, o, N, N * L, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -656,7 +693,7 @@ int launch_backward(const void* A, const void* g, void* dV, int B, int N, int L,
   CUtensorMap map_a, map_g;
   if (!encode(&map_a, A, N, N * L, B) || !encode(&map_g, g, F, N * L, B))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = raise_smem_limit<BN, true>(device);
+  cudaError_t err = raise_smem_limit<BN, Kernel::kK2>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int smem = smem_bytes(bwd_ring(BN));
   cudaLaunchAttribute attr;
@@ -670,7 +707,7 @@ int launch_backward(const void* A, const void* g, void* dV, int B, int N, int L,
 
 template <int BN>
 int max_clusters(int S, int device, int* clusters) {
-  const cudaError_t err = raise_smem_limit<BN, true>(device);
+  const cudaError_t err = raise_smem_limit<BN, Kernel::kK2>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int smem = smem_bytes(bwd_ring(BN));
   cudaLaunchAttribute attr;
@@ -696,6 +733,18 @@ int max_clusters(int S, int device, int* clusters) {
 // contiguous, 16-byte aligned; N % 8 == 0, F % 8 == 0; BN in {64, 128, 192,
 // 256}. A is (B, N, L, N), V (B, N, F), g and out (B, N, L, F), dV (B, N, F).
 
+// K3: out = A @ V.
+extern "C" int grl_relagg_sm90_forward(const void* A, const void* V, void* out, int B, int N, int L,
+                                       int F, int BN, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!valid_shape(A, V, out, B, N, L, F)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GRL_AGGREGATE(bn) launch_forward<bn, false>(A, V, out, B, N, L, F, 0u, 1.0f, device, s)
+  GRL_DISPATCH(BN, GRL_AGGREGATE)
+#undef GRL_AGGREGATE
+}
+
 // K1: out = (A * keep(gid) / keep) @ V.
 extern "C" int grl_dropedge_sm90_forward(const void* A, const void* V, void* out, int B, int N, int L,
                                          int F, int BN, uint32_t seed, float keep, int device,
@@ -704,7 +753,7 @@ extern "C" int grl_dropedge_sm90_forward(const void* A, const void* V, void* out
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!valid_shape(A, V, out, B, N, L, F)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GRL_FORWARD(bn) launch_forward<bn>(A, V, out, B, N, L, F, seed, keep, device, s)
+#define GRL_FORWARD(bn) launch_forward<bn, true>(A, V, out, B, N, L, F, seed, keep, device, s)
   GRL_DISPATCH(BN, GRL_FORWARD)
 #undef GRL_FORWARD
 }

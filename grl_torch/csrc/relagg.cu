@@ -1,6 +1,8 @@
-// Relational neighbor aggregation on Hopper (sm_90a): K3 in float32 and
-// bfloat16, and K1/K2 (DropEdge fused in) in float32. The bfloat16 K1/K2
-// are dropedge_sm90.cu's TMA + wgmma kernels.
+// Relational neighbor aggregation on Hopper (sm_90a): K3 in float32, K3 in
+// bfloat16 where N or F is not a multiple of 8, and K1 (DropEdge fused in)
+// in float32. The bfloat16 K1/K2, and the bfloat16 K3 at N % 8 == 0 and
+// F % 8 == 0, are dropedge_sm90.cu's TMA + wgmma kernels; the float32 K2 is
+// dropedge_f32.cu's.
 //
 // K3 replaces grl_tpu/ops/pallas/relagg.py:pallas_neighbor_aggregate
 // (_agg_forward :92-123, body _agg_kernel :76-89):
@@ -8,13 +10,8 @@
 //     out[b, n, l, :] = sum_m A[b, n, l, m] * V[b, m, :]
 //
 // K1 replaces pallas_dropedge_aggregate (_dropedge_forward :213-248, body
-// _dropedge_kernel :157-180): the same product over A * keep(gid) / keep.
-// K2 replaces its backward _dropedge_bwd (:272-311, body
-// _dropedge_bwd_kernel :183-210):
-//
-//     dV[b, m, :] = sum_{n, l} A[b, n, l, m] * keep(gid) / keep * g[b, n, l, :]
-//
-// with A (B, N, L, N), V (B, N, F) and g (B, N, L, F) all in one dtype,
+// _dropedge_kernel :157-180): the same product over A * keep(gid) / keep,
+// with A (B, N, L, N), V (B, N, F) and out (B, N, L, F) all in one dtype,
 // accumulated in float32 and written once in the operand dtype.
 //
 // The DropEdge mask is a pure function of (seed, gid), where
@@ -24,8 +21,9 @@
 // (mix(mix(gid ^ s) + s) >> 8) * 2^-24 < keep (hash.cuh). The TPU kernels seed the
 // TPU's hardware PRNG per (b, l, i, k) tile instead (relagg.py:151-154),
 // whose bits cannot be reproduced here; keyed on the element, the mask is
-// the same whatever the tiling, so K1 and K2 tile differently and still see
-// one mask, and the plain PyTorch version computes the identical mask.
+// the same whatever the tiling, so K1 and K2 (in their other sources) tile
+// differently and still see one mask, and the plain PyTorch version
+// computes the identical mask.
 // Dropped entries of an A tile become 0 as it is staged in shared memory;
 // the 1/keep rescale multiplies the float32 accumulator once, in the
 // epilogue (grl_tpu multiplies the bf16 tile by bf16(1/keep) instead,
@@ -35,24 +33,22 @@
 // element ((b*N + n)*L + l)*N, so A[b] viewed as an (N*L, N) row-major matrix
 // is a free reshape. K3 and K1 are therefore one plain GEMM per batch,
 // (N*L x N) @ (N x F) -> (N*L x F), with the output row (b, n, l) written in
-// place at ((b*N + n)*L + l)*F. K2 is per batch A^T (N x N*L) @ g (N*L x F):
-// the reduction runs over the N*L rows of the same free view, and the A tile
-// is staged transposed in shared memory, so no transpose of the dominant
-// operand A ever touches device memory (the TPU kernel's round-1 version
-// lost to XLA exactly by paying those extra passes, relagg.py:1-11).
+// place at ((b*N + n)*L + l)*F, and no transpose of the dominant operand A
+// ever touches device memory (the TPU kernel's round-1 version lost to XLA
+// exactly by paying such passes, relagg.py:1-11).
 //
 // Grid. One block owns one (BM x BN) tile of one batch's output; it walks
 // the whole reduction dimension itself in shared-memory tiles. That loop
-// replaces the TPU's sequential grid axes (k for K3/K1; l and i for K2) and
-// their pl.when scratch resets: blocks run in parallel in no order on
+// replaces the TPU's sequential grid axis k and its pl.when scratch
+// resets: blocks run in parallel in no order on
 // Hopper, so nothing carries between them and no cross-block reduction is
 // needed. Any N is taken: rows, columns and the reduction edge are masked
-// (zero-filled) inside the kernel, so the 64-quantum buckets (64, 192) run,
-// unlike the TPU kernel which needs N % 128 == 0 (relagg.py:52-62).
+// (zero-filled) inside the kernel, unlike the TPU kernel which needs
+// N % 128 == 0 (relagg.py:52-62).
 //
 // What bounds them. At the flagship's shape B=8, N=256, L=6, F=256 each call
-// is 2*B*N*L*N*F = 1.6 GFLOP against ~13.6 MB moved in bf16 (K3/K1: A 6.3 MB,
-// V 1 MB, out 6.3 MB; K2: A 6.3 MB, g 6.3 MB, dV 1 MB; ~21 MB at F=512):
+// is 2*B*N*L*N*F = 1.6 GFLOP against ~13.6 MB moved in bf16 (A 6.3 MB,
+// V 1 MB, out 6.3 MB; ~21 MB at F=512):
 // ~120 FLOP/byte, under the H100's bf16 ridge of ~295 FLOP/byte, so the
 // floor is device-memory bandwidth, 0.0041 ms (0.0063 ms at F=512). The
 // design keeps A's device-memory traffic at one pass: the column tiles of
@@ -63,8 +59,10 @@
 // staged, no bytes. bf16 K3 runs on the tensor cores through WMMA
 // (mma.sync) 16x16x16 fragments with float accumulators; float32 runs as a
 // register-tiled SIMT product in full float32 (no TF32), because the f32
-// path is held to ~1e-4 relative. wgmma, TMA and a pipelined smem ring are
-// the later, fast version of K3 (dropedge_sm90.cu has them for K1/K2).
+// path is held to ~1e-4 relative. This bf16 kernel is K3's route for the
+// shapes TMA cannot read (N % 8 or F % 8, e.g. the unaligned buckets of a
+// trainer padded at another quantum); dropedge_sm90.cu's TMA + wgmma K3
+// takes the rest.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,16 +78,10 @@ namespace {
 using namespace nvcuda;
 using grl::keep_edge;
 
-// How the A tile is indexed. kRows: the output rows are A's rows (K3, K1;
-// A is M x K). kCols: the output rows are A's columns (K2; A is K x M).
-enum class AOrder { kRows, kCols };
-
-// Element (row, k) of the A operand of batch b, and its index in A.
-template <AOrder kOrder>
+// Element (row, k) of batch b of A, an (M x K) row-major matrix a batch:
+// its index in A.
 __device__ __forceinline__ size_t a_index(int b, int row, int k, int M, int K) {
-  const size_t base = static_cast<size_t>(b) * M * K;
-  return kOrder == AOrder::kRows ? base + static_cast<size_t>(row) * K + k
-                                 : base + static_cast<size_t>(k) * M + row;
+  return static_cast<size_t>(b) * M * K + static_cast<size_t>(row) * K + k;
 }
 
 __device__ __forceinline__ bool is_zero(float a) { return a == 0.f; }
@@ -104,14 +96,14 @@ __device__ __forceinline__ T masked(T a, size_t gid, uint32_t seed, float keep, 
 
 // ---------------------------------------------------------------------------
 // float32: 64x64 output tile, 256 threads, 4x4 outputs per thread.
-// out (M x F) = op(A) (M x K) @ X (K x F), batched over blockIdx.z.
+// out (M x F) = A (M x K) @ X (K x F), batched over blockIdx.z.
 // ---------------------------------------------------------------------------
 constexpr int kF32BM = 64;
 constexpr int kF32BN = 64;
 constexpr int kF32BK = 16;
 constexpr int kF32Threads = 256;
 
-template <AOrder kOrder, bool kDrop>
+template <bool kDrop>
 __global__ void __launch_bounds__(kF32Threads)
 relagg_f32_kernel(const float* __restrict__ A, const float* __restrict__ X,
                   float* __restrict__ out, int M, int K, int F, uint32_t seed,
@@ -137,15 +129,13 @@ relagg_f32_kernel(const float* __restrict__ A, const float* __restrict__ X,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += kF32BK) {
-    // Neighbouring threads take neighbouring addresses of A: along k for
-    // kRows, along the output rows for kCols.
+    // Neighbouring threads take neighbouring addresses of A, along k.
     for (int i = tid; i < kF32BM * kF32BK; i += kF32Threads) {
-      const int r = kOrder == AOrder::kRows ? i / kF32BK : i % kF32BM;
-      const int c = kOrder == AOrder::kRows ? i % kF32BK : i / kF32BM;
+      const int r = i / kF32BK, c = i % kF32BK;
       const int gr = row0 + r, gc = k0 + c;
       float a = 0.f;
       if (gr < M && gc < K) {
-        const size_t gid = a_index<kOrder>(b, gr, gc, M, K);
+        const size_t gid = a_index(b, gr, gc, M, K);
         a = masked<kDrop>(A[gid], gid, seed, keep, 0.f);
       }
       As[c][r] = a;
@@ -230,7 +220,7 @@ relagg_bf16_kernel(const __nv_bfloat16* __restrict__ A,
       const int r = i / kBK, c = i % kBK;
       const int gr = row0 + r, gc = k0 + c;
       As[r * kAStride + c] =
-          (gr < M && gc < K) ? A[a_index<AOrder::kRows>(b, gr, gc, M, K)] : zero;
+          (gr < M && gc < K) ? A[a_index(b, gr, gc, M, K)] : zero;
     }
     for (int i = tid; i < kBK * kBN; i += kBf16Threads) {
       const int r = i / kBN, c = i % kBN;
@@ -275,9 +265,9 @@ relagg_bf16_kernel(const __nv_bfloat16* __restrict__ A,
 
 inline unsigned cdiv(int a, int b) { return static_cast<unsigned>((a + b - 1) / b); }
 
-// out (B x M x F) = op(A) @ X over B batches; dtype 0 = float32, 1 = bfloat16
-// (K3 only: the bfloat16 K1/K2 are dropedge_sm90.cu's).
-template <AOrder kOrder, bool kDrop>
+// out (B x M x F) = A @ X over B batches; dtype 0 = float32, 1 = bfloat16
+// (K3 only: the bfloat16 K1 is dropedge_sm90.cu's).
+template <bool kDrop>
 int launch(const void* A, const void* X, void* out, int B, int M, int K, int F,
            int dtype, uint32_t seed, float keep, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -285,10 +275,10 @@ int launch(const void* A, const void* X, void* out, int B, int M, int K, int F,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const dim3 grid(cdiv(F, kF32BN), cdiv(M, kF32BM), static_cast<unsigned>(B));
-    relagg_f32_kernel<kOrder, kDrop><<<grid, kF32Threads, 0, s>>>(
+    relagg_f32_kernel<kDrop><<<grid, kF32Threads, 0, s>>>(
         static_cast<const float*>(A), static_cast<const float*>(X),
         static_cast<float*>(out), M, K, F, seed, keep);
-  } else if constexpr (kOrder == AOrder::kRows && !kDrop) {
+  } else if constexpr (!kDrop) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(cdiv(F, kBN), cdiv(M, kBM), static_cast<unsigned>(B));
     relagg_bf16_kernel<<<grid, kBf16Threads, 0, s>>>(
@@ -304,14 +294,13 @@ int launch(const void* A, const void* X, void* out, int B, int M, int K, int F,
 
 // Each entry point launches on `stream` of `device`, does not synchronise,
 // allocates nothing, and returns cudaGetLastError(). dtype: 0 = float32,
-// 1 = bfloat16 (K3 only). A is (B, N, L, N), V (B, N, F), g and out
-// (B, N, L, F).
+// 1 = bfloat16 (K3 only). A is (B, N, L, N), V (B, N, F), out (B, N, L, F).
 
 // K3: out = A @ V.
 extern "C" int grl_relagg_forward(const void* A, const void* V, void* out, int B,
                                   int N, int L, int F, int dtype, int device,
                                   void* stream) {
-  return launch<AOrder::kRows, false>(A, V, out, B, N * L, N, F, dtype, 0u, 1.0f,
+  return launch<false>(A, V, out, B, N * L, N, F, dtype, 0u, 1.0f,
                                       device, stream);
 }
 
@@ -319,16 +308,7 @@ extern "C" int grl_relagg_forward(const void* A, const void* V, void* out, int B
 extern "C" int grl_dropedge_forward(const void* A, const void* V, void* out, int B,
                                     int N, int L, int F, int dtype, uint32_t seed,
                                     float keep, int device, void* stream) {
-  return launch<AOrder::kRows, true>(A, V, out, B, N * L, N, F, dtype, seed, keep,
-                                     device, stream);
-}
-
-// K2, float32: dV = (A * keep(gid) / keep)^T @ g, per batch over A's (N*L, N) view.
-extern "C" int grl_dropedge_backward(const void* A, const void* g, void* dV, int B,
-                                     int N, int L, int F, int dtype, uint32_t seed,
-                                     float keep, int device, void* stream) {
-  return launch<AOrder::kCols, true>(A, g, dV, B, N, N * L, F, dtype, seed, keep,
-                                     device, stream);
+  return launch<true>(A, V, out, B, N * L, N, F, dtype, seed, keep, device, stream);
 }
 
 extern "C" const char* grl_cuda_error_string(int code) {

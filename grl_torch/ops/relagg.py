@@ -2,11 +2,20 @@
 
 The kernels are compiled for ``sm_90a`` at first use
 (:mod:`grl_torch.ops._build`) and called through ``ctypes``:
-``grl_torch/csrc/relagg.cu`` holds K3 (float32 and bfloat16) and the
-float32 K1/K2; ``grl_torch/csrc/dropedge_sm90.cu`` holds the bfloat16
-K1/K2 (TMA rings, ``wgmma``, and a split-K for K2 reduced inside a
-thread-block cluster), launched as :func:`dropedge_plan` lays them out.
-The route is fixed by the dtype.
+
+* ``grl_torch/csrc/dropedge_sm90.cu`` holds the bfloat16 K1/K2 (TMA rings,
+  ``wgmma``, and a split-K for K2 reduced inside a thread-block cluster),
+  laid out by :func:`dropedge_plan`, and the bfloat16 K3, which is K1's
+  kernel with the mask compiled out, laid out by :func:`aggregate_plan`;
+* ``grl_torch/csrc/dropedge_f32.cu`` holds the float32 K2 (a ``cp.async``
+  ring and a split-K over a cluster), laid out by :func:`dropedge_f32_plan`;
+* ``grl_torch/csrc/relagg.cu`` holds the float32 K3 and K1, and the
+  bfloat16 K3 for the shapes TMA cannot read.
+
+The route is fixed by the dtype and, for the bfloat16 K3, by the shape
+(:func:`k3_route`): N % 8 == 0 and F % 8 == 0 take ``dropedge_sm90.cu``,
+other shapes ``relagg.cu``. A launch that fails raises; it never turns to
+another route.
 
 * K3 replaces ``grl_tpu/ops/pallas/relagg.py`` · ``pallas_neighbor_aggregate``
   (``_agg_forward`` :92-123, body ``_agg_kernel`` :76-89)::
@@ -50,6 +59,8 @@ kernel for CUDA tensors, or raises; it counts launches in ``.launches``:
   ``relagg.py:136-142`` (XLA on the TPU, not Pallas).
 * :func:`dropedge_aggregate` — K1 (``rate == 0`` is K3, as in
   ``grl_tpu``); its backward is :func:`dropedge_aggregate_grad` — K2.
+
+K3 and K2 also count their launches by route in ``.routes``.
 """
 from __future__ import annotations
 
@@ -67,6 +78,9 @@ from grl_torch.ops.hashing import keep_bits, keep_probability
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
 _MAX_GRID_YZ = 65535
 _TILE_ROWS = 64  # output rows per block (kF32BM == kBM in relagg.cu; kTile in dropedge_sm90.cu)
+# dropedge_f32.cu: a block's 128 x 128 output tile and 32-row reduction steps.
+_F32_TILE = 128
+_F32_STEP = 32
 _MAX_ELEMENTS = 2**32  # gid is a uint32 in the kernels
 # dropedge_sm90.cu: wgmma's widest N and the portable cluster size.
 _MAX_BN = 256
@@ -75,6 +89,10 @@ _MAX_SPLITS = 8
 # that, the cluster's sum of S partials costs more than the shorter walk
 # saves (chip_smoke.py times K2 under every S at the main shape).
 _SPLIT_BLOCKS = 132 // 2
+# The float32 K2's 128 KB ring holds one block an SM, so at most 132 blocks
+# run at once; clusters of S must each fit in one GPC, so fewer may
+# (``f32_capacity`` asks the card).
+_F32_SLOTS = 132
 
 
 # ---------------------------------------------------------------------------
@@ -129,12 +147,13 @@ def dropedge_aggregate_grad_reference(g: torch.Tensor, A: torch.Tensor, seed: in
 
 
 # ---------------------------------------------------------------------------
-# The launch plan of the bfloat16 K1/K2 (dropedge_sm90.cu)
+# The launch plans of dropedge_sm90.cu (bfloat16 K3, K1, K2) and
+# dropedge_f32.cu (float32 K2)
 # ---------------------------------------------------------------------------
 def check_sm90_shape(N: int, F: int) -> None:
-    """bf16 K1/K2 read A, V and g through TMA, whose global strides must be
-    multiples of 16 bytes: raise ``ValueError`` unless N % 8 == 0 and
-    F % 8 == 0."""
+    """bf16 K1/K2 (and K3's sm90 route) read A, V and g through TMA, whose
+    global strides must be multiples of 16 bytes: raise ``ValueError``
+    unless N % 8 == 0 and F % 8 == 0."""
     unmet = [f"{name} % 8 == 0 (got {name}={value})" for name, value in (("N", N), ("F", F)) if value % 8]
     if unmet:
         raise ValueError(
@@ -143,30 +162,28 @@ def check_sm90_shape(N: int, F: int) -> None:
         )
 
 
+def k3_route(dtype: torch.dtype, N: int, F: int) -> str:
+    """The kernel K3 launches for CUDA tensors: ``"sm90"`` (bfloat16, N % 8
+    == 0 and F % 8 == 0: dropedge_sm90.cu), ``"wmma"`` (other bfloat16
+    shapes: relagg.cu's WMMA kernel, any N) or ``"float32"`` (relagg.cu)."""
+    if dtype != torch.bfloat16:
+        return "float32"
+    return "wmma" if N % 8 or F % 8 else "sm90"
+
+
 @dataclasses.dataclass(frozen=True)
-class DropEdgePlan:
-    """How dropedge_sm90.cu tiles K1 and K2 for A (B, N, L, N) and F
-    feature columns.
-
-    Both kernels step through A's (N*L, N) view in 64 x 64 tiles and write
-    output tiles of 64 rows by ``BN`` columns.
-
-    * K1, ``forward_grid`` = (f_tiles, row_tiles, B): block (x, y, z) owns
-      output rows 64y.. of batch z's N*L and columns BN*x.., over the
-      ceil(N / 64) column steps of A.
-    * K2, ``backward_grid`` = (splits * f_tiles, m_tiles, B) in clusters of
-      ``cluster`` = (splits, 1, 1): the blocks of a cluster share output
-      rows 64y.. of batch z's N and columns BN*(x // splits)..; block
-      x % splits walks ``steps // splits`` consecutive 64-row steps of the
-      N*L reduction rows and the cluster sums the partials.
-    """
+class AggregatePlan:
+    """How dropedge_sm90.cu tiles K3 (and K1, :class:`DropEdgePlan`) for A
+    (B, N, L, N) and F feature columns: 64 x 64 tiles of A's (N*L, N) view
+    and output tiles of 64 rows by ``BN`` columns. ``forward_grid`` =
+    (f_tiles, row_tiles, B): block (x, y, z) owns output rows 64y.. of batch
+    z's N*L and columns BN*x.., over the ceil(N / 64) column steps of A."""
 
     B: int
     N: int
     L: int
     F: int
     BN: int
-    splits: int
 
     @property
     def f_tiles(self) -> int:
@@ -181,13 +198,47 @@ class DropEdgePlan:
         return -(-self.N // _TILE_ROWS)
 
     @property
+    def forward_grid(self) -> Tuple[int, int, int]:
+        return (self.f_tiles, self.row_tiles, self.B)
+
+
+@functools.lru_cache(maxsize=256)
+def aggregate_plan(B: int, N: int, L: int, F: int) -> AggregatePlan:
+    """The width and grid of K3 on dropedge_sm90.cu for A (B, N, L, N):
+    ``BN`` = min(F, 256) rounded up to a multiple of 64 (TMA zero-fills the
+    F edge; the epilogue masks it), no split. Raises ``ValueError`` for
+    N % 8, F % 8 (:func:`check_sm90_shape`) or a grid past the card's
+    limits. Cached: the wrapper asks at every launch."""
+    if min(B, N, L, F) < 1:
+        raise ValueError(f"empty shape B={B}, N={N}, L={L}, F={F}")
+    check_sm90_shape(N, F)
+    if B > _MAX_GRID_YZ or -(-N * L // _TILE_ROWS) > _MAX_GRID_YZ:
+        raise ValueError(f"shape B={B}, N*L={N * L} exceeds the kernels' grid limits")
+    return AggregatePlan(B, N, L, F, min(-(-F // 64) * 64, _MAX_BN))
+
+
+@dataclasses.dataclass(frozen=True)
+class DropEdgePlan(AggregatePlan):
+    """How dropedge_sm90.cu tiles K1 and K2 for A (B, N, L, N) and F
+    feature columns.
+
+    Both kernels step through A's (N*L, N) view in 64 x 64 tiles and write
+    output tiles of 64 rows by ``BN`` columns.
+
+    * K1, ``forward_grid``: as K3's (:class:`AggregatePlan`).
+    * K2, ``backward_grid`` = (splits * f_tiles, m_tiles, B) in clusters of
+      ``cluster`` = (splits, 1, 1): the blocks of a cluster share output
+      rows 64y.. of batch z's N and columns BN*(x // splits)..; block
+      x % splits walks ``steps // splits`` consecutive 64-row steps of the
+      N*L reduction rows and the cluster sums the partials.
+    """
+
+    splits: int
+
+    @property
     def steps(self) -> int:
         """K2's 64-row steps over the N*L reduction rows."""
         return self.row_tiles
-
-    @property
-    def forward_grid(self) -> Tuple[int, int, int]:
-        return (self.f_tiles, self.row_tiles, self.B)
 
     @property
     def backward_grid(self) -> Tuple[int, int, int]:
@@ -209,17 +260,80 @@ def dropedge_plan(B: int, N: int, L: int, F: int) -> DropEdgePlan:
     Raises ``ValueError`` for N % 8, F % 8 (:func:`check_sm90_shape`) or a
     grid past the card's limits. Cached: the wrappers ask at every launch.
     """
-    if min(B, N, L, F) < 1:
-        raise ValueError(f"empty shape B={B}, N={N}, L={L}, F={F}")
-    check_sm90_shape(N, F)
-    BN = min(-(-F // 64) * 64, _MAX_BN)
-    steps = -(-N * L // _TILE_ROWS)
-    if B > _MAX_GRID_YZ or steps > _MAX_GRID_YZ:
-        raise ValueError(f"shape B={B}, N*L={N * L} exceeds the kernels' grid limits")
-    tiles = B * -(-N // _TILE_ROWS) * -(-F // BN)
+    forward = aggregate_plan(B, N, L, F)
+    steps = forward.row_tiles
+    tiles = B * forward.m_tiles * forward.f_tiles
     divisors = [s for s in range(1, _MAX_SPLITS + 1) if steps % s == 0]
     splits = next((s for s in divisors if tiles * s >= _SPLIT_BLOCKS), divisors[-1])
-    return DropEdgePlan(B, N, L, F, BN, splits)
+    return DropEdgePlan(B, N, L, F, forward.BN, splits)
+
+
+@dataclasses.dataclass(frozen=True)
+class DropEdgeF32Plan:
+    """How dropedge_f32.cu tiles the float32 K2 for A (B, N, L, N) and g
+    (B, N, L, F): output tiles of 128 x 128 (rows m of batch z's N, columns
+    f), reduction steps of 32 of A's N*L rows. ``grid`` = (splits * f_tiles,
+    m_tiles, B) in clusters of ``cluster`` = (splits, 1, 1): the blocks of a
+    cluster share output rows 128y.. and columns 128*(x // splits)..; block
+    x % splits walks ``steps // splits`` consecutive steps and the cluster
+    sums the partials. ``vec`` is the copy width in floats the shape allows
+    (4: N % 4 == 0 and F % 4 == 0; else 1); the launcher takes 1 also where
+    an operand is not 16-byte aligned."""
+
+    B: int
+    N: int
+    L: int
+    F: int
+    splits: int
+
+    @property
+    def f_tiles(self) -> int:
+        return -(-self.F // _F32_TILE)
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.N // _F32_TILE)
+
+    @property
+    def steps(self) -> int:
+        return -(-self.N * self.L // _F32_STEP)
+
+    @property
+    def vec(self) -> int:
+        return 1 if self.N % 4 or self.F % 4 else 4
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.splits * self.f_tiles, self.m_tiles, self.B)
+
+    @property
+    def cluster(self) -> Tuple[int, int, int]:
+        return (self.splits, 1, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def dropedge_f32_plan(B: int, N: int, L: int, F: int,
+                      capacity: Tuple[int, ...] = (_F32_SLOTS,) * _MAX_SPLITS) -> DropEdgeF32Plan:
+    """The split and grid of the float32 K2 for A (B, N, L, N), any N and F.
+
+    S divides the ceil(N*L / 32) reduction steps and is at most 8, so every
+    split walks whole steps. ``capacity[S - 1]`` is how many blocks the card
+    runs at once in clusters of S (:func:`f32_capacity` on the card; by
+    default one an SM of the H100's 132), so a grid of T * S blocks takes
+    ceil(T * S / capacity) waves of blocks that each walk 1/S of the steps:
+    S minimises that, the smaller S on a tie (its cluster sums fewer
+    partials). Raises ``ValueError`` for an empty shape or a grid past the
+    card's limits. Cached: the wrapper asks at every launch.
+    """
+    if min(B, N, L, F) < 1:
+        raise ValueError(f"empty shape B={B}, N={N}, L={L}, F={F}")
+    plan = DropEdgeF32Plan(B, N, L, F, 1)
+    if B > _MAX_GRID_YZ or plan.m_tiles > _MAX_GRID_YZ:
+        raise ValueError(f"shape B={B}, N={N} exceeds the kernel's grid limits")
+    tiles = B * plan.m_tiles * plan.f_tiles
+    divisors = [s for s in range(1, _MAX_SPLITS + 1) if plan.steps % s == 0]
+    splits = min(divisors, key=lambda s: (-(-tiles * s // max(capacity[s - 1], 1)) / s, s))
+    return dataclasses.replace(plan, splits=splits)
 
 
 # ---------------------------------------------------------------------------
@@ -266,18 +380,16 @@ def _library() -> ctypes.CDLL:
     head = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5  # A, X, out, B, N, L, F, dtype
     tail = [ctypes.c_int, ctypes.c_void_p]  # device, stream
     lib.grl_relagg_forward.argtypes = head + tail
-    for name in ("grl_dropedge_forward", "grl_dropedge_backward"):
-        getattr(lib, name).argtypes = head + [ctypes.c_uint32, ctypes.c_float] + tail
-    for name in ("grl_relagg_forward", "grl_dropedge_forward", "grl_dropedge_backward"):
+    lib.grl_dropedge_forward.argtypes = head + [ctypes.c_uint32, ctypes.c_float] + tail
+    for name in ("grl_relagg_forward", "grl_dropedge_forward"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
 def _launch(entry: str, A: torch.Tensor, X: torch.Tensor, out_shape, *mask_args) -> torch.Tensor:
-    """Launch ``entry`` of relagg.cu on the current stream; no synchronisation.
-
-    ``X`` is V for K3/K1 and g for K2; ``mask_args`` is ``(seed, keep)``
-    for K1/K2 (float32 only there).
+    """Launch ``entry`` of relagg.cu (K3, or K1 in float32, ``X`` = V) on
+    the current stream; no synchronisation. ``mask_args`` is
+    ``(seed, keep)`` for K1.
     """
     if X.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA relagg takes float32 or bfloat16, not {X.dtype}")
@@ -306,12 +418,36 @@ def _sm90_library() -> ctypes.CDLL:
     lib = _build.load_library("dropedge_sm90")
     head = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5  # A, X, out, B, N, L, F, BN
     mask = [ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # seed, keep, device, stream
+    lib.grl_relagg_sm90_forward.argtypes = head + mask[2:]
     lib.grl_dropedge_sm90_forward.argtypes = head + mask
     lib.grl_dropedge_sm90_backward.argtypes = head + [ctypes.c_int] + mask  # ... S
     lib.grl_dropedge_sm90_max_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    for name in ("grl_dropedge_sm90_forward", "grl_dropedge_sm90_backward", "grl_dropedge_sm90_max_clusters"):
+    for name in ("grl_relagg_sm90_forward", "grl_dropedge_sm90_forward", "grl_dropedge_sm90_backward",
+                 "grl_dropedge_sm90_max_clusters"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+def _launch_aggregate_sm90(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 K3 of dropedge_sm90.cu on the current stream, laid out
+    by :func:`aggregate_plan`; no synchronisation. Raises for a shape or an
+    operand TMA cannot read."""
+    if not (V.is_contiguous() and A.is_contiguous()):
+        raise ValueError("CUDA relagg needs contiguous operands (dataset layout)")
+    if A.data_ptr() % 16 or V.data_ptr() % 16:
+        raise ValueError("bfloat16 K3 at N % 8 == 0 and F % 8 == 0 needs 16-byte aligned operands (TMA)")
+    B, N, L, _ = A.shape
+    F = V.shape[-1]
+    out = torch.empty((B, N, L, F), dtype=V.dtype, device=V.device)
+    if out.numel() == 0:
+        return out
+    plan = aggregate_plan(B, N, L, F)
+    lib = _sm90_library()
+    stream = torch.cuda.current_stream(V.device).cuda_stream
+    err = lib.grl_relagg_sm90_forward(A.data_ptr(), V.data_ptr(), out.data_ptr(), B, N, L, F, plan.BN,
+                                      V.device.index, stream)
+    _build.check_launch(lib, err, "bf16 K3")
+    return out
 
 
 def _launch_sm90(backward: bool, A: torch.Tensor, X: torch.Tensor, seed: int, keep: float,
@@ -353,6 +489,58 @@ def sm90_max_clusters(plan: DropEdgePlan, device: int = 0) -> int:
     return clusters.value
 
 
+@functools.lru_cache(maxsize=None)
+def _f32_library() -> ctypes.CDLL:
+    """dropedge_f32.cu's library with its C signatures declared (once)."""
+    lib = _build.load_library("dropedge_f32")
+    lib.grl_dropedge_f32_backward.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6  # A, g, dV, B, N, L, F, S, vec
+        + [ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])  # seed, keep, device, stream
+    lib.grl_dropedge_f32_max_clusters.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    for name in ("grl_dropedge_f32_backward", "grl_dropedge_f32_max_clusters"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _launch_f32_grad(A: torch.Tensor, g: torch.Tensor, seed: int, keep: float,
+                     plan: DropEdgeF32Plan = None) -> torch.Tensor:
+    """The float32 K2 of dropedge_f32.cu on the current stream, laid out by
+    ``plan`` (default :func:`dropedge_f32_plan`'s); no synchronisation."""
+    if not (g.is_contiguous() and A.is_contiguous()):
+        raise ValueError("CUDA relagg needs contiguous operands (dataset layout)")
+    B, N, L, _ = A.shape
+    F = g.shape[-1]
+    dV = torch.empty((B, N, F), dtype=g.dtype, device=g.device)
+    if dV.numel() == 0:
+        return dV
+    plan = plan or dropedge_f32_plan(B, N, L, F, f32_capacity(g.device.index))
+    vec = 4 if plan.vec == 4 and not (A.data_ptr() % 16 or g.data_ptr() % 16 or dV.data_ptr() % 16) else 1
+    lib = _f32_library()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = lib.grl_dropedge_f32_backward(A.data_ptr(), g.data_ptr(), dV.data_ptr(), B, N, L, F, plan.splits, vec,
+                                        int(seed) & 0xFFFFFFFF, keep, g.device.index, stream)
+    _build.check_launch(lib, err, "f32 K2")
+    return dV
+
+
+def f32_max_clusters(splits: int, device: int = 0) -> int:
+    """How many of the float32 K2's clusters of ``splits`` blocks the card
+    holds at once (``cudaOccupancyMaxActiveClusters``; 0: none launch)."""
+    lib = _f32_library()
+    clusters = ctypes.c_int(0)
+    err = lib.grl_dropedge_f32_max_clusters(splits, device, ctypes.byref(clusters))
+    _build.check_launch(lib, err, "cudaOccupancyMaxActiveClusters")
+    return clusters.value
+
+
+@functools.lru_cache(maxsize=None)
+def f32_capacity(device: int) -> Tuple[int, ...]:
+    """Blocks of the float32 K2 that ``device`` runs at once in clusters of
+    S = 1..8: :func:`dropedge_f32_plan`'s ``capacity``, asked once a
+    device."""
+    return tuple(S * f32_max_clusters(S, device) for S in range(1, _MAX_SPLITS + 1))
+
+
 def _by_device(tensor: torch.Tensor) -> str:
     if tensor.device.type not in ("cuda", "cpu"):
         raise ValueError(f"relagg runs on CUDA or CPU tensors, not {tensor.device}")
@@ -369,8 +557,14 @@ class _NeighborAggregate(torch.autograd.Function):
         if _by_device(V) == "cpu":
             return neighbor_aggregate_reference(V, A)
         B, N, L, _ = A.shape
-        out = _launch("grl_relagg_forward", A, V, (B, N, L, V.shape[-1]))
+        F = V.shape[-1]
+        route = k3_route(V.dtype, N, F)
+        if route == "sm90":
+            out = _launch_aggregate_sm90(A, V)
+        else:
+            out = _launch("grl_relagg_forward", A, V, (B, N, L, F))
         neighbor_aggregate.launches += 1
+        neighbor_aggregate.routes[route] += 1
         return out
 
     @staticmethod
@@ -390,14 +584,16 @@ def neighbor_aggregate(V: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """``(B,N,L,F)`` neighbor aggregate of ``V (B,N,F)`` by ``A (B,N,L,N)``.
 
     CPU tensors take :func:`neighbor_aggregate_reference`; CUDA tensors
-    launch the K3 kernel (counted in ``neighbor_aggregate.launches``) or
-    raise — there is no fallback.
+    launch the K3 kernel of :func:`k3_route` (counted in
+    ``neighbor_aggregate.launches`` and by route in ``.routes``) or raise —
+    there is no fallback.
     """
     _check(V, A)
     return _NeighborAggregate.apply(V, A)
 
 
 neighbor_aggregate.launches = 0
+neighbor_aggregate.routes = {"sm90": 0, "wmma": 0, "float32": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -423,25 +619,26 @@ def _dropedge_forward(V: torch.Tensor, A: torch.Tensor, seed: int, rate: float) 
 def dropedge_aggregate_grad(g: torch.Tensor, A: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """``dV (B, N, F)`` of :func:`dropedge_aggregate` for the output
     cotangent ``g (B, N, L, F)``: the K2 kernel on CUDA tensors (bfloat16:
-    dropedge_sm90.cu; float32: relagg.cu; counted in
-    ``dropedge_aggregate_grad.launches``), its plain version on CPU ones."""
+    dropedge_sm90.cu; float32: dropedge_f32.cu; counted in
+    ``dropedge_aggregate_grad.launches`` and by route in ``.routes``), its
+    plain version on CPU ones."""
     _check_grad(g, A)
     _check_mask(A, rate)
     if _by_device(g) == "cpu":
         return dropedge_aggregate_grad_reference(g, A, seed, rate)
     if g.dtype == torch.bfloat16:
-        dV = _launch_sm90(True, A, g, seed, keep_probability(rate))
+        dV, route = _launch_sm90(True, A, g, seed, keep_probability(rate)), "sm90"
+    elif g.dtype == torch.float32:
+        dV, route = _launch_f32_grad(A, g, seed, keep_probability(rate)), "float32"
     else:
-        B, N, _, F = g.shape
-        dV = _launch(
-            "grl_dropedge_backward", A, g, (B, N, F),
-            int(seed) & 0xFFFFFFFF, keep_probability(rate),
-        )
+        raise TypeError(f"CUDA relagg takes float32 or bfloat16, not {g.dtype}")
     dropedge_aggregate_grad.launches += 1
+    dropedge_aggregate_grad.routes[route] += 1
     return dV
 
 
 dropedge_aggregate_grad.launches = 0
+dropedge_aggregate_grad.routes = {"sm90": 0, "float32": 0}
 
 
 class _DropEdgeAggregate(torch.autograd.Function):

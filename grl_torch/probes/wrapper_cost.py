@@ -1,14 +1,16 @@
-"""What one bf16 K3, K1 or K2 call costs the host, beside its device time,
-in any checkout of the repo; and, with ``--train``, that checkout's train
+"""What one K3, K1 or K2 call costs the host, beside its device time, in
+any checkout of the repo; and, with ``--train``, that checkout's train
 step.
 
 The flagship's train step is bound by the host's enqueue (the device sits
 idle for most of it, ``chip_smoke.py`` phase ``train``), so a wrapper that
 takes longer to enqueue its kernel can slow the step while its kernel gets
 faster. At bf16 B=8 N=256 L=6, F = 256 and 512, rate 0.3, density 0.002,
-through the public wrappers of ``grl_torch.ops.relagg`` (K3 is the control:
-its wrapper and kernel did not change when K1/K2 moved to
-``dropedge_sm90.cu``), each row holds
+through the public wrappers of ``grl_torch.ops.relagg``, bf16 K3, K1 and
+K2, then float32 K3 (the control: its wrapper and kernel, ``relagg.cu``'s,
+did not change when bf16 K1/K2 moved to ``dropedge_sm90.cu``, nor when bf16
+K3 followed them and float32 K2 moved to ``dropedge_f32.cu``) and float32
+K2, each row holds
 
 * ``enqueue_ms``: the median host time of one call, the card kept busy;
 * ``ms``: CUDA events around one call after an L2 flush, as
@@ -75,15 +77,18 @@ def main(argv=None) -> int:
     for F in FS:
         V, A = timers.operands(torch, "bfloat16", N, F, DENSITY, SEED)
         g = torch.randn(*A.shape[:3], F, device="cuda").to(torch.bfloat16)
+        V32, A32, g32 = V.float(), A.float(), g.float()
         calls = {"K3": lambda: relagg.neighbor_aggregate(V, A),
                  "K1": lambda: relagg.dropedge_aggregate(V, A, SEED, RATE),
-                 "K2": lambda: relagg.dropedge_aggregate_grad(g, A, SEED, RATE)}
+                 "K2": lambda: relagg.dropedge_aggregate_grad(g, A, SEED, RATE),
+                 "K3 f32": lambda: relagg.neighbor_aggregate(V32, A32),
+                 "K2 f32": lambda: relagg.dropedge_aggregate_grad(g32, A32, SEED, RATE)}
         for name, call in calls.items():
             rows.append({"kernel": name, "F": F, "enqueue_ms": timers.enqueue_ms(torch, call),
                          "ms": timers.time_ms(torch, call, flush),
                          "device_ms": timers.time_ms(torch, call, flush, cover=True)})
     del flush
-    result = {"root": str(root), "card": card, "shape": f"bf16 B={timers.B} N={N} L={timers.L} rate={RATE}",
+    result = {"root": str(root), "card": card, "shape": f"B={timers.B} N={N} L={timers.L} rate={RATE}",
               "rows": rows}
     if args.train:
         result["step_ms"] = smoke.phase_train(torch, card)["step_ms"]

@@ -92,17 +92,26 @@ class KVProcedure(BaseProcedure):
         take: with ``kernel_impl: pallas``, DropEdge on and bfloat16, every
         padded node count N (BucketPadding's quantum and buckets) and every
         width F of the trunk's convolutions must be divisible by 8
-        (:func:`grl_torch.ops.relagg.check_sm90_shape`)."""
+        (:func:`grl_torch.ops.relagg.check_sm90_shape`). A training collate
+        chain with no BucketPadding leaves N to each batch's pages, which
+        nothing here can check, so it is refused too. (Validation runs K3,
+        which takes any N.)"""
         trunks = [m for m in self.model.modules() if isinstance(m, GCNTrunk)
                   and m.kernel_impl == "pallas" and m.edge_dropout_rate > 0.0 and m.dtype == torch.bfloat16]
         if not trunks:
             return
+        if not any(isinstance(p, BucketPadding) for p in self.train_loader.collate_chain):
+            raise ValueError(
+                "kernel_impl: pallas in bfloat16 with DropEdge needs BucketPadding in the training "
+                "data_collate: bf16 K1/K2 read through TMA and need every padded node count N with "
+                "N % 8 == 0, which only a BucketPadding quantum (and buckets) divisible by 8 guarantees"
+            )
         pads = [p for loader in (self.train_loader, self.val_loader) for p in loader.collate_chain
                 if isinstance(p, BucketPadding)]
         sizes = sorted({p.quantum for p in pads} | {b for p in pads for b in p.buckets})
         widths = sorted({conv.h_weights.shape[0] // (conv.num_relations + 1)
                          for trunk in trunks for conv in (trunk.gcn1, trunk.gcn2, trunk.gcn3)})
-        for N in sizes or [8]:
+        for N in sizes:
             for F in widths:
                 try:
                     check_sm90_shape(N, F)

@@ -1,5 +1,6 @@
 """K1-K6 and P on the card: the CUDA kernels against their plain versions
-(bf16 K1/K2: dropedge_sm90.cu; the rest as named in their modules).
+(bf16 K1/K2, and bf16 K3 at N % 8 == 0 and F % 8 == 0: dropedge_sm90.cu;
+f32 K2: dropedge_f32.cu; the rest as named in their modules).
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file
 imports neither JAX nor grl_tpu, so it runs on a machine without them,
@@ -181,8 +182,11 @@ def test_bf16_dropedge_launches_are_deterministic():
 
 
 def test_bf16_k1_at_keep_one_is_k3_within_one_rounding():
+    """K3 at N % 8 == 0 is K1's kernel with the mask compiled out: at keep 1
+    K1 drops nothing and scales by exactly 1, so the two agree bit for bit
+    (within one rounding a fortiori)."""
     V, A = operands(256, 256, torch.bfloat16, density=0.2, seed=6)
-    assert_one_rounding_apart(relagg._launch_sm90(False, A, V, 3, 1.0), relagg.neighbor_aggregate(V, A))
+    assert torch.equal(relagg._launch_sm90(False, A, V, 3, 1.0), relagg.neighbor_aggregate(V, A))
 
 
 def test_bf16_dropedge_shape_check():
@@ -194,6 +198,100 @@ def test_bf16_dropedge_shape_check():
     V, A = operands(64, 44, torch.bfloat16)
     with pytest.raises(ValueError, match="F % 8 == 0"):
         relagg.dropedge_aggregate(V, A, 1, RATE)
+
+
+# ---------------------------------------------------------------------------
+# bf16 K3 on dropedge_sm90.cu (N % 8 == 0 and F % 8 == 0) and on relagg.cu's
+# WMMA kernel (other shapes); the float32 K2 of dropedge_f32.cu.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("N", [64, 192, 256])
+@pytest.mark.parametrize("F", [64, 256, 512, 1280])
+def test_bf16_k3_sm90_matches_plain_version(N, F):
+    V, A = operands(N, F, torch.bfloat16, density=0.05, seed=3 * N + F)
+    before = dict(relagg.neighbor_aggregate.routes)
+    out = relagg.neighbor_aggregate(V, A)
+    torch.cuda.synchronize()
+    assert relagg.neighbor_aggregate.routes == {**before, "sm90": before["sm90"] + 1}
+    assert_one_rounding_apart(out, relagg.neighbor_aggregate_reference(V, A))
+
+
+@pytest.mark.parametrize("F", [64, 256, 36])
+def test_bf16_k3_ragged_route_matches_plain_version(F):
+    """N = 230 (or F % 8 != 0): TMA cannot read the rows, so K3 launches
+    relagg.cu's WMMA kernel, which takes any N."""
+    V, A = operands(230, F, torch.bfloat16, density=0.05, seed=F)
+    before = dict(relagg.neighbor_aggregate.routes)
+    out = relagg.neighbor_aggregate(V, A)
+    torch.cuda.synchronize()
+    assert relagg.neighbor_aggregate.routes == {**before, "wmma": before["wmma"] + 1}
+    assert_one_rounding_apart(out, relagg.neighbor_aggregate_reference(V, A))
+
+
+def test_bf16_k3_sm90_refuses_a_misaligned_operand():
+    """A contiguous operand 2 bytes past a 16-byte boundary: TMA cannot read
+    it, and the launch raises; it does not turn to the WMMA kernel."""
+    V, A = operands(64, 64, torch.bfloat16)
+    shifted = torch.empty(V.numel() + 1, dtype=V.dtype, device="cuda")[1:].view(V.shape)
+    shifted.copy_(V)
+    launches = relagg.neighbor_aggregate.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        relagg.neighbor_aggregate(shifted, A)
+    assert relagg.neighbor_aggregate.launches == launches
+
+
+@pytest.mark.parametrize("N, F", [(64, 256), (192, 512), (256, 256), (256, 512), (230, 256), (256, 36)])
+def test_f32_k2_matches_plain_version(N, F):
+    """Exact float32 FMAs in another order than the plain matmul: within
+    1e-5 of the largest output."""
+    _, A = operands(N, F, torch.float32, density=0.05, seed=N + 2 * F)
+    g = torch.randn(B, N, L, F, device="cuda")
+    before = dict(relagg.dropedge_aggregate_grad.routes)
+    dV = relagg.dropedge_aggregate_grad(g, A, 19, RATE)
+    torch.cuda.synchronize()
+    assert relagg.dropedge_aggregate_grad.routes == {**before, "float32": before["float32"] + 1}
+    assert_close_to_plain(dV, relagg.dropedge_aggregate_grad_reference(g, A, 19, RATE))
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 6, 8])
+def test_f32_k2_every_split_matches_plain_version(S):
+    import dataclasses
+
+    _, A = operands(256, 256, torch.float32, density=0.05, seed=S)
+    g = torch.randn(B, 256, L, 256, device="cuda")
+    plan = dataclasses.replace(relagg.dropedge_f32_plan(B, 256, L, 256), splits=S)
+    dV = relagg._launch_f32_grad(A, g, 19, relagg.keep_probability(RATE), plan)
+    torch.cuda.synchronize()
+    assert_close_to_plain(dV, relagg.dropedge_aggregate_grad_reference(g, A, 19, RATE))
+
+
+@pytest.mark.parametrize("N", [64, 230, 256])
+def test_f32_k2_mask_reads_back_exactly(N):
+    """g = I over the N*L rows: K2 returns the masked A transposed, which
+    shows exactly the plain hash mask on A's support."""
+    _, A = operands(N, 8, torch.float32, density=0.5, seed=N)
+    expected = (A != 0) & relagg.dropedge_keep_mask(43, A.shape, RATE, A.device)
+    g = torch.eye(N * L, device="cuda").expand(B, N * L, N * L).reshape(B, N, L, N * L)
+    dV = relagg.dropedge_aggregate_grad(g.contiguous(), A, 43, RATE)
+    assert torch.equal(dV.view(B, N, N, L).permute(0, 2, 3, 1) != 0, expected)
+
+
+def test_f32_k2_launches_are_deterministic():
+    """The cluster sums its partials in a fixed order, with no atomics."""
+    _, A = operands(256, 256, torch.float32, density=0.2, seed=5)
+    g = torch.randn(B, 256, L, 256, device="cuda")
+    assert torch.equal(relagg.dropedge_aggregate_grad(g, A, 3, RATE), relagg.dropedge_aggregate_grad(g, A, 3, RATE))
+
+
+def test_f32_k2_misaligned_operand_takes_four_byte_copies():
+    """An operand 4 bytes past a 16-byte boundary is copied 4 bytes at a
+    time (the plan's copy width is by shape and alignment), and the result
+    is the same."""
+    _, A = operands(64, 64, torch.float32, density=0.2, seed=8)
+    g = torch.randn(B, 64, L, 64, device="cuda")
+    shifted = torch.empty(g.numel() + 1, device="cuda")[1:].view(g.shape)
+    shifted.copy_(g)
+    assert torch.equal(relagg.dropedge_aggregate_grad(shifted, A, 3, RATE),
+                       relagg.dropedge_aggregate_grad(g, A, 3, RATE))
 
 
 # ---------------------------------------------------------------------------

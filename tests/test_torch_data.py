@@ -8,10 +8,17 @@ builder, which must give the same float16 (N, 6, N) adjacency.
 """
 from __future__ import annotations
 
+import fcntl
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 from grl_tpu.data import collate as jax_collate
+from grl_tpu.data import native as jax_native
 from grl_tpu.data import datasets as jax_datasets
 from grl_tpu.data.dataloader import BaseDataLoader as JaxBaseDataLoader
 from grl_tpu.data.native import native_available
@@ -78,9 +85,47 @@ def test_textline_encoding_matches(files):
         assert a["textline_encoding"].dtype == np.float32
 
 
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def native_library():
+    """grl_tpu's native graph builder (native/graph_builder.cpp), built into
+    a private path under build/ keyed on the source's hash.
+
+    grl_tpu.data.native builds native/libgrlgraph.so in place when it is
+    missing or stale, and every pytest-xdist worker imports it (through
+    tests/test_native_builder.py) at collection: in a fresh checkout the
+    workers each run g++ onto the path the others load, and a worker that
+    loads a half-written file ("file too short") falls back to Python for
+    the rest of its life. Here one process at a time compiles, under a file
+    lock, to a temporary name that is then renamed into place, so no
+    process ever loads a partial file.
+    """
+    source = Path(jax_native._SRC)
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    build = REPO / "build" / "grl_torch"
+    build.mkdir(parents=True, exist_ok=True)
+    path = build / f"libgrlgraph-{digest}.so"
+    with open(build / "libgrlgraph.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", str(tmp), str(source)],
+                           check=True, capture_output=True)
+            os.replace(tmp, path)
+        if path.stat().st_mtime < source.stat().st_mtime:
+            os.utime(path)  # same source bytes: keep grl_tpu from rebuilding it
+    return str(path)
+
+
 @pytest.mark.parametrize("rows, noise", [(12, 6), (60, 8)])
-def test_graph_builder_matches_native(files, rows, noise):
-    """The port's Python builder against grl_tpu's default native builder."""
+def test_graph_builder_matches_native(files, rows, noise, native_library, monkeypatch):
+    """The port's Python builder against grl_tpu's default native builder,
+    loaded from the fixture's private build."""
+    monkeypatch.setattr(jax_native, "_LIB", native_library)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_load_failed", False)
     assert native_available()
     pages = [jax_synthetic.synthetic_page(500 + i, rows, noise) for i in range(3)]
     ours, theirs = both_samples(files, samples=pages)

@@ -1,4 +1,5 @@
-"""The launch plan of the bfloat16 K1/K2 (grl_torch/csrc/dropedge_sm90.cu).
+"""The launch plans of the bfloat16 K3/K1/K2 (grl_torch/csrc/dropedge_sm90.cu)
+and of the float32 K2 (grl_torch/csrc/dropedge_f32.cu), and K3's route.
 
 ``dropedge_plan`` is plain Python; the launcher passes its width BN and
 K2's split S to the kernels, which compute their tiles from those. Here, on
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from grl_torch.ops import relagg
-from grl_torch.ops.relagg import check_sm90_shape, dropedge_plan
+from grl_torch.ops.relagg import aggregate_plan, check_sm90_shape, dropedge_f32_plan, dropedge_plan, k3_route
 
 B = 8
 SHAPES = [(N, L, F) for N in (64, 192, 256) for L in (1, 6) for F in (64, 128, 256, 512, 1536)]
@@ -85,3 +86,116 @@ def test_shape_check_is_the_cuda_launchers_only():
 def test_plan_refuses_empty_shapes():
     with pytest.raises(ValueError):
         dropedge_plan(0, 64, 6, 64)
+
+
+# ---------------------------------------------------------------------------
+# K3: the route by shape and its sm90 plan
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("N, F, route", [(256, 256, "sm90"), (64, 512, "sm90"), (192, 1280, "sm90"),
+                                         (8, 8, "sm90"), (230, 256, "wmma"), (256, 36, "wmma"),
+                                         (100, 44, "wmma")])
+def test_k3_route_follows_the_tma_shape_rule(N, F, route):
+    """bf16 K3 takes dropedge_sm90.cu exactly where TMA can read its
+    operands (check_sm90_shape passes), relagg.cu's WMMA kernel elsewhere;
+    float32 K3 is relagg.cu's whatever the shape."""
+    assert k3_route(torch.bfloat16, N, F) == route
+    assert k3_route(torch.float32, N, F) == "float32"
+    if route == "sm90":
+        check_sm90_shape(N, F)
+        aggregate_plan(B, N, 6, F)
+    else:
+        with pytest.raises(ValueError, match="% 8 == 0"):
+            aggregate_plan(B, N, 6, F)
+
+
+def test_every_inference_bucket_takes_the_sm90_route():
+    """KVInference pads to multiples of 64 and the trunk's widths are
+    multiples of 8 at every net_size the configs use: serving never takes
+    the WMMA route."""
+    for N in range(64, 1025, 64):
+        for F in (64, 128, 256, 512):
+            assert k3_route(torch.bfloat16, N, F) == "sm90"
+
+
+@pytest.mark.parametrize("N, L, F", SHAPES)
+def test_k3_plan_is_k1s_forward_layout(N, L, F):
+    """K3 is K1's kernel with the mask compiled out: the same BN and the
+    same forward grid, and no split."""
+    plan, k1 = aggregate_plan(B, N, L, F), dropedge_plan(B, N, L, F)
+    assert (plan.BN, plan.forward_grid) == (k1.BN, k1.forward_grid)
+    assert not hasattr(plan, "splits")
+    assert plan.forward_grid == (-(-F // plan.BN), -(-N * L // 64), B)
+
+
+@pytest.mark.parametrize("F, BN, blocks", [(256, 256, 192), (512, 256, 384)])
+def test_k3_main_shape_grid(F, BN, blocks):
+    """The flagship's shape, B=8 N=256 L=6: 24 row tiles of 64 a batch;
+    one BN = 256 column tile at F = 256 (192 blocks of ~82 KB, two an SM,
+    one wave), two at F = 512."""
+    plan = aggregate_plan(8, 256, 6, F)
+    assert plan.BN == BN and plan.forward_grid == (F // 256, 24, 8)
+    assert int(np.prod(plan.forward_grid)) == blocks
+
+
+# ---------------------------------------------------------------------------
+# The float32 K2 (dropedge_f32.cu)
+# ---------------------------------------------------------------------------
+F32_SHAPES = [(N, L, F) for N in (64, 192, 230, 256) for L in (1, 6) for F in (36, 64, 256, 512, 1280)]
+
+
+# Blocks run at once in clusters of S = 1..8: one an SM of 132 by default,
+# and what an H100 80GB HBM3 reports (cudaOccupancyMaxActiveClusters): its
+# GPCs do not all divide into clusters of 3 to 8.
+CAPACITIES = [(132,) * 8, (132, 132, 117, 120, 110, 102, 105, 120)]
+
+
+@pytest.mark.parametrize("capacity", CAPACITIES)
+@pytest.mark.parametrize("N, L, F", F32_SHAPES)
+def test_f32_split_walks_whole_steps(N, L, F, capacity):
+    """S divides the ceil(N*L / 32) reduction steps and is at most 8; the
+    cluster shape divides the grid; S minimises the waves of the blocks the
+    card runs at once in clusters of S times each block's share of the
+    steps (the smaller S on a tie); the tiles of 128 span N and F."""
+    plan = dropedge_f32_plan(B, N, L, F, capacity)
+    S = plan.splits
+    assert 1 <= S <= 8 and plan.steps % S == 0 and plan.steps == -(-N * L // 32)
+    assert plan.cluster == (S, 1, 1) and plan.grid[0] % S == 0
+    assert (plan.m_tiles - 1) * 128 < N <= plan.m_tiles * 128
+    assert (plan.f_tiles - 1) * 128 < F <= plan.f_tiles * 128
+    tiles = B * plan.m_tiles * plan.f_tiles
+    assert int(np.prod(plan.grid)) == tiles * S
+    cost = {s: -(-tiles * s // capacity[s - 1]) / s for s in range(1, 9) if plan.steps % s == 0}
+    assert cost[S] == min(cost.values()) and S == min(s for s, c in cost.items() if c == cost[S])
+    assert plan.vec == (4 if N % 4 == 0 and F % 4 == 0 else 1)
+
+
+@pytest.mark.parametrize("F, S, grid", [(256, 4, (8, 2, 8)), (512, 2, (8, 2, 8))])
+def test_f32_main_shape_plan(F, S, grid):
+    """B=8 N=256 L=6: 48 steps of 32 rows; 32 (F=256) or 64 (F=512) output
+    tiles of 128 x 128, split 4 and 2 ways: 128 blocks, one wave of the
+    card's 132 slots, in clusters of S."""
+    plan = dropedge_f32_plan(8, 256, 6, F)
+    assert (plan.steps, plan.splits, plan.grid, plan.cluster, plan.vec) == (48, S, grid, (S, 1, 1), 4)
+    assert int(np.prod(plan.grid)) == 128 <= 132
+
+
+@pytest.mark.parametrize("F, S", [(256, 3), (512, 2)])
+def test_f32_split_follows_the_cards_capacity(F, S):
+    """The H100 fits only 120 blocks at once in clusters of 4, so the main
+    shape's 128 blocks at S = 4 would take two waves: S = 3 (96 blocks)
+    walks 16 of the 48 steps in one. At F = 512, S = 2 (128 blocks) stays."""
+    plan = dropedge_f32_plan(8, 256, 6, F, CAPACITIES[1])
+    assert plan.splits == S and int(np.prod(plan.grid)) <= CAPACITIES[1][S - 1]
+
+
+def test_f32_ragged_plan():
+    """N = 230 (a trainer padded at quantum 2): 1380 rows in 44 steps, split
+    4 ways (128 blocks); 4-byte copies, since rows of 230 floats are not
+    16-byte multiples."""
+    plan = dropedge_f32_plan(8, 230, 6, 256)
+    assert (plan.steps, plan.splits, plan.grid, plan.cluster, plan.vec) == (44, 4, (8, 2, 8), (4, 1, 1), 1)
+
+
+def test_f32_plan_refuses_empty_shapes():
+    with pytest.raises(ValueError):
+        dropedge_f32_plan(8, 0, 6, 64)

@@ -132,6 +132,10 @@ PADDING_CASES = {
     "bf16 width 36": ({"quantum": 64}, {"compute_dtype": "bfloat16", "net_size": 36}, "F % 8 == 0 (got F=36)"),
     "f32 quantum 60": ({"quantum": 60}, {}, None),
     "bf16 quantum 60 without DropEdge": ({"quantum": 60}, {"compute_dtype": "bfloat16", "edge_dropout_rate": 0.0}, None),
+    # No BucketPadding: N is whatever a batch's pages give, so nothing can
+    # be checked at set-up.
+    "bf16 no BucketPadding": (None, {"compute_dtype": "bfloat16"}, "needs BucketPadding in the training data_collate"),
+    "f32 no BucketPadding": (None, {}, None),
 }
 
 
@@ -140,12 +144,12 @@ def test_procedure_refuses_padding_bf16_dropedge_cannot_take(trained, tmp_path, 
     """bf16 K1/K2 (kernel_impl: pallas with DropEdge) read through TMA and
     need N % 8 == 0 and F % 8 == 0: a config whose BucketPadding or widths
     break that fails when the procedure is set up, not at its first step on
-    the card."""
+    the card. So does one with no BucketPadding to check."""
     padding, model_args, refusal = PADDING_CASES[case]
     config = dict(trained["config"], output_dir=str(tmp_path))
     config["model"] = dict(config["model"], args={**config["model"]["args"], **model_args})
-    split = dict(config["data_config"]["training"],
-                 data_collate={"BucketPadding": {**padding, "only_selected_items": True}})
+    collate = {} if padding is None else {"BucketPadding": {**padding, "only_selected_items": True}}
+    split = dict(config["data_config"]["training"], data_collate=collate)
     config["data_config"] = dict(config["data_config"], training=split, validation=dict(split, shuffle=False))
     if refusal is None:
         GNNLearningWarper(config=config, device="cpu")
