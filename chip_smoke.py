@@ -15,14 +15,16 @@ before the result line is printed; no phase's failure is passed over.
 2. ``kernel``: K3, K1 and K2 against their plain PyTorch versions on the
    card, B=8, L=6, N in {64, 192, 256}, F in {256, 512}, float32 and
    bfloat16, DropEdge rate 0.3: bf16 K3 (N % 8 == 0 and F % 8 == 0), K1
-   and K2 in ``grl_torch/csrc/dropedge_sm90.cu``, float32 K2 in
-   ``dropedge_f32.cu``, float32 K3 and K1 in ``relagg.cu``, and bf16 K3 at
-   the ragged N = 230 on ``relagg.cu``'s WMMA route; bf16 K1/K2 also at
+   and K2 in ``grl_torch/csrc/dropedge_sm90.cu``, float32 K1, K2 and K3
+   in ``dropedge_f32.cu`` (also at N = 230), and bf16 K3 at the ragged
+   N = 230 and the odd N = 231 on ``relagg_ragged.cu``; bf16 K1/K2 also at
    F = 64 and 1536, untimed. K1/K2 and their plain versions hash
    the same mask, which is checked exactly by probing the kernels with
    identity operands; the kept share, forward/backward consistency, "K1 at
-   keep 1 is K3" (bit for bit in both dtypes), two launches of bf16 K1 and
-   K2 and of f32 K2 giving equal bits, and how many of each K2's clusters
+   keep 1 is K3" (bit for bit in both dtypes), the ragged K3 at N = 256
+   equal to the sm90 route bit for bit, two launches of bf16 K1, K2 and
+   ragged K3 and of f32 K1, K2 and K3 giving equal bits, and how many of
+   each K2's clusters
    the card holds are checked too; bf16 and f32 K2 are also timed under
    every split S at the main shape. Each case is timed with CUDA events (median of single
    launches, L2 flushed before each) beside the plain version, a PyTorch
@@ -53,7 +55,7 @@ before the result line is printed; no phase's failure is passed over.
    counts set to 0 just before it and read just after: the same config in
    float32 (``compute_dtype`` left at its default, so float32 K1, K2 and
    K3 run), and in bfloat16 without DropEdge at ``BucketPadding`` quantum 2
-   (230-node batches: every K3 takes the WMMA route).
+   (230-node batches: every K3 takes the ragged route).
 5. ``full_graph``: the sparse large-graph path, ``GNNLearningWarper.train``
    -> ``FullGraphProcedure`` on ``configs/arxiv_full_graph.yaml`` as it is
    (169,343 nodes, 1,184,773 edges, widths 128/256/40, bfloat16, DropEdge
@@ -113,17 +115,21 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit: HBM3
-# bandwidth, bf16 tensor-core rate, float32 rate outside the tensor cores.
+# bandwidth, bf16 tensor-core rate, float32 rate outside the tensor cores,
+# and float32 products in 3xTF32 on the tensor cores (three TF32 products,
+# at 495 TFLOP/s, for each float32 one), as the float32 K1/K3 run them.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xTF32": 495e12 / 3}
 
 B, L = 8, 6
 KERNEL_NS = (64, 192, 256)
 KERNEL_FS = (256, 512)
-# A node count TMA cannot read (230 % 8 != 0): bf16 K3 takes relagg.cu's
-# WMMA route there. Every synthetic page has 230 boxes, so it is also the
-# batches' N when they are padded at quantum 2.
+# A node count TMA cannot read (230 % 8 != 0): bf16 K3 takes the ragged
+# route (relagg_ragged.cu) there. Every synthetic page has 230 boxes, so it
+# is also the batches' N when they are padded at quantum 2. At an odd N the
+# ragged route copies A 2 bytes at a time.
 RAGGED_N = 230
+ODD_N = 231
 # Widths bf16 K1/K2 are also held at, untimed: a single 64-wide tile, and
 # F = N*L (BN 256 over six column tiles, K2 unsplit).
 BF16_CHECK_FS = (64, 1536)
@@ -294,8 +300,8 @@ def phase_env(torch) -> str:
     log(f"[env] built {sorted(paths)} for sm_90a in {build_s:.2f} s")
     for name, text in sorted(_build.build_logs.items()):
         for line in text.splitlines():
-            # dropedge_sm90.cu and dropedge_f32.cu in full: each kernel's name, registers and spills.
-            if name in ("dropedge_sm90", "dropedge_f32") or "registers" in line or "spill" in line or "smem" in line:
+            # The sources of the K1/K2/K3 kernels in full: each kernel's name, registers and spills.
+            if name in ("dropedge_sm90", "relagg_ragged", "dropedge_f32") or "registers" in line or "spill" in line or "smem" in line:
                 log(f"[env] ptxas {name}: {line.strip()}")
     return card
 
@@ -361,15 +367,28 @@ def dense_timings(torch, kernel, plain, library, flush) -> dict:
     }
 
 
-def bound(dtype_name: str, itemsize: int, N: int, F: int):
+def bound(peak: str, itemsize: int, N: int, F: int):
     """(bound ms, what bounds it, bytes, flops) of one K3/K1/K2 call at
     B, L: each moves A, an (N, F) panel and an (N, L, F) panel per batch
-    once, for 2*B*N*L*N*F operations."""
+    once, for 2*B*N*L*N*F operations at ``PEAK_FLOPS[peak]``."""
     nbytes = itemsize * (B * N * L * N + B * N * F + B * N * L * F)
     flops = 2 * B * N * L * N * F
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    flops_ms = flops / PEAK_FLOPS[peak] * 1e3
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations"), nbytes, flops
+
+
+def bounds(dtype_name: str, forward: bool, itemsize: int, N: int, F: int):
+    """The bound keys of a K3/K1/K2 row. The float32 forward runs in
+    3xTF32 on the tensor cores, so its bound is taken at that rate, with
+    the bound at the float32 rate outside them beside it
+    (``bound_fp32_ms``); the float32 K2 runs outside them."""
+    tf32 = dtype_name == "float32" and forward
+    bound_ms, bound_by, nbytes, flops = bound("3xTF32" if tf32 else dtype_name, itemsize, N, F)
+    row = {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+    if tf32:
+        row["bound_fp32_ms"] = bound("float32", itemsize, N, F)[0]
+    return row
 
 
 def check_close(torch, out, ref, dtype_name: str, what: str, tol=None) -> float:
@@ -412,11 +431,9 @@ def kernel_case(torch, dtype_name: str, N: int, F: int, density: float, flush, s
     A2 = A.view(B, N * L, N)
     timings = dense_timings(torch, lambda: neighbor_aggregate(V, A), lambda: neighbor_aggregate_reference(V, A),
                             lambda: torch.matmul(A2, V), flush)
-    bound_ms, bound_by, nbytes, flops = bound(dtype_name, V.element_size(), N, F)
     return {
         "kernel": "K3", "route": route, "dtype": dtype_name, "B": B, "N": N, "L": L, "F": F, "density": density,
-        "max_abs_err": max_abs_err, **timings, "bound_ms": bound_ms, "bound_by": bound_by,
-        "bytes": nbytes, "flops": flops,
+        "max_abs_err": max_abs_err, **timings, **bounds(dtype_name, True, V.element_size(), N, F),
     }
 
 
@@ -452,13 +469,12 @@ def dropedge_cases(torch, dtype_name: str, N: int, F: int, density: float, flush
                lambda: relagg.dropedge_aggregate_grad_reference(g, A, mask_seed, RATE),
                lambda: torch.matmul(A_m.transpose(1, 2), g2)),
     }
-    bound_ms, bound_by, nbytes, flops = bound(dtype_name, V.element_size(), N, F)
     rows = []
     for name, (kernel, plain, library) in calls.items():
         rows.append({
             "kernel": name, "dtype": dtype_name, "B": B, "N": N, "L": L, "F": F, "density": density,
             "rate": RATE, "max_abs_err": err[name], **dense_timings(torch, kernel, plain, library, flush),
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            **bounds(dtype_name, name == "K1", V.element_size(), N, F),
         })
     return rows
 
@@ -486,9 +502,11 @@ def mask_probe(torch, dtype_name: str, N: int, seed: int):
 
 def dropedge_invariants(torch):
     """Forward and backward see one mask; K1 at keep 1 is K3 bit for bit
-    (float32: relagg.cu's kernel with the mask on and off; bfloat16:
-    dropedge_sm90.cu's); the wrapper at rate 0 launches K3; two launches
-    of bf16 K1, of bf16 K2 and of f32 K2 give equal bits."""
+    (float32: dropedge_f32.cu's forward with the mask on and off; bfloat16:
+    dropedge_sm90.cu's); the wrapper at rate 0 launches K3; the ragged K3
+    at N = 256 is the sm90 route bit for bit (V through TMA, and V copied);
+    two launches of bf16 K1, K2 and ragged K3 and of f32 K1, K2 and K3 give
+    equal bits."""
     from grl_torch.ops import relagg
 
     V, A = operands(torch, "float32", 256, 256, DENSE_DENSITY, 77)
@@ -500,7 +518,7 @@ def dropedge_invariants(torch):
     # the sum on the H100. A K2 mask other than K1's moves it by more than
     # a tenth of the sum (tests/test_torch_dropedge.py).
     require(abs(lhs - rhs) <= 1e-5 * abs(rhs), f"<K2(1), V> = {lhs} but sum K1(V) = {rhs}")
-    out = relagg._launch("grl_dropedge_forward", A, V, (B, 256, L, 256), 5, 1.0)
+    out = relagg._launch_f32_forward(A, V, 5, 1.0, mask=True)
     k3 = relagg.neighbor_aggregate.launches
     plain = relagg.dropedge_aggregate(V, A, 5, 0.0)
     torch.cuda.synchronize()
@@ -513,14 +531,30 @@ def dropedge_invariants(torch):
     k3 = relagg.neighbor_aggregate(V, A)
     keep_one_err = float((keep_one.float() - k3.float()).abs().max())
     require(torch.equal(keep_one, k3), f"bf16 K1 at keep 1 differs from K3 (max abs err {keep_one_err:.3e})")
+    # The ragged route stages the boxes TMA would and sums them with the
+    # same consumer; a V 4 bytes past a 16-byte boundary is copied, not
+    # read through TMA.
+    shifted = torch.empty(V.numel() + 2, dtype=V.dtype, device="cuda")[2:].view(V.shape)
+    shifted.copy_(V)
+    ragged_err = {}
+    for name, operand in (("V through TMA", V), ("V copied", shifted)):
+        ragged = relagg._launch_ragged(A, operand)
+        ragged_err[name] = float((ragged.float() - k3.float()).abs().max())
+        require(torch.equal(ragged, k3), f"ragged K3 at N=256 ({name}) differs from the sm90 route "
+                                         f"(max abs err {ragged_err[name]:.3e})")
     g = torch.randn(B, 256, L, 256, generator=torch.Generator(device="cuda").manual_seed(79),
                     device="cuda").to(torch.bfloat16)
-    g32, A32 = g.float(), A.float()
+    g32, A32, V32 = g.float(), A.float(), V.float()
+    V230, A230 = operands(torch, "bfloat16", RAGGED_N, 256, DENSE_DENSITY, 80)
     for name, run in (("bf16 K1", lambda: relagg.dropedge_aggregate(V, A, 6, RATE)),
                       ("bf16 K2", lambda: relagg.dropedge_aggregate_grad(g, A, 6, RATE)),
-                      ("f32 K2", lambda: relagg.dropedge_aggregate_grad(g32, A32, 6, RATE))):
+                      ("bf16 K3 (ragged)", lambda: relagg.neighbor_aggregate(V230, A230)),
+                      ("f32 K1", lambda: relagg.dropedge_aggregate(V32, A32, 6, RATE)),
+                      ("f32 K2", lambda: relagg.dropedge_aggregate_grad(g32, A32, 6, RATE)),
+                      ("f32 K3", lambda: relagg.neighbor_aggregate(V32, A32))):
         require(torch.equal(run(), run()), f"two launches of {name} differ")
-    return {"k2_dot_v": lhs, "sum_k1": rhs, "bf16_k1_keep1_vs_k3_max_abs_err": keep_one_err}
+    return {"k2_dot_v": lhs, "sum_k1": rhs, "bf16_k1_keep1_vs_k3_max_abs_err": keep_one_err,
+            "ragged_vs_sm90_max_abs_err": ragged_err}
 
 
 def bf16_dropedge_checks(torch):
@@ -956,6 +990,8 @@ def k6_k5_keep_sets(torch, dtype_name: str) -> float:
 
 
 def phase_kernel(torch):
+    from grl_torch.ops import relagg
+
     # 256 MiB, five times the H100's 50 MB L2, zeroed before each timed call.
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     cases = [
@@ -963,9 +999,10 @@ def phase_kernel(torch):
         for dtype_name in ("float32", "bfloat16")
         for N in KERNEL_NS
         for F in KERNEL_FS
-    ] + [("float32", 192, 512, DENSE_DENSITY), ("bfloat16", 192, 512, DENSE_DENSITY)]
-    # bf16 K3 at a ragged N, on relagg.cu's WMMA route (bf16 K1/K2 refuse it).
-    ragged = [("bfloat16", RAGGED_N, F, SPARSE_DENSITY) for F in KERNEL_FS]
+    ] + [("float32", 192, 512, DENSE_DENSITY), ("bfloat16", 192, 512, DENSE_DENSITY)] + [
+        ("float32", RAGGED_N, F, SPARSE_DENSITY) for F in KERNEL_FS]
+    # bf16 K3 at ragged N, on relagg_ragged.cu (bf16 K1/K2 refuse them).
+    ragged = [("bfloat16", N, F, SPARSE_DENSITY) for N in (RAGGED_N, ODD_N) for F in KERNEL_FS]
     results = []
     for seed, case in enumerate(cases + ragged):
         rows = [kernel_case(torch, *case, flush=flush, seed=seed)]
@@ -973,13 +1010,15 @@ def phase_kernel(torch):
             rows += dropedge_cases(torch, *case, flush=flush, seed=seed)
         for row in rows:
             results.append(row)
+            simt = row.get("bound_fp32_ms")
             log(
                 f"[kernel] {row['kernel']}{' (' + row['route'] + ')' if 'route' in row else ''} "
                 f"{row['dtype']:>8} B={B} N={row['N']:3d} L={L} F={row['F']} "
                 f"density={row['density']}: max_abs_err {row['max_abs_err']:.3e} | "
                 f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"torch.matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}) | device alone: kernel {row['device_ms']:.4f} ms, torch.matmul "
+                f"torch.matmul {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}"
+                f"{'' if simt is None else f', float32 outside the tensor cores {simt:.4f} ms'}"
+                f") | device alone: kernel {row['device_ms']:.4f} ms, torch.matmul "
                 f"{row['library_device_ms']:.4f} ms; kernel wrapper enqueue {1e3 * row['enqueue_ms']:.1f} us"
             )
     shares = {}
@@ -994,7 +1033,8 @@ def phase_kernel(torch):
     log(
         f"[kernel] <K2(1), V> = {invariants['k2_dot_v']:.6f}, sum K1(V) = {invariants['sum_k1']:.6f} "
         f"(f32, need within 1e-5 of the sum); K1 at keep 1 = K3 bit for bit (f32 and bf16); rate 0 launches "
-        f"K3; two launches of bf16 K1, bf16 K2 and f32 K2 give equal bits"
+        f"K3; the ragged K3 at N=256 = the sm90 route bit for bit (V through TMA and V copied); two "
+        f"launches of bf16 K1, K2, ragged K3 and f32 K1, K2, K3 give equal bits"
     )
     bf16_checks, clusters, f32_capacity = bf16_dropedge_checks(torch)
     for row in bf16_checks:
@@ -1008,13 +1048,14 @@ def phase_kernel(torch):
     for shape, held in clusters.items():
         log(f"[kernel] K2 plan at {shape}: BN {held['BN']}, S {held['S']}, {held['blocks']} blocks; the card "
             f"holds {held['max_active_clusters']} clusters of {held['S']} at once")
-    log(f"[kernel] f32 K2: blocks the card runs at once in clusters of S = 1..8: {f32_capacity}")
+    log(f"[kernel] f32 K2: blocks the card runs at once in clusters of S = 1..8: {f32_capacity}; f32 K1/K3: "
+        f"{relagg.f32_forward_slots(0)} blocks at once")
     sparse_rows, sparse_checks = sparse_kernel_cases(torch, flush)
     ell_rows, ell_checks = ell_kernel_cases(torch, flush)
     del flush
     return results + sparse_rows + ell_rows, {"kept_share": shares, **invariants, "bf16_dropedge": bf16_checks,
                                               "k2_clusters": clusters, "f32_k2_capacity": f32_capacity,
-                                              "k2_split_sweep": sweep,
+                                              "k2_split_sweep": sweep, "f32_forward_slots": relagg.f32_forward_slots(0),
                                               "sparse": sparse_checks, "ell": ell_checks}
 
 
@@ -1686,18 +1727,18 @@ VARIANT_STEPS, VARIANT_VAL_BATCHES = VARIANT_EPOCHS * TRAIN_PAGES // B, VARIANT_
 # (model args, BucketPadding quantum, launches expected, K3 and K2 launches
 # by route expected) of each path.
 VARIANTS = {
-    # compute_dtype left at its default: float32 K1 and K3 (relagg.cu) and
-    # K2 (dropedge_f32.cu).
+    # compute_dtype left at its default: float32 K1, K2 and K3
+    # (dropedge_f32.cu).
     "float32": ({"compute_dtype": None}, 64,
                 {"K1": 3 * VARIANT_STEPS, "K2": 3 * VARIANT_STEPS, "K3": 3 * VARIANT_VAL_BATCHES},
-                {"K3": {"sm90": 0, "wmma": 0, "float32": 3 * VARIANT_VAL_BATCHES},
+                {"K3": {"sm90": 0, "ragged": 0, "float32": 3 * VARIANT_VAL_BATCHES},
                  "K2": {"sm90": 0, "float32": 3 * VARIANT_STEPS}}),
     # bf16 without DropEdge, padded at quantum 2: 230-node batches, which
-    # TMA cannot read, so every K3 (train and validation) takes relagg.cu's
-    # WMMA kernel.
+    # TMA cannot read, so every K3 (train and validation) takes the ragged
+    # route (relagg_ragged.cu).
     "bfloat16 ragged": ({"compute_dtype": "bfloat16", "edge_dropout_rate": 0.0}, 2,
                         {"K1": 0, "K2": 0, "K3": 3 * (VARIANT_STEPS + VARIANT_VAL_BATCHES)},
-                        {"K3": {"sm90": 0, "wmma": 3 * (VARIANT_STEPS + VARIANT_VAL_BATCHES), "float32": 0},
+                        {"K3": {"sm90": 0, "ragged": 3 * (VARIANT_STEPS + VARIANT_VAL_BATCHES), "float32": 0},
                          "K2": {"sm90": 0, "float32": 0}}),
 }
 
@@ -2254,16 +2295,18 @@ def main() -> int:
                {"serve": serve["k3_routes"]["sm90"], "train": train["routes"]["K3"]["sm90"],
                 "full_graph": fg["K3"], "ell": el["K3"]},
                main_row("K3", **dense), "bf16 B=8 N=256 L=6 F=256"),
-        "K3 ragged": ("K3 relational neighbor aggregation (bf16, other N and F: WMMA)", "grl_torch/csrc/relagg.cu",
-                      k3_replaces, {"train_variants bfloat16 ragged": ragged["routes"]["K3"]["wmma"]},
+        "K3 ragged": ("K3 relational neighbor aggregation (bf16, other N and F: cp.async + wgmma)",
+                      "grl_torch/csrc/relagg_ragged.cu",
+                      k3_replaces, {"train_variants bfloat16 ragged": ragged["routes"]["K3"]["ragged"]},
                       main_row("K3", N=RAGGED_N, F=NET_SIZE), f"bf16 B=8 N={RAGGED_N} L=6 F=256"),
-        "K3 f32": ("K3 relational neighbor aggregation (float32)", "grl_torch/csrc/relagg.cu", k3_replaces,
+        "K3 f32": ("K3 relational neighbor aggregation (float32)", "grl_torch/csrc/dropedge_f32.cu", k3_replaces,
                    {"train_variants float32": f32["routes"]["K3"]["float32"]},
                    main_row("K3", "float32", **dense), "f32 B=8 N=256 L=6 F=256"),
         "K1": ("K1 DropEdge neighbor aggregation (forward, bf16)", "grl_torch/csrc/dropedge_sm90.cu", k1_replaces,
                {"train": train["launches"]["K1"], "full_graph": fg["K1"], "ell": el["K1"]},
                main_row("K1", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
-        "K1 f32": ("K1 DropEdge neighbor aggregation (forward, float32)", "grl_torch/csrc/relagg.cu", k1_replaces,
+        "K1 f32": ("K1 DropEdge neighbor aggregation (forward, float32)", "grl_torch/csrc/dropedge_f32.cu",
+                   k1_replaces,
                    {"train_variants float32": f32["launches"]["K1"]},
                    main_row("K1", "float32", **dense), "f32 B=8 N=256 L=6 F=256 rate=0.3"),
         "K2": ("K2 DropEdge neighbor aggregation (backward, dV, bf16)", "grl_torch/csrc/dropedge_sm90.cu",
@@ -2319,6 +2362,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
+            "bound_fp32_ms": row.get("bound_fp32_ms"),
             "library_ms": row["library_ms"],
             "shape": shape,
         })

@@ -1,5 +1,5 @@
-// K0: the stateless DropEdge hash, shared by relagg.cu (K1, K2) and
-// csr_spmm.cu (K5).
+// K0: the stateless DropEdge hash, shared by dropedge_sm90.cu and
+// dropedge_f32.cu (K1, K2) and csr_spmm.cu (K5).
 //
 // Counterpart of grl_tpu/ops/pallas/csr_spmm.py:_mix32/_hash_keep
 // (:179-213) and of grl_torch/ops/hashing.py, bit for bit: an id gid is

@@ -5,17 +5,23 @@ The kernels are compiled for ``sm_90a`` at first use
 
 * ``grl_torch/csrc/dropedge_sm90.cu`` holds the bfloat16 K1/K2 (TMA rings,
   ``wgmma``, and a split-K for K2 reduced inside a thread-block cluster),
-  laid out by :func:`dropedge_plan`, and the bfloat16 K3, which is K1's
-  kernel with the mask compiled out, laid out by :func:`aggregate_plan`;
-* ``grl_torch/csrc/dropedge_f32.cu`` holds the float32 K2 (a ``cp.async``
-  ring and a split-K over a cluster), laid out by :func:`dropedge_f32_plan`;
-* ``grl_torch/csrc/relagg.cu`` holds the float32 K3 and K1, and the
-  bfloat16 K3 for the shapes TMA cannot read.
+  laid out by :func:`dropedge_plan`, and the bfloat16 K3 at N % 8 == 0 and
+  F % 8 == 0, which is K1's kernel with the mask compiled out, laid out by
+  :func:`aggregate_plan`;
+* ``grl_torch/csrc/relagg_ragged.cu`` holds the bfloat16 K3 for the shapes
+  TMA cannot read (the "ragged" route): the same ``wgmma`` consumer
+  (``csrc/sm90.cuh``) fed by the threads' own ``cp.async`` copies, laid
+  out by :func:`ragged_plan`;
+* ``grl_torch/csrc/dropedge_f32.cu`` holds the float32 K2 and the float32
+  K1/K3 (one kernel, the mask compiled in or out, in 3xTF32 on ``wgmma``):
+  ``cp.async`` rings, a split-K over a cluster for K2 and a persistent
+  schedule for the forward, laid out by :func:`dropedge_f32_plan` and
+  :func:`dropedge_f32_forward_plan`.
 
 The route is fixed by the dtype and, for the bfloat16 K3, by the shape
 (:func:`k3_route`): N % 8 == 0 and F % 8 == 0 take ``dropedge_sm90.cu``,
-other shapes ``relagg.cu``. A launch that fails raises; it never turns to
-another route.
+other shapes ``relagg_ragged.cu``. A launch that fails raises; it never
+turns to another route.
 
 * K3 replaces ``grl_tpu/ops/pallas/relagg.py`` · ``pallas_neighbor_aggregate``
   (``_agg_forward`` :92-123, body ``_agg_kernel`` :76-89)::
@@ -75,10 +81,10 @@ import torch
 from grl_torch.ops import _build
 from grl_torch.ops.hashing import keep_bits, keep_probability
 
-_DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
 _MAX_GRID_YZ = 65535
-_TILE_ROWS = 64  # output rows per block (kF32BM == kBM in relagg.cu; kTile in dropedge_sm90.cu)
-# dropedge_f32.cu: a block's 128 x 128 output tile and 32-row reduction steps.
+_TILE_ROWS = 64  # output rows per block of the bf16 kernels (kTile in csrc/sm90.cuh)
+# dropedge_f32.cu: a block's 128 x 128 output tile and 32-row (K2) or
+# 32-column (K1/K3) reduction steps.
 _F32_TILE = 128
 _F32_STEP = 32
 _MAX_ELEMENTS = 2**32  # gid is a uint32 in the kernels
@@ -89,9 +95,9 @@ _MAX_SPLITS = 8
 # that, the cluster's sum of S partials costs more than the shorter walk
 # saves (chip_smoke.py times K2 under every S at the main shape).
 _SPLIT_BLOCKS = 132 // 2
-# The float32 K2's 128 KB ring holds one block an SM, so at most 132 blocks
-# run at once; clusters of S must each fit in one GPC, so fewer may
-# (``f32_capacity`` asks the card).
+# The float32 kernels' shared memory (128 KB for K2, 205 KB for K1/K3) holds one block
+# an SM, so at most 132 blocks run at once; clusters of S must each fit in
+# one GPC, so fewer may (``f32_capacity`` and ``f32_forward_slots`` ask the card).
 _F32_SLOTS = 132
 
 
@@ -147,8 +153,9 @@ def dropedge_aggregate_grad_reference(g: torch.Tensor, A: torch.Tensor, seed: in
 
 
 # ---------------------------------------------------------------------------
-# The launch plans of dropedge_sm90.cu (bfloat16 K3, K1, K2) and
-# dropedge_f32.cu (float32 K2)
+# The launch plans of dropedge_sm90.cu (bfloat16 K3, K1, K2),
+# relagg_ragged.cu (bfloat16 K3 at other shapes) and dropedge_f32.cu
+# (float32 K1, K2, K3)
 # ---------------------------------------------------------------------------
 def check_sm90_shape(N: int, F: int) -> None:
     """bf16 K1/K2 (and K3's sm90 route) read A, V and g through TMA, whose
@@ -164,11 +171,12 @@ def check_sm90_shape(N: int, F: int) -> None:
 
 def k3_route(dtype: torch.dtype, N: int, F: int) -> str:
     """The kernel K3 launches for CUDA tensors: ``"sm90"`` (bfloat16, N % 8
-    == 0 and F % 8 == 0: dropedge_sm90.cu), ``"wmma"`` (other bfloat16
-    shapes: relagg.cu's WMMA kernel, any N) or ``"float32"`` (relagg.cu)."""
+    == 0 and F % 8 == 0: dropedge_sm90.cu), ``"ragged"`` (other bfloat16
+    shapes: relagg_ragged.cu, any N and F) or ``"float32"``
+    (dropedge_f32.cu's forward, any N and F)."""
     if dtype != torch.bfloat16:
         return "float32"
-    return "wmma" if N % 8 or F % 8 else "sm90"
+    return "ragged" if N % 8 or F % 8 else "sm90"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,12 +217,51 @@ def aggregate_plan(B: int, N: int, L: int, F: int) -> AggregatePlan:
     F edge; the epilogue masks it), no split. Raises ``ValueError`` for
     N % 8, F % 8 (:func:`check_sm90_shape`) or a grid past the card's
     limits. Cached: the wrapper asks at every launch."""
+    _check_grid(B, N, L, F, _TILE_ROWS)
+    check_sm90_shape(N, F)
+    return AggregatePlan(B, N, L, F, _forward_width(F))
+
+
+def _forward_width(F: int) -> int:
+    """BN of the bf16 forward kernels: F rounded up to a multiple of 64
+    (the 128-byte swizzle atom of V's MN-major boxes), at most 256."""
+    return min(-(-F // 64) * 64, _MAX_BN)
+
+
+def _check_grid(B: int, N: int, L: int, F: int, rows: int) -> None:
     if min(B, N, L, F) < 1:
         raise ValueError(f"empty shape B={B}, N={N}, L={L}, F={F}")
-    check_sm90_shape(N, F)
-    if B > _MAX_GRID_YZ or -(-N * L // _TILE_ROWS) > _MAX_GRID_YZ:
-        raise ValueError(f"shape B={B}, N*L={N * L} exceeds the kernels' grid limits")
-    return AggregatePlan(B, N, L, F, min(-(-F // 64) * 64, _MAX_BN))
+    if B > _MAX_GRID_YZ or -(-N * L // rows) > _MAX_GRID_YZ:
+        raise ValueError(f"shape B={B}, N*L={N * L} exceeds the kernel's grid limits")
+
+
+@dataclasses.dataclass(frozen=True)
+class RaggedPlan(AggregatePlan):
+    """How relagg_ragged.cu tiles K3 (bf16, any N and F): K1's forward
+    layout (:class:`AggregatePlan`), with A copied by the threads instead of
+    TMA. ``vec`` is the copy width in elements the shape allows (2, 4-byte
+    copies: N and F even; else 1, 2-byte loads); ``v_tma``: V is read
+    through TMA (F % 8 == 0), else copied like A. The launcher narrows both
+    where an operand's alignment forbids them."""
+
+    @property
+    def vec(self) -> int:
+        return 1 if self.N % 2 or self.F % 2 else 2
+
+    @property
+    def v_tma(self) -> bool:
+        return self.F % 8 == 0
+
+
+@functools.lru_cache(maxsize=256)
+def ragged_plan(B: int, N: int, L: int, F: int) -> RaggedPlan:
+    """The width and grid of K3 on relagg_ragged.cu for A (B, N, L, N), any
+    N and F: ``BN`` as the sm90 route's (F rounded up to 64, at most 256;
+    the copies zero-fill past F, the epilogue stores columns < F), no split.
+    Raises ``ValueError`` for an empty shape or a grid past the card's
+    limits. Cached: the wrapper asks at every launch."""
+    _check_grid(B, N, L, F, _TILE_ROWS)
+    return RaggedPlan(B, N, L, F, _forward_width(F))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,6 +383,61 @@ def dropedge_f32_plan(B: int, N: int, L: int, F: int,
     return dataclasses.replace(plan, splits=splits)
 
 
+@dataclasses.dataclass(frozen=True)
+class DropEdgeF32ForwardPlan:
+    """How dropedge_f32.cu runs the float32 K1 and K3 for A (B, N, L, N) and
+    V (B, N, F): output tiles of 128 x 128 (rows of a batch's N*L, columns
+    f), ``tiles`` of them, reduction steps of 32 of A's N columns (V's
+    rows), on ``grid`` = (blocks, 1, 1): block c walks tiles c, c + blocks,
+    ... as one stream of stages, so a tile's copies overlap the one before
+    it."""
+
+    B: int
+    N: int
+    L: int
+    F: int
+    blocks: int
+
+    @property
+    def f_tiles(self) -> int:
+        return -(-self.F // _F32_TILE)
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.N * self.L // _F32_TILE)
+
+    @property
+    def tiles(self) -> int:
+        return self.B * self.row_tiles * self.f_tiles
+
+    @property
+    def steps(self) -> int:
+        return -(-self.N // _F32_STEP)
+
+    @property
+    def vec(self) -> int:
+        """The copy width in floats the shape allows: 4 (16-byte copies) where
+        N % 4 == 0 and F % 4 == 0, 2 where both are even, else 1."""
+        return 4 if self.N % 4 == 0 and self.F % 4 == 0 else 2 if self.N % 2 == 0 and self.F % 2 == 0 else 1
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.blocks, 1, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def dropedge_f32_forward_plan(B: int, N: int, L: int, F: int, slots: int = _F32_SLOTS) -> DropEdgeF32ForwardPlan:
+    """The grid of the float32 K1/K3 for A (B, N, L, N), any N and F: one
+    block for each of the ``slots`` the card runs at once
+    (:func:`f32_forward_slots`; by default one an SM of the H100's 132), or
+    one a tile where there are fewer tiles. Raises ``ValueError`` for an
+    empty shape or a grid past the card's limits. Cached: the wrapper asks
+    at every launch."""
+    _check_grid(B, N, L, F, _F32_TILE)
+    plan = DropEdgeF32ForwardPlan(B, N, L, F, 1)
+    return dataclasses.replace(plan, blocks=max(min(plan.tiles, slots), 1))
+
+
 # ---------------------------------------------------------------------------
 # Launching the kernels
 # ---------------------------------------------------------------------------
@@ -371,45 +473,6 @@ def _check_mask(A: torch.Tensor, rate: float) -> None:
         raise ValueError(
             f"A has {A.numel()} elements; DropEdge keys its mask on a 32-bit element index"
         )
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (once)."""
-    lib = _build.load_library("relagg")
-    head = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5  # A, X, out, B, N, L, F, dtype
-    tail = [ctypes.c_int, ctypes.c_void_p]  # device, stream
-    lib.grl_relagg_forward.argtypes = head + tail
-    lib.grl_dropedge_forward.argtypes = head + [ctypes.c_uint32, ctypes.c_float] + tail
-    for name in ("grl_relagg_forward", "grl_dropedge_forward"):
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
-
-
-def _launch(entry: str, A: torch.Tensor, X: torch.Tensor, out_shape, *mask_args) -> torch.Tensor:
-    """Launch ``entry`` of relagg.cu (K3, or K1 in float32, ``X`` = V) on
-    the current stream; no synchronisation. ``mask_args`` is
-    ``(seed, keep)`` for K1.
-    """
-    if X.dtype not in _DTYPE_CODES:
-        raise TypeError(f"CUDA relagg takes float32 or bfloat16, not {X.dtype}")
-    if not (X.is_contiguous() and A.is_contiguous()):
-        raise ValueError("CUDA relagg needs contiguous operands (dataset layout)")
-    B, N, L, _ = A.shape
-    F = X.shape[-1]
-    if B > _MAX_GRID_YZ or -(-N * L // _TILE_ROWS) > _MAX_GRID_YZ:
-        raise ValueError(f"shape B={B}, N*L={N * L} exceeds the kernel's grid limits")
-    out = torch.empty(out_shape, dtype=X.dtype, device=X.device)
-    if out.numel() == 0:
-        return out
-    lib = _library()
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    err = getattr(lib, entry)(
-        A.data_ptr(), X.data_ptr(), out.data_ptr(), B, N, L, F,
-        _DTYPE_CODES[X.dtype], *mask_args, X.device.index, stream,
-    )
-    _build.check_launch(lib, err, entry)
-    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -490,14 +553,53 @@ def sm90_max_clusters(plan: DropEdgePlan, device: int = 0) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def _ragged_library() -> ctypes.CDLL:
+    """relagg_ragged.cu's library with its C signature declared (once)."""
+    lib = _build.load_library("relagg_ragged")
+    lib.grl_relagg_ragged_forward.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7  # A, V, out, B, N, L, F, BN, vec, v_tma
+        + [ctypes.c_int, ctypes.c_void_p])  # device, stream
+    lib.grl_relagg_ragged_forward.restype = ctypes.c_int
+    return lib
+
+
+def _launch_ragged(A: torch.Tensor, V: torch.Tensor, plan: RaggedPlan = None) -> torch.Tensor:
+    """The bfloat16 K3 of relagg_ragged.cu on the current stream, laid out
+    by ``plan`` (default :func:`ragged_plan`'s); no synchronisation. The
+    copy width and V's TMA are the plan's where the operands' alignment
+    allows them (4 bytes for 4-byte copies, 16 for TMA), else narrower."""
+    if not (V.is_contiguous() and A.is_contiguous()):
+        raise ValueError("CUDA relagg needs contiguous operands (dataset layout)")
+    B, N, L, _ = A.shape
+    F = V.shape[-1]
+    out = torch.empty((B, N, L, F), dtype=V.dtype, device=V.device)
+    if out.numel() == 0:
+        return out
+    plan = plan or ragged_plan(B, N, L, F)
+    v_tma = plan.v_tma and V.data_ptr() % 16 == 0
+    vec = 2 if plan.vec == 2 and A.data_ptr() % 4 == 0 and (v_tma or V.data_ptr() % 4 == 0) else 1
+    lib = _ragged_library()
+    stream = torch.cuda.current_stream(V.device).cuda_stream
+    err = lib.grl_relagg_ragged_forward(A.data_ptr(), V.data_ptr(), out.data_ptr(), B, N, L, F, plan.BN, vec,
+                                        int(v_tma), V.device.index, stream)
+    _build.check_launch(lib, err, "bf16 K3 (ragged)")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
 def _f32_library() -> ctypes.CDLL:
     """dropedge_f32.cu's library with its C signatures declared (once)."""
     lib = _build.load_library("dropedge_f32")
     lib.grl_dropedge_f32_backward.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6  # A, g, dV, B, N, L, F, S, vec
         + [ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])  # seed, keep, device, stream
+    lib.grl_dropedge_f32_forward.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7  # A, V, out, B, N, L, F, blocks, vec, mask
+        + [ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])  # seed, keep, device, stream
     lib.grl_dropedge_f32_max_clusters.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
-    for name in ("grl_dropedge_f32_backward", "grl_dropedge_f32_max_clusters"):
+    lib.grl_dropedge_f32_forward_slots.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for name in ("grl_dropedge_f32_backward", "grl_dropedge_f32_forward", "grl_dropedge_f32_max_clusters",
+                 "grl_dropedge_f32_forward_slots"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -523,6 +625,31 @@ def _launch_f32_grad(A: torch.Tensor, g: torch.Tensor, seed: int, keep: float,
     return dV
 
 
+def _launch_f32_forward(A: torch.Tensor, V: torch.Tensor, seed: int, keep: float, mask: bool,
+                        plan: DropEdgeF32ForwardPlan = None) -> torch.Tensor:
+    """The float32 K1 (``mask``) or K3 of dropedge_f32.cu on the current
+    stream, laid out by ``plan`` (default :func:`dropedge_f32_forward_plan`'s);
+    no synchronisation. ``keep`` 1.0 with ``mask`` drops nothing and gives
+    K3's bits."""
+    if V.dtype != torch.float32:
+        raise TypeError(f"CUDA relagg takes float32 or bfloat16, not {V.dtype}")
+    if not (V.is_contiguous() and A.is_contiguous()):
+        raise ValueError("CUDA relagg needs contiguous operands (dataset layout)")
+    B, N, L, _ = A.shape
+    F = V.shape[-1]
+    out = torch.empty((B, N, L, F), dtype=V.dtype, device=V.device)
+    if out.numel() == 0:
+        return out
+    plan = plan or dropedge_f32_forward_plan(B, N, L, F, f32_forward_slots(V.device.index))
+    vec = next(v for v in (4, 2, 1) if v <= plan.vec and not any(t.data_ptr() % (4 * v) for t in (A, V, out)))
+    lib = _f32_library()
+    stream = torch.cuda.current_stream(V.device).cuda_stream
+    err = lib.grl_dropedge_f32_forward(A.data_ptr(), V.data_ptr(), out.data_ptr(), B, N, L, F, plan.blocks, vec,
+                                       int(mask), int(seed) & 0xFFFFFFFF, keep, V.device.index, stream)
+    _build.check_launch(lib, err, "f32 K1" if mask else "f32 K3")
+    return out
+
+
 def f32_max_clusters(splits: int, device: int = 0) -> int:
     """How many of the float32 K2's clusters of ``splits`` blocks the card
     holds at once (``cudaOccupancyMaxActiveClusters``; 0: none launch)."""
@@ -541,6 +668,17 @@ def f32_capacity(device: int) -> Tuple[int, ...]:
     return tuple(S * f32_max_clusters(S, device) for S in range(1, _MAX_SPLITS + 1))
 
 
+@functools.lru_cache(maxsize=None)
+def f32_forward_slots(device: int) -> int:
+    """Blocks of the float32 K1/K3 that ``device`` runs at once: the
+    ``slots`` of :func:`dropedge_f32_forward_plan`, asked once a device."""
+    lib = _f32_library()
+    slots = ctypes.c_int(0)
+    err = lib.grl_dropedge_f32_forward_slots(device, ctypes.byref(slots))
+    _build.check_launch(lib, err, "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+    return slots.value
+
+
 def _by_device(tensor: torch.Tensor) -> str:
     if tensor.device.type not in ("cuda", "cpu"):
         raise ValueError(f"relagg runs on CUDA or CPU tensors, not {tensor.device}")
@@ -556,13 +694,13 @@ class _NeighborAggregate(torch.autograd.Function):
         ctx.save_for_backward(V, A)
         if _by_device(V) == "cpu":
             return neighbor_aggregate_reference(V, A)
-        B, N, L, _ = A.shape
-        F = V.shape[-1]
-        route = k3_route(V.dtype, N, F)
+        route = k3_route(V.dtype, A.shape[1], V.shape[-1])
         if route == "sm90":
             out = _launch_aggregate_sm90(A, V)
+        elif route == "ragged":
+            out = _launch_ragged(A, V)
         else:
-            out = _launch("grl_relagg_forward", A, V, (B, N, L, F))
+            out = _launch_f32_forward(A, V, 0, 1.0, mask=False)
         neighbor_aggregate.launches += 1
         neighbor_aggregate.routes[route] += 1
         return out
@@ -593,7 +731,7 @@ def neighbor_aggregate(V: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
 
 
 neighbor_aggregate.launches = 0
-neighbor_aggregate.routes = {"sm90": 0, "wmma": 0, "float32": 0}
+neighbor_aggregate.routes = {"sm90": 0, "ragged": 0, "float32": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -601,17 +739,13 @@ neighbor_aggregate.routes = {"sm90": 0, "wmma": 0, "float32": 0}
 # ---------------------------------------------------------------------------
 def _dropedge_forward(V: torch.Tensor, A: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """K1 for CUDA tensors (bfloat16: dropedge_sm90.cu; float32:
-    relagg.cu), its plain version for CPU tensors."""
+    dropedge_f32.cu), its plain version for CPU tensors."""
     if _by_device(V) == "cpu":
         return dropedge_aggregate_reference(V, A, seed, rate)
     if V.dtype == torch.bfloat16:
         out = _launch_sm90(False, A, V, seed, keep_probability(rate))
     else:
-        B, N, L, _ = A.shape
-        out = _launch(
-            "grl_dropedge_forward", A, V, (B, N, L, V.shape[-1]),
-            int(seed) & 0xFFFFFFFF, keep_probability(rate),
-        )
+        out = _launch_f32_forward(A, V, seed, keep_probability(rate), mask=True)
     dropedge_aggregate.launches += 1
     return out
 

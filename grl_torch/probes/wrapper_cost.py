@@ -7,10 +7,9 @@ idle for most of it, ``chip_smoke.py`` phase ``train``), so a wrapper that
 takes longer to enqueue its kernel can slow the step while its kernel gets
 faster. At bf16 B=8 N=256 L=6, F = 256 and 512, rate 0.3, density 0.002,
 through the public wrappers of ``grl_torch.ops.relagg``, bf16 K3, K1 and
-K2, then float32 K3 (the control: its wrapper and kernel, ``relagg.cu``'s,
-did not change when bf16 K1/K2 moved to ``dropedge_sm90.cu``, nor when bf16
-K3 followed them and float32 K2 moved to ``dropedge_f32.cu``) and float32
-K2, each row holds
+K2, then float32 K3 (the control: ``dropedge_f32.cu``'s forward with the
+mask compiled out, launched through the same kind of wrapper as float32
+K2) and float32 K2, each row holds
 
 * ``enqueue_ms``: the median host time of one call, the card kept busy;
 * ``ms``: CUDA events around one call after an L2 flush, as

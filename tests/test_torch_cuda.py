@@ -1,6 +1,7 @@
 """K1-K6 and P on the card: the CUDA kernels against their plain versions
 (bf16 K1/K2, and bf16 K3 at N % 8 == 0 and F % 8 == 0: dropedge_sm90.cu;
-f32 K2: dropedge_f32.cu; the rest as named in their modules).
+bf16 K3 at other N or F: relagg_ragged.cu; f32 K1, K2 and K3:
+dropedge_f32.cu; the rest as named in their modules).
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file
 imports neither JAX nor grl_tpu, so it runs on a machine without them,
@@ -201,8 +202,9 @@ def test_bf16_dropedge_shape_check():
 
 
 # ---------------------------------------------------------------------------
-# bf16 K3 on dropedge_sm90.cu (N % 8 == 0 and F % 8 == 0) and on relagg.cu's
-# WMMA kernel (other shapes); the float32 K2 of dropedge_f32.cu.
+# bf16 K3 on dropedge_sm90.cu (N % 8 == 0 and F % 8 == 0) and on
+# relagg_ragged.cu (other shapes); the float32 K1, K2 and K3 of
+# dropedge_f32.cu.
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("N", [64, 192, 256])
 @pytest.mark.parametrize("F", [64, 256, 512, 1280])
@@ -215,16 +217,102 @@ def test_bf16_k3_sm90_matches_plain_version(N, F):
     assert_one_rounding_apart(out, relagg.neighbor_aggregate_reference(V, A))
 
 
-@pytest.mark.parametrize("F", [64, 256, 36])
-def test_bf16_k3_ragged_route_matches_plain_version(F):
-    """N = 230 (or F % 8 != 0): TMA cannot read the rows, so K3 launches
-    relagg.cu's WMMA kernel, which takes any N."""
-    V, A = operands(230, F, torch.bfloat16, density=0.05, seed=F)
+@pytest.mark.parametrize("N, F", [(230, 64), (230, 256), (230, 512), (230, 36), (231, 256), (231, 512),
+                                  (256, 250)])
+def test_bf16_k3_ragged_route_matches_plain_version(N, F):
+    """N = 230 or 231 (or F % 8 != 0): TMA cannot read the rows, so K3
+    launches relagg_ragged.cu, which copies A itself (4-byte copies at even
+    N, 2-byte loads at odd N) and V through TMA where F % 8 == 0."""
+    V, A = operands(N, F, torch.bfloat16, density=0.05, seed=N + F)
     before = dict(relagg.neighbor_aggregate.routes)
     out = relagg.neighbor_aggregate(V, A)
     torch.cuda.synchronize()
-    assert relagg.neighbor_aggregate.routes == {**before, "wmma": before["wmma"] + 1}
+    assert relagg.neighbor_aggregate.routes == {**before, "ragged": before["ragged"] + 1}
     assert_one_rounding_apart(out, relagg.neighbor_aggregate_reference(V, A))
+
+
+@pytest.mark.parametrize("F", [256, 512])
+def test_bf16_k3_ragged_at_an_aligned_shape_is_the_sm90_route(F):
+    """Launched at N = 256, the ragged kernel stages the same swizzled boxes
+    as TMA and sums them with the same wgmma consumer: the sm90 route's
+    bits exactly, with V through TMA and with V copied too (a V 4 bytes
+    past a 16-byte boundary)."""
+    V, A = operands(256, F, torch.bfloat16, density=0.05, seed=F)
+    sm90 = relagg.neighbor_aggregate(V, A)
+    assert torch.equal(relagg._launch_ragged(A, V), sm90)
+    shifted = torch.empty(V.numel() + 2, dtype=V.dtype, device="cuda")[2:].view(V.shape)
+    shifted.copy_(V)
+    assert torch.equal(relagg._launch_ragged(A, shifted), sm90)
+
+
+def test_bf16_k3_ragged_launches_are_deterministic():
+    V, A = operands(230, 256, torch.bfloat16, density=0.2, seed=4)
+    assert torch.equal(relagg.neighbor_aggregate(V, A), relagg.neighbor_aggregate(V, A))
+
+
+@pytest.mark.parametrize("N", [64, 192, 230, 256])
+@pytest.mark.parametrize("F", [36, 256, 512])
+def test_f32_k3_and_k1_match_plain_versions(N, F):
+    """dropedge_f32.cu's forward, mask compiled out (K3) and in (K1), in
+    3xTF32 on wgmma (about 1e-6 of the output's scale off the plain float32
+    matmul): within 1e-5 of the largest output."""
+    V, A = operands(N, F, torch.float32, density=0.05, seed=5 * N + F)
+    before = dict(relagg.neighbor_aggregate.routes)
+    k1 = relagg.dropedge_aggregate.launches
+    out = relagg.neighbor_aggregate(V, A)
+    dropped = relagg.dropedge_aggregate(V, A, 29, RATE)
+    torch.cuda.synchronize()
+    assert relagg.neighbor_aggregate.routes == {**before, "float32": before["float32"] + 1}
+    assert relagg.dropedge_aggregate.launches == k1 + 1
+    assert_close_to_plain(out, relagg.neighbor_aggregate_reference(V, A))
+    assert_close_to_plain(dropped, relagg.dropedge_aggregate_reference(V, A, 29, RATE))
+
+
+@pytest.mark.parametrize("N", [64, 230, 256])
+def test_f32_k1_mask_reads_back_exactly(N):
+    """V = I: K1 returns A * mask / keep, which shows exactly the plain
+    hash mask on A's support."""
+    _, A = operands(N, 8, torch.float32, density=0.5, seed=N + 1)
+    expected = (A != 0) & relagg.dropedge_keep_mask(47, A.shape, RATE, A.device)
+    eye = torch.eye(N, device="cuda").expand(B, N, N).contiguous()
+    assert torch.equal(relagg.dropedge_aggregate(eye, A, 47, RATE) != 0, expected)
+
+
+def test_f32_k1_at_keep_one_is_k3_bit_for_bit():
+    """One template with the mask compiled in or out: at keep 1 K1 drops
+    nothing and scales by exactly 1, in K3's summation order."""
+    V, A = operands(256, 256, torch.float32, density=0.2, seed=9)
+    assert torch.equal(relagg._launch_f32_forward(A, V, 3, 1.0, mask=True), relagg.neighbor_aggregate(V, A))
+
+
+def test_f32_forward_launches_are_deterministic():
+    """Each tile's products accumulate in a fixed order, with no atomics."""
+    V, A = operands(256, 512, torch.float32, density=0.2, seed=10)
+    for run in (lambda: relagg.neighbor_aggregate(V, A), lambda: relagg.dropedge_aggregate(V, A, 3, RATE)):
+        assert torch.equal(run(), run())
+
+
+@pytest.mark.parametrize("blocks", [192, 132, 97, 7, 2, 1])
+def test_f32_forward_any_block_count_matches_plain_version(blocks):
+    """One block a tile (192 at this shape), and fewer blocks than tiles,
+    each streaming its tiles through one ring."""
+    import dataclasses
+
+    V, A = operands(256, 256, torch.float32, density=0.05, seed=blocks + 20)
+    plan = dataclasses.replace(relagg.dropedge_f32_forward_plan(B, 256, L, 256), blocks=blocks)
+    out = relagg._launch_f32_forward(A, V, 19, relagg.keep_probability(RATE), mask=True, plan=plan)
+    torch.cuda.synchronize()
+    assert_close_to_plain(out, relagg.dropedge_aggregate_reference(V, A, 19, RATE))
+
+
+@pytest.mark.parametrize("shift", [1, 2])
+def test_f32_forward_misaligned_operand_takes_narrower_copies(shift):
+    """A V 4 (or 8) bytes past a 16-byte boundary is copied 4 (or 8) bytes
+    at a time, with the same result."""
+    V, A = operands(64, 64, torch.float32, density=0.2, seed=8)
+    shifted = torch.empty(V.numel() + shift, device="cuda")[shift:].view(V.shape)
+    shifted.copy_(V)
+    assert torch.equal(relagg.dropedge_aggregate(shifted, A, 3, RATE), relagg.dropedge_aggregate(V, A, 3, RATE))
 
 
 def test_bf16_k3_sm90_refuses_a_misaligned_operand():

@@ -69,10 +69,11 @@ def test_matches_pallas_kernel_bf16():
     )
 
 
-@pytest.mark.parametrize("N", [64, 192])
+@pytest.mark.parametrize("N", [64, 192, 230, 231])
 def test_ragged_buckets_match_xla_path(N):
-    """The 64-quantum serving buckets, which the TPU kernel refuses
-    (relagg.py:52-62); held against grl_tpu's XLA aggregation."""
+    """The 64-quantum serving buckets, a trainer's quantum-2 bucket of 230
+    nodes and an odd N, which the TPU kernel refuses (relagg.py:52-62);
+    held against grl_tpu's XLA aggregation."""
     V, A = rand(N=N, seed=N)
     with pytest.raises(ValueError):
         jax_relagg.pallas_neighbor_aggregate(jnp.asarray(V), jnp.asarray(A))
@@ -141,12 +142,12 @@ def test_build_is_lazy_and_keyed_on_source(monkeypatch, tmp_path):
     """Importing the ops needs no nvcc; the library name hashes the source."""
     from grl_torch.ops import _build
 
-    assert "relagg" in _build.SOURCES and (_build.CSRC / "relagg.cu").exists()
+    assert "relagg_ragged" in _build.SOURCES and (_build.CSRC / "relagg_ragged.cu").exists()
     assert not _build._libs  # nothing was built by importing
-    first = _build._library_path("relagg", "/usr/local/cuda/bin/nvcc")
+    first = _build._library_path("relagg_ragged", "/usr/local/cuda/bin/nvcc")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    (tmp_path / "relagg.cu").write_text("// another source\n")
-    assert _build._library_path("relagg", "/usr/local/cuda/bin/nvcc") != first
+    (tmp_path / "relagg_ragged.cu").write_text("// another source\n")
+    assert _build._library_path("relagg_ragged", "/usr/local/cuda/bin/nvcc") != first
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc"):

@@ -1,5 +1,6 @@
-"""The launch plans of the bfloat16 K3/K1/K2 (grl_torch/csrc/dropedge_sm90.cu)
-and of the float32 K2 (grl_torch/csrc/dropedge_f32.cu), and K3's route.
+"""The launch plans of the bfloat16 K3/K1/K2 (grl_torch/csrc/dropedge_sm90.cu),
+of the bfloat16 K3 at ragged shapes (grl_torch/csrc/relagg_ragged.cu) and
+of the float32 K1/K2/K3 (grl_torch/csrc/dropedge_f32.cu), and K3's route.
 
 ``dropedge_plan`` is plain Python; the launcher passes its width BN and
 K2's split S to the kernels, which compute their tiles from those. Here, on
@@ -18,7 +19,8 @@ import pytest
 import torch
 
 from grl_torch.ops import relagg
-from grl_torch.ops.relagg import aggregate_plan, check_sm90_shape, dropedge_f32_plan, dropedge_plan, k3_route
+from grl_torch.ops.relagg import (aggregate_plan, check_sm90_shape, dropedge_f32_forward_plan, dropedge_f32_plan,
+                                  dropedge_plan, k3_route, ragged_plan)
 
 B = 8
 SHAPES = [(N, L, F) for N in (64, 192, 256) for L in (1, 6) for F in (64, 128, 256, 512, 1536)]
@@ -92,12 +94,13 @@ def test_plan_refuses_empty_shapes():
 # K3: the route by shape and its sm90 plan
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("N, F, route", [(256, 256, "sm90"), (64, 512, "sm90"), (192, 1280, "sm90"),
-                                         (8, 8, "sm90"), (230, 256, "wmma"), (256, 36, "wmma"),
-                                         (100, 44, "wmma")])
+                                         (8, 8, "sm90"), (230, 256, "ragged"), (256, 36, "ragged"),
+                                         (100, 44, "ragged")])
 def test_k3_route_follows_the_tma_shape_rule(N, F, route):
     """bf16 K3 takes dropedge_sm90.cu exactly where TMA can read its
-    operands (check_sm90_shape passes), relagg.cu's WMMA kernel elsewhere;
-    float32 K3 is relagg.cu's whatever the shape."""
+    operands (check_sm90_shape passes), relagg_ragged.cu elsewhere, whose
+    plan takes any shape; float32 K3 is dropedge_f32.cu's forward whatever
+    the shape."""
     assert k3_route(torch.bfloat16, N, F) == route
     assert k3_route(torch.float32, N, F) == "float32"
     if route == "sm90":
@@ -106,12 +109,13 @@ def test_k3_route_follows_the_tma_shape_rule(N, F, route):
     else:
         with pytest.raises(ValueError, match="% 8 == 0"):
             aggregate_plan(B, N, 6, F)
+        assert ragged_plan(B, N, 6, F).forward_grid == (-(-F // 256), -(-N * 6 // 64), B)
 
 
 def test_every_inference_bucket_takes_the_sm90_route():
     """KVInference pads to multiples of 64 and the trunk's widths are
     multiples of 8 at every net_size the configs use: serving never takes
-    the WMMA route."""
+    the ragged route."""
     for N in range(64, 1025, 64):
         for F in (64, 128, 256, 512):
             assert k3_route(torch.bfloat16, N, F) == "sm90"
@@ -199,3 +203,107 @@ def test_f32_ragged_plan():
 def test_f32_plan_refuses_empty_shapes():
     with pytest.raises(ValueError):
         dropedge_f32_plan(8, 0, 6, 64)
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 K3 at ragged shapes (relagg_ragged.cu)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("N, F, BN, row_tiles, vec, v_tma", [
+    (230, 256, 256, 22, 2, True), (231, 256, 256, 22, 1, True), (230, 512, 256, 22, 2, True),
+    (231, 512, 256, 22, 1, True), (256, 250, 256, 24, 2, False), (230, 36, 64, 22, 2, False),
+    (100, 44, 64, 10, 2, False), (99, 45, 64, 10, 1, False)])
+def test_ragged_plan(N, F, BN, row_tiles, vec, v_tma):
+    """K1's forward layout at any shape: BN is F rounded up to 64 (at most
+    256; wgmma's n is a multiple of 8, and V's MN-major 128-byte swizzled
+    boxes are 64 columns wide, so the copies zero-fill V past F and the
+    epilogue stores columns < F), 64-row tiles of N*L (N = 230 and 231: 1380
+    and 1386 rows, 22 tiles), 4-byte copies where N and F are even, V
+    through TMA where F % 8 == 0."""
+    plan = ragged_plan(B, N, 6, F)
+    assert (plan.BN, plan.row_tiles, plan.vec, plan.v_tma) == (BN, row_tiles, vec, v_tma)
+    assert plan.BN % 8 == 0 and plan.BN >= min(-(-F // 8) * 8, 256)
+    assert (plan.f_tiles - 1) * plan.BN < F <= plan.f_tiles * plan.BN
+    assert plan.forward_grid == (plan.f_tiles, row_tiles, B)
+
+
+def test_ragged_main_shape_fills_one_wave():
+    """N = 230, F = 256: 176 blocks of 128 threads at ~82 KB, two an SM of
+    the H100's 132: one wave."""
+    assert int(np.prod(ragged_plan(8, 230, 6, 256).forward_grid)) == 176 <= 2 * 132
+
+
+def test_ragged_plan_refuses_empty_and_oversized_shapes():
+    with pytest.raises(ValueError):
+        ragged_plan(0, 230, 6, 256)
+    with pytest.raises(ValueError):
+        ragged_plan(8, 230, 6, 0)
+    with pytest.raises(ValueError):
+        ragged_plan(65536, 230, 6, 256)
+
+
+# ---------------------------------------------------------------------------
+# The float32 K1 and K3 (dropedge_f32.cu's forward)
+# ---------------------------------------------------------------------------
+# Blocks of the forward the card runs at once: one an SM of the H100 SXM's
+# 132, and of the PCIe part's 114.
+F32_SLOTS = [132, 114]
+
+
+@pytest.mark.parametrize("slots", F32_SLOTS)
+@pytest.mark.parametrize("N, L, F", F32_SHAPES)
+def test_f32_forward_blocks_share_the_tiles(N, L, F, slots):
+    """The 128 x 128 tiles span N*L and F, the reduction steps of 32 span
+    N; the grid is one row of at most ``slots`` blocks, and walking tiles
+    c, c + blocks, ... gives every block at least one tile and no block
+    more than one tile past any other."""
+    plan = dropedge_f32_forward_plan(B, N, L, F, slots)
+    assert (plan.row_tiles - 1) * 128 < N * L <= plan.row_tiles * 128
+    assert (plan.f_tiles - 1) * 128 < F <= plan.f_tiles * 128
+    assert (plan.steps - 1) * 32 < N <= plan.steps * 32
+    assert plan.tiles == B * plan.row_tiles * plan.f_tiles
+    assert plan.grid == (plan.blocks, 1, 1) and 1 <= plan.blocks <= min(slots, plan.tiles)
+    walked = [len(range(c, plan.tiles, plan.blocks)) for c in range(plan.blocks)]
+    assert sum(walked) == plan.tiles and min(walked) >= 1 and max(walked) - min(walked) <= 1
+
+
+@pytest.mark.parametrize("N, F, slots, tiles, blocks", [(256, 256, 132, 192, 132), (256, 512, 132, 384, 132),
+                                                        (256, 256, 114, 192, 114), (230, 256, 132, 176, 132)])
+def test_f32_forward_main_shape_plan(N, F, slots, tiles, blocks):
+    """B=8 L=6: 1536 rows a batch (N = 256) in 12 tiles, or 1380 (N = 230)
+    in 11, times F / 128 column tiles; 8 steps of 32 columns. More tiles
+    than slots: every slot runs one block, which streams 1 to 3 tiles."""
+    plan = dropedge_f32_forward_plan(8, N, 6, F, slots)
+    assert (plan.steps, plan.tiles, plan.blocks, plan.grid) == (8, tiles, blocks, (blocks, 1, 1))
+
+
+def test_f32_forward_few_tiles_take_one_block_each():
+    """One batch of N = 512 at F = 128: 24 tiles, fewer than the slots, so
+    24 blocks each walk one tile's 16 steps."""
+    plan = dropedge_f32_forward_plan(1, 512, 6, 128, 132)
+    assert (plan.tiles, plan.steps, plan.blocks, plan.grid) == (24, 16, 24, (24, 1, 1))
+
+
+@pytest.mark.parametrize("N, F, vec", [(256, 256, 4), (230, 256, 2), (231, 256, 1), (256, 36, 4), (256, 250, 2),
+                                       (64, 42, 2), (192, 512, 4), (230, 33, 1)])
+def test_f32_forward_copy_width(N, F, vec):
+    """16-byte copies where rows of A (N floats) and of V and out (F
+    floats) are 16-byte multiples, 8-byte where they are 8-byte multiples,
+    4-byte otherwise (the launcher also narrows the copies for an operand
+    off a 16- or 8-byte boundary)."""
+    assert dropedge_f32_forward_plan(B, N, 6, F).vec == vec
+
+
+@pytest.mark.parametrize("N, F, steps, row_tiles, f_tiles", [(230, 256, 8, 11, 2), (231, 256, 8, 11, 2),
+                                                             (230, 36, 8, 11, 1), (33, 129, 2, 2, 2)])
+def test_f32_forward_ragged_plan(N, F, steps, row_tiles, f_tiles):
+    """Any N and F: the last step, row tile and column tile are partial and
+    zero-filled by the copies (N = 230: 1380 rows in 11 tiles, 230 columns
+    in 8 steps)."""
+    plan = dropedge_f32_forward_plan(B, N, 6, F)
+    assert (plan.steps, plan.row_tiles, plan.f_tiles) == (steps, row_tiles, f_tiles)
+
+
+@pytest.mark.parametrize("shape", [(0, 256, 6, 256), (8, 0, 6, 256), (8, 256, 0, 256), (8, 256, 6, 0)])
+def test_f32_forward_plan_refuses_empty_shapes(shape):
+    with pytest.raises(ValueError):
+        dropedge_f32_forward_plan(*shape)
