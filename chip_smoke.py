@@ -92,7 +92,13 @@ receivers) and K6 (all four directions on the arxiv graph planned with
 the config's ``kernel_plan`` at F = 256 and 512, and a small L = 3 graph
 with geometric widths) against their plain versions, reads K5's keep set
 back exactly with V = I, and holds K6 against K5 on one seed: within one
-bf16 rounding on the arxiv graph, the keep sets equal with V = I.
+bf16 rounding on the arxiv graph, the keep sets equal with V = I. K5 and
+K6 walk their gathered operand in column slices sized for the card's L2
+(``grl_torch.ops.sparse.gather_slices``); their rows hold the plan
+(``slices``, ``slice_cols``, ``l2_bytes``), ``device_ms``, and the same
+kernel forced to one slice (``one_slice_ms``, ``one_slice_device_ms``),
+whose output must equal the planned one bit for bit; K6 must equal its
+plain version bit for bit wherever every bucket is at most 32 wide.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -673,6 +679,35 @@ def csr_library_ms(torch, layout, X, seed, flush):
     return time_ms(torch, lambda: torch.sparse.mm(A, X), flush)
 
 
+def slice_fields(torch, module, X, layout, seed, out, flush, what: str) -> dict:
+    """The column-slice plan of K5 or K6 (``module``: csr_spmm or ell) for
+    X on this card, and the same kernel forced to one slice: its output
+    must be ``out`` bit for bit, and its times show what slicing buys."""
+    from grl_torch.ops import sparse
+
+    l2 = sparse.l2_bytes(X.device.index)
+    plan = sparse.gather_slices(layout.num_src_rows, X.shape[-1], X.element_size(), l2)
+    one = [(0, X.shape[-1])]
+    single = module._launch(X, layout, seed, RATE, plan=one)
+    torch.cuda.synchronize()
+    require(torch.equal(single, out), f"{what}: one slice and {len(plan)} slices give other bits")
+    return {
+        "slices": len(plan), "slice_cols": plan[0][1], "l2_bytes": l2,
+        "one_slice_ms": time_ms(torch, lambda: module._launch(X, layout, seed, RATE, plan=one), flush),
+        "one_slice_device_ms": time_ms(torch, lambda: module._launch(X, layout, seed, RATE, plan=one), flush,
+                                       cover=True),
+    }
+
+
+def slicing_note(row) -> str:
+    """The device time and slice plan of a K5/K6 row, for its log line."""
+    if "slices" not in row:
+        return ""
+    return (f" (device {row['device_ms']:.4f} ms; {row['slices']} slices of {row['slice_cols']} columns for "
+            f"an L2 of {row['l2_bytes']} bytes; one slice {row['one_slice_ms']:.4f} ms, device "
+            f"{row['one_slice_device_ms']:.4f} ms)")
+
+
 def k5_case(torch, layout, dtype_name: str, F: int, flush, seed: int, what: str):
     """K5 on one layout against its plain version, timed; one result row."""
     from grl_torch.ops import csr_spmm
@@ -685,6 +720,7 @@ def k5_case(torch, layout, dtype_name: str, F: int, flush, seed: int, what: str)
     ref = csr_spmm.csr_accumulate_reference(X, layout, mask_seed, RATE)
     torch.cuda.synchronize()
     err = check_close(torch, out, ref, dtype_name, f"K5 {what} {dtype_name} F={F}", SPARSE_TOL[dtype_name])
+    slicing = slice_fields(torch, csr_spmm, X, layout, mask_seed, out, flush, f"K5 {what} {dtype_name} F={F}")
     kept = int((csr_spmm.edge_coefficients(layout, mask_seed, RATE) != 0).sum())
     nnz = int(layout.cols.numel())
     itemsize = X.element_size()
@@ -699,6 +735,8 @@ def k5_case(torch, layout, dtype_name: str, F: int, flush, seed: int, what: str)
         "src_rows": layout.num_src_rows, "edges": nnz, "kept_edges": kept, "F": F, "rate": RATE,
         "max_abs_err": err, "differ_share": float((out != ref).float().mean()),
         "ms": time_ms(torch, lambda: csr_spmm.csr_accumulate(X, layout, mask_seed, RATE), flush),
+        "device_ms": time_ms(torch, lambda: csr_spmm.csr_accumulate(X, layout, mask_seed, RATE), flush, cover=True),
+        **slicing,
         "plain_ms": time_ms(torch, lambda: csr_spmm.csr_accumulate_reference(X, layout, mask_seed, RATE), flush),
         "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
@@ -803,8 +841,8 @@ def sparse_kernel_cases(torch, flush):
         log(
             f"[kernel] {row['kernel']} {row['dtype']:>8} F={row['F']}: max_abs_err {row['max_abs_err']:.3e}, "
             f"outputs that differ from the plain version's {row['differ_share']:.3e} | "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library {library}, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), gather floor {row['gather_floor_ms']:.4f} ms"
+            f"kernel {row['ms']:.4f} ms{slicing_note(row)}, plain {row['plain_ms']:.4f} ms, library {library}, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), gather floor {row['gather_floor_ms']:.4f} ms"
         )
     # Relation folding (L = 3) and K4's hub and isolated receivers, small.
     rng = np.random.RandomState(11)
@@ -864,6 +902,10 @@ def k6_case(torch, tables, dtype_name: str, F: int, flush, seed: int, what: str,
     ref = ell.ell_accumulate_reference(X, tables, mask_seed, RATE)
     torch.cuda.synchronize()
     err = check_close(torch, out, ref, dtype_name, f"K6 {what} {dtype_name} F={F}", SPARSE_TOL[dtype_name])
+    # The plain version's arithmetic term for term, except an einsum over
+    # buckets wider than 32.
+    if max(width for _, width in tables.shapes) <= 32:
+        require(torch.equal(out, ref), f"K6 {what} {dtype_name} F={F} is not its plain version bit for bit")
     row = {"kernel": f"K6 {what}", "dtype": dtype_name, "rows": tables.num_rows, "src_rows": tables.num_src_rows,
            "cells": tables.num_cells, "buckets": len(tables.shapes), "F": F, "rate": RATE, "max_abs_err": err,
            "differ_share": float((out != ref).float().mean())}
@@ -881,6 +923,8 @@ def k6_case(torch, tables, dtype_name: str, F: int, flush, seed: int, what: str,
     row.update({
         "edges": int(live.sum()), "kept_edges": kept,
         "ms": time_ms(torch, lambda: ell.ell_accumulate(X, tables, mask_seed, RATE), flush),
+        "device_ms": time_ms(torch, lambda: ell.ell_accumulate(X, tables, mask_seed, RATE), flush, cover=True),
+        **slice_fields(torch, ell, X, tables, mask_seed, out, flush, f"K6 {what} {dtype_name} F={F}"),
         # The plain version takes 15-25 ms a call: the median of 10.
         "plain_ms": time_ms(torch, lambda: ell.ell_accumulate_reference(X, tables, mask_seed, RATE), flush,
                             reps=10),
@@ -928,9 +972,9 @@ def ell_kernel_cases(torch, flush):
     for row in rows:
         log(
             f"[kernel] {row['kernel']} {row['dtype']:>8} F={row['F']}: max_abs_err {row['max_abs_err']:.3e}, "
-            f"outputs that differ from the plain version's {row['differ_share']:.3e} | kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), gather floor {row['gather_floor_ms']:.4f} ms"
+            f"outputs that differ from the plain version's {row['differ_share']:.3e} | kernel {row['ms']:.4f} ms"
+            f"{slicing_note(row)}, plain {row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), gather floor {row['gather_floor_ms']:.4f} ms"
         )
     checks = []
     # Relation-channelled rows and geometric widths without the reorder (L = 3).
@@ -1456,6 +1500,8 @@ def trace_kernel_ms(trace_path: str, names):
 
 # Kernel names of bf16 K1 and K2 in a trace.
 K1_BF16, K2_BF16 = "dropedge_fwd_sm90_kernel", "dropedge_bwd_sm90_kernel"
+# Kernel names of K5, K6 and K4 in a trace.
+SPARSE_KERNELS = {"K5": "csr_accumulate_kernel", "K6": "ell_accumulate_kernel", "K4": "sparse_attention_kernel"}
 
 
 def params_of(model):
@@ -2122,6 +2168,11 @@ def train_sparse_path(torch, card: str, tag: str, config, pairs):
     )
     for name, ms, count in by_kernel:
         log(f"[{tag}]   {ms:8.3f} ms a step in {count:3d} launches: {name[:110]}")
+    traced = trace_kernel_ms(trace, SPARSE_KERNELS.values())
+    own = {k: {"ms": traced[name][0] / FULL_GRAPH_TRACED_STEPS, "launches": traced[name][1] / FULL_GRAPH_TRACED_STEPS}
+           for k, name in SPARSE_KERNELS.items()}
+    log(f"[{tag}] the port's sparse kernels a step: "
+        + "; ".join(f"{k} {v['ms']:.3f} ms in {v['launches']:g} launches" for k, v in own.items() if v["launches"]))
 
     # Learning check: the config's 200 steps, at lr 1e-3.
     learner = procedure_copy(torch, trainer, int(config["seed"]), FULL_GRAPH_LEARN_LR)
@@ -2151,7 +2202,8 @@ def train_sparse_path(torch, card: str, tag: str, config, pairs):
         "wall_s": wall, "steps_per_s": FULL_GRAPH_STEPS / wall, "edges_per_s": E * FULL_GRAPH_STEPS / wall,
         "launches": launched, "losses": losses, "best_val_acc": best_acc, "peak_memory_gb": peak_gb,
         "step_ms": step_ms, "step_host_ms": host_ms, "idle_share": idle, "traced_busy_ms": busy_ms,
-        "traced_window_ms": window_ms, "device_ms_by_kernel": by_kernel, "kernel_vs_plain": comparison,
+        "traced_window_ms": window_ms, "device_ms_by_kernel": by_kernel, "sparse_kernels_a_step": own,
+        "kernel_vs_plain": comparison,
         "learning_steps": FULL_GRAPH_LEARN_STEPS, "learning_val_acc": learn_acc,
     }
 
@@ -2217,10 +2269,12 @@ def phase_gather_probe(torch, card: str, kernel_rows):
             floor_ms = row["kept_edges"] / a_rate * 1e3
         else:
             continue
-        floors[row["kernel"]] = {"measured_gather_floor_ms": floor_ms, "kernel_ms": row["ms"]}
+        floors[row["kernel"]] = {"measured_gather_floor_ms": floor_ms, "kernel_ms": row["ms"],
+                                 **{key: row[key] for key in ("device_ms", "one_slice_ms", "one_slice_device_ms",
+                                                              "slices") if key in row}}
         log(f"[gather_probe] measured gather floor of {row['kernel']} bf16: {floor_ms:.4f} ms "
             f"({'E / C' if row['kernel'].startswith('K4') else 'kept edges / A'} rate) against the kernel's "
-            f"{row['ms']:.4f} ms and the HBM-peak estimate {row['gather_floor_ms']:.4f} ms")
+            f"{row['ms']:.4f} ms{slicing_note(row)} and the HBM-peak estimate {row['gather_floor_ms']:.4f} ms")
     record.update(setup_s=setup_s, launches=launches, measured_gather_floors=floors)
     return record
 
@@ -2365,6 +2419,8 @@ def main() -> int:
             "bound_fp32_ms": row.get("bound_fp32_ms"),
             "library_ms": row["library_ms"],
             "shape": shape,
+            **{key: row[key] for key in ("slices", "slice_cols", "l2_bytes", "one_slice_ms", "one_slice_device_ms")
+               if key in row},
         })
     record["kernels"] = kernels
     write_record(record)

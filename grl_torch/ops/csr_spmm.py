@@ -18,9 +18,11 @@ is stored. Zero-weight and masked edges are dropped from both layouts.
 
 The TPU kernel (``csr_accumulate``, :274-336) buckets edges into
 (receiver block, sender chunk) cells sized for VMEM and walks each cell on
-the scalar core. On the GPU the layout is plain CSR: one warp (or a
-sub-warp group, for narrow rows) owns one output row, walks its edge list
-and gathers the sender rows with 16-byte loads
+the scalar core. On the GPU the layout is plain CSR, walked in column
+slices small enough for the gathered rows to stay in the card's L2
+(:func:`~grl_torch.ops.sparse.gather_slices`): one warp (or a sub-warp
+group, for narrow slices) owns one (output row, slice), walks the row's
+edge list and gathers that slice of each sender row with 16-byte loads
 (``grl_torch/csrc/csr_spmm.cu``). The TPU tiling knobs of the planner
 (``block_rows``, ``chunk_cols``, ``edge_quantum``, ``unroll``,
 ``feature_dim``, ``vmem_budget``) are accepted and have no effect on the
@@ -35,13 +37,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from grl_torch.ops import _build
 from grl_torch.ops.hashing import hash_keep, keep_probability
+from grl_torch.ops.sparse import gather_slices, l2_bytes, slice_grid
 
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
 _MAX_EDGES = 2**31 - 1  # gid and the row pointers are int32 in the kernel
@@ -129,7 +132,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("csr_spmm")
     lib.grl_csr_accumulate.argtypes = (
         [ctypes.c_void_p] * 6  # rowptr, cols, gids, weights, X, out
-        + [ctypes.c_int] * 4  # rows, F, dtype, use_hash
+        + [ctypes.c_int] * 7  # rows, F, col0, slice_cols, num_slices, dtype, use_hash
         + [ctypes.c_uint32, ctypes.c_float]  # seed, keep
         + [ctypes.c_int, ctypes.c_void_p]  # device, stream
     )
@@ -137,8 +140,28 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(X: torch.Tensor, layout: CSRLayout, seed: int, rate: float) -> torch.Tensor:
-    """Launch K5 on the current stream; no synchronisation."""
+def _enqueue(out: torch.Tensor, X: torch.Tensor, layout: CSRLayout, seed: int, rate: float,
+             col0: int, slice_cols: int, num_slices: int) -> None:
+    """Launch K5 on the current stream over ``num_slices`` slices of
+    ``slice_cols`` columns from ``col0`` (the last clipped at F), writing
+    those columns of ``out``; no synchronisation."""
+    lib = _library()
+    err = lib.grl_csr_accumulate(
+        layout.rowptr.data_ptr(), layout.cols.data_ptr(), layout.gids.data_ptr(),
+        layout.weights.data_ptr(), X.data_ptr(), out.data_ptr(),
+        layout.num_rows, X.shape[-1], col0, slice_cols, num_slices, _DTYPE_CODES[X.dtype],
+        int(float(rate) > 0.0), int(seed) & 0xFFFFFFFF, keep_probability(rate),
+        X.device.index, torch.cuda.current_stream(X.device).cuda_stream,
+    )
+    _build.check_launch(lib, err, "K5")
+
+
+def _launch(X: torch.Tensor, layout: CSRLayout, seed: int, rate: float,
+            plan: Optional[List[Tuple[int, int]]] = None) -> torch.Tensor:
+    """Launch K5 on the current stream, once, over the column slices of
+    ``plan`` (by default :func:`~grl_torch.ops.sparse.gather_slices` for
+    this card's L2; the tests and ``chip_smoke.py`` force one or many);
+    no synchronisation."""
     if X.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA K5 takes float32 or bfloat16, not {X.dtype}")
     F = X.shape[-1]
@@ -149,19 +172,13 @@ def _launch(X: torch.Tensor, layout: CSRLayout, seed: int, rate: float) -> torch
         )
     if layout.rowptr.device != X.device:
         raise ValueError(f"layout on {layout.rowptr.device} but X on {X.device}")
+    if plan is None:
+        plan = gather_slices(layout.num_src_rows, F, X.element_size(), l2_bytes(X.device.index))
+    slice_cols, num_slices = slice_grid(plan, F, X.element_size())
     out = torch.empty(layout.num_rows, F, dtype=X.dtype, device=X.device)
     if out.numel() == 0:
         return out
-    use_hash = float(rate) > 0.0
-    lib = _library()
-    err = lib.grl_csr_accumulate(
-        layout.rowptr.data_ptr(), layout.cols.data_ptr(), layout.gids.data_ptr(),
-        layout.weights.data_ptr(), X.data_ptr(), out.data_ptr(),
-        layout.num_rows, F, _DTYPE_CODES[X.dtype], int(use_hash),
-        int(seed) & 0xFFFFFFFF, keep_probability(rate),
-        X.device.index, torch.cuda.current_stream(X.device).cuda_stream,
-    )
-    _build.check_launch(lib, err, "K5")
+    _enqueue(out, X, layout, seed, rate, 0, slice_cols, num_slices)
     return out
 
 

@@ -31,7 +31,9 @@ output row of each bucket-concatenated row.
 (:func:`ell_accumulate_reference`: ``_gather_reduce`` per bucket,
 ``ell.py:154-181``, float32 accumulation, then the inverse-permutation
 stitch) for CPU tensors and launches K6 (``grl_torch/csrc/ell.cu``) for
-CUDA tensors, or raises. K6 walks every bucket in one launch and writes
+CUDA tensors, or raises. K6 walks every bucket in one launch, in column
+slices small enough for the gathered rows to stay in the card's L2
+(:func:`~grl_torch.ops.sparse.gather_slices`, shared with K5), and writes
 each row straight to its output position through ``perm``: the stitch is
 fused into the write. Launches are counted per direction in
 ``ell_accumulate.launches``.
@@ -48,6 +50,7 @@ import torch
 
 from grl_torch.ops import _build
 from grl_torch.ops.hashing import hash_keep, keep_probability
+from grl_torch.ops.sparse import gather_slices, l2_bytes, slice_grid
 
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
 _MAX_CELLS = 2**31 - 1  # K6 addresses table cells and rows with int32
@@ -269,7 +272,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("ell")
     lib.grl_ell_accumulate.argtypes = (
         [ctypes.c_void_p] * 7  # idx, weight, gid, buckets, perm, X, out
-        + [ctypes.c_int] * 5  # num_buckets, rows, F, dtype, use_hash
+        + [ctypes.c_int] * 8  # num_buckets, rows, F, col0, slice_cols, num_slices, dtype, use_hash
         + [ctypes.c_uint32, ctypes.c_float]  # seed, keep
         + [ctypes.c_int, ctypes.c_void_p]  # device, stream
     )
@@ -277,8 +280,28 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(X: torch.Tensor, tables: GatherTables, seed: int, rate: float) -> torch.Tensor:
-    """Launch K6 on the current stream; no synchronisation."""
+def _enqueue(out: torch.Tensor, X: torch.Tensor, tables: GatherTables, seed: int, rate: float,
+             col0: int, slice_cols: int, num_slices: int) -> None:
+    """Launch K6 on the current stream over ``num_slices`` slices of
+    ``slice_cols`` columns from ``col0`` (the last clipped at F), writing
+    those columns of ``out``; no synchronisation."""
+    lib = _library()
+    err = lib.grl_ell_accumulate(
+        tables.idx.data_ptr(), tables.weight.data_ptr(), tables.gid.data_ptr(),
+        tables.buckets.data_ptr(), tables.perm.data_ptr(), X.data_ptr(), out.data_ptr(),
+        len(tables.shapes), tables.num_rows, X.shape[-1], col0, slice_cols, num_slices,
+        _DTYPE_CODES[X.dtype], int(float(rate) > 0.0), int(seed) & 0xFFFFFFFF, keep_probability(rate),
+        X.device.index, torch.cuda.current_stream(X.device).cuda_stream,
+    )
+    _build.check_launch(lib, err, "K6")
+
+
+def _launch(X: torch.Tensor, tables: GatherTables, seed: int, rate: float,
+            plan: Optional[List[Tuple[int, int]]] = None) -> torch.Tensor:
+    """Launch K6 on the current stream, once, over the column slices of
+    ``plan`` (by default :func:`~grl_torch.ops.sparse.gather_slices` for
+    this card's L2; the tests and ``chip_smoke.py`` force one or many);
+    no synchronisation."""
     if X.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA K6 takes float32 or bfloat16, not {X.dtype}")
     F = X.shape[-1]
@@ -289,18 +312,13 @@ def _launch(X: torch.Tensor, tables: GatherTables, seed: int, rate: float) -> to
         )
     if tables.idx.device != X.device:
         raise ValueError(f"tables on {tables.idx.device} but X on {X.device}")
+    if plan is None:
+        plan = gather_slices(tables.num_src_rows, F, X.element_size(), l2_bytes(X.device.index))
+    slice_cols, num_slices = slice_grid(plan, F, X.element_size())
     out = torch.empty(tables.num_rows, F, dtype=X.dtype, device=X.device)
     if out.numel() == 0:
         return out
-    lib = _library()
-    err = lib.grl_ell_accumulate(
-        tables.idx.data_ptr(), tables.weight.data_ptr(), tables.gid.data_ptr(),
-        tables.buckets.data_ptr(), tables.perm.data_ptr(), X.data_ptr(), out.data_ptr(),
-        len(tables.shapes), tables.num_rows, F, _DTYPE_CODES[X.dtype], int(float(rate) > 0.0),
-        int(seed) & 0xFFFFFFFF, keep_probability(rate),
-        X.device.index, torch.cuda.current_stream(X.device).cuda_stream,
-    )
-    _build.check_launch(lib, err, "K6")
+    _enqueue(out, X, tables, seed, rate, 0, slice_cols, num_slices)
     return out
 
 

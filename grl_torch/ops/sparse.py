@@ -13,11 +13,15 @@ for a batch of documents flattened into one node space, ``batch_shape``.
 Aggregation is a gather and a float32 segment sum (``index_add_``); it is
 the ``kernel_impl: xla`` path of the sparse model, and the plain reference
 of the K5 kernel (:mod:`grl_torch.ops.csr_spmm`).
+
+It also holds the column-slice plan that K5 and K6 share
+(:func:`gather_slices`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -168,3 +172,59 @@ def drop_edge_coo(
     self_mask = torch.rand((graph.num_nodes,), generator=generator, device=device) < keep
     scale = 1.0 / keep
     return edge_mask.to(torch.float32) * scale, self_mask.to(torch.float32) * scale
+
+
+# ---------------------------------------------------------------------------
+# Column slices of a gathered operand (K5 and K6)
+# ---------------------------------------------------------------------------
+# Share of the card's L2 that the source bytes of one column slice may take.
+# Measured on an H100 (PERF.md; python grl_torch/probes/slices.py): at the
+# arxiv shape, slices of 256 bytes a row (43 MB of X) beat 128 (22 MB),
+# whose extra walks of the rows cost more than their L2 hits save.
+L2_SLICE_SHARE = 0.85
+
+
+@functools.lru_cache(maxsize=None)
+def l2_bytes(device_index: int) -> int:
+    """The L2 cache size of CUDA device ``device_index``, read once."""
+    return int(torch.cuda.get_device_properties(device_index).L2_cache_size)
+
+
+def gather_slices(num_src_rows: int, F: int, itemsize: int, l2_bytes: int) -> List[Tuple[int, int]]:
+    """The column slices ``[(col0, cols), ...]`` in which K5 and K6 walk an
+    ``(num_src_rows, F)`` gathered operand of ``itemsize``-byte elements.
+
+    Each output column depends on the same input column alone, so the
+    kernels may sum a slice of columns over every row before the next
+    slice: the gathers of a slice then hit the rows of that slice alone.
+    One slice when all of X fits ``L2_SLICE_SHARE * l2_bytes``; otherwise
+    slices of the largest power-of-two number of 16-byte vectors whose
+    source bytes (``num_src_rows * cols * itemsize``) fit it, at least one
+    vector, the last one narrower where F is not a multiple. A power of two
+    keeps a slice row on whole 128-byte L2 lines when a row is a multiple
+    of them.
+    """
+    per_vec = 16 // itemsize
+    if F % per_vec:
+        raise ValueError(f"F = {F} is not a whole number of 16-byte vectors of {itemsize}-byte elements")
+    vecs = F // per_vec
+    column_bytes = 16 * num_src_rows  # the source bytes of one vector column
+    budget = L2_SLICE_SHARE * l2_bytes
+    if vecs * column_bytes <= budget:
+        return [(0, F)]
+    width = 1
+    while 2 * width * column_bytes <= budget:
+        width *= 2
+    return [(v * per_vec, min(width, vecs - v) * per_vec) for v in range(0, vecs, width)]
+
+
+def slice_grid(plan: List[Tuple[int, int]], F: int, itemsize: int) -> Tuple[int, int]:
+    """``(cols, count)`` of a plan of equal slices from column 0 whose last
+    may be narrower, as the kernels launch it (one grid row a slice); raises
+    ``ValueError`` on any other plan."""
+    per_vec = 16 // itemsize
+    width = plan[0][1] if plan else 0
+    expected = [(c, min(width, F - c)) for c in range(0, F, width)] if width > 0 else []
+    if not plan or width % per_vec or list(map(tuple, plan)) != expected:
+        raise ValueError(f"{plan} is not equal slices of whole 16-byte vectors covering F = {F}")
+    return width, len(plan)

@@ -1,7 +1,8 @@
 """K1-K6 and P on the card: the CUDA kernels against their plain versions
 (bf16 K1/K2, and bf16 K3 at N % 8 == 0 and F % 8 == 0: dropedge_sm90.cu;
 bf16 K3 at other N or F: relagg_ragged.cu; f32 K1, K2 and K3:
-dropedge_f32.cu; the rest as named in their modules).
+dropedge_f32.cu; the rest as named in their modules), and K5 and K6 at
+every column slicing.
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file
 imports neither JAX nor grl_tpu, so it runs on a machine without them,
@@ -530,6 +531,91 @@ def test_k6_keep_set_is_k5s(dtype):
     seen6 = k6.neighbor_aggregate(eye, 99, 0.3) != 0
     seen5 = k5.neighbor_aggregate(eye, 99, 0.3) != 0
     assert torch.equal(seen6[perm][:, perm], seen5)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6 column slices (grl_torch.ops.sparse.gather_slices): the test
+# graphs fit the L2 in one slice, so the plans are forced here.
+# ---------------------------------------------------------------------------
+def slice_plans(F, itemsize):
+    """One slice, two (the second narrower where F has an odd number of
+    16-byte vectors) and one vector a slice."""
+    per_vec = 16 // itemsize
+    half = -(-F // per_vec // 2) * per_vec
+    return [[(0, F)], [(0, half), (half, F - half)], [(c, per_vec) for c in range(0, F, per_vec)]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [256, 264])
+def test_k5_gives_the_same_bits_at_every_slicing(F, dtype):
+    """Forward and backward, within SPARSE_TOL of the plain version, and
+    bit for bit the same output from every plan and from two launches."""
+    kernel = csr_graph(2000, 2, 12000, seed=F)
+    for layout in (kernel.forward_layout, kernel.backward_layout):
+        X = torch.randn(layout.num_src_rows, F, device="cuda").to(dtype)
+        outs = [csr_spmm._launch(X, layout, 17, RATE, plan=plan) for plan in slice_plans(F, X.element_size())]
+        outs.append(csr_spmm._launch(X, layout, 17, RATE, plan=slice_plans(F, X.element_size())[-1]))
+        torch.cuda.synchronize()
+        assert_close_to_plain(outs[0], csr_spmm.csr_accumulate_reference(X, layout, 17, RATE))
+        assert all(torch.equal(out, outs[0]) for out in outs[1:])
+
+
+def hubless_ell_graph(N, E, seed):
+    """Random single-relation edges, 5 receivers with no edge, every
+    bucket at most 32 wide in all four directions: K6 is then the plain
+    version's arithmetic term for term."""
+    rng = np.random.RandomState(seed)
+    edges = (rng.randint(0, N, E), rng.randint(0, N - 5, E), np.zeros(E, np.int64),
+             (rng.rand(E) + 0.5).astype(np.float32))
+    kernel = ell.ELLGraphKernel(*edges, N, 1, device="cuda", **CONFIG_PLAN)
+    t = kernel.tables
+    assert max(width for tables in (t.fwd, t.bwd, t.proj.fwd, t.proj.bwd) for _, width in tables.shapes) <= 32
+    return kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [256, 264])
+def test_k6_equals_its_plain_version_bit_for_bit_at_every_slicing(F, dtype):
+    """All four directions, every plan and two launches."""
+    t = hubless_ell_graph(3000, 18000, seed=F).tables
+    for tables in (t.fwd, t.bwd, t.proj.fwd, t.proj.bwd):
+        X = torch.randn(tables.num_src_rows, F, device="cuda").to(dtype)
+        ref = ell.ell_accumulate_reference(X, tables, 17, RATE)
+        outs = [ell._launch(X, tables, 17, RATE, plan=plan) for plan in slice_plans(F, X.element_size())]
+        outs.append(ell._launch(X, tables, 17, RATE, plan=slice_plans(F, X.element_size())[-1]))
+        torch.cuda.synchronize()
+        assert all(torch.equal(out, ref) for out in outs), tables.direction
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_keep_sets_hold_at_every_slicing(dtype):
+    """V = I through forced plans: K5's forward and transposed walks keep
+    exactly the plain hash's edges, and K6 (degree-reordered) K5's."""
+    N, L = 64, 3
+    rng = np.random.RandomState(3)
+    cells = rng.choice(N * L * N, 2000, replace=False)
+    receivers, rest = np.divmod(cells, L * N)
+    relations, senders = np.divmod(rest, N)
+    k5 = csr_spmm.CSRGraphKernel(senders, receivers, relations, np.ones(2000, np.float32), N, L,
+                                 device="cuda")
+    kept = hashing.keep_bits(torch.arange(2000), 99, RATE).numpy()
+    expected = np.zeros((N, L, N), bool)
+    expected[receivers[kept], relations[kept], senders[kept]] = True
+    single = (senders, receivers, np.zeros(2000, np.int64), np.ones(2000, np.float32))
+    unique = np.unique(receivers * N + senders, return_index=True)[1]
+    single = tuple(a[unique] for a in single)
+    k6 = ell.ELLGraphKernel(*single, N, 1, device="cuda", **CONFIG_PLAN)
+    k5_single = csr_spmm.CSRGraphKernel(*single, N, 1, device="cuda")
+    perm = torch.from_numpy(k6.node_perm).cuda()
+    eye, eye_l = torch.eye(N, device="cuda", dtype=dtype), torch.eye(N * L, device="cuda", dtype=dtype)
+    for plan, plan_l in zip(slice_plans(N, eye.element_size()), slice_plans(N * L, eye.element_size())):
+        fwd = csr_spmm._launch(eye, k5.forward_layout, 99, RATE, plan=plan) != 0
+        bwd = csr_spmm._launch(eye_l, k5.backward_layout, 99, RATE, plan=plan_l) != 0
+        assert np.array_equal(fwd.view(N, L, N).cpu().numpy(), expected)
+        assert np.array_equal(bwd.view(N, N, L).permute(1, 2, 0).cpu().numpy(), expected)
+        seen6 = ell._launch(eye, k6.tables.fwd, 99, RATE, plan=plan) != 0
+        seen5 = csr_spmm._launch(eye, k5_single.forward_layout, 99, RATE, plan=plan) != 0
+        assert torch.equal(seen6[perm][:, perm], seen5)
 
 
 def test_probe_kernels_match_plain_versions():
