@@ -98,7 +98,13 @@ K6 walk their gathered operand in column slices sized for the card's L2
 (``slices``, ``slice_cols``, ``l2_bytes``), ``device_ms``, and the same
 kernel forced to one slice (``one_slice_ms``, ``one_slice_device_ms``),
 whose output must equal the planned one bit for bit; K6 must equal its
-plain version bit for bit wherever every bucket is at most 32 wide.
+plain version bit for bit wherever every bucket is at most 32 wide. K4
+walks h in such slices too, with all of g counted beside each
+(``sparse_attention.attention_launch``): its arxiv rows hold the same keys,
+its layout (``group``, ``blocks``) and its in-L2 floor
+(``in_l2_device_ms``: h and g folded onto rows that fit the L2,
+:func:`fold`), and two launches, one slice and two must give the planned
+bits.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -703,9 +709,11 @@ def slicing_note(row) -> str:
     """The device time and slice plan of a K5/K6 row, for its log line."""
     if "slices" not in row:
         return ""
+    group = f", groups of {row['group']} lanes" if "group" in row else ""
+    in_l2 = f"; every gather in L2 {row['in_l2_device_ms']:.4f} ms" if "in_l2_device_ms" in row else ""
     return (f" (device {row['device_ms']:.4f} ms; {row['slices']} slices of {row['slice_cols']} columns for "
-            f"an L2 of {row['l2_bytes']} bytes; one slice {row['one_slice_ms']:.4f} ms, device "
-            f"{row['one_slice_device_ms']:.4f} ms)")
+            f"an L2 of {row['l2_bytes']} bytes{group}; one slice {row['one_slice_ms']:.4f} ms, device "
+            f"{row['one_slice_device_ms']:.4f} ms{in_l2})")
 
 
 def k5_case(torch, layout, dtype_name: str, F: int, flush, seed: int, what: str):
@@ -776,35 +784,69 @@ def k5_mask_probe(torch, dtype_name: str):
     return float(kept.mean())
 
 
+def fold(torch, plan, g, h, l2_bytes: int):
+    """``(plan, g, h)`` of K4 with every sender taken modulo the rows whose
+    g and h bytes fill half of the L2, and g and h cut to those rows: the
+    same walk, whose every gather can hit L2 (K4's in-L2 floor, also timed
+    by ``grl_torch/probes/attention.py``)."""
+    row_bytes = (g.shape[-1] + h.shape[-1]) * h.element_size()
+    rows = min(h.shape[0], int(l2_bytes / 2 // row_bytes))
+    folded = plan._replace(senders=torch.remainder(plan.senders, rows).to(torch.int32))
+    return folded, g[:rows].contiguous(), h[:rows].contiguous()
+
+
 def k4_case(torch, kernel, dtype_name: str, flush, seed: int, what: str, timed: bool):
-    """K4 against its plain version (timed on the arxiv graph)."""
-    from grl_torch.ops import sparse_attention
+    """K4 against its plain version, with the same plan forced to one slice
+    and to two (whose outputs must equal the planned one bit for bit);
+    timed (on the arxiv graph) with its layout, its device time, the time
+    forced to one slice and its in-L2 floor (:func:`fold`)."""
+    from grl_torch.ops import sparse, sparse_attention
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     N = kernel.num_nodes
     f, g, h = (torch.randn(N, d, generator=gen, device="cuda").to(dtype) for d in (K4_K, K4_K, K4_F))
     out = sparse_attention.attend_forward(f, g, h, kernel.plan)
+    again = sparse_attention.attend_forward(f, g, h, kernel.plan)
     ref = sparse_attention.attend_reference(f, g, h, kernel.plan)
     torch.cuda.synchronize()
     err = check_close(torch, out, ref, dtype_name, f"K4 {what} {dtype_name}", SPARSE_TOL[dtype_name])
+    require(torch.equal(out, again), f"K4 {what} {dtype_name}: two launches give other bits")
     isolated = kernel.plan.rowptr[1:] == kernel.plan.rowptr[:-1]
     require(bool((out[isolated] == 0).all()), f"K4 {what}: a receiver with no edge got a nonzero row")
     E = kernel.num_edges
     degrees = (kernel.plan.rowptr[1:] - kernel.plan.rowptr[:-1]).max()
+    itemsize = h.element_size()
+    l2 = sparse.l2_bytes(0)
+    planned = sparse_attention.attention_launch(N, K4_K, K4_F, itemsize, l2, sparse.sm_count(0))
+    one = planned._replace(slices=[(0, K4_F)])
+    half = K4_F // 2
+    for forced in (one, planned._replace(slices=[(0, half), (half, K4_F - half)])):
+        sliced = sparse_attention._launch(f, g, h, kernel.plan, forced)
+        torch.cuda.synchronize()
+        require(torch.equal(sliced, out), f"K4 {what} {dtype_name}: {len(forced.slices)} slices and "
+                f"{len(planned.slices)} give other bits")
     row = {"kernel": f"K4 {what}", "dtype": dtype_name, "N": N, "edges": E, "K": K4_K, "F": K4_F,
            "max_degree": int(degrees), "isolated": int(isolated.sum()), "max_abs_err": err,
-           "differ_share": float((out != ref).float().mean())}
+           "differ_share": float((out != ref).float().mean()), "group": planned.group,
+           "blocks": planned.blocks, "slices": len(planned.slices), "slice_cols": planned.slices[0][1],
+           "l2_bytes": l2}
     if not timed:
         return row
-    itemsize = h.element_size()
     # f, g, h read once, out written once, the CSR read once; per edge a
     # K-wide dot, an exp and an F-wide scaled add.
     nbytes = itemsize * (2 * N * K4_K + 2 * N * K4_F) + 4 * (N + 1) + 4 * E
     flops = E * (2 * K4_K + 2 * K4_F)
     bound_ms, bound_by = sparse_bound(dtype_name, nbytes, flops)
+    folded, g_in, h_in = fold(torch, kernel.plan, g, h, l2)
     row.update({
         "ms": time_ms(torch, lambda: sparse_attention.attend_forward(f, g, h, kernel.plan), flush),
+        "device_ms": time_ms(torch, lambda: sparse_attention.attend_forward(f, g, h, kernel.plan), flush, cover=True),
+        "one_slice_ms": time_ms(torch, lambda: sparse_attention._launch(f, g, h, kernel.plan, one), flush),
+        "one_slice_device_ms": time_ms(torch, lambda: sparse_attention._launch(f, g, h, kernel.plan, one), flush,
+                                       cover=True),
+        "in_l2_device_ms": time_ms(torch, lambda: sparse_attention._launch(f, g_in, h_in, folded, planned), flush,
+                                   cover=True),
         "plain_ms": time_ms(torch, lambda: sparse_attention.attend_reference(f, g, h, kernel.plan), flush),
         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
         "gather_floor_ms": (E * (K4_K + K4_F) * itemsize + nbytes) / HBM_BYTES_PER_S * 1e3,
@@ -2271,7 +2313,7 @@ def phase_gather_probe(torch, card: str, kernel_rows):
             continue
         floors[row["kernel"]] = {"measured_gather_floor_ms": floor_ms, "kernel_ms": row["ms"],
                                  **{key: row[key] for key in ("device_ms", "one_slice_ms", "one_slice_device_ms",
-                                                              "slices") if key in row}}
+                                                              "slices", "in_l2_device_ms") if key in row}}
         log(f"[gather_probe] measured gather floor of {row['kernel']} bf16: {floor_ms:.4f} ms "
             f"({'E / C' if row['kernel'].startswith('K4') else 'kept edges / A'} rate) against the kernel's "
             f"{row['ms']:.4f} ms{slicing_note(row)} and the HBM-peak estimate {row['gather_floor_ms']:.4f} ms")
@@ -2419,8 +2461,8 @@ def main() -> int:
             "bound_fp32_ms": row.get("bound_fp32_ms"),
             "library_ms": row["library_ms"],
             "shape": shape,
-            **{key: row[key] for key in ("slices", "slice_cols", "l2_bytes", "one_slice_ms", "one_slice_device_ms")
-               if key in row},
+            **{key: row[key] for key in ("slices", "slice_cols", "l2_bytes", "one_slice_ms", "one_slice_device_ms",
+                                         "group", "blocks", "in_l2_device_ms") if key in row},
         })
     record["kernels"] = kernels
     write_record(record)

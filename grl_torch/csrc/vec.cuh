@@ -74,7 +74,8 @@ __device__ __forceinline__ void store16_stream(T* p, const float (&x)[kElems]) {
 
 // An L2 policy that keeps the lines it loads resident past lines of normal
 // or evict_first priority: K5 and K6 gather the column slice they walk
-// with it, while their edge metadata and outputs stream through.
+// with it, and K4 its g rows, while their edge metadata and outputs stream
+// through.
 __device__ __forceinline__ uint64_t l2_evict_last() {
   uint64_t policy;
   asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));

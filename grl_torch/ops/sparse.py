@@ -175,7 +175,7 @@ def drop_edge_coo(
 
 
 # ---------------------------------------------------------------------------
-# Column slices of a gathered operand (K5 and K6)
+# Column slices of a gathered operand (K5, K6 and K4)
 # ---------------------------------------------------------------------------
 # Share of the card's L2 that the source bytes of one column slice may take.
 # Measured on an H100 (PERF.md; python grl_torch/probes/slices.py): at the
@@ -190,26 +190,34 @@ def l2_bytes(device_index: int) -> int:
     return int(torch.cuda.get_device_properties(device_index).L2_cache_size)
 
 
-def gather_slices(num_src_rows: int, F: int, itemsize: int, l2_bytes: int) -> List[Tuple[int, int]]:
-    """The column slices ``[(col0, cols), ...]`` in which K5 and K6 walk an
-    ``(num_src_rows, F)`` gathered operand of ``itemsize``-byte elements.
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``device_index``, read once."""
+    return int(torch.cuda.get_device_properties(device_index).multi_processor_count)
+
+
+def gather_slices(num_src_rows: int, F: int, itemsize: int, l2_bytes: int,
+                  resident_bytes: int = 0) -> List[Tuple[int, int]]:
+    """The column slices ``[(col0, cols), ...]`` in which K5, K6 and K4 walk
+    an ``(num_src_rows, F)`` gathered operand of ``itemsize``-byte elements.
 
     Each output column depends on the same input column alone, so the
     kernels may sum a slice of columns over every row before the next
     slice: the gathers of a slice then hit the rows of that slice alone.
-    One slice when all of X fits ``L2_SLICE_SHARE * l2_bytes``; otherwise
-    slices of the largest power-of-two number of 16-byte vectors whose
-    source bytes (``num_src_rows * cols * itemsize``) fit it, at least one
-    vector, the last one narrower where F is not a multiple. A power of two
-    keeps a slice row on whole 128-byte L2 lines when a row is a multiple
-    of them.
+    ``resident_bytes`` are gathered beside every slice and take their part
+    of the budget first (K4: all of g). One slice when all of X fits
+    ``L2_SLICE_SHARE * l2_bytes - resident_bytes``; otherwise slices of the
+    largest power-of-two number of 16-byte vectors whose source bytes
+    (``num_src_rows * cols * itemsize``) fit it, at least one vector, the
+    last one narrower where F is not a multiple. A power of two keeps a
+    slice row on whole 128-byte L2 lines when a row is a multiple of them.
     """
     per_vec = 16 // itemsize
     if F % per_vec:
         raise ValueError(f"F = {F} is not a whole number of 16-byte vectors of {itemsize}-byte elements")
     vecs = F // per_vec
     column_bytes = 16 * num_src_rows  # the source bytes of one vector column
-    budget = L2_SLICE_SHARE * l2_bytes
+    budget = L2_SLICE_SHARE * l2_bytes - resident_bytes
     if vecs * column_bytes <= budget:
         return [(0, F)]
     width = 1

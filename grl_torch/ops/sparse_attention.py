@@ -14,7 +14,10 @@ The plan is a receiver-major CSR (row pointers and senders, in the stable
 order of the edge list). The forward is K4 (``grl_torch/csrc/
 sparse_attention.cu``): one launch for every receiver, whatever its
 degree, where the TPU split receivers into degree buckets and sent hubs
-wider than ``MAX_PALLAS_WIDTH = 32`` to XLA (:188-191). The backward is
+wider than ``MAX_PALLAS_WIDTH = 32`` to XLA (:188-191). How it is laid
+out on the card (lanes a receiver, column slices of h sized for the L2,
+blocks) is :func:`attention_launch`, a pure function of
+the shapes and the card's L2 and SM count. The backward is
 plain PyTorch on the same edge order, as the TPU computed it in XLA
 outside Pallas (``attend_bwd``, :206-259): recompute the scores and alpha,
 ``dalpha = <dout[r], h[s]>``, ``dscore = alpha (dalpha - sum alpha dalpha)``,
@@ -29,16 +32,35 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from grl_torch.ops import _build
 from grl_torch.ops.segment import segment_softmax, segment_sum
+from grl_torch.ops.sparse import gather_slices, l2_bytes, slice_grid, sm_count
 
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
-_MAX_K = 1024  # f rows staged in shared memory: 8 warps x K floats
+_MAX_K = 1024
+THREADS = 256  # a block of K4
+# Blocks of K4 an SM holds at once: the kernel is built for at most 64
+# registers a thread (256 threads a block), and its rings take at most
+# 32 KB of shared memory a block. The plan's grid is one wave of them.
+BLOCKS_PER_SM = 4
+# The narrowest slice row of h that K4's plan takes. Every slice walks the
+# receivers again and scores them again from g: on an H100 at the arxiv
+# shape (K = 16, F = 128) slice rows under 256 bytes lost to 256 in both
+# dtypes, also where they fitted the L2 with g and 256 did not (PERF.md;
+# python grl_torch/probes/attention.py).
+MIN_SLICE_BYTES = 256
+# K4 slices h only where a slice of h and all of g take at most this many
+# times the L2. On an H100 (the same probe, on the arxiv graph tiled with
+# senders spread over every copy) slices of 256-byte rows beat one slice
+# at 49-54 MB and 97.5 MB of slice and g, and lost at 108 MB and more
+# (by 5-16%): past that each slice misses the L2 about as often as one
+# slice does, and its extra walk costs more than the misses it saves.
+SLICED_L2_MULTIPLE = 2
 
 
 class AttentionPlan(NamedTuple):
@@ -108,15 +130,51 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("sparse_attention")
     lib.grl_sparse_attention.argtypes = (
         [ctypes.c_void_p] * 6  # rowptr, senders, f, g, h, out
-        + [ctypes.c_int] * 4  # N, K, F, dtype
+        + [ctypes.c_int] * 8  # N, K, F, slice_cols, num_slices, group_log2, blocks, dtype
         + [ctypes.c_int, ctypes.c_void_p]  # device, stream
     )
     lib.grl_sparse_attention.restype = ctypes.c_int
     return lib
 
 
-def _launch(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, plan: AttentionPlan) -> torch.Tensor:
-    """Launch K4 on the current stream; no synchronisation."""
+class AttentionLaunch(NamedTuple):
+    """How K4 is laid out on the card."""
+
+    group: int  # lanes that own one receiver: a power of two, 1..32
+    slices: List[Tuple[int, int]]  # column slices (col0, cols) of h, as sparse.slice_grid takes them
+    blocks: int  # blocks of THREADS threads in each slice's grid row
+
+
+def attention_launch(N: int, K: int, F: int, itemsize: int, l2_bytes: int, sm_count: int) -> AttentionLaunch:
+    """K4's layout for ``N`` receivers, ``(N, K)`` f and g and
+    ``(N, F)`` h of ``itemsize``-byte elements on a card with an L2 of
+    ``l2_bytes`` and ``sm_count`` SMs.
+
+    h is walked in the column slices of :func:`~grl_torch.ops.sparse.gather_slices`,
+    with all of g counted beside each slice, since every slice scores its
+    receivers again from g, and widened to rows of ``MIN_SLICE_BYTES`` at
+    least; in one slice where such a slice and g take more than
+    ``SLICED_L2_MULTIPLE`` times the L2. A group has a lane for
+    each 16-byte vector of a slice row, rounded up to a power of two and at
+    most 32. The grid row is one wave of blocks, or fewer where the
+    receivers need fewer. No part of it depends on the degrees.
+    """
+    g_bytes = N * K * itemsize
+    cols = max(gather_slices(N, F, itemsize, l2_bytes, resident_bytes=g_bytes)[0][1], MIN_SLICE_BYTES // itemsize)
+    if N * cols * itemsize + g_bytes > SLICED_L2_MULTIPLE * l2_bytes:
+        cols = F
+    slices = [(c0, min(cols, F - c0)) for c0 in range(0, F, cols)]
+    vecs = slices[0][1] * itemsize // 16
+    group = min(32, 1 << (vecs - 1).bit_length())
+    blocks = max(1, min(-(-N // (THREADS // group)), sm_count * BLOCKS_PER_SM))
+    return AttentionLaunch(group, slices, blocks)
+
+
+def _launch(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, plan: AttentionPlan,
+            launch: Optional[AttentionLaunch] = None) -> torch.Tensor:
+    """Launch K4 on the current stream, once, laid out by ``launch`` (by
+    default :func:`attention_launch` for this card; the tests and
+    ``chip_smoke.py`` force one slice or several); no synchronisation."""
     if h.dtype not in _DTYPE_CODES or f.dtype != h.dtype or g.dtype != h.dtype:
         raise TypeError(f"CUDA K4 takes f, g, h all float32 or all bfloat16; got "
                         f"{f.dtype}, {g.dtype}, {h.dtype}")
@@ -124,17 +182,25 @@ def _launch(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, plan: AttentionPl
     F = h.shape[-1]
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (f, g, h)):
         raise ValueError("CUDA K4 needs contiguous, 16-byte aligned f, g and h")
-    if F % 8 or K > _MAX_K:
-        raise ValueError(f"CUDA K4 needs F a multiple of 8 and K <= {_MAX_K}; got F={F}, K={K}")
+    if F % 8 or not 1 <= K <= _MAX_K:
+        raise ValueError(f"CUDA K4 needs F a multiple of 8 and 1 <= K <= {_MAX_K}; got F={F}, K={K}")
     if plan.rowptr.device != h.device:
         raise ValueError(f"plan on {plan.rowptr.device} but h on {h.device}")
+    itemsize = h.element_size()
+    if launch is None:
+        launch = attention_launch(N, K, F, itemsize, l2_bytes(h.device.index), sm_count(h.device.index))
+    slice_cols, num_slices = slice_grid(launch.slices, F, itemsize)
+    group = launch.group
+    if group < 1 or group > 32 or group & (group - 1) or launch.blocks < 1:
+        raise ValueError(f"K4 cannot launch {launch}")
     out = torch.empty(N, F, dtype=h.dtype, device=h.device)
     if out.numel() == 0:
         return out
     lib = _library()
     err = lib.grl_sparse_attention(
         plan.rowptr.data_ptr(), plan.senders.data_ptr(), f.data_ptr(), g.data_ptr(),
-        h.data_ptr(), out.data_ptr(), N, K, F, _DTYPE_CODES[h.dtype],
+        h.data_ptr(), out.data_ptr(), N, K, F, slice_cols, num_slices, group.bit_length() - 1,
+        launch.blocks, _DTYPE_CODES[h.dtype],
         h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check_launch(lib, err, "K4")

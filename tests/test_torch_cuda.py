@@ -1,8 +1,8 @@
 """K1-K6 and P on the card: the CUDA kernels against their plain versions
 (bf16 K1/K2, and bf16 K3 at N % 8 == 0 and F % 8 == 0: dropedge_sm90.cu;
 bf16 K3 at other N or F: relagg_ragged.cu; f32 K1, K2 and K3:
-dropedge_f32.cu; the rest as named in their modules), and K5 and K6 at
-every column slicing.
+dropedge_f32.cu; the rest as named in their modules), and K5, K6 and K4
+at every column slicing.
 
 Needs an NVIDIA GPU and nvcc; elsewhere every test skips. This file
 imports neither JAX nor grl_tpu, so it runs on a machine without them,
@@ -17,7 +17,7 @@ import torch
 
 import numpy as np
 
-from grl_torch.ops import csr_spmm, ell, hashing, relagg, sparse_attention
+from grl_torch.ops import csr_spmm, ell, hashing, relagg, sparse, sparse_attention
 from grl_torch.probes import gather
 
 pytestmark = pytest.mark.cuda
@@ -438,26 +438,67 @@ def test_k5_keep_set_is_the_plain_hash(dtype):
     assert np.array_equal(seen.cpu().numpy(), expected)
 
 
-def attention_problem(N, E, K, F, dtype, seed=0):
+def attention_problem(N, E, K, F, dtype, seed=0, degrees=()):
+    """Random edges into all but the last 7 receivers, a hub of 300 edges
+    at receiver 3, and receivers 4, 5, ... of exactly ``degrees`` edges."""
     rng = np.random.RandomState(seed)
     senders = rng.randint(0, N, E)
     receivers = rng.randint(0, N - 7, E)  # 7 receivers with no edge
     receivers[:300] = 3  # a hub far wider than 32
+    special = 4 + np.arange(len(degrees))
+    other = ~np.isin(receivers, special)
+    receivers = np.concatenate([receivers[other], np.repeat(special, degrees)])
+    senders = np.concatenate([senders[other], rng.randint(0, N, int(np.sum(degrees)))])
     kernel = sparse_attention.SparseAttentionKernel(senders, receivers, N, device="cuda")
     f, g, h = (torch.randn(N, d, device="cuda").to(dtype) for d in (K, K, F))
     return kernel, f, g, h
 
 
+def k4_plan(N, K, F, dtype):
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return sparse_attention.attention_launch(N, K, F, itemsize, sparse.l2_bytes(0), sparse.sm_count(0))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K, F", [(16, 128), (2, 16), (12, 264), (16, 1040)])
 def test_k4_matches_plain_version(K, F, dtype):
-    kernel, f, g, h = attention_problem(3000, 20000, K, F, dtype, seed=K + F)
+    """One launch through ``attend``, within SPARSE_TOL of the plain version,
+    with zero rows for the receivers that have no edge, on a graph with a
+    300-edge hub, receivers of degree G - 1, G and G + 1 for the plan's
+    group G, and N not a multiple of the receivers a block holds. A second
+    launch and the plan forced to one slice, to two and to one vector a
+    slice give the same bits."""
+    N = 3001
+    planned = k4_plan(N, K, F, dtype)
+    group = planned.group
+    assert N % (sparse_attention.THREADS // group)
+    kernel, f, g, h = attention_problem(N, 20000, K, F, dtype, seed=K + F,
+                                        degrees=(max(group - 1, 1), group, group + 1))
     launched = sparse_attention.attend_forward.launches
     out = kernel.attend(f, g, h)
     torch.cuda.synchronize()
     assert sparse_attention.attend_forward.launches == launched + 1
     assert_close_to_plain(out, sparse_attention.attend_reference(f, g, h, kernel.plan))
     assert torch.all(out[-7:] == 0)
+    launches = [planned] + [planned._replace(slices=plan) for plan in slice_plans(F, h.element_size())]
+    for launch in launches:
+        assert torch.equal(sparse_attention._launch(f, g, h, kernel.plan, launch), out), launch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+def test_k4_every_group_matches_plain_version(group, dtype):
+    """Groups of any width, in one slice and in one vector a slice (other
+    rounds of the online softmax than the plan's: within SPARSE_TOL)."""
+    kernel, f, g, h = attention_problem(1001, 9000, 16, 128, dtype, seed=group,
+                                        degrees=(group - 1, group, group + 1, 2 * group + 1))
+    ref = sparse_attention.attend_reference(f, g, h, kernel.plan)
+    planned = k4_plan(1001, 16, 128, dtype)
+    for plan in slice_plans(128, h.element_size())[::2]:
+        out = sparse_attention._launch(f, g, h, kernel.plan, planned._replace(group=group, slices=plan))
+        torch.cuda.synchronize()
+        assert_close_to_plain(out, ref)
+        assert torch.all(out[-7:] == 0)
 
 
 def test_k4_gradients_are_the_plain_backward():
