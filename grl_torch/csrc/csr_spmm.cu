@@ -56,6 +56,7 @@
 // once more), which is why narrower slices, whose V stays in L2 whole,
 // lose: 64-column slices cost more than their hits save.
 
+#include <atomic>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -104,8 +105,9 @@ __global__ void __launch_bounds__(kThreads)
 csr_accumulate_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
                       const int* __restrict__ gids, const float* __restrict__ weights,
                       const T* __restrict__ X, T* __restrict__ out, int rows, int F,
-                      int col0, int slice_cols, int group_log2, int use_hash, uint32_t seed,
+                      int col0, int slice_cols, int group_log2, int use_hash, const uint32_t* __restrict__ seed_ptr,
                       float keep) {
+  const uint32_t seed = use_hash ? __ldg(seed_ptr) : 0u;  // the mask's seed, in device memory
   constexpr int kElems = grl::Vec<T>::kElems;
   const int group = 1 << group_log2;
   const int lane = threadIdx.x & (group - 1);
@@ -201,23 +203,29 @@ csr_accumulate_kernel(const int* __restrict__ rowptr, const int* __restrict__ co
 
 inline unsigned cdiv(long long a, long long b) { return static_cast<unsigned>((a + b - 1) / b); }
 
-// Blocks of `kernel` the card holds at once (one grid row of the launch).
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int device, unsigned* blocks) {
+// Blocks of kKernel the card holds at once (one grid row of the launch),
+// asked of the runtime at the kernel's first launch on each device and kept:
+// later launches, and those captured into a CUDA graph, make no query.
+template <auto kKernel>
+cudaError_t resident_blocks(int device, unsigned* blocks) {
+  static std::atomic<unsigned> cached[64] = {};
+  const bool cacheable = device >= 0 && device < 64;
+  if (cacheable && (*blocks = cached[device].load(std::memory_order_acquire)) != 0) return cudaSuccess;
   int per_sm = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel, kThreads, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess && per_sm * sms < 1) err = cudaErrorInvalidConfiguration;
   *blocks = static_cast<unsigned>(per_sm * sms);
+  if (err == cudaSuccess && cacheable) cached[device].store(*blocks, std::memory_order_release);
   return err;
 }
 
 template <typename T, int kVecs>
 int launch_with(const int* rowptr, const int* cols, const int* gids, const float* weights, const T* x,
                 T* o, int rows, int F, int col0, int slice_cols, int num_slices, int group_log2,
-                int use_hash, uint32_t seed, float keep, int device, cudaStream_t stream) {
+                int use_hash, const uint32_t* seed, float keep, int device, cudaStream_t stream) {
   unsigned resident = 0;
-  const cudaError_t err = resident_blocks(csr_accumulate_kernel<T, kVecs>, device, &resident);
+  const cudaError_t err = resident_blocks<csr_accumulate_kernel<T, kVecs>>(device, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned needed = cdiv(rows, kThreads >> group_log2);
   // A grid row of at most one wave, so that the rows of slice s are all
@@ -232,7 +240,7 @@ int launch_with(const int* rowptr, const int* cols, const int* gids, const float
 template <typename T>
 int launch(const int* rowptr, const int* cols, const int* gids, const float* weights,
            const void* X, void* out, int rows, int F, int col0, int slice_cols, int num_slices,
-           int use_hash, uint32_t seed, float keep, int device, cudaStream_t stream) {
+           int use_hash, const uint32_t* seed, float keep, int device, cudaStream_t stream) {
   constexpr int kElems = grl::Vec<T>::kElems;
   if (F % kElems != 0 || col0 < 0 || col0 % kElems != 0 || slice_cols <= 0 ||
       slice_cols % kElems != 0 || num_slices < 1 || num_slices > 65535 ||
@@ -262,11 +270,13 @@ int launch(const int* rowptr, const int* cols, const int* gids, const float* wei
 // in num_slices slices of slice_cols columns, the last one clipped at F
 // (grid row s: the slice from col0 + s * slice_cols); columns outside them
 // are not written. dtype: 0 = float32, 1 = bfloat16; F, col0 and
-// slice_cols multiples of 16 bytes; X and out 16-byte aligned.
+// slice_cols multiples of 16 bytes; X and out 16-byte aligned. seed
+// points at the mask's seed in device memory (one uint32), read only
+// where use_hash is set.
 extern "C" int grl_csr_accumulate(const void* rowptr, const void* cols, const void* gids,
                                   const void* weights, const void* X, void* out, int rows,
                                   int F, int col0, int slice_cols, int num_slices, int dtype,
-                                  int use_hash, uint32_t seed, float keep, int device,
+                                  int use_hash, const uint32_t* seed, float keep, int device,
                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -153,7 +153,8 @@ __device__ __forceinline__ void cp_async_wait() {
 template <int kVec>
 __global__ void __launch_bounds__(kThreads, 1)
 dropedge_bwd_f32_kernel(const float* __restrict__ A, const float* __restrict__ g, float* __restrict__ dV,
-                        int N, int NL, int F, int steps_per_split, uint32_t seed, float keep) {
+                        int N, int NL, int F, int steps_per_split, const uint32_t* __restrict__ seed_ptr,
+                        float keep) {
   constexpr int kRowChunks = kBM / kVec;                   // copies a 128-wide row
   constexpr int kChunks = kBK * kRowChunks / kThreads;     // copies a thread, each operand
   static_assert(kBM == kBN && kChunks * kThreads == kBK * kRowChunks, "tile");
@@ -163,6 +164,7 @@ dropedge_bwd_f32_kernel(const float* __restrict__ A, const float* __restrict__ g
   const int split = static_cast<int>(cluster.block_rank());
   const int f0 = (blockIdx.x / S) * kBN, m0 = blockIdx.y * kBM, b = blockIdx.z;
   const int row0 = split * steps_per_split * kBK;  // the split's first reduction row
+  const uint32_t seed = __ldg(seed_ptr);
   const int tid = threadIdx.x;
   // Thread (ty, tx) of 16 x 16 owns output rows ty*4.. and 64 + ty*4..,
   // columns tx*4.. and 64 + tx*4..; warp w covers ty 4 (w / 2).. and tx
@@ -374,7 +376,9 @@ __device__ __forceinline__ void forward_store(float* __restrict__ out, float x0,
 template <int kVec, bool kMask>
 __global__ void __launch_bounds__(kThreads, 1)
 dropedge_fwd_f32_kernel(const float* __restrict__ A, const float* __restrict__ V, float* __restrict__ out,
-                        int B, int N, int NL, int F, int steps, uint32_t seed, float keep) {
+                        int B, int N, int NL, int F, int steps, const uint32_t* __restrict__ seed_ptr,
+                        float keep) {
+  const uint32_t seed = kMask ? __ldg(seed_ptr) : 0u;  // K3 passes no seed
   constexpr int kAChunksRow = kFwdBK / kVec;             // copies a 32-wide A row
   constexpr int kVChunksRow = kBN / kVec;                // copies a 128-wide V row
   constexpr int kChunks = kBM * kAChunksRow / kThreads;  // copies a thread, each operand
@@ -617,7 +621,7 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int S, int smem, cudaStream_t strea
 // its `steps` reduction steps split S ways.
 template <auto kKernel, int kBytes>
 int launch(const float* a, const float* x, float* out, unsigned x_tiles, unsigned y_tiles, int B, int N, int NL,
-           int F, int steps, int S, uint32_t seed, float keep, int device, cudaStream_t stream) {
+           int F, int steps, int S, const uint32_t* seed, float keep, int device, cudaStream_t stream) {
   if (S < 1 || S > kMaxSplits || steps % S != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = raise_smem_limit<kKernel, kBytes>(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -642,7 +646,8 @@ int launch(const float* a, const float* x, float* out, unsigned x_tiles, unsigne
 // K2: dV = (A * keep(gid) / keep)^T @ g over A's (N*L, N) view, the N*L rows
 // split S ways, S a divisor of ceil(N*L / 32) and at most 8.
 extern "C" int grl_dropedge_f32_backward(const void* A, const void* g, void* dV, int B, int N, int L, int F,
-                                         int S, int vec, uint32_t seed, float keep, int device, void* stream) {
+                                         int S, int vec, const uint32_t* seed, float keep, int device,
+                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (vec == 2 || !valid_shape(B, N, L, F, vec, cdiv(N, kBM), A, g, dV))
@@ -660,8 +665,8 @@ extern "C" int grl_dropedge_f32_backward(const void* A, const void* g, void* dV,
 }
 
 template <auto kKernel>
-int launch_forward(const float* a, const float* v, float* o, int B, int N, int L, int F, int blocks, uint32_t seed,
-                   float keep, int device, cudaStream_t stream) {
+int launch_forward(const float* a, const float* v, float* o, int B, int N, int L, int F, int blocks,
+                   const uint32_t* seed, float keep, int device, cudaStream_t stream) {
   const long long tiles = static_cast<long long>(B) * cdiv(N * L, kBM) * cdiv(F, kBN);
   if (blocks < 1 || blocks > tiles) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = raise_smem_limit<kKernel, kFwdSmemBytes>(device);
@@ -675,9 +680,10 @@ int launch_forward(const float* a, const float* v, float* o, int B, int N, int L
 // keep) @ V, or A @ V, over A's (N*L, N) view in tiles of 128 x 128, on
 // `blocks` blocks (1 to the tile count), block c walking tiles c,
 // c + blocks... K1 at keep 1 gives K3's bits: it drops nothing and
-// multiplies by exactly 1.
+// multiplies by exactly 1. `seed` points at the mask's seed in device
+// memory (one uint32; K3 reads none and may pass null).
 extern "C" int grl_dropedge_f32_forward(const void* A, const void* V, void* out, int B, int N, int L, int F,
-                                        int blocks, int vec, int mask, uint32_t seed, float keep, int device,
+                                        int blocks, int vec, int mask, const uint32_t* seed, float keep, int device,
                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

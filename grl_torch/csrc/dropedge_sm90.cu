@@ -206,8 +206,8 @@ template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 dropedge_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                          const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
-                         int N, int NL, int F, uint32_t seed, float keep) {
-  forward_body<BN, true>(&map_a, &map_v, out, N, NL, F, seed, keep);
+                         int N, int NL, int F, const uint32_t* __restrict__ seed, float keep) {
+  forward_body<BN, true>(&map_a, &map_v, out, N, NL, F, __ldg(seed), keep);
 }
 
 // K3.
@@ -230,7 +230,8 @@ template <int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 dropedge_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                          const __grid_constant__ CUtensorMap map_g, __nv_bfloat16* __restrict__ dV,
-                         int N, int NL, int F, int steps_per_split, uint32_t seed, float keep) {
+                         int N, int NL, int F, int steps_per_split, const uint32_t* __restrict__ seed_ptr,
+                         float keep) {
   constexpr int kStride = BN + 8;  // partial row, float32: shifts rows by 8 banks
   extern __shared__ uint8_t smem_raw[];
   const Ring ring = make_ring(smem_raw, bwd_ring(BN));
@@ -240,6 +241,7 @@ dropedge_bwd_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
   const int f0 = (blockIdx.x / S) * BN, m0 = blockIdx.y * kTile, b = blockIdx.z;
   const int step0 = split * steps_per_split;
   const int tid = threadIdx.x;
+  const uint32_t seed = __ldg(seed_ptr);
   float* partial = reinterpret_cast<float*>(ring.base);
 
   if (tid >= kConsumers) {
@@ -363,7 +365,7 @@ cudaError_t raise_smem_limit(int device) {
 // K1 (kMask) or K3.
 template <int BN, bool kMask>
 int launch_forward(const void* A, const void* V, void* out, int B, int N, int L, int F,
-                   uint32_t seed, float keep, int device, cudaStream_t stream) {
+                   const uint32_t* seed, float keep, int device, cudaStream_t stream) {
   CUtensorMap map_a, map_v;
   if (!encode(&map_a, A, N, N * L, B) || !encode(&map_v, V, F, N, B))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -397,7 +399,7 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int smem, int S, cudaStream_t strea
 
 template <int BN>
 int launch_backward(const void* A, const void* g, void* dV, int B, int N, int L, int F, int S,
-                    uint32_t seed, float keep, int device, cudaStream_t stream) {
+                    const uint32_t* seed, float keep, int device, cudaStream_t stream) {
   const int steps = static_cast<int>(cdiv(N * L, kTile));
   if (S < 1 || S > kMaxSplits || steps % S != 0) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_a, map_g;
@@ -450,14 +452,16 @@ extern "C" int grl_relagg_sm90_forward(const void* A, const void* V, void* out, 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!valid_shape(A, V, out, B, N, L, F)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GRL_AGGREGATE(bn) launch_forward<bn, false>(A, V, out, B, N, L, F, 0u, 1.0f, device, s)
+#define GRL_AGGREGATE(bn) launch_forward<bn, false>(A, V, out, B, N, L, F, nullptr, 1.0f, device, s)
   GRL_DISPATCH(BN, GRL_AGGREGATE)
 #undef GRL_AGGREGATE
 }
 
-// K1: out = (A * keep(gid) / keep) @ V.
+// K1: out = (A * keep(gid) / keep) @ V. `seed` points at the mask's seed in
+// device memory (one uint32, read by the kernel), so that a launch captured
+// in a CUDA graph reads the value the graph's earlier work wrote there.
 extern "C" int grl_dropedge_sm90_forward(const void* A, const void* V, void* out, int B, int N, int L,
-                                         int F, int BN, uint32_t seed, float keep, int device,
+                                         int F, int BN, const uint32_t* seed, float keep, int device,
                                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -471,7 +475,7 @@ extern "C" int grl_dropedge_sm90_forward(const void* A, const void* V, void* out
 // K2: dV = (A * keep(gid) / keep)^T @ g over A's (N*L, N) view, the N*L
 // rows split S ways, S a divisor of ceil(N*L / 64) and at most 8.
 extern "C" int grl_dropedge_sm90_backward(const void* A, const void* g, void* dV, int B, int N, int L,
-                                          int F, int BN, int S, uint32_t seed, float keep,
+                                          int F, int BN, int S, const uint32_t* seed, float keep,
                                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

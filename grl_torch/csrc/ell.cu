@@ -61,6 +61,7 @@
 // 4 TB/s on an H100) are the floor, and each slice walks the rows again:
 // the tables, ~16 MB, read and hashed once a slice.
 
+#include <atomic>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -134,7 +135,8 @@ ell_accumulate_kernel(const int* __restrict__ idx, const float* __restrict__ wei
                       const int* __restrict__ gid, const int* __restrict__ buckets,
                       int num_buckets, const int* __restrict__ perm, const T* __restrict__ X,
                       T* __restrict__ out, int rows, int F, int col0, int slice_cols,
-                      int group_log2, int use_hash, uint32_t seed, float keep) {
+                      int group_log2, int use_hash, const uint32_t* __restrict__ seed_ptr, float keep) {
+  const uint32_t seed = use_hash ? __ldg(seed_ptr) : 0u;  // the mask's seed, in device memory
   constexpr int kElems = grl::Vec<T>::kElems;
   const int group = 1 << group_log2;
   const int lane = threadIdx.x & (group - 1);
@@ -227,24 +229,30 @@ ell_accumulate_kernel(const int* __restrict__ idx, const float* __restrict__ wei
 
 inline unsigned cdiv(long long a, long long b) { return static_cast<unsigned>((a + b - 1) / b); }
 
-// Blocks of `kernel` the card holds at once (one grid row of the launch).
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int device, unsigned* blocks) {
+// Blocks of kKernel the card holds at once (one grid row of the launch),
+// asked of the runtime at the kernel's first launch on each device and kept:
+// later launches, and those captured into a CUDA graph, make no query.
+template <auto kKernel>
+cudaError_t resident_blocks(int device, unsigned* blocks) {
+  static std::atomic<unsigned> cached[64] = {};
+  const bool cacheable = device >= 0 && device < 64;
+  if (cacheable && (*blocks = cached[device].load(std::memory_order_acquire)) != 0) return cudaSuccess;
   int per_sm = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel, kThreads, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess && per_sm * sms < 1) err = cudaErrorInvalidConfiguration;
   *blocks = static_cast<unsigned>(per_sm * sms);
+  if (err == cudaSuccess && cacheable) cached[device].store(*blocks, std::memory_order_release);
   return err;
 }
 
 template <typename T, int kVecs>
 int launch_with(const int* idx, const float* weight, const int* gid, const int* buckets, int num_buckets,
                 const int* perm, const T* x, T* o, int rows, int F, int col0, int slice_cols,
-                int num_slices, int group_log2, int use_hash, uint32_t seed, float keep, int device,
+                int num_slices, int group_log2, int use_hash, const uint32_t* seed, float keep, int device,
                 cudaStream_t stream) {
   unsigned resident = 0;
-  const cudaError_t err = resident_blocks(ell_accumulate_kernel<T, kVecs>, device, &resident);
+  const cudaError_t err = resident_blocks<ell_accumulate_kernel<T, kVecs>>(device, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   // A grid row of at most one wave, so that the rows of slice s are all
   // walked before those of slice s + 1 start, and each group walks several
@@ -259,7 +267,7 @@ int launch_with(const int* idx, const float* weight, const int* gid, const int* 
 template <typename T>
 int launch(const int* idx, const float* weight, const int* gid, const int* buckets,
            int num_buckets, const int* perm, const void* X, void* out, int rows, int F, int col0,
-           int slice_cols, int num_slices, int use_hash, uint32_t seed, float keep, int device,
+           int slice_cols, int num_slices, int use_hash, const uint32_t* seed, float keep, int device,
            cudaStream_t stream) {
   constexpr int kElems = grl::Vec<T>::kElems;
   if (F % kElems != 0 || num_buckets < 1 || col0 < 0 || col0 % kElems != 0 || slice_cols <= 0 ||
@@ -292,12 +300,14 @@ int launch(const int* idx, const float* weight, const int* gid, const int* bucke
 // walked in num_slices slices of slice_cols columns, the last one clipped
 // at F (grid row s: the slice from col0 + s * slice_cols); columns outside
 // them are not written. dtype: 0 = float32, 1 = bfloat16; F, col0 and
-// slice_cols multiples of 16 bytes; X and out 16-byte aligned.
+// slice_cols multiples of 16 bytes; X and out 16-byte aligned. seed
+// points at the mask's seed in device memory (one uint32), read only
+// where use_hash is set.
 extern "C" int grl_ell_accumulate(const void* idx, const void* weight, const void* gid,
                                   const void* buckets, const void* perm, const void* X,
                                   void* out, int num_buckets, int rows, int F, int col0,
                                   int slice_cols, int num_slices, int dtype, int use_hash,
-                                  uint32_t seed, float keep, int device, void* stream) {
+                                  const uint32_t* seed, float keep, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int* i = static_cast<const int*>(idx);

@@ -11,6 +11,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from grl_torch.data import native
 from grl_torch.data.features import encode_textlines
 from grl_torch.data.graph_builder import build_heuristic_adjacency
 
@@ -56,9 +57,11 @@ class HeuristicGraphBuilder(BaseDataProcess):
     ``(N, num_edges, N)`` float16 (reference:
     data_process/heuristic_graph_builder.py:56-83).
 
-    Always builds with the pure-Python builder; ``use_native`` is accepted
-    for config compatibility with ``grl_tpu`` and returns the same arrays.
-    The binding of the C++ builder is queued in ROADMAP.md.
+    ``use_native`` (the default, as in ``grl_tpu``) builds through the C++
+    builder (:func:`grl_torch.data.native.build_heuristic_adjacency_fast`,
+    which keeps ``grl_tpu``'s scope rules); ``use_native: false`` builds in
+    Python. Both give the same arrays; ``native.pages`` counts the pages
+    each built.
     """
 
     def __init__(self, num_edges: int = 6, edge_type: str = "normal_binary",
@@ -83,9 +86,12 @@ class HeuristicGraphBuilder(BaseDataProcess):
             }
             for line in lines
         ]
-        sample["adjacency_matrix"] = build_heuristic_adjacency(
-            items, self.edge_type, self.num_edges
-        )
+        if self.use_native:
+            adjacency = native.build_heuristic_adjacency_fast(items, self.edge_type, self.num_edges)
+        else:
+            adjacency = build_heuristic_adjacency(items, self.edge_type, self.num_edges)
+            native.pages["python"] += 1
+        sample["adjacency_matrix"] = adjacency
         return sample
 
 

@@ -98,8 +98,8 @@ class GCNTrunk(nn.Module):
         """Kernel aggregation (``_pallas_agg``, ``gcn_family.py:74-99``):
         ``(self_term, neigh (B,N,L,F))``.
 
-        In training, K1 draws the neighbor mask from a fresh host-drawn seed
-        (K2 regenerates it in the backward), and the self term takes a
+        In training, K1 draws the neighbor mask from a fresh seed drawn on
+        the device (K2 regenerates it in the backward from the same tensor), and the self term takes a
         ``(B, N)`` keep mask from the device generator: the diagonal of
         relation 0 of the preprocessed operand, which the kernel never sees.
         """

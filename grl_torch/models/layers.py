@@ -43,26 +43,27 @@ class Rngs:
 
     ``device`` is a generator on the tensors' device and draws every mask
     (dropout, DropEdge on the plain path, the self-loop mask of the kernel
-    path). ``host`` is a CPU generator and draws the integer seeds of the
-    DropEdge kernels K1/K2, so that drawing a seed never waits on the
-    device. Both advance with every draw: one ``Rngs`` serves a run.
+    path) and every seed of the DropEdge kernels K1/K2, K5 and K6
+    (:meth:`kernel_seed`): a one-element tensor on the device that the
+    kernels read there, so that drawing a seed never waits on the device
+    and a captured CUDA graph that registers this generator draws new
+    seeds, and new masks, at every replay. It advances with every draw: one
+    ``Rngs`` serves a run.
     """
 
-    def __init__(self, device: torch.Generator, host: torch.Generator):
+    def __init__(self, device: torch.Generator):
         self.device = device
-        self.host = host
 
     @classmethod
     def from_seed(cls, seed: int, device: torch.device) -> "Rngs":
-        return cls(
-            torch.Generator(device=device).manual_seed(seed),
-            torch.Generator().manual_seed(seed),
-        )
+        return cls(torch.Generator(device=device).manual_seed(seed))
 
-    def kernel_seed(self) -> int:
-        """A fresh int32 seed for one K1/K2 or K5 mask (``gcn_family.py:92``,
-        ``layers.py:218-220``)."""
-        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+    def kernel_seed(self) -> torch.Tensor:
+        """A fresh seed for one K1/K2, K5 or K6 mask (``gcn_family.py:92``,
+        ``layers.py:218-220``): an int32 tensor of one element on the
+        generator's device."""
+        return torch.randint(0, 2**31 - 1, (1,), generator=self.device, device=self.device.device,
+                             dtype=torch.int32)
 
 
 def require_rngs(rngs: Optional[Rngs]) -> Rngs:
@@ -240,8 +241,8 @@ class EdgeDropout(nn.Module):
     * dense A: ``(A_dropped, self_scale (B, N))`` (:func:`drop_edge`), or
       ``(A, None)`` when deterministic or at rate 0;
     * a graph with a planned kernel: ``((seed, rate), self_scale (num_nodes,))``
-      — K5 regenerates the edge mask from the seed, drawn on the host as
-      K1's is; only the self-loop mask is drawn here;
+      — K5 or K6 regenerates the edge mask from the seed, a device tensor
+      drawn as K1's is; only the self-loop mask is drawn here;
     * a plain RelationalGraph: ``(edge_keep (E,), self_scale (num_nodes,))``
       (:func:`drop_edge_coo`);
     * a sparse graph when deterministic or at rate 0: ``(None, None)``.

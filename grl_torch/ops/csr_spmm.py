@@ -31,7 +31,7 @@ result; ``pad_features`` returns V as it is.
 :func:`csr_accumulate` takes the plain version
 (:func:`csr_accumulate_reference`) for CPU tensors and launches K5 for
 CUDA tensors, or raises; it counts launches per layout direction in
-``csr_accumulate.launches``.
+:mod:`grl_torch.ops.launches` (``K5 forward``, ``K5 backward``).
 """
 from __future__ import annotations
 
@@ -42,8 +42,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from grl_torch.ops import _build
-from grl_torch.ops.hashing import hash_keep, keep_probability
+from grl_torch.ops import _build, launches
+from grl_torch.ops.hashing import Seed, hash_keep, keep_probability, seed_tensor
 from grl_torch.ops.sparse import gather_slices, l2_bytes, slice_grid
 
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
@@ -105,14 +105,14 @@ def build_csr_layout(out_rows: np.ndarray, src_rows: np.ndarray, gids: np.ndarra
 # ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
-def edge_coefficients(layout: CSRLayout, seed: int, rate: float) -> torch.Tensor:
+def edge_coefficients(layout: CSRLayout, seed: Seed, rate: float) -> torch.Tensor:
     """Each edge's float32 factor: ``hash_keep(gid) * w`` (``w`` at rate 0)."""
     if float(rate) == 0.0:
         return layout.weights
     return hash_keep(layout.gids, seed, rate) * layout.weights
 
 
-def csr_accumulate_reference(X: torch.Tensor, layout: CSRLayout, seed: int = 0,
+def csr_accumulate_reference(X: torch.Tensor, layout: CSRLayout, seed: Seed = 0,
                              rate: float = 0.0) -> torch.Tensor:
     """Plain K5: ``(num_rows, F)`` in X's dtype, a float32 ``index_add_``
     of the masked, weighted source rows."""
@@ -133,30 +133,33 @@ def _library() -> ctypes.CDLL:
     lib.grl_csr_accumulate.argtypes = (
         [ctypes.c_void_p] * 6  # rowptr, cols, gids, weights, X, out
         + [ctypes.c_int] * 7  # rows, F, col0, slice_cols, num_slices, dtype, use_hash
-        + [ctypes.c_uint32, ctypes.c_float]  # seed, keep
+        + [ctypes.c_void_p, ctypes.c_float]  # seed (a device pointer), keep
         + [ctypes.c_int, ctypes.c_void_p]  # device, stream
     )
     lib.grl_csr_accumulate.restype = ctypes.c_int
     return lib
 
 
-def _enqueue(out: torch.Tensor, X: torch.Tensor, layout: CSRLayout, seed: int, rate: float,
+def _enqueue(out: torch.Tensor, X: torch.Tensor, layout: CSRLayout, seed: Seed, rate: float,
              col0: int, slice_cols: int, num_slices: int) -> None:
     """Launch K5 on the current stream over ``num_slices`` slices of
     ``slice_cols`` columns from ``col0`` (the last clipped at F), writing
-    those columns of ``out``; no synchronisation."""
+    those columns of ``out``; no synchronisation. The kernel reads the seed
+    from device memory (:func:`~grl_torch.ops.hashing.seed_tensor`)."""
     lib = _library()
+    use_hash = float(rate) > 0.0
+    seed = seed_tensor(seed, X.device) if use_hash else None
     err = lib.grl_csr_accumulate(
         layout.rowptr.data_ptr(), layout.cols.data_ptr(), layout.gids.data_ptr(),
         layout.weights.data_ptr(), X.data_ptr(), out.data_ptr(),
         layout.num_rows, X.shape[-1], col0, slice_cols, num_slices, _DTYPE_CODES[X.dtype],
-        int(float(rate) > 0.0), int(seed) & 0xFFFFFFFF, keep_probability(rate),
+        int(use_hash), seed.data_ptr() if use_hash else None, keep_probability(rate),
         X.device.index, torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check_launch(lib, err, "K5")
 
 
-def _launch(X: torch.Tensor, layout: CSRLayout, seed: int, rate: float,
+def _launch(X: torch.Tensor, layout: CSRLayout, seed: Seed, rate: float,
             plan: Optional[List[Tuple[int, int]]] = None) -> torch.Tensor:
     """Launch K5 on the current stream, once, over the column slices of
     ``plan`` (by default :func:`~grl_torch.ops.sparse.gather_slices` for
@@ -182,12 +185,12 @@ def _launch(X: torch.Tensor, layout: CSRLayout, seed: int, rate: float,
     return out
 
 
-def csr_accumulate(X: torch.Tensor, layout: CSRLayout, seed: int = 0,
+def csr_accumulate(X: torch.Tensor, layout: CSRLayout, seed: Seed = 0,
                    rate: float = 0.0) -> torch.Tensor:
     """``(layout.num_rows, F)`` gather-accumulate of ``X`` over ``layout``.
 
     CPU tensors take :func:`csr_accumulate_reference`; CUDA tensors launch
-    K5 (counted in ``csr_accumulate.launches[layout.direction]``) or raise.
+    K5 (counted as ``K5 <direction>`` in :mod:`grl_torch.ops.launches`) or raise.
     """
     keep_probability(rate)
     if X.shape[0] < layout.num_src_rows:
@@ -197,11 +200,8 @@ def csr_accumulate(X: torch.Tensor, layout: CSRLayout, seed: int = 0,
     if X.device.type != "cuda":
         raise ValueError(f"K5 runs on CUDA or CPU tensors, not {X.device}")
     out = _launch(X, layout, seed, rate)
-    csr_accumulate.launches[layout.direction] += 1
+    launches.count(f"K5 {layout.direction}")
     return out
-
-
-csr_accumulate.launches = {"forward": 0, "backward": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +209,7 @@ csr_accumulate.launches = {"forward": 0, "backward": 0}
 # ---------------------------------------------------------------------------
 class _CSRAggregate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, V: torch.Tensor, kernel: "CSRGraphKernel", seed: int, rate: float):
+    def forward(ctx, V: torch.Tensor, kernel: "CSRGraphKernel", seed: Seed, rate: float):
         ctx.kernel, ctx.seed, ctx.rate, ctx.v_rows = kernel, seed, rate, V.shape[0]
         out = csr_accumulate(V, kernel.forward_layout, seed, rate)  # (N*L, F)
         return out.view(kernel.num_nodes, kernel.L * V.shape[-1])
@@ -277,9 +277,9 @@ class CSRGraphKernel:
         padding, so V comes back as it is."""
         return V
 
-    def neighbor_aggregate(self, V: torch.Tensor, seed: int = 0, rate: float = 0.0) -> torch.Tensor:
+    def neighbor_aggregate(self, V: torch.Tensor, seed: Seed = 0, rate: float = 0.0) -> torch.Tensor:
         """``(num_nodes, L*F)`` neighbor aggregate of ``V (>= num_nodes, F)``
-        with DropEdge at ``rate`` keyed on ``seed`` (a Python int);
-        differentiable in V, whose gradient is K5 on the transposed layout."""
+        with DropEdge at ``rate`` keyed on ``seed`` (an int or a one-element
+        int32 tensor on V's device); differentiable in V, whose gradient is K5 on the transposed layout."""
         keep_probability(rate)
-        return _CSRAggregate.apply(V.contiguous(), self, int(seed), float(rate))
+        return _CSRAggregate.apply(V.contiguous(), self, seed, float(rate))

@@ -35,8 +35,8 @@ CUDA tensors, or raises. K6 walks every bucket in one launch, in column
 slices small enough for the gathered rows to stay in the card's L2
 (:func:`~grl_torch.ops.sparse.gather_slices`, shared with K5), and writes
 each row straight to its output position through ``perm``: the stitch is
-fused into the write. Launches are counted per direction in
-``ell_accumulate.launches``.
+fused into the write. Launches are counted per direction, as ``K6
+<direction>`` in :mod:`grl_torch.ops.launches`.
 """
 from __future__ import annotations
 
@@ -48,8 +48,8 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from grl_torch.ops import _build
-from grl_torch.ops.hashing import hash_keep, keep_probability
+from grl_torch.ops import _build, launches
+from grl_torch.ops.hashing import Seed, hash_keep, keep_probability, seed_tensor
 from grl_torch.ops.sparse import gather_slices, l2_bytes, slice_grid
 
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
@@ -234,7 +234,7 @@ class ELLTables(NamedTuple):
 # Plain version
 # ---------------------------------------------------------------------------
 def _gather_reduce(X: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor, gid: torch.Tensor,
-                   seed: int, rate: float) -> torch.Tensor:
+                   seed: Seed, rate: float) -> torch.Tensor:
     """``(rows, F) = sum_k w[.,k] (*mask) * X[idx[.,k]]``, float32
     (``ell.py:154-181``): W gather-and-add terms, or one einsum for hub
     buckets wider than 32 (the same sum)."""
@@ -252,7 +252,7 @@ def _gather_reduce(X: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor, gid
     return out
 
 
-def ell_accumulate_reference(X: torch.Tensor, tables: GatherTables, seed: int = 0,
+def ell_accumulate_reference(X: torch.Tensor, tables: GatherTables, seed: Seed = 0,
                              rate: float = 0.0) -> torch.Tensor:
     """Plain K6: ``(tables.num_rows, F)`` in X's dtype; each bucket's float32
     gather-reduce, concatenated and stitched into output-row order."""
@@ -273,30 +273,33 @@ def _library() -> ctypes.CDLL:
     lib.grl_ell_accumulate.argtypes = (
         [ctypes.c_void_p] * 7  # idx, weight, gid, buckets, perm, X, out
         + [ctypes.c_int] * 8  # num_buckets, rows, F, col0, slice_cols, num_slices, dtype, use_hash
-        + [ctypes.c_uint32, ctypes.c_float]  # seed, keep
+        + [ctypes.c_void_p, ctypes.c_float]  # seed (a device pointer), keep
         + [ctypes.c_int, ctypes.c_void_p]  # device, stream
     )
     lib.grl_ell_accumulate.restype = ctypes.c_int
     return lib
 
 
-def _enqueue(out: torch.Tensor, X: torch.Tensor, tables: GatherTables, seed: int, rate: float,
+def _enqueue(out: torch.Tensor, X: torch.Tensor, tables: GatherTables, seed: Seed, rate: float,
              col0: int, slice_cols: int, num_slices: int) -> None:
     """Launch K6 on the current stream over ``num_slices`` slices of
     ``slice_cols`` columns from ``col0`` (the last clipped at F), writing
-    those columns of ``out``; no synchronisation."""
+    those columns of ``out``; no synchronisation. The kernel reads the seed
+    from device memory (:func:`~grl_torch.ops.hashing.seed_tensor`)."""
     lib = _library()
+    use_hash = float(rate) > 0.0
+    seed = seed_tensor(seed, X.device) if use_hash else None
     err = lib.grl_ell_accumulate(
         tables.idx.data_ptr(), tables.weight.data_ptr(), tables.gid.data_ptr(),
         tables.buckets.data_ptr(), tables.perm.data_ptr(), X.data_ptr(), out.data_ptr(),
         len(tables.shapes), tables.num_rows, X.shape[-1], col0, slice_cols, num_slices,
-        _DTYPE_CODES[X.dtype], int(float(rate) > 0.0), int(seed) & 0xFFFFFFFF, keep_probability(rate),
+        _DTYPE_CODES[X.dtype], int(use_hash), seed.data_ptr() if use_hash else None, keep_probability(rate),
         X.device.index, torch.cuda.current_stream(X.device).cuda_stream,
     )
     _build.check_launch(lib, err, "K6")
 
 
-def _launch(X: torch.Tensor, tables: GatherTables, seed: int, rate: float,
+def _launch(X: torch.Tensor, tables: GatherTables, seed: Seed, rate: float,
             plan: Optional[List[Tuple[int, int]]] = None) -> torch.Tensor:
     """Launch K6 on the current stream, once, over the column slices of
     ``plan`` (by default :func:`~grl_torch.ops.sparse.gather_slices` for
@@ -322,12 +325,12 @@ def _launch(X: torch.Tensor, tables: GatherTables, seed: int, rate: float,
     return out
 
 
-def ell_accumulate(X: torch.Tensor, tables: GatherTables, seed: int = 0,
+def ell_accumulate(X: torch.Tensor, tables: GatherTables, seed: Seed = 0,
                    rate: float = 0.0) -> torch.Tensor:
     """``(tables.num_rows, F)`` gather-reduce of ``X`` over ``tables``.
 
     CPU tensors take :func:`ell_accumulate_reference`; CUDA tensors launch
-    K6 (counted in ``ell_accumulate.launches[tables.direction]``) or raise.
+    K6 (counted as ``K6 <direction>`` in :mod:`grl_torch.ops.launches`) or raise.
     """
     keep_probability(rate)
     if X.shape[0] < tables.num_src_rows:
@@ -337,11 +340,8 @@ def ell_accumulate(X: torch.Tensor, tables: GatherTables, seed: int = 0,
     if X.device.type != "cuda":
         raise ValueError(f"K6 runs on CUDA or CPU tensors, not {X.device}")
     out = _launch(X, tables, seed, rate)
-    ell_accumulate.launches[tables.direction] += 1
+    launches.count(f"K6 {tables.direction}")
     return out
-
-
-ell_accumulate.launches = dict.fromkeys(DIRECTIONS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +356,7 @@ class _Gather(torch.autograd.Function):
     the seed and the tables get none (``ell.py:257-269``)."""
 
     @staticmethod
-    def forward(ctx, X: torch.Tensor, fwd: GatherTables, bwd: GatherTables, seed: int, rate: float):
+    def forward(ctx, X: torch.Tensor, fwd: GatherTables, bwd: GatherTables, seed: Seed, rate: float):
         ctx.bwd, ctx.seed, ctx.rate, ctx.x_rows = bwd, seed, rate, X.shape[0]
         return ell_accumulate(X, fwd, seed, rate)
 
@@ -366,22 +366,22 @@ class _Gather(torch.autograd.Function):
         return _pad_rows(dX, ctx.x_rows), None, None, None, None
 
 
-def ell_aggregate(tables: ELLTables, V: torch.Tensor, seed: int, num_nodes: int, L: int,
+def ell_aggregate(tables: ELLTables, V: torch.Tensor, seed: Seed, num_nodes: int, L: int,
                   rate: float) -> torch.Tensor:
     """Dual-ELL neighbour aggregation (``ell.py:244-272``): ``(num_nodes,
     L*F)`` from ``V (>= num_nodes, F)``, differentiable in V."""
-    out = _Gather.apply(V.contiguous(), tables.fwd, tables.bwd, int(seed), float(rate))
+    out = _Gather.apply(V.contiguous(), tables.fwd, tables.bwd, seed, float(rate))
     return out.view(num_nodes, L * V.shape[-1])
 
 
-def ell_aggregate_projected(tables: ELLTables, Vr: torch.Tensor, seed: int, num_nodes: int,
+def ell_aggregate_projected(tables: ELLTables, Vr: torch.Tensor, seed: Seed, num_nodes: int,
                             L: int, rate: float) -> torch.Tensor:
     """Project-first aggregation (``ell.py:283-320``): ``Vr (num_nodes*L,
     C)`` holds ``V @ W_r`` relation-minor (row ``n*L + r``); returns the
     relation-summed ``(num_nodes, C)``, differentiable in Vr. The mask is
     the standard path's for one seed."""
     del num_nodes, L  # the projected tables fix both
-    return _Gather.apply(Vr.contiguous(), tables.proj.fwd, tables.proj.bwd, int(seed), float(rate))
+    return _Gather.apply(Vr.contiguous(), tables.proj.fwd, tables.proj.bwd, seed, float(rate))
 
 
 class ELLGraphKernel:
@@ -466,13 +466,14 @@ class ELLGraphKernel:
     def pad_features(self, V: torch.Tensor) -> torch.Tensor:
         return V  # padding entries gather row 0 with weight 0: inert
 
-    def neighbor_aggregate(self, V: torch.Tensor, seed: int = 0, rate: float = 0.0) -> torch.Tensor:
+    def neighbor_aggregate(self, V: torch.Tensor, seed: Seed = 0, rate: float = 0.0) -> torch.Tensor:
         """``(num_nodes, L*F)`` neighbour aggregation of ``V (>= num_nodes,
-        F)``, DropEdge'd at ``rate`` with the hash mask keyed on ``seed`` (a
-        Python int); differentiable in V through K6 on the transposed tables."""
+        F)``, DropEdge'd at ``rate`` with the hash mask keyed on ``seed`` (an
+        int or a one-element int32 tensor on V's device); differentiable in V
+        through K6 on the transposed tables."""
         return ell_aggregate(self.tables, V, seed, self.num_nodes, self.L, rate)
 
-    def neighbor_aggregate_projected(self, Vr: torch.Tensor, seed: int = 0,
+    def neighbor_aggregate_projected(self, Vr: torch.Tensor, seed: Seed = 0,
                                      rate: float = 0.0) -> torch.Tensor:
         """Project-first aggregation: ``Vr (num_nodes*L, C)`` (row
         ``n*L + r`` = ``V[n] @ W_r``) -> relation-summed ``(num_nodes, C)``.

@@ -13,6 +13,12 @@ every mask an xor-translate of one fixed set (``csr_spmm.py:196-204``).
 torch has no full ``uint32`` arithmetic, so the values are held in int64
 and every product is reduced mod 2^32 (:func:`_mul32`). The CUDA kernels
 compute the same bits with ``grl_torch/csrc/hash.cuh``.
+
+A seed is a Python int or a one-element integer tensor holding its low 32
+bits (an int32 tensor from :func:`seed_tensor` or
+``Rngs.kernel_seed``, which the kernels read from device memory). A tensor
+seed stays on its device: the mask is tensor arithmetic, with no host
+read, so it can be drawn inside a captured CUDA graph.
 """
 from __future__ import annotations
 
@@ -56,11 +62,28 @@ def keep_scale(rate: float) -> float:
     return float(np.float32(1.0) / np.float32(keep_probability(rate)))
 
 
+def seed_tensor(seed: Seed, device=None) -> torch.Tensor:
+    """``seed`` as the one-element int32 tensor the kernels read: the low
+    32 bits of an int, on ``device``; a tensor seed is checked (one int32,
+    on ``device`` where one is given) and returned as it is."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.dtype != torch.int32:
+            raise ValueError(f"a seed tensor holds one int32; got {seed.dtype} of shape {tuple(seed.shape)}")
+        if device is not None and seed.device != torch.device(device):
+            raise ValueError(f"the seed lies on {seed.device}, the operands on {device}")
+        return seed
+    low = int(seed) & 0xFFFFFFFF
+    return torch.tensor([low - (1 << 32) if low >> 31 else low], dtype=torch.int32, device=device)
+
+
 def keep_bits(gid: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """Boolean keep mask of the ids ``gid`` (any integer dtype; negative
     int32 ids wrap to uint32 as in ``_hash_keep``)."""
     keep = keep_probability(rate)
-    s = int(seed) & 0xFFFFFFFF
+    if isinstance(seed, torch.Tensor):
+        s = seed.reshape(()).to(device=gid.device, dtype=torch.int64) & 0xFFFFFFFF
+    else:
+        s = int(seed) & 0xFFFFFFFF
     x = gid.to(torch.int64) & 0xFFFFFFFF
     x = mix32((mix32(x ^ s) + s) & 0xFFFFFFFF)
     u = (x >> 8).to(torch.float32) * 2.0**-24

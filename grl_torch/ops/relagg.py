@@ -59,14 +59,15 @@ dtype, so each operand crosses device memory once (see the notes at the
 top of the sources).
 
 Every wrapper takes its plain version for CPU tensors and launches its
-kernel for CUDA tensors, or raises; it counts launches in ``.launches``:
+kernel for CUDA tensors, or raises; it counts its launches in
+:mod:`grl_torch.ops.launches`:
 
 * :func:`neighbor_aggregate` — K3. Its backward is the plain einsums of
   ``relagg.py:136-142`` (XLA on the TPU, not Pallas).
 * :func:`dropedge_aggregate` — K1 (``rate == 0`` is K3, as in
   ``grl_tpu``); its backward is :func:`dropedge_aggregate_grad` — K2.
 
-K3 and K2 also count their launches by route in ``.routes``.
+K3 and K2 also count their launches by route (``K3 sm90`` and so on).
 """
 from __future__ import annotations
 
@@ -78,8 +79,8 @@ from typing import Tuple
 
 import torch
 
-from grl_torch.ops import _build
-from grl_torch.ops.hashing import keep_bits, keep_probability
+from grl_torch.ops import _build, launches
+from grl_torch.ops.hashing import Seed, keep_bits, keep_probability, seed_tensor
 
 _MAX_GRID_YZ = 65535
 _TILE_ROWS = 64  # output rows per block of the bf16 kernels (kTile in csrc/sm90.cuh)
@@ -104,10 +105,11 @@ _F32_SLOTS = 132
 # ---------------------------------------------------------------------------
 # The DropEdge mask
 # ---------------------------------------------------------------------------
-def dropedge_keep_mask(seed: int, shape, rate: float, device=None) -> torch.Tensor:
+def dropedge_keep_mask(seed: Seed, shape, rate: float, device=None) -> torch.Tensor:
     """Boolean keep mask over a tensor of ``shape``: element ``gid`` (its
     row-major index) is kept iff
-    ``(mix(mix(gid ^ s) + s) >> 8) * 2^-24 < keep`` with ``s = seed mod 2^32``.
+    ``(mix(mix(gid ^ s) + s) >> 8) * 2^-24 < keep`` with ``s = seed mod 2^32``
+    (``seed`` an int or a one-element int32 tensor, read on the device).
     """
     numel = math.prod(shape)
     if numel >= _MAX_ELEMENTS:
@@ -116,7 +118,7 @@ def dropedge_keep_mask(seed: int, shape, rate: float, device=None) -> torch.Tens
     return keep_bits(gid, seed, rate)
 
 
-def _masked_float(A: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _masked_float(A: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     return torch.where(dropedge_keep_mask(seed, A.shape, rate, A.device), A.float(), 0.0)
 
 
@@ -131,7 +133,7 @@ def neighbor_aggregate_reference(V: torch.Tensor, A: torch.Tensor) -> torch.Tens
     return out.reshape(B, N, L, F).to(V.dtype)
 
 
-def dropedge_aggregate_reference(V: torch.Tensor, A: torch.Tensor, seed: int,
+def dropedge_aggregate_reference(V: torch.Tensor, A: torch.Tensor, seed: Seed,
                                  rate: float) -> torch.Tensor:
     """Plain K1: the mask applied in float32, ``1/keep`` on the float32
     product, cast once to V's dtype. Differentiable in V."""
@@ -142,7 +144,7 @@ def dropedge_aggregate_reference(V: torch.Tensor, A: torch.Tensor, seed: int,
     return out.reshape(B, N, L, F).to(V.dtype)
 
 
-def dropedge_aggregate_grad_reference(g: torch.Tensor, A: torch.Tensor, seed: int,
+def dropedge_aggregate_grad_reference(g: torch.Tensor, A: torch.Tensor, seed: Seed,
                                       rate: float) -> torch.Tensor:
     """Plain K2: ``dV (B, N, F)`` in g's dtype, mask applied in float32."""
     B, N, L, _ = A.shape
@@ -480,7 +482,7 @@ def _sm90_library() -> ctypes.CDLL:
     """dropedge_sm90.cu's library with its C signatures declared (once)."""
     lib = _build.load_library("dropedge_sm90")
     head = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5  # A, X, out, B, N, L, F, BN
-    mask = [ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # seed, keep, device, stream
+    mask = [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # seed (a device pointer), keep, device, stream
     lib.grl_relagg_sm90_forward.argtypes = head + mask[2:]
     lib.grl_dropedge_sm90_forward.argtypes = head + mask
     lib.grl_dropedge_sm90_backward.argtypes = head + [ctypes.c_int] + mask  # ... S
@@ -513,12 +515,13 @@ def _launch_aggregate_sm90(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch_sm90(backward: bool, A: torch.Tensor, X: torch.Tensor, seed: int, keep: float,
+def _launch_sm90(backward: bool, A: torch.Tensor, X: torch.Tensor, seed: Seed, keep: float,
                  plan: DropEdgePlan = None) -> torch.Tensor:
     """The bfloat16 K1 (``X`` = V) or K2 (``X`` = g) of dropedge_sm90.cu on
     the current stream, laid out by ``plan`` (default
     :func:`dropedge_plan`'s); no synchronisation. ``keep`` 1.0 launches K1
-    with no entry dropped."""
+    with no entry dropped. The kernel reads ``seed`` from device memory
+    (:func:`~grl_torch.ops.hashing.seed_tensor`)."""
     if not (X.is_contiguous() and A.is_contiguous()):
         raise ValueError("CUDA relagg needs contiguous operands (dataset layout)")
     if A.data_ptr() % 16 or X.data_ptr() % 16:
@@ -533,7 +536,8 @@ def _launch_sm90(backward: bool, A: torch.Tensor, X: torch.Tensor, seed: int, ke
     lib = _sm90_library()
     stream = torch.cuda.current_stream(X.device).cuda_stream
     head = (A.data_ptr(), X.data_ptr(), out.data_ptr(), B, N, L, F, plan.BN)
-    tail = (int(seed) & 0xFFFFFFFF, keep, X.device.index, stream)
+    seed = seed_tensor(seed, X.device)
+    tail = (seed.data_ptr(), keep, X.device.index, stream)
     if backward:
         err = lib.grl_dropedge_sm90_backward(*head, plan.splits, *tail)
     else:
@@ -592,10 +596,10 @@ def _f32_library() -> ctypes.CDLL:
     lib = _build.load_library("dropedge_f32")
     lib.grl_dropedge_f32_backward.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6  # A, g, dV, B, N, L, F, S, vec
-        + [ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])  # seed, keep, device, stream
+        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])  # seed pointer, keep, device, stream
     lib.grl_dropedge_f32_forward.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7  # A, V, out, B, N, L, F, blocks, vec, mask
-        + [ctypes.c_uint32, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])  # seed, keep, device, stream
+        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])  # seed pointer, keep, device, stream
     lib.grl_dropedge_f32_max_clusters.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     lib.grl_dropedge_f32_forward_slots.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     for name in ("grl_dropedge_f32_backward", "grl_dropedge_f32_forward", "grl_dropedge_f32_max_clusters",
@@ -604,7 +608,7 @@ def _f32_library() -> ctypes.CDLL:
     return lib
 
 
-def _launch_f32_grad(A: torch.Tensor, g: torch.Tensor, seed: int, keep: float,
+def _launch_f32_grad(A: torch.Tensor, g: torch.Tensor, seed: Seed, keep: float,
                      plan: DropEdgeF32Plan = None) -> torch.Tensor:
     """The float32 K2 of dropedge_f32.cu on the current stream, laid out by
     ``plan`` (default :func:`dropedge_f32_plan`'s); no synchronisation."""
@@ -619,18 +623,19 @@ def _launch_f32_grad(A: torch.Tensor, g: torch.Tensor, seed: int, keep: float,
     vec = 4 if plan.vec == 4 and not (A.data_ptr() % 16 or g.data_ptr() % 16 or dV.data_ptr() % 16) else 1
     lib = _f32_library()
     stream = torch.cuda.current_stream(g.device).cuda_stream
+    seed = seed_tensor(seed, g.device)
     err = lib.grl_dropedge_f32_backward(A.data_ptr(), g.data_ptr(), dV.data_ptr(), B, N, L, F, plan.splits, vec,
-                                        int(seed) & 0xFFFFFFFF, keep, g.device.index, stream)
+                                        seed.data_ptr(), keep, g.device.index, stream)
     _build.check_launch(lib, err, "f32 K2")
     return dV
 
 
-def _launch_f32_forward(A: torch.Tensor, V: torch.Tensor, seed: int, keep: float, mask: bool,
+def _launch_f32_forward(A: torch.Tensor, V: torch.Tensor, seed: Seed, keep: float, mask: bool,
                         plan: DropEdgeF32ForwardPlan = None) -> torch.Tensor:
     """The float32 K1 (``mask``) or K3 of dropedge_f32.cu on the current
     stream, laid out by ``plan`` (default :func:`dropedge_f32_forward_plan`'s);
     no synchronisation. ``keep`` 1.0 with ``mask`` drops nothing and gives
-    K3's bits."""
+    K3's bits. K1 reads ``seed`` from device memory; K3 takes ``None``."""
     if V.dtype != torch.float32:
         raise TypeError(f"CUDA relagg takes float32 or bfloat16, not {V.dtype}")
     if not (V.is_contiguous() and A.is_contiguous()):
@@ -644,8 +649,10 @@ def _launch_f32_forward(A: torch.Tensor, V: torch.Tensor, seed: int, keep: float
     vec = next(v for v in (4, 2, 1) if v <= plan.vec and not any(t.data_ptr() % (4 * v) for t in (A, V, out)))
     lib = _f32_library()
     stream = torch.cuda.current_stream(V.device).cuda_stream
+    seed = seed_tensor(seed, V.device) if mask else None
     err = lib.grl_dropedge_f32_forward(A.data_ptr(), V.data_ptr(), out.data_ptr(), B, N, L, F, plan.blocks, vec,
-                                       int(mask), int(seed) & 0xFFFFFFFF, keep, V.device.index, stream)
+                                       int(mask), seed.data_ptr() if mask else None, keep, V.device.index,
+                                       stream)
     _build.check_launch(lib, err, "f32 K1" if mask else "f32 K3")
     return out
 
@@ -700,9 +707,8 @@ class _NeighborAggregate(torch.autograd.Function):
         elif route == "ragged":
             out = _launch_ragged(A, V)
         else:
-            out = _launch_f32_forward(A, V, 0, 1.0, mask=False)
-        neighbor_aggregate.launches += 1
-        neighbor_aggregate.routes[route] += 1
+            out = _launch_f32_forward(A, V, None, 1.0, mask=False)
+        launches.count("K3", f"K3 {route}")
         return out
 
     @staticmethod
@@ -722,22 +728,18 @@ def neighbor_aggregate(V: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """``(B,N,L,F)`` neighbor aggregate of ``V (B,N,F)`` by ``A (B,N,L,N)``.
 
     CPU tensors take :func:`neighbor_aggregate_reference`; CUDA tensors
-    launch the K3 kernel of :func:`k3_route` (counted in
-    ``neighbor_aggregate.launches`` and by route in ``.routes``) or raise —
+    launch the K3 kernel of :func:`k3_route` (counted as ``K3`` and by
+    route in :mod:`grl_torch.ops.launches`) or raise —
     there is no fallback.
     """
     _check(V, A)
     return _NeighborAggregate.apply(V, A)
 
 
-neighbor_aggregate.launches = 0
-neighbor_aggregate.routes = {"sm90": 0, "ragged": 0, "float32": 0}
-
-
 # ---------------------------------------------------------------------------
 # K1 and K2
 # ---------------------------------------------------------------------------
-def _dropedge_forward(V: torch.Tensor, A: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _dropedge_forward(V: torch.Tensor, A: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """K1 for CUDA tensors (bfloat16: dropedge_sm90.cu; float32:
     dropedge_f32.cu), its plain version for CPU tensors."""
     if _by_device(V) == "cpu":
@@ -746,15 +748,15 @@ def _dropedge_forward(V: torch.Tensor, A: torch.Tensor, seed: int, rate: float) 
         out = _launch_sm90(False, A, V, seed, keep_probability(rate))
     else:
         out = _launch_f32_forward(A, V, seed, keep_probability(rate), mask=True)
-    dropedge_aggregate.launches += 1
+    launches.count("K1")
     return out
 
 
-def dropedge_aggregate_grad(g: torch.Tensor, A: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def dropedge_aggregate_grad(g: torch.Tensor, A: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """``dV (B, N, F)`` of :func:`dropedge_aggregate` for the output
     cotangent ``g (B, N, L, F)``: the K2 kernel on CUDA tensors (bfloat16:
-    dropedge_sm90.cu; float32: dropedge_f32.cu; counted in
-    ``dropedge_aggregate_grad.launches`` and by route in ``.routes``), its
+    dropedge_sm90.cu; float32: dropedge_f32.cu; counted as ``K2`` and by
+    route in :mod:`grl_torch.ops.launches`), its
     plain version on CPU ones."""
     _check_grad(g, A)
     _check_mask(A, rate)
@@ -766,18 +768,14 @@ def dropedge_aggregate_grad(g: torch.Tensor, A: torch.Tensor, seed: int, rate: f
         dV, route = _launch_f32_grad(A, g, seed, keep_probability(rate)), "float32"
     else:
         raise TypeError(f"CUDA relagg takes float32 or bfloat16, not {g.dtype}")
-    dropedge_aggregate_grad.launches += 1
-    dropedge_aggregate_grad.routes[route] += 1
+    launches.count("K2", f"K2 {route}")
     return dV
 
-
-dropedge_aggregate_grad.launches = 0
-dropedge_aggregate_grad.routes = {"sm90": 0, "float32": 0}
 
 
 class _DropEdgeAggregate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, V: torch.Tensor, A: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    def forward(ctx, V: torch.Tensor, A: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
         ctx.save_for_backward(A)
         ctx.seed, ctx.rate = seed, rate
         return _dropedge_forward(V, A, seed, rate)
@@ -789,24 +787,25 @@ class _DropEdgeAggregate(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dV = dropedge_aggregate_grad(g.contiguous(), A, ctx.seed, ctx.rate)
         # A is data and the seed an integer: in grl_tpu their cotangents are
-        # zeros that are never used (relagg.py:308-311).
+        # zeros that are never used (relagg.py:308-311). K2 reads the seed
+        # tensor the forward read.
         return dV, None, None, None
 
 
-def dropedge_aggregate(V: torch.Tensor, A: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def dropedge_aggregate(V: torch.Tensor, A: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """``(B,N,L,F)`` neighbor aggregate of ``V`` by ``A`` with DropEdge.
 
-    ``seed`` is a Python int (drawing it never waits on the device) and
-    ``rate`` the drop probability. ``rate == 0`` is exactly K3. Otherwise
-    CPU tensors take :func:`dropedge_aggregate_reference`; CUDA tensors
-    launch K1 (counted in ``dropedge_aggregate.launches``) or raise. The
-    gradient in V is :func:`dropedge_aggregate_grad` (K2 on CUDA).
+    ``seed`` is an int or a one-element int32 tensor on V's device
+    (``Rngs.kernel_seed`` draws one there, so a captured CUDA graph draws a
+    new one at each replay), and ``rate`` the drop probability. ``rate == 0``
+    is exactly K3. Otherwise CPU tensors take
+    :func:`dropedge_aggregate_reference`; CUDA tensors launch K1 (counted as
+    ``K1`` in :mod:`grl_torch.ops.launches`) or raise. The gradient in V is
+    :func:`dropedge_aggregate_grad` (K2 on CUDA).
     """
     _check(V, A)
     _check_mask(A, rate)
     if float(rate) == 0.0:
         return neighbor_aggregate(V, A)
-    return _DropEdgeAggregate.apply(V, A, int(seed), float(rate))
+    return _DropEdgeAggregate.apply(V, A, seed, float(rate))
 
-
-dropedge_aggregate.launches = 0

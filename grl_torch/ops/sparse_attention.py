@@ -26,7 +26,7 @@ then ``df``, ``dg`` and ``dh`` by float32 segment sums.
 :func:`attend_forward` takes the plain version (:func:`attend_reference`,
 the segment path of ``SparseNodeSelfAtten``, ``layers.py:292-299``) for
 CPU tensors and launches K4 for CUDA tensors, or raises; it counts launches
-in ``attend_forward.launches``.
+as ``K4`` in :mod:`grl_torch.ops.launches`.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from grl_torch.ops import _build
+from grl_torch.ops import _build, launches
 from grl_torch.ops.segment import segment_softmax, segment_sum
 from grl_torch.ops.sparse import gather_slices, l2_bytes, slice_grid, sm_count
 
@@ -210,17 +210,15 @@ def _launch(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, plan: AttentionPl
 def attend_forward(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                    plan: AttentionPlan) -> torch.Tensor:
     """``(N, F)`` attention output in h's dtype: the plain version for CPU
-    tensors, K4 for CUDA tensors (counted in ``attend_forward.launches``)."""
+    tensors, K4 for CUDA tensors (counted as ``K4`` in
+    :mod:`grl_torch.ops.launches`)."""
     if h.device.type == "cpu":
         return attend_reference(f, g, h, plan)
     if h.device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA or CPU tensors, not {h.device}")
     out = _launch(f, g, h, plan)
-    attend_forward.launches += 1
+    launches.count("K4")
     return out
-
-
-attend_forward.launches = 0
 
 
 class _Attend(torch.autograd.Function):

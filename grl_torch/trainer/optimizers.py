@@ -13,6 +13,15 @@ semantics kept where they differ from torch's defaults:
 * the learning rate is each parameter group's ``lr``, written once per
   epoch by :func:`set_learning_rate` (optax injects it as a hyperparameter).
 
+On a CUDA device the optimizer is built ``capturable=True`` with the
+learning rate a float32 tensor on the device, which :func:`set_learning_rate`
+fills in place: a train step captured in a CUDA graph
+(:mod:`grl_torch.trainer.captured`) then reads the step count and the
+current rate from device memory at every replay, where a float would be
+baked into the graph. Eager steps on the card run the same optimizer, so
+an eager chunk and a replayed one compute the same bits. On the CPU it is
+the plain optimizer with a float rate.
+
 Only ``Adam`` and ``AdamW`` are ported; the other names ``grl_tpu``
 accepts raise ``KeyError``.
 """
@@ -23,13 +32,15 @@ from typing import Any, Dict, Iterable, List
 import torch
 
 _TORCH_OPTIMIZERS = {
-    "Adam": lambda params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, **_: (
-        torch.optim.AdamW(params, lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay)
+    "Adam": lambda params, lr, capturable, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, **_: (
+        torch.optim.AdamW(params, lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
+                          capturable=capturable)
         if weight_decay
-        else torch.optim.Adam(params, lr, betas=tuple(betas), eps=eps)
+        else torch.optim.Adam(params, lr, betas=tuple(betas), eps=eps, capturable=capturable)
     ),
-    "AdamW": lambda params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01, **_: (
-        torch.optim.AdamW(params, lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay)
+    "AdamW": lambda params, lr, capturable, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01, **_: (
+        torch.optim.AdamW(params, lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
+                          capturable=capturable)
     ),
 }
 # Accepted by grl_tpu, not ported yet.
@@ -64,8 +75,14 @@ class BuiltinOptimizer(BaseOptimizer):
         self.kwargs = kwargs
 
     def make(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-        """The torch optimizer over ``params`` at the configured lr."""
-        return _TORCH_OPTIMIZERS[self.type_optimizer](list(params), self.learning_rate, **self.kwargs)
+        """The torch optimizer over ``params`` at the configured lr:
+        capturable, with a tensor lr, where the parameters lie on a CUDA
+        device."""
+        params = list(params)
+        cuda = bool(params) and params[0].device.type == "cuda"
+        lr = (torch.tensor(self.learning_rate, dtype=torch.float32, device=params[0].device)
+              if cuda else self.learning_rate)
+        return _TORCH_OPTIMIZERS[self.type_optimizer](params, lr, cuda, **self.kwargs)
 
 
 # Reference-compatible alias (the reference class name carries a typo —
@@ -90,7 +107,30 @@ def clip_by_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float) 
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:
-    """Write ``lr`` into every parameter group."""
+    """Write ``lr`` into every parameter group: into its tensor, in place,
+    where the group holds one (a capturable optimizer)."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+    return optimizer
+
+
+def match_device(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
+    """Make an optimizer whose state was loaded from a checkpoint written on
+    another kind of device capturable, with a tensor lr and step counts on
+    the parameters' device, where its parameters lie on a CUDA device, and
+    plain, with a float lr, elsewhere (``load_state_dict`` takes these from
+    the checkpoint)."""
+    for group in optimizer.param_groups:
+        device = group["params"][0].device
+        cuda = device.type == "cuda"
+        lr = float(group["lr"])
+        group["capturable"] = cuda
+        group["lr"] = torch.tensor(lr, dtype=torch.float32, device=device) if cuda else lr
+        for param in group["params"]:
+            state = optimizer.state.get(param, {})
+            if isinstance(state.get("step"), torch.Tensor):
+                state["step"] = state["step"].to(device if cuda else "cpu", torch.float32)
     return optimizer

@@ -5,7 +5,11 @@ Counterpart of ``grl_tpu/trainer/procedures/base_procedure.py`` (:52-352).
 function over it; here the train state is the module, its optimizer and
 a step count (:class:`TrainState`), and a step runs eagerly: forward →
 criterion → backward → global-norm clip → optimizer → ``argmax`` →
-confusion matrix, all enqueued on the device without a host sync.
+confusion matrix, all enqueued on the device without a host sync. The
+step's device work (:meth:`BaseProcedure.build_train_body`) reads nothing
+back and counts nothing on the host, so that ``scan_steps`` can capture a
+chunk of steps in a CUDA graph (:mod:`grl_torch.trainer.captured`,
+:meth:`BaseProcedure.chunk_runner`).
 
 Every random mask of a train step (dropout, DropEdge) is drawn from the
 procedure's :class:`~grl_torch.models.layers.Rngs`, seeded from
@@ -26,6 +30,7 @@ from grl_torch.models.layers import Rngs
 from grl_torch.trainer import losses as losses_module
 from grl_torch.trainer import lr_schedulers as lr_module
 from grl_torch.trainer import optimizers as optim_module
+from grl_torch.trainer.captured import CapturedSteps
 from grl_torch.trainer.metrics import confusion_matrix
 from grl_torch.utils.checkpoint import CheckpointHandler
 from grl_torch.utils.device import DeviceLike, resolve_device
@@ -54,6 +59,7 @@ class TrainState:
         self.model.load_state_dict(raw["model"])
         if "optimizer" in raw:
             self.optimizer.load_state_dict(raw["optimizer"])
+            optim_module.match_device(self.optimizer)
         self.step = int(raw.get("step", 0))
 
 
@@ -96,6 +102,7 @@ class BaseProcedure:
             enable_tensorboard=bool(self.config.get_path("logging.use_tensorboard", True)),
         )
         self.state: Optional[TrainState] = None
+        self._steps: Optional[CapturedSteps] = None
         self._check_mesh()
 
     def _check_mesh(self) -> None:
@@ -155,7 +162,16 @@ class BaseProcedure:
         )
         self.state = TrainState(self.model, self.optimizer_factory.make(params))
         self._load_prev_checkpoint(self.state)
+        self._steps = None
         return self.state
+
+    def chunk_runner(self) -> CapturedSteps:
+        """The runner of this state's chunks of steps (``scan_steps``), made
+        at first use: its graphs capture this state's model and optimizer
+        and register the generator of ``self.rngs`` as it is then."""
+        if self._steps is None:
+            self._steps = CapturedSteps(self.device, [self.rngs.device])
+        return self._steps
 
     def _load_prev_checkpoint(self, state: TrainState) -> TrainState:
         path = self.config.get("checkpoint_path")
@@ -181,14 +197,16 @@ class BaseProcedure:
     # ------------------------------------------------------------------
     # Steps
     # ------------------------------------------------------------------
-    def build_train_step(self, num_classes: int, ignore_values: Tuple[int, ...]) -> Callable:
-        """``train_step(V, A, labels, rngs, lam) -> (loss, cm)``: one
-        optimizer step on the device; ``loss`` and ``cm`` stay there."""
+    def build_train_body(self, num_classes: int, ignore_values: Tuple[int, ...]) -> Callable:
+        """``body(V, A, labels, rngs, lam) -> (loss, cm)``: one optimizer
+        step's device work; ``loss`` and ``cm`` stay on the device, and the
+        host reads nothing and counts nothing (``lam`` is a float or a device
+        scalar), so a CUDA graph can capture it."""
         model, criterion, state = self.model, self.criterion, self.state
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
         max_grad_norm = self.max_grad_norm
 
-        def train_step(V, A, labels, rngs: Rngs, lam: float):
+        def body(V, A, labels, rngs: Rngs, lam):
             model.train()
             state.optimizer.zero_grad(set_to_none=True)
             logits = model((V, A), rngs=rngs, lambda_value=lam)
@@ -197,9 +215,21 @@ class BaseProcedure:
             if max_grad_norm:
                 optim_module.clip_by_global_norm_(params, float(max_grad_norm))
             state.optimizer.step()
-            state.step += 1
             preds = logits.detach().argmax(dim=-1)
             return loss.detach(), confusion_matrix(preds, labels, num_classes, ignore_values)
+
+        return body
+
+    def build_train_step(self, num_classes: int, ignore_values: Tuple[int, ...]) -> Callable:
+        """``train_step(V, A, labels, rngs, lam) -> (loss, cm)``: one
+        optimizer step on the device (:meth:`build_train_body`), counted in
+        ``state.step``; ``loss`` and ``cm`` stay there."""
+        body, state = self.build_train_body(num_classes, ignore_values), self.state
+
+        def train_step(V, A, labels, rngs: Rngs, lam):
+            out = body(V, A, labels, rngs, lam)
+            state.step += 1
+            return out
 
         return train_step
 

@@ -12,18 +12,21 @@ order once. A train step is forward → ``cross_entropy`` with -100 masking →
 backward → global-norm clip → Adam, all enqueued without a host sync; an
 eval step is the masked accuracy on the validation nodes.
 
-``scan_steps = K`` runs the steps in chunks of ``min(K, remaining)``, with
-``grl_tpu``'s step count and eval schedule (eval after the first chunk, at
-every crossing of a multiple of 10 steps, and at the end). ``grl_tpu``
-fuses a chunk into one ``lax.scan`` dispatch; here the steps run eagerly,
-and the GPU analogue of the fusion, CUDA-graph capture, is queued in
-ROADMAP.md. ``parallel.mesh`` over more than one device (the partitioned
+``scan_steps = K`` runs the steps in chunks of ``k_eff = min(K,
+remaining)``, with ``grl_tpu``'s step count and eval schedule (eval after
+the first chunk, at every crossing of a multiple of 10 steps, and at the
+end). ``grl_tpu`` fuses a chunk into one ``lax.scan`` dispatch, compiled
+once per ``k_eff`` (``_scan_fn``); here, with K > 1, a chunk is one replay
+of a CUDA graph captured once per ``k_eff`` on the card (the first chunk
+of a ``k_eff`` runs eagerly, as the warm-up; :mod:`grl_torch.trainer.captured`)
+and ``k_eff`` eager steps on the CPU. ``scan_steps: 1`` runs each step
+eagerly. ``parallel.mesh`` over more than one device (the partitioned
 path) raises, naming slice 4.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,6 +138,26 @@ class FullGraphProcedure(BaseProcedure):
 
     def train_step(self) -> torch.Tensor:
         """One full-graph optimizer step; the loss stays on the device."""
+        loss = self._step_body()
+        self.state.step += 1
+        return loss
+
+    def chunk_body(self, k: int) -> Callable[[], torch.Tensor]:
+        """The device work of ``k`` optimizer steps, giving their losses."""
+        return lambda: torch.stack([self._step_body() for _ in range(k)])
+
+    def train_steps(self, k: int) -> List[torch.Tensor]:
+        """``k`` optimizer steps as one chunk: one replay of the graph of
+        ``k`` steps on the card (captured at the second chunk of ``k``
+        steps), ``k`` eager steps on the CPU. Each step's loss as a device
+        scalar of its own."""
+        losses = self.chunk_runner().run(k, self.chunk_body(k)).clone()
+        self.state.step += k
+        return list(losses.unbind())
+
+    def _step_body(self) -> torch.Tensor:
+        """One step's device work, with no host read and no host-side
+        count: a CUDA graph can capture it."""
         model, optimizer = self.model, self.state.optimizer
         model.train()
         optimizer.zero_grad(set_to_none=True)
@@ -145,7 +168,6 @@ class FullGraphProcedure(BaseProcedure):
             params = [p for group in optimizer.param_groups for p in group["params"]]
             optim_module.clip_by_global_norm_(params, float(self.max_grad_norm))
         optimizer.step()
-        self.state.step += 1
         return loss.detach()
 
     def eval_step(self, labels: torch.Tensor) -> torch.Tensor:
@@ -168,9 +190,9 @@ class FullGraphProcedure(BaseProcedure):
         total = 0
         for first in range(0, num_epochs, K):
             k_eff = min(K, num_epochs - first)
-            for _ in range(k_eff):
-                loss = self.train_step()
-                self.losses.append(loss)
+            losses = [self.train_step()] if K == 1 else self.train_steps(k_eff)
+            self.losses.extend(losses)
+            loss = losses[-1]
             epoch = first + k_eff - 1
             total = epoch + 1
             # Eval after the first chunk, at every crossing of a multiple

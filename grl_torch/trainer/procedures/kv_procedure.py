@@ -7,21 +7,26 @@ stepwise:
   confusion counts on the device); the host reads the loss and the
   ``C x C`` matrix once per step, as ``grl_tpu`` does, and derives macro
   P/R/F1 from it;
-* the per-step cosine RanPAC lambda is passed to the model as a scalar;
+* ``scan_steps = K > 1`` is ``grl_tpu``'s ``_train_epoch_scanned``
+  (:meth:`KVProcedure._train_epoch_scanned`): batches wait in buffers by
+  shape until K of one shape are ready, then run as one chunk, which on
+  the card is one replay of a CUDA graph captured once for that shape
+  (:mod:`grl_torch.trainer.captured`; the first chunk of a shape runs
+  eagerly, as the warm-up), and on the CPU K eager steps; the leftovers
+  of an epoch run step by step;
+* the per-step cosine RanPAC lambda is passed to the model as a device
+  scalar, filled in place (a chunk holds one a step);
 * validation sums the confusion matrices of the epoch for the epoch
   report;
 * checkpoints hold model, optimizer and step, saved on the best
   validation loss and every ``save_interval`` steps.
 
-``scan_steps > 1`` (``grl_tpu`` fuses K steps into one ``lax.scan``
-dispatch) raises: its analog here is CUDA-graph capture of K steps, a
-later item of ROADMAP.md. t-SNE of the representation space arrives with
-slice 2.
+t-SNE of the representation space arrives with slice 2.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -42,12 +47,7 @@ from grl_torch.utils.profiling import Profiler
 class KVProcedure(BaseProcedure):
     def __init__(self, model: torch.nn.Module, config: ConfigDict, **kwargs: Any):
         super().__init__(model, config, **kwargs)
-        if int(self.config.get("scan_steps", 1)) > 1:
-            raise NotImplementedError(
-                "scan_steps > 1 fuses K steps into one dispatch in grl_tpu; its "
-                "analog, CUDA-graph capture of K steps, is queued in ROADMAP.md "
-                "(Queue 1, item 5). Use scan_steps: 1."
-            )
+        self._scan_k = max(1, int(self.config.get("scan_steps", 1)))
         self.global_step = 0
         self.train_loader, self.val_loader, self.class_names = self._init_dataloaders()
         self._check_dropedge_shapes()
@@ -60,7 +60,11 @@ class KVProcedure(BaseProcedure):
             v for v in (self.pad_value, self.other_class_index) if v is not None
         )
         self._train_fn = None
+        self._train_body = None
         self._eval_fn = None
+        # The chunks' static inputs on the device, by shape key.
+        self._slots: Dict[tuple, Dict[str, Any]] = {}
+        self._lam = None
         self._last_ckpt_step = 0
         profile_cfg = self.config.get_path("logging.profile", {}) or {}
         self.profiler = Profiler(
@@ -122,10 +126,11 @@ class KVProcedure(BaseProcedure):
                     ) from None
 
     # ------------------------------------------------------------------
-    def _prepare_batch(self, batch: Dict[str, Any]):
-        """``(V, A, labels)`` on the device. Features and adjacency are cast
-        to the compute dtype on the host, before the one copy to the device:
-        half the bytes under bf16, and no cast pass on the device."""
+    def _host_batch(self, batch: Dict[str, Any], pin: bool = False):
+        """``(V, A, labels)`` on the host, features and adjacency cast to
+        the compute dtype (half the bytes under bf16, and no cast pass on
+        the device); in page-locked memory with ``pin``, for a copy to the
+        device that does not wait."""
         if "coo_senders" in batch:
             raise NotImplementedError(
                 "COO batches (SparseBucketPadding) are the sparse path, ROADMAP.md "
@@ -133,14 +138,16 @@ class KVProcedure(BaseProcedure):
             )
         dtype = optional_dtype(getattr(self.model, "compute_dtype", None)) or torch.float32
 
-        def to_device(array, to_dtype):
-            return torch.from_numpy(np.ascontiguousarray(array)).to(to_dtype).to(self.device)
+        def host(array, to_dtype):
+            tensor = torch.from_numpy(np.ascontiguousarray(array)).to(to_dtype)
+            return tensor.pin_memory() if pin else tensor
 
-        return (
-            to_device(batch["textline_encoding"], dtype),
-            to_device(batch["adjacency_matrix"], dtype),
-            to_device(batch["node_label"], torch.int64),
-        )
+        return (host(batch["textline_encoding"], dtype), host(batch["adjacency_matrix"], dtype),
+                host(batch["node_label"], torch.int64))
+
+    def _prepare_batch(self, batch: Dict[str, Any]):
+        """``(V, A, labels)`` on the device, with one copy each."""
+        return tuple(t.to(self.device) for t in self._host_batch(batch))
 
     def _ensure_initialized(self) -> None:
         if self.state is None:
@@ -154,7 +161,9 @@ class KVProcedure(BaseProcedure):
                 self._last_ckpt_step = restored
         if self._train_fn is None:
             self._train_fn = self.build_train_step(self.num_classes, self._ignore)
+            self._train_body = self.build_train_body(self.num_classes, self._ignore)
             self._eval_fn = self.build_eval_step(self.num_classes, self._ignore)
+            self._lam = torch.zeros((), dtype=torch.float32, device=self.device)
 
     def _lambda_value(self, epoch: int) -> float:
         """Per-step cosine lambda (reference: kv_procedure.py:201-204)."""
@@ -182,8 +191,8 @@ class KVProcedure(BaseProcedure):
     def _run_train_batch(self, batch: Dict[str, Any], epoch: int) -> Dict[str, float]:
         self._ensure_initialized()
         V, A, labels = self._prepare_batch(batch)
-        lam = self._lambda_value(epoch)
-        loss, cm = self._train_fn(V, A, labels, self.rngs, lam)
+        self._lam.fill_(self._lambda_value(epoch))
+        loss, cm = self._train_fn(V, A, labels, self.rngs, self._lam)
         return self._scores_from_cm(cm.cpu().numpy(), float(loss))
 
     def _run_val_batch(self, batch: Dict[str, Any]) -> Tuple[Dict[str, float], np.ndarray]:
@@ -204,6 +213,92 @@ class KVProcedure(BaseProcedure):
             self.global_step += 1
             num_nodes += int(np.prod(np.shape(batch["textline_encoding"])[:2]))
             self._maybe_step_checkpoint(epoch)
+        return num_nodes
+
+    def load_chunk(self, items: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, float]]
+                   ) -> Tuple[tuple, Callable[[], Tuple[torch.Tensor, torch.Tensor]]]:
+        """K buffered batches of one shape, ``(V, A, labels, lambda)`` each
+        on the host, copied into the static inputs of their shape. Returns
+        the chunk's key and its body: the K steps in arrival order on those
+        inputs, giving the K losses and confusion matrices on the device."""
+        self._ensure_initialized()
+        K = len(items)
+        V0, A0, labels0, _ = items[0]
+        key = (K, tuple(V0.shape), tuple(A0.shape), tuple(labels0.shape))
+        slots = self._slots.get(key)
+        if slots is None:
+            def static(like):
+                return [torch.empty(like.shape, dtype=like.dtype, device=self.device) for _ in range(K)]
+
+            slots = self._slots[key] = {
+                "V": static(V0), "A": static(A0), "labels": static(labels0),
+                "lam": torch.zeros(K, dtype=torch.float32, device=self.device),
+            }
+        for k, (V, A, labels, _) in enumerate(items):
+            slots["V"][k].copy_(V, non_blocking=True)
+            slots["A"][k].copy_(A, non_blocking=True)
+            slots["labels"][k].copy_(labels, non_blocking=True)
+        slots["lam"].copy_(torch.tensor([lam for *_, lam in items], dtype=torch.float32))
+        body = self._train_body
+
+        def chunk():
+            out = [body(slots["V"][k], slots["A"][k], slots["labels"][k], self.rngs, slots["lam"][k])
+                   for k in range(K)]
+            return torch.stack([loss for loss, _ in out]), torch.stack([cm for _, cm in out])
+
+        return key, chunk
+
+    def run_chunk(self, items: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, float]]
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """K buffered batches of one shape as one chunk of K steps
+        (:meth:`load_chunk`), run by the chunk runner: one graph replay on
+        the card. Returns the K losses and confusion matrices, read back
+        once."""
+        key, chunk = self.load_chunk(items)
+        losses, cms = self.chunk_runner().run(key, chunk)
+        self.state.step += len(items)
+        return losses.cpu().numpy(), cms.cpu().numpy()
+
+    def _train_epoch_scanned(self, epoch: int, train_metrics: Dictlist) -> int:
+        """``scan_steps = K``: ``grl_tpu``'s ``_train_epoch_scanned``
+        (``kv_procedure.py:260-336``). Batches wait in buffers keyed by
+        their ``(V, A, labels)`` shapes until K are ready, then run as one
+        chunk (:meth:`run_chunk`); within a shape the updates keep the
+        arrival order, across shapes they are grouped. The profiler hooks
+        bracket the chunk, and each step is logged under its batch's own
+        ``global_step``. At the end of the epoch the leftover buffers drain
+        step by step, and the drain gets its checkpoint opportunity.
+        Returns the (padded) nodes seen."""
+        K = self._scan_k
+        buffers: Dict[tuple, list] = {}
+        num_nodes = 0
+
+        def flush(items) -> None:
+            self.profiler.maybe_start(self.state.step)
+            losses, cms = self.run_chunk([item[:4] for item in items])
+            self.profiler.maybe_stop(self.state.step)
+            for loss, cm, item in zip(losses, cms, items):
+                self._log_train_step(self._scores_from_cm(cm, float(loss)), train_metrics, item[4])
+            self._maybe_step_checkpoint(epoch)
+
+        for batch in self.train_loader:
+            self._ensure_initialized()
+            V, A, labels = self._host_batch(batch, pin=self.device.type == "cuda")
+            num_nodes += int(np.prod(np.shape(batch["textline_encoding"])[:2]))
+            lam = self._lambda_value(epoch)
+            gstep = self.global_step
+            self.global_step += 1
+            key = (tuple(V.shape), tuple(A.shape), tuple(labels.shape))
+            buffers.setdefault(key, []).append((V, A, labels, lam, gstep))
+            if len(buffers[key]) == K:
+                flush(buffers.pop(key))
+        for items in buffers.values():
+            for V, A, labels, lam, gstep in items:
+                self._lam.fill_(lam)
+                loss, cm = self._train_fn(V.to(self.device), A.to(self.device), labels.to(self.device),
+                                          self.rngs, self._lam)
+                self._log_train_step(self._scores_from_cm(cm.cpu().numpy(), float(loss)), train_metrics, gstep)
+        self._maybe_step_checkpoint(epoch)
         return num_nodes
 
     def _log_train_step(self, step_scores: Dict[str, float],
@@ -228,7 +323,10 @@ class KVProcedure(BaseProcedure):
         """(reference: kv_procedure.py:180-244)."""
         train_metrics = Dictlist()
         epoch_start = time.time()
-        num_nodes = self._train_epoch_stepwise(epoch, train_metrics)
+        if self._scan_k > 1:
+            num_nodes = self._train_epoch_scanned(epoch, train_metrics)
+        else:
+            num_nodes = self._train_epoch_stepwise(epoch, train_metrics)
         elapsed = time.time() - epoch_start
         train_result = train_metrics.result()
         train_result["nodes_per_sec"] = round(num_nodes / max(elapsed, 1e-9), 1)

@@ -179,3 +179,26 @@ def test_wrapper_refuses_other_devices():
         csr_spmm.csr_accumulate(torch.zeros(10, 8, device="meta"), kernel.forward_layout)
     with pytest.raises(ValueError, match="rows"):
         csr_spmm.csr_accumulate(torch.zeros(9, 8), kernel.forward_layout)
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**31 + 5, 2**32 - 1])
+def test_tensor_seed_gives_the_int_seeds_mask_bit_for_bit(seed):
+    """K5 takes its seed as an int or as the one-element int32 tensor the
+    kernel reads from device memory: the plain version's forward and
+    backward give the same bits either way."""
+    N, L = 40, 2
+    rng = np.random.RandomState(9)
+    cells = rng.choice(N * L * N, 300, replace=False)
+    receivers, rest = np.divmod(cells, L * N)
+    relations, senders = np.divmod(rest, N)
+    kernel = csr_spmm.CSRGraphKernel(senders, receivers, relations, np.ones(300, np.float32), N, L, device="cpu")
+    tensor = hashing.seed_tensor(seed)
+    assert torch.equal(hashing.keep_bits(torch.arange(300), tensor, 0.3), hashing.keep_bits(torch.arange(300), seed, 0.3))
+    V = torch.from_numpy(rng.rand(N, 8).astype(np.float32))
+    outs = []
+    for s in (seed, tensor):
+        Vg = V.clone().requires_grad_()
+        out = kernel.neighbor_aggregate(Vg, s, 0.3)
+        (dV,) = torch.autograd.grad(out, Vg, torch.ones_like(out))
+        outs.append((out, dV))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

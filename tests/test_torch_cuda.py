@@ -17,7 +17,7 @@ import torch
 
 import numpy as np
 
-from grl_torch.ops import csr_spmm, ell, hashing, relagg, sparse, sparse_attention
+from grl_torch.ops import csr_spmm, ell, hashing, launches, relagg, sparse, sparse_attention
 from grl_torch.probes import gather
 
 pytestmark = pytest.mark.cuda
@@ -39,6 +39,12 @@ def card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def launched_since(before):
+    """The launches the device ran since ``before`` (a
+    ``launches.device_counts()``), by name."""
+    return dict(launches.device_counts() - before)
+
+
 def operands(N, F, dtype, density=0.05, seed=0):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     V = torch.randn(B, N, F, generator=gen, device="cuda").to(dtype)
@@ -50,10 +56,10 @@ def operands(N, F, dtype, density=0.05, seed=0):
 @pytest.mark.parametrize("N, F", [(64, 256), (192, 512), (256, 256), (100, 40)])
 def test_kernel_matches_plain_version(N, F, dtype):
     V, A = operands(N, F, dtype)
-    before = relagg.neighbor_aggregate.launches
+    before = launches.device_counts()
     out = relagg.neighbor_aggregate(V, A)
     torch.cuda.synchronize()
-    assert relagg.neighbor_aggregate.launches == before + 1
+    assert launched_since(before)["K3"] == 1
     assert out.shape == (B, N, L, F) and out.dtype == dtype
     ref = relagg.neighbor_aggregate_reference(V, A)
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
@@ -88,12 +94,12 @@ def test_dropedge_kernels_match_plain_versions(N, F, dtype):
         with pytest.raises(ValueError, match="N % 8 == 0"):
             relagg.dropedge_aggregate(V, A, 11, RATE)
         return
-    k1, k2 = relagg.dropedge_aggregate.launches, relagg.dropedge_aggregate_grad.launches
+    before = launches.device_counts()
     out = relagg.dropedge_aggregate(V, A, 11, RATE)
     dV = relagg.dropedge_aggregate_grad(g, A, 11, RATE)
     torch.cuda.synchronize()
-    assert relagg.dropedge_aggregate.launches == k1 + 1
-    assert relagg.dropedge_aggregate_grad.launches == k2 + 1
+    counted = launched_since(before)
+    assert counted["K1"] == 1 and counted["K2"] == 1
     assert out.shape == (B, N, L, F) and out.dtype == dtype
     assert dV.shape == (B, N, F) and dV.dtype == dtype
     ref = relagg.dropedge_aggregate_reference(V, A, 11, RATE)
@@ -117,15 +123,15 @@ def test_dropedge_autograd_runs_k2_and_rate_zero_is_k3():
     V, A = operands(128, 64, torch.float32, density=0.1)
     V.requires_grad_()
     W = torch.randn(B, 128, L, 64, device="cuda")
-    k2 = relagg.dropedge_aggregate_grad.launches
+    before = launches.device_counts()
     (relagg.dropedge_aggregate(V, A, 9, RATE) * W).sum().backward()
-    assert relagg.dropedge_aggregate_grad.launches == k2 + 1
+    assert launched_since(before)["K2"] == 1
     V_ref = V.detach().clone().requires_grad_()
     (relagg.dropedge_aggregate_reference(V_ref, A, 9, RATE) * W).sum().backward()
     torch.testing.assert_close(V.grad, V_ref.grad, rtol=1e-4, atol=1e-4)
-    k1, k3 = relagg.dropedge_aggregate.launches, relagg.neighbor_aggregate.launches
+    before = launches.device_counts()
     plain = relagg.dropedge_aggregate(V.detach(), A, 9, 0.0)
-    assert relagg.dropedge_aggregate.launches == k1 and relagg.neighbor_aggregate.launches == k3 + 1
+    assert launched_since(before) == {"K3": 1, "K3 float32": 1}
     torch.testing.assert_close(plain, relagg.neighbor_aggregate_reference(V.detach(), A), rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):
         relagg.dropedge_aggregate(V.detach(), A, 9, 1.0)
@@ -148,12 +154,11 @@ def assert_one_rounding_apart(out, ref):
 def test_bf16_dropedge_kernels_match_plain_versions(N, F):
     V, A = operands(N, F, torch.bfloat16, density=0.05, seed=7 * N + F)
     g = torch.randn(B, N, L, F, device="cuda").to(torch.bfloat16)
-    k1, k2 = relagg.dropedge_aggregate.launches, relagg.dropedge_aggregate_grad.launches
+    before = launches.device_counts()
     out = relagg.dropedge_aggregate(V, A, 23, RATE)
     dV = relagg.dropedge_aggregate_grad(g, A, 23, RATE)
     torch.cuda.synchronize()
-    assert relagg.dropedge_aggregate.launches == k1 + 1
-    assert relagg.dropedge_aggregate_grad.launches == k2 + 1
+    assert launched_since(before) == {"K1": 1, "K2": 1, "K2 sm90": 1}
     assert_one_rounding_apart(out, relagg.dropedge_aggregate_reference(V, A, 23, RATE))
     assert_one_rounding_apart(dV, relagg.dropedge_aggregate_grad_reference(g, A, 23, RATE))
 
@@ -211,10 +216,10 @@ def test_bf16_dropedge_shape_check():
 @pytest.mark.parametrize("F", [64, 256, 512, 1280])
 def test_bf16_k3_sm90_matches_plain_version(N, F):
     V, A = operands(N, F, torch.bfloat16, density=0.05, seed=3 * N + F)
-    before = dict(relagg.neighbor_aggregate.routes)
+    before = launches.device_counts()
     out = relagg.neighbor_aggregate(V, A)
     torch.cuda.synchronize()
-    assert relagg.neighbor_aggregate.routes == {**before, "sm90": before["sm90"] + 1}
+    assert launched_since(before) == {"K3": 1, "K3 sm90": 1}
     assert_one_rounding_apart(out, relagg.neighbor_aggregate_reference(V, A))
 
 
@@ -225,10 +230,10 @@ def test_bf16_k3_ragged_route_matches_plain_version(N, F):
     launches relagg_ragged.cu, which copies A itself (4-byte copies at even
     N, 2-byte loads at odd N) and V through TMA where F % 8 == 0."""
     V, A = operands(N, F, torch.bfloat16, density=0.05, seed=N + F)
-    before = dict(relagg.neighbor_aggregate.routes)
+    before = launches.device_counts()
     out = relagg.neighbor_aggregate(V, A)
     torch.cuda.synchronize()
-    assert relagg.neighbor_aggregate.routes == {**before, "ragged": before["ragged"] + 1}
+    assert launched_since(before) == {"K3": 1, "K3 ragged": 1}
     assert_one_rounding_apart(out, relagg.neighbor_aggregate_reference(V, A))
 
 
@@ -258,13 +263,11 @@ def test_f32_k3_and_k1_match_plain_versions(N, F):
     3xTF32 on wgmma (about 1e-6 of the output's scale off the plain float32
     matmul): within 1e-5 of the largest output."""
     V, A = operands(N, F, torch.float32, density=0.05, seed=5 * N + F)
-    before = dict(relagg.neighbor_aggregate.routes)
-    k1 = relagg.dropedge_aggregate.launches
+    before = launches.device_counts()
     out = relagg.neighbor_aggregate(V, A)
     dropped = relagg.dropedge_aggregate(V, A, 29, RATE)
     torch.cuda.synchronize()
-    assert relagg.neighbor_aggregate.routes == {**before, "float32": before["float32"] + 1}
-    assert relagg.dropedge_aggregate.launches == k1 + 1
+    assert launched_since(before) == {"K3": 1, "K3 float32": 1, "K1": 1}
     assert_close_to_plain(out, relagg.neighbor_aggregate_reference(V, A))
     assert_close_to_plain(dropped, relagg.dropedge_aggregate_reference(V, A, 29, RATE))
 
@@ -322,10 +325,10 @@ def test_bf16_k3_sm90_refuses_a_misaligned_operand():
     V, A = operands(64, 64, torch.bfloat16)
     shifted = torch.empty(V.numel() + 1, dtype=V.dtype, device="cuda")[1:].view(V.shape)
     shifted.copy_(V)
-    launches = relagg.neighbor_aggregate.launches
+    before = launches.device_counts()
     with pytest.raises(ValueError, match="16-byte aligned"):
         relagg.neighbor_aggregate(shifted, A)
-    assert relagg.neighbor_aggregate.launches == launches
+    assert launched_since(before) == {}
 
 
 @pytest.mark.parametrize("N, F", [(64, 256), (192, 512), (256, 256), (256, 512), (230, 256), (256, 36)])
@@ -334,10 +337,10 @@ def test_f32_k2_matches_plain_version(N, F):
     1e-5 of the largest output."""
     _, A = operands(N, F, torch.float32, density=0.05, seed=N + 2 * F)
     g = torch.randn(B, N, L, F, device="cuda")
-    before = dict(relagg.dropedge_aggregate_grad.routes)
+    before = launches.device_counts()
     dV = relagg.dropedge_aggregate_grad(g, A, 19, RATE)
     torch.cuda.synchronize()
-    assert relagg.dropedge_aggregate_grad.routes == {**before, "float32": before["float32"] + 1}
+    assert launched_since(before) == {"K2": 1, "K2 float32": 1}
     assert_close_to_plain(dV, relagg.dropedge_aggregate_grad_reference(g, A, 19, RATE))
 
 
@@ -409,12 +412,12 @@ def csr_graph(N, L, E, seed=0):
 def test_k5_matches_plain_version(L, F, dtype, rate):
     kernel = csr_graph(2000, L, 12000, seed=F + L)
     V = torch.randn(2000, F, device="cuda").to(dtype).requires_grad_()
-    launched = dict(csr_spmm.csr_accumulate.launches)
+    before = launches.device_counts()
     out = kernel.neighbor_aggregate(V, 17, rate)
     g = torch.randn_like(out)
     (dV,) = torch.autograd.grad(out, V, g)
     torch.cuda.synchronize()
-    assert csr_spmm.csr_accumulate.launches == {k: v + 1 for k, v in launched.items()}
+    assert launched_since(before) == {"K5 forward": 1, "K5 backward": 1}
     fwd, bwd = kernel.forward_layout, kernel.backward_layout
     assert_close_to_plain(out.view(-1, F), csr_spmm.csr_accumulate_reference(V.detach(), fwd, 17, rate))
     assert_close_to_plain(dV, csr_spmm.csr_accumulate_reference(g.reshape(-1, F), bwd, 17, rate))
@@ -474,14 +477,14 @@ def test_k4_matches_plain_version(K, F, dtype):
     assert N % (sparse_attention.THREADS // group)
     kernel, f, g, h = attention_problem(N, 20000, K, F, dtype, seed=K + F,
                                         degrees=(max(group - 1, 1), group, group + 1))
-    launched = sparse_attention.attend_forward.launches
+    before = launches.device_counts()
     out = kernel.attend(f, g, h)
     torch.cuda.synchronize()
-    assert sparse_attention.attend_forward.launches == launched + 1
+    assert launched_since(before) == {"K4": 1}
     assert_close_to_plain(out, sparse_attention.attend_reference(f, g, h, kernel.plan))
     assert torch.all(out[-7:] == 0)
-    launches = [planned] + [planned._replace(slices=plan) for plan in slice_plans(F, h.element_size())]
-    for launch in launches:
+    layouts = [planned] + [planned._replace(slices=plan) for plan in slice_plans(F, h.element_size())]
+    for launch in layouts:
         assert torch.equal(sparse_attention._launch(f, g, h, kernel.plan, launch), out), launch
 
 
@@ -536,7 +539,7 @@ def test_k6_matches_plain_version(L, F, dtype, rate):
     """All four directions: forward, backward, projected forward and
     projected backward, each one launch."""
     kernel = ell_graph(2000, L, 12000, seed=F + L)
-    launched = dict(ell.ell_accumulate.launches)
+    before = launches.device_counts()
     V = torch.randn(2000, F, device="cuda").to(dtype).requires_grad_()
     out = kernel.neighbor_aggregate(V, 17, rate)
     g = torch.randn_like(out)
@@ -546,7 +549,7 @@ def test_k6_matches_plain_version(L, F, dtype, rate):
     g_p = torch.randn_like(out_p)
     (dVr,) = torch.autograd.grad(out_p, Vr, g_p)
     torch.cuda.synchronize()
-    assert ell.ell_accumulate.launches == {k: v + 1 for k, v in launched.items()}
+    assert launched_since(before) == {f"K6 {direction}": 1 for direction in ell.DIRECTIONS}
     t = kernel.tables
     assert_close_to_plain(out.view(-1, F), ell.ell_accumulate_reference(V.detach(), t.fwd, 17, rate))
     assert_close_to_plain(dV, ell.ell_accumulate_reference(g.reshape(-1, F), t.bwd, 17, rate))
@@ -667,3 +670,146 @@ def test_probe_kernels_match_plain_versions():
     assert errors["E1"] == errors["E2"] == errors["F"] == 0.0
     assert {name: kernel.launches - before[name] for name, kernel in gather.KERNELS.items()} == {
         "E1": 1, "E2": 1, "F": 1, "G": 2}
+
+
+# ---------------------------------------------------------------------------
+# DropEdge seeds in device memory under CUDA-graph capture
+# ---------------------------------------------------------------------------
+def mask_readers(dtype):
+    """{kernel: mask(seed)}: each kernel's keep set read back with an
+    identity operand, as booleans (K1: A * mask with V = I; K2: its
+    transpose with g = I; K5 and K6: the kept edges into each row)."""
+    N, Lr = 64, 2
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    A = (torch.rand(2, N, Lr, N, generator=gen, device="cuda") < 0.5).to(dtype)
+    eye = torch.eye(N, device="cuda", dtype=dtype).expand(2, N, N).contiguous()
+    eye_g = torch.eye(N * Lr, device="cuda", dtype=dtype).expand(2, N * Lr, N * Lr).reshape(2, N, Lr, N * Lr)
+    eye_g = eye_g.contiguous()
+    rng = np.random.RandomState(3)
+    cells = rng.choice(N * Lr * N, 3000, replace=False)
+    receivers, rest = np.divmod(cells, Lr * N)
+    relations, senders = np.divmod(rest, N)
+    edges = (senders, receivers, relations, np.ones(3000, np.float32))
+    k5 = csr_spmm.CSRGraphKernel(*edges, N, Lr, device="cuda")
+    k6 = ell.ELLGraphKernel(*edges, N, Lr, device="cuda", **CONFIG_PLAN)
+    flat = torch.eye(N, device="cuda", dtype=dtype)
+    return {
+        "K1": lambda seed: relagg.dropedge_aggregate(eye, A, seed, RATE) != 0,
+        "K2": lambda seed: relagg.dropedge_aggregate_grad(eye_g, A, seed, RATE) != 0,
+        "K5": lambda seed: k5.neighbor_aggregate(flat, seed, RATE) != 0,
+        "K6": lambda seed: k6.neighbor_aggregate(flat, seed, RATE) != 0,
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K5", "K6"])
+def test_captured_kernel_reads_the_seed_each_replay_draws(kernel, dtype):
+    """A chunk that draws a seed on the device and runs the kernel on it,
+    run by the chunk runner: the warm-up eagerly, then captured once and
+    replayed. Each replay draws a new seed, and its mask is the mask of an
+    eager call at that seed, bit for bit."""
+    from grl_torch.models import Rngs
+    from grl_torch.trainer.captured import CapturedSteps
+
+    read = mask_readers(dtype)[kernel]
+    rngs = Rngs.from_seed(5, torch.device("cuda"))
+    runner = CapturedSteps(torch.device("cuda"), [rngs.device])
+
+    def chunk():
+        seed = rngs.kernel_seed()
+        return seed, read(seed)
+
+    launches.reset()
+    outs = [tuple(t.clone() for t in runner.run("mask", chunk)) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert runner.replays == 3
+    seeds = [int(seed) for seed, _ in outs]
+    assert len(set(seeds)) == 4
+    for seed, (_, mask) in zip(seeds, outs):
+        assert torch.equal(mask, read(hashing.seed_tensor(seed, "cuda")))
+    assert not torch.equal(outs[1][1], outs[2][1])
+    name = {"K1": "K1", "K2": "K2", "K5": "K5 forward", "K6": "K6 forward"}[kernel]
+    assert launches.device_counts()[name] == 4 + 4  # the chunks, then the eager calls
+
+
+def small_kv_procedure(tmp_path):
+    """KVProcedure at scan_steps 2 on a small bf16 config with DropEdge and
+    dropout on, batches of 2 pages padded at quantum 64."""
+    from grl_torch.data.synthetic import synthetic_dataset_files
+    from grl_torch.trainer.procedures import KVProcedure
+    from grl_torch.models import create_model
+
+    data_dir, classes_path, charset_path = synthetic_dataset_files(str(tmp_path), num_pages=8, seed=4)
+    import json
+    with open(charset_path) as handle:
+        input_dim = len(json.load(handle)["charset"]) + 4
+    split = {
+        "data_path": [data_dir], "class_path": classes_path, "charset_path": charset_path,
+        "key_types": ["key", "value"], "batch_size": 2, "shuffle": False, "drop_last": False,
+        "data_collate": {"BucketPadding": {"quantum": 64, "only_selected_items": True}},
+        "data_process": {"TextlineEncoding": {}, "HeuristicGraphBuilder": {}, "NodeLabeling": {}},
+    }
+    args = {"input_dim": input_dim, "output_dim": 15, "num_edges": 6, "net_size": 64, "kernel_impl": "pallas",
+            "compute_dtype": "bfloat16", "dropout_rate": 0.5, "edge_dropout_rate": 0.3}
+    config = {
+        "seed": 0, "output_dir": str(tmp_path / "out"), "num_epochs": 1, "max_grad_norm": 5.0, "scan_steps": 2,
+        "model": {"type": "GraphCNNDropEdge", "args": args},
+        "data_config": {"dataset": {"type": "CassiaDataset", "args": {}}, "training": split, "validation": split},
+        "logging": {"use_tensorboard": False},
+    }
+    return KVProcedure(create_model("GraphCNNDropEdge", **args, device="cuda"), config, device="cuda")
+
+
+def replay_against_eager(proc, items):
+    """The chunk of ``items`` run eagerly and then replayed from the same
+    state (weights, optimizer, generator): (eager losses, replayed losses,
+    names of the parameters that differ)."""
+    import chip_smoke
+
+    snap = chip_smoke.snapshot(torch, proc)
+    eager_losses, _ = proc.chunk_runner().eager(proc.load_chunk(items)[1])
+    eager = chip_smoke.params_of(proc.model)
+    chip_smoke.restore(torch, proc, snap)
+    replays = proc.chunk_runner().replays
+    replayed_losses, _ = proc.run_chunk(items)
+    assert proc.chunk_runner().replays == replays + 1
+    differing = [n for n, v in chip_smoke.params_of(proc.model).items() if not torch.equal(v, eager[n])]
+    return eager_losses.cpu().numpy(), replayed_losses, differing
+
+
+def test_captured_kv_chunk_equals_the_same_chunk_run_eagerly(tmp_path):
+    """A chunk replayed from a graph and the same chunk run eagerly from the
+    same state give the same losses and parameters bit for bit."""
+    proc = small_kv_procedure(tmp_path)
+    batches = [proc._host_batch(batch) for batch, _ in zip(proc.train_loader, range(2))]
+    items = [(V, A, labels, 0.5) for V, A, labels in batches]
+    proc.run_chunk(items)  # the warm-up, eager
+    eager_losses, replayed_losses, differing = replay_against_eager(proc, items)
+    assert np.array_equal(eager_losses, replayed_losses) and not differing
+    # The next replay draws new masks: another loss from the same batches.
+    again, _ = proc.run_chunk(items)
+    assert not np.array_equal(again, replayed_losses)
+
+
+def test_two_bucket_chunks_share_one_pool_and_equal_eager(tmp_path):
+    """Chunks of two shapes (N = 64 and, cut from the same pages, N = 32):
+    one graph a shape, captured into the runner's one memory pool. The
+    second capture fits in the blocks of the first and adds less than half
+    of what the first added; replays of the two graphs in turn each equal
+    their chunk run eagerly, bit for bit."""
+    proc = small_kv_procedure(tmp_path)
+    batches = [proc._host_batch(batch) for batch, _ in zip(proc.train_loader, range(2))]
+    wide = [(V, A, labels, 0.5) for V, A, labels in batches]
+    assert all(V.shape[1] == 64 for V, *_ in wide)
+    narrow = [(V[:, :32].contiguous(), A[:, :32, :, :32].contiguous(), labels[:, :32].contiguous(), 0.5)
+              for V, A, labels, _ in wide]
+    for items in (wide, narrow):
+        proc.run_chunk(items)  # the warm-up, eager
+        proc.run_chunk(items)  # the capture
+    runner = proc.chunk_runner()
+    assert len(runner.graphs) == 2 and runner.replays == 2
+    first, second = (runner.setup[key]["capture_bytes"] for key in runner.graphs)
+    assert 0 < first and second < first / 2
+    for items in (wide, narrow, narrow, wide):
+        eager_losses, replayed_losses, differing = replay_against_eager(proc, items)
+        assert np.array_equal(eager_losses, replayed_losses) and not differing

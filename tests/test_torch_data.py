@@ -2,16 +2,13 @@
 
 The port keeps its own copies of the numpy stages (grl_torch may not
 import grl_tpu), so these tests hold the copies to the originals on the
-same synthetic pages: identical arrays, dtypes included. grl_tpu's graph
-builder is its default, the native C++ one; the port's is the Python
-builder, which must give the same float16 (N, 6, N) adjacency.
+same synthetic pages: identical arrays, dtypes included. Both packages'
+graph builder is their default, the native C++ one, which must give the
+same float16 (N, 6, N) adjacency.
 """
 from __future__ import annotations
 
-import fcntl
-import hashlib
 import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +22,7 @@ from grl_tpu.data.native import native_available
 from grl_tpu.data.normalize_text import normalize_text as jax_normalize_text
 from grl_tpu.data import synthetic as jax_synthetic
 from grl_torch.data import collate, datasets, synthetic
+from grl_torch.data import native as torch_native
 from grl_torch.data.dataloader import BaseDataLoader
 from grl_torch.data.normalize_text import normalize_text
 
@@ -85,43 +83,31 @@ def test_textline_encoding_matches(files):
         assert a["textline_encoding"].dtype == np.float32
 
 
-REPO = Path(__file__).resolve().parents[1]
-
-
 @pytest.fixture(scope="module")
 def native_library():
-    """grl_tpu's native graph builder (native/graph_builder.cpp), built into
-    a private path under build/ keyed on the source's hash.
+    """grl_tpu's native graph builder (native/graph_builder.cpp), built by
+    the port's locked build (grl_torch.data.native.build_library) into a
+    private path under build/ keyed on the source's hash.
 
     grl_tpu.data.native builds native/libgrlgraph.so in place when it is
     missing or stale, and every pytest-xdist worker imports it (through
     tests/test_native_builder.py) at collection: in a fresh checkout the
     workers each run g++ onto the path the others load, and a worker that
     loads a half-written file ("file too short") falls back to Python for
-    the rest of its life. Here one process at a time compiles, under a file
-    lock, to a temporary name that is then renamed into place, so no
-    process ever loads a partial file.
+    the rest of its life. The port's build compiles one process at a time,
+    under a file lock, to a temporary name that is then renamed into place,
+    so no process ever loads a partial file.
     """
     source = Path(jax_native._SRC)
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    build = REPO / "build" / "grl_torch"
-    build.mkdir(parents=True, exist_ok=True)
-    path = build / f"libgrlgraph-{digest}.so"
-    with open(build / "libgrlgraph.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not path.exists():
-            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-            subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", str(tmp), str(source)],
-                           check=True, capture_output=True)
-            os.replace(tmp, path)
-        if path.stat().st_mtime < source.stat().st_mtime:
-            os.utime(path)  # same source bytes: keep grl_tpu from rebuilding it
+    path = torch_native.build_library(source)
+    if path.stat().st_mtime < source.stat().st_mtime:
+        os.utime(path)  # same source bytes: keep grl_tpu from rebuilding it
     return str(path)
 
 
 @pytest.mark.parametrize("rows, noise", [(12, 6), (60, 8)])
 def test_graph_builder_matches_native(files, rows, noise, native_library, monkeypatch):
-    """The port's Python builder against grl_tpu's default native builder,
+    """The port's default builder (the native one) against grl_tpu's,
     loaded from the fixture's private build."""
     monkeypatch.setattr(jax_native, "_LIB", native_library)
     monkeypatch.setattr(jax_native, "_lib", None)

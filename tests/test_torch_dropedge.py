@@ -197,3 +197,29 @@ def test_drop_edge_statistics_against_grl_tpu():
         assert abs(np.mean([s for _, s in draws]) - 1.0) < 0.05, name
     tA = torch.from_numpy(A)
     assert relconv.drop_edge(tA, 0.0, gen) == (tA, None)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 + 5, 2**32 - 1])
+def test_tensor_seed_gives_the_int_seeds_mask_bit_for_bit(seed):
+    """K1 and K2 take their seed as an int or as the one-element int32
+    tensor that the kernels read from device memory (the train step draws
+    it on the device): their plain versions give the same mask and the
+    same outputs, bit for bit."""
+    from grl_torch.ops import hashing
+
+    rng = np.random.RandomState(3)
+    V = torch.from_numpy(rng.rand(2, 16, 8).astype(np.float32))
+    A = torch.from_numpy((rng.rand(2, 16, 3, 16) < 0.5).astype(np.float32))
+    g = torch.from_numpy(rng.rand(2, 16, 3, 8).astype(np.float32))
+    tensor = hashing.seed_tensor(seed)
+    assert tensor.dtype == torch.int32 and tensor.shape == (1,)
+    mask = relagg.dropedge_keep_mask(seed, A.shape, 0.3)
+    assert torch.equal(relagg.dropedge_keep_mask(tensor, A.shape, 0.3), mask)
+    assert 0.6 < float(mask.float().mean()) < 0.8
+    assert torch.equal(relagg.dropedge_aggregate(V, A, tensor, 0.3), relagg.dropedge_aggregate(V, A, seed, 0.3))
+    assert torch.equal(relagg.dropedge_aggregate_grad(g, A, tensor, 0.3),
+                       relagg.dropedge_aggregate_grad(g, A, seed, 0.3))
+    # Through autograd, K2 reads the seed tensor K1 read.
+    Vg = V.clone().requires_grad_()
+    (dV,) = torch.autograd.grad(relagg.dropedge_aggregate(Vg, A, tensor, 0.3), Vg, g)
+    assert torch.equal(dV, relagg.dropedge_aggregate_grad(g, A, seed, 0.3))

@@ -30,7 +30,7 @@ from grl_tpu.ops.pallas import sparse_attention as jax_attention
 from grl_tpu.trainer.procedures.full_graph_procedure import FullGraphProcedure as JaxFullGraph
 from grl_torch import models
 from grl_torch.data import large_graph
-from grl_torch.ops import csr_spmm, ell, hashing, kernels
+from grl_torch.ops import csr_spmm, ell, hashing, kernels, launches
 from grl_torch.trainer.procedures.full_graph_procedure import FullGraphProcedure
 
 
@@ -213,6 +213,7 @@ def test_refusals_and_surface():
         # Planner knobs of other kernels are ignored, as in grl_tpu.
         assert cls(*edges, 300, 2, tile_size=128, feature_dim=64).node_perm is None
     plain = ell.ELLGraphKernel(*edges, 300, 2, device="cpu")
+    before = launches.device_counts()
     V = torch.randn(300, 8)
     assert plain.pad_features(V) is V and plain.tables.proj is None
     with pytest.raises(ValueError, match="plan_projected"):
@@ -229,7 +230,8 @@ def test_refusals_and_surface():
     out.sum().backward()
     assert torch.equal(out, plain.neighbor_aggregate(V, 3, 0.3))
     assert padded.grad.shape == (304, 8) and torch.all(padded.grad[300:] == 0)
-    assert set(ell.ell_accumulate.launches) == set(ell.DIRECTIONS)
+    assert {plain.tables.fwd.direction, plain.tables.bwd.direction} <= set(ell.DIRECTIONS)
+    assert launches.device_counts() == before  # CPU tensors: plain version, never a launch
 
 
 # ---------------------------------------------------------------------------
@@ -405,3 +407,28 @@ def test_full_graph_step_limits_fail_a_wrong_k6_mask(ell_comparison, dtype_name)
     assert expected["K6 forward"] == expected["K6 backward"] == 4
     assert expected["K6 projected forward"] == expected["K6 projected backward"] == 2
     assert expected["K5 forward"] == expected["K4"] == 0
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**31 + 5, 2**32 - 1])
+def test_tensor_seed_gives_the_int_seeds_mask_bit_for_bit(seed):
+    """K6 takes its seed as an int or as the one-element int32 tensor the
+    kernel reads from device memory: the plain version gives the same bits
+    in all four directions either way."""
+    data = sbm(2, num_nodes=256)
+    N = len(data.features)
+    kernel = ell.ELLGraphKernel(*edges_of(data), N, 2, device="cpu", **CONFIG_PLAN)
+    rng = np.random.RandomState(2)
+    V = torch.from_numpy(rng.rand(N, 8).astype(np.float32))
+    Vr = torch.from_numpy(rng.rand(2 * N, 8).astype(np.float32))
+    tensor = hashing.seed_tensor(seed)
+    outs = []
+    for s in (seed, tensor):
+        Vg, Vrg = V.clone().requires_grad_(), Vr.clone().requires_grad_()
+        out = kernel.neighbor_aggregate(Vg, s, 0.3)
+        out_p = kernel.neighbor_aggregate_projected(Vrg, s, 0.3)
+        grads = torch.autograd.grad((out.sum() + out_p.sum()), (Vg, Vrg))
+        outs.append((out, out_p, *grads))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert torch.equal(hashing.keep_bits(kernel.tables.fwd.gid, tensor, 0.3),
+                       hashing.keep_bits(kernel.tables.fwd.gid, seed, 0.3))

@@ -358,7 +358,7 @@ def _last_bits(share, ulp):
 
     def flipped(X, layout, seed=0, rate=0.0):
         out = launch(X, layout, seed, rate)
-        flip = torch.rand(out.shape, generator=torch.Generator().manual_seed(seed + 1)) < share
+        flip = torch.rand(out.shape, generator=torch.Generator().manual_seed(int(seed) + 1)) < share
         return torch.where(flip, out.float() * (1 + ulp), out.float()).to(out.dtype)
 
     return chip_smoke_swapped((csr_spmm, "csr_accumulate", flipped))

@@ -18,7 +18,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from grl_tpu.ops import relconv as jax_relconv
 from grl_tpu.ops.pallas import relagg as jax_relagg
-from grl_torch.ops import relagg, relconv
+from grl_torch.ops import launches, relagg, relconv
 
 
 @pytest.fixture(autouse=True)
@@ -45,11 +45,11 @@ def test_matches_pallas_kernel_f32(N):
     """float32: both accumulate in float32; only the order differs (1e-5)."""
     V, A = rand(N=N)
     expected = np.asarray(jax_relagg.pallas_neighbor_aggregate(jnp.asarray(V), jnp.asarray(A)))
-    relagg.neighbor_aggregate.launches = 0
+    launches.reset()
     out = relagg.neighbor_aggregate(*to_torch(V, A))
     assert out.shape == expected.shape and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), expected, rtol=1e-5, atol=1e-5)
-    assert relagg.neighbor_aggregate.launches == 0  # CPU tensors: plain version
+    assert launches.device_counts()["K3"] == 0  # CPU tensors: plain version
 
 
 def test_matches_pallas_kernel_bf16():

@@ -28,7 +28,7 @@ from grl_tpu.trainer import metrics as jax_metrics
 from grl_tpu.trainer.procedures.base_procedure import BaseProcedure as JaxProcedure
 from grl_torch import models
 from grl_torch.trainer import losses, lr_schedulers, metrics, optimizers
-from grl_torch.trainer.procedures import BaseProcedure, KVProcedure
+from grl_torch.trainer.procedures import BaseProcedure
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -154,7 +154,8 @@ def test_optimizer_registry():
 
 def test_one_device_mesh_is_a_no_op_and_the_rest_is_refused(tmp_path):
     """parallel.mesh over one device is a no-op, as in grl_tpu; more
-    devices, and scan_steps > 1, raise naming where they are queued."""
+    devices raise naming where they are queued. (scan_steps > 1 runs:
+    tests/test_torch_scan.py holds it to grl_tpu.)"""
     model = models.create_model("GraphCNNDropEdge", input_dim=8, output_dim=3, num_edges=6,
                                 net_size=16, device="cpu")
     base = {"output_dir": str(tmp_path), "logging": {"use_tensorboard": False}}
@@ -162,8 +163,6 @@ def test_one_device_mesh_is_a_no_op_and_the_rest_is_refused(tmp_path):
         BaseProcedure(model, {**base, "parallel": {"mesh": mesh}}, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 4"):
         BaseProcedure(model, {**base, "parallel": {"mesh": {"data": 2}}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="CUDA-graph"):
-        KVProcedure(model, {**base, "scan_steps": 4}, device="cpu")
 
 
 # ---------------------------------------------------------------------------

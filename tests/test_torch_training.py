@@ -20,7 +20,7 @@ import torch
 
 from grl_tpu.data.synthetic import synthetic_dataset_files, synthetic_page
 from grl_torch import GNNLearningWarper
-from grl_torch.ops import relagg
+from grl_torch.ops import launches, relagg
 from grl_torch.trainer import lr_schedulers
 from grl_torch.utils.checkpoint import CheckpointHandler
 
@@ -177,9 +177,9 @@ def test_checkpoint_serves_through_kv_inference(trained):
     for name, value in trainer.model.state_dict().items():
         assert torch.equal(served.model.state_dict()[name], value), name
     pages = [[{"location": b["location"], "text": b["text"]} for b in synthetic_page(90 + i)] for i in range(3)]
-    launches = relagg.neighbor_aggregate.launches
+    before = launches.device_counts()
     out = served.predict(pages)
-    assert relagg.neighbor_aggregate.launches == launches  # CPU tensors: plain version, never a launch
+    assert launches.device_counts() == before  # CPU tensors: plain version, never a launch
     assert [len(p) for p in out] == [len(p) for p in pages]
     assert all(0.0 < box["confidence"] <= 1.0 for page in out for box in page)
 
@@ -188,11 +188,11 @@ def test_checkpoint_serves_through_kv_inference(trained):
 # chip_smoke.py's kernel-versus-plain step limits, on a small model: on the
 # CPU both runs take the plain versions, and one of them has a fault or a
 # last-bit rounding difference put into K1's or K2's plain version.
-def _flip_last_bits(fn, share):
+def _flip_last_bits(fn, share, ulp=2.0 ** -8):
     def flipped(X, A, seed, rate):
         out = fn(X, A, seed, rate)
-        flip = torch.rand(out.shape, generator=torch.Generator().manual_seed(seed)) < share
-        return torch.where(flip, out.float() * (1 + 2.0 ** -8), out.float()).to(out.dtype)
+        flip = torch.rand(out.shape, generator=torch.Generator().manual_seed(int(seed))) < share
+        return torch.where(flip, out.float() * (1 + ulp), out.float()).to(out.dtype)
     return flipped
 
 
@@ -265,3 +265,63 @@ def test_step_limits(tmp_path, monkeypatch, case):
     rows = chip_smoke.compare_steps(_two_small_steps(chip_smoke, torch.bfloat16, (name, change)), plain)
     failed = chip_smoke.step_failures(rows, chip_smoke.STEP_LIMITS["bfloat16"])
     assert (not failed) == holds, rows
+
+
+F32_STEP_CASES = {
+    # name: (which plain version, its change, whether the limits hold it)
+    "k1_last_bits": ("_dropedge_forward", lambda fn: _flip_last_bits(fn, 0.5, 2.0 ** -23), True),
+    "k2_last_bits": ("dropedge_aggregate_grad", lambda fn: _flip_last_bits(fn, 0.5, 2.0 ** -23), True),
+    "k1_other_seed": ("_dropedge_forward", _other_seed, False),
+    "k2_other_seed": ("dropedge_aggregate_grad", _other_seed, False),
+    "k2_other_rate": ("dropedge_aggregate_grad", _other_rate, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F32_STEP_CASES))
+def test_float32_step_limits(tmp_path, monkeypatch, case):
+    """The float32 limits (the full-graph float32 limits) pass a float32
+    last-bit difference in half of either kernel's outputs and fail a
+    kernel whose mask or rate is wrong."""
+    import chip_smoke
+
+    monkeypatch.chdir(tmp_path)
+    name, change, holds = F32_STEP_CASES[case]
+    plain = _two_small_steps(chip_smoke, torch.float32)
+    rows = chip_smoke.compare_steps(_two_small_steps(chip_smoke, torch.float32, (name, change)), plain)
+    failed = chip_smoke.step_failures(rows, chip_smoke.STEP_LIMITS["float32"])
+    assert (not failed) == holds, rows
+
+
+@pytest.mark.parametrize("grads, apart, holds", [
+    # One entry whose gradients sit under Adam's eps (as an H100 run found:
+    # 3.0e-9 and 7.5e-9) ends 0.635 lr apart: the share alone holds it.
+    ((3.0e-9, 7.5e-9), 0.635, True),
+    # The same gap where both gradients are well above eps fails.
+    ((1e-3, 1e-3), 0.635, False),
+    ((1e-3, 1e-3), 0.2, False),
+    # A held entry a hundredth of lr apart passes.
+    ((1e-3, 1e-3), 0.01, True),
+])
+def test_float32_limits_hold_entries_by_their_gradients(grads, apart, holds):
+    """compare_steps' held entries: the float32 limits hold the largest
+    difference and the entries lr/10 apart only where the gradient is at
+    least HELD_GRAD in both paths at every step."""
+    import chip_smoke
+
+    lr, n = chip_smoke.STEP_LR, 20000
+    initial = {"w": torch.zeros(n)}
+    initial["w"][0] = 1.0  # the largest parameter, the scale
+    moved = {"w": initial["w"] - 2 * lr}
+    shifted = {"w": moved["w"].clone()}
+    shifted["w"][7] += apart * lr
+    grad = {"w": torch.full((n,), 1e-2)}
+
+    def with_entry(value):
+        out = {"w": grad["w"].clone()}
+        out["w"][7] = value
+        return out
+
+    plain = ([1.0, 0.9], [initial, {"w": (initial["w"] + moved["w"]) / 2}, moved], [with_entry(grads[0])] * 2)
+    kernel = ([1.0, 0.9], [initial, {"w": (initial["w"] + shifted["w"]) / 2}, shifted], [with_entry(grads[1])] * 2)
+    rows = chip_smoke.compare_steps(kernel, plain)
+    assert (not chip_smoke.step_failures(rows, chip_smoke.STEP_LIMITS["float32"])) == holds, rows
