@@ -64,8 +64,10 @@ before the result line is printed; no phase's failure is passed over.
    (the same pages cut to N = 192), whose graph must share the runner's
    memory pool, and holds replays of the two graphs in turn to their
    chunks run eagerly, bit for bit; and replays a chunk that
-   reads back K1's and dropout's masks, which must be new at each replay,
-   the hash of the seed the replay drew, and keep their shares.
+   reads back K1's and D's (dropout's) masks, which must be new at each
+   replay, the hash of the seeds the replay drew, and keep their shares.
+   Every train-mode forward runs D five times, and its backward as often:
+   the launch counts hold D too, here and in the phases below.
    Then two paths of their own, each one epoch of 8 steps and 2
    validation batches through ``GNNLearningWarper.train`` with its launch
    counts set to 0 just before it and read just after: the same config in
@@ -80,7 +82,10 @@ before the result line is printed; no phase's failure is passed over.
    file's chunks of ``scan_steps: 10`` (the first eager, the second a
    replay of the captured chunk): K5
    (``grl_torch/csrc/csr_spmm.cu``) aggregates forward and backward, K4
-   (``grl_torch/csrc/sparse_attention.cu``) attends. Checks the launch
+   (``grl_torch/csrc/sparse_attention.cu``) attends, K4b
+   (``grl_torch/csrc/sparse_attention_bwd.cu``, two walks) takes its
+   backward, and D (``grl_torch/csrc/dropout.cu``) drops out in both
+   directions. Checks the launch
    counts, the replays, finite losses and changed parameters; prints
    steps/s and edges/s, one train step timed on the card eagerly and
    replayed, the device idle share of a traced eager window and of a
@@ -90,8 +95,12 @@ before the result line is printed; no phase's failure is passed over.
    learning check (the config's 200 steps at lr 1e-3, replayed in chunks
    of 10, timed whole: steps/s with the warm-up and the capture inside)
    and two full-width steps through the kernels against
-   two through their plain versions, float32 and bfloat16, beside two runs
-   of the plain versions and two runs with a fault planted in K5, which
+   two through their plain versions, float32 and bfloat16; at dropout 0.5,
+   two with D against its plain version (the same bits) and a plain step
+   followed by a kernel step against two plain steps; beside two runs of
+   the plain versions and four runs with a fault planted in K5 or K4b (its
+   sender walk reading each pair one edge off; its ``sum alpha dalpha``
+   term dropped, which only the score projections' gradients show), which
    must fail the limits (``FULL_GRAPH_PAIRS``).
 
 6. ``ell``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
@@ -109,9 +118,13 @@ before the result line is printed; no phase's failure is passed over.
    measured gather floors of K5, K6 (A rate) and K4 (C rate).
 
 The ``kernel`` phase also holds K5 (forward and backward, on the arxiv
-graph at F = 256 and 512, and a small L = 3 graph), K4 (on the arxiv
-graph at K = 16, F = 128, and a small graph with a hub and isolated
-receivers) and K6 (all four directions on the arxiv graph planned with
+graph at F = 256 and 512, and a small L = 3 graph), K4 and K4b (on the
+arxiv graph at K = 16, F = 128, and a small graph with a hub and isolated
+receivers; K4b against ``attend_backward`` and each of its walks against
+its plain version, two launches equal to the bit), D (at the step's
+dropout shapes, forward and backward, equal to its plain version bit for
+bit, keep share within binomial bounds, beside
+``torch.nn.functional.dropout``) and K6 (all four directions on the arxiv graph planned with
 the config's ``kernel_plan`` at F = 256 and 512, and a small L = 3 graph
 with geometric widths) against their plain versions, reads K5's keep set
 back exactly with V = I, and holds K6 against K5 on one seed: within one
@@ -264,6 +277,9 @@ LEARN_STEPS, LEARN_SHARE = 20, 0.75
 # handful of terms.
 ADAM_EPS = 1e-8
 HELD_GRAD = 10 * ADAM_EPS
+# Parameter names of the attention's score projections, whose gradients
+# only K4b's df and dg reach.
+SCORE_PROJECTIONS = ("trunk.self_atten.f.", "trunk.self_atten.g.")
 STEP_LR = 5e-3
 STEP_LIMITS = {
     "float32": [(1e-4, 1e-4, 1e-4, 0, 1e-3)] * 2,
@@ -296,12 +312,15 @@ K4_K, K4_F = 16, 128
 # accumulate in float32 and round once, one bf16 rounding apart.
 SPARSE_TOL = {"float32": (0.0, 1e-5), "bfloat16": (1e-2, 1e-5)}
 # Kernel path against plain path over two full-graph Adam steps, dropout 0
-# and DropEdge 0.3 (one hash mask on both paths): the limits of STEP_LIMITS'
-# five measures, the two on held entries not limited. The held pair runs under
+# and DropEdge 0.3 (one hash mask on both paths; dropout 0.5 is held from
+# one state, FULL_GRAPH_PAIRS): the limits of STEP_LIMITS'
+# five measures, the two on held entries not limited; the gradient limit
+# also holds the gradients of the attention's score projections alone
+# (step_failures' ``scores``), which only K4b's df and dg reach. The held pair runs under
 # torch.use_deterministic_algorithms, where two runs of the plain path agree
 # to the bit (index_add_ otherwise sums in an order that changes from run to
-# run, in the plain K5 and K4 and in K4's backward on both paths), so what
-# is left is the kernels' own summation order. It starts from the weights
+# run, in the plain K5, K4 and K4b), so what is left is the kernels' own
+# summation order. It starts from the weights
 # the learning check reached: from the main path's initial weights (logits
 # in the thousands, first loss ~2e3) two runs of the plain path outside
 # deterministic mode break the limits in both dtypes, as kernel against
@@ -330,12 +349,15 @@ FULL_GRAPH_LEARN_LR = 1e-3
 FULL_GRAPH_LEARN_ACC = 0.3
 
 
-def step_failures(rows, limits):
-    """The steps of ``compare_steps`` whose row exceeds its limits."""
+def step_failures(rows, limits, scores: bool = False):
+    """The steps of ``compare_steps`` whose row exceeds its limits; with
+    ``scores``, also where the gradients of the attention's score
+    projections differ by more than the gradient limit."""
     keys = ("loss_rel_diff", "held_max_diff_of_scale", "moved_share_beyond_lr_10", "held_beyond_lr_10",
             "grad_rel_diff")
     return [k for k, (row, limit) in enumerate(zip(rows, limits))
-            if any(row[key] > bound for key, bound in zip(keys, limit))]
+            if any(row[key] > bound for key, bound in zip(keys, limit))
+            or scores and row["score_grad_rel_diff"] > limit[4]]
 
 
 def log(message: str) -> None:
@@ -923,6 +945,176 @@ def k4_case(torch, kernel, dtype_name: str, flush, seed: int, what: str, timed: 
     return row
 
 
+def k4b_case(torch, kernel, dtype_name: str, flush, seed: int, what: str, timed: bool):
+    """K4b against ``attend_backward`` (the plain segment form) through
+    ``attend_grad``, two launches equal to the bit, and each walk against
+    its plain version on the same inputs (the sender walk on the kernel's
+    own pairs); zero rows where a node has no edge. Timed (on the arxiv
+    graph): a row a walk, and the whole function beside its bound."""
+    from grl_torch.ops import sparse
+    from grl_torch.ops import sparse_attention as sa
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    plan = kernel.plan
+    N, E = kernel.num_nodes, kernel.num_edges
+    f, g, h, dout = (torch.randn(N, d, generator=gen, device="cuda").to(dtype) for d in (K4_K, K4_K, K4_F, K4_F))
+    grads = sa.attend_grad(f, g, h, dout, plan)
+    again = sa.attend_grad(f, g, h, dout, plan)
+    ref = sa.attend_backward(f, g, h, dout, plan)
+    df, pairs = sa._launch_receivers(f, g, h, dout, plan)
+    ref_df, ref_pairs = sa.receiver_walk(f, g, h, dout, plan)
+    dg, dh = sa._launch_senders(f, dout, pairs, plan)
+    ref_dg, ref_dh = sa.sender_walk(f, dout, pairs, plan)
+    torch.cuda.synchronize()
+    tol = SPARSE_TOL[dtype_name]
+    errs = {f"d{name}": check_close(torch, out, want, dtype_name, f"K4b {what} {dtype_name} d{name}", tol)
+            for name, out, want in zip("fgh", grads, ref)}
+    require(all(torch.equal(a, b) for a, b in zip(grads, again)), f"K4b {what} {dtype_name}: two launches give "
+            "other bits")
+    require(torch.equal(df, grads[0]) and torch.equal(dg, grads[1]) and torch.equal(dh, grads[2]),
+            f"K4b {what} {dtype_name}: the walks launched one by one give other bits than attend_grad")
+    walk_errs = {
+        "pairs": check_close(torch, pairs, ref_pairs, "float32", f"K4b {what} {dtype_name} pairs",
+                             SPARSE_TOL["float32"]),
+        "df_walk": check_close(torch, df, ref_df, dtype_name, f"K4b {what} {dtype_name} df walk", tol),
+        "dg_walk": check_close(torch, dg, ref_dg, dtype_name, f"K4b {what} {dtype_name} dg walk", tol),
+        "dh_walk": check_close(torch, dh, ref_dh, dtype_name, f"K4b {what} {dtype_name} dh walk", tol),
+    }
+    no_in = plan.rowptr[1:] == plan.rowptr[:-1]
+    no_out = plan.colptr[1:] == plan.colptr[:-1]
+    require(bool((df[no_in] == 0).all()) and bool((dg[no_out] == 0).all()) and bool((dh[no_out] == 0).all()),
+            f"K4b {what} {dtype_name}: a node with no edge got a nonzero gradient row")
+    launch = sa.backward_launch(N, K4_K, K4_F, h.element_size(), sparse.sm_count(0)) if timed else None
+    base = {"dtype": dtype_name, "N": N, "edges": E, "K": K4_K, "F": K4_F, "isolated": int(no_in.sum()),
+            "no_out_edges": int(no_out.sum()), **errs, **walk_errs}
+    if not timed:
+        return [{"kernel": f"K4b {what}", **base}]
+    itemsize = h.element_size()
+    feat, narrow = N * K4_F * itemsize, N * K4_K * itemsize
+    csr = 4 * (N + 1) + 4 * E
+    # The function's own traffic: f, g, h and dout read once, df, dg and dh
+    # written once, both CSRs read once. Each walk is given the share of it
+    # that it alone moves: the receiver walk reads the four inputs, writes
+    # df and reads the CSR; the sender walk writes dg and dh and reads the
+    # transposed CSR. The two-launch design's own traffic, the 8-byte pairs
+    # written and read and t_edge read, is kept out of the bound and stated
+    # beside it ("design_bytes"). The float32 arithmetic (per edge: a
+    # K-wide dot, an F-wide dot and a K-wide scaled add; then a K- and an
+    # F-wide scaled add) at the float32 rate.
+    design_bytes = {"K4b receivers": 8 * E, "K4b senders": 8 * E + 4 * E}
+    walks = {
+        "K4b receivers": (2 * narrow + 2 * feat + narrow + csr, E * (4 * K4_K + 2 * K4_F),
+                          lambda: sa._launch_receivers(f, g, h, dout, plan),
+                          lambda: sa.receiver_walk(f, g, h, dout, plan), errs["df"]),
+        "K4b senders": (narrow + feat + csr, E * (2 * K4_K + 2 * K4_F),
+                        lambda: sa._launch_senders(f, dout, pairs, plan),
+                        lambda: sa.sender_walk(f, dout, pairs, plan), max(errs["dg"], errs["dh"])),
+    }
+    rows = []
+    for name, (nbytes, flops, kernel_fn, plain_fn, err) in walks.items():
+        bound_ms, bound_by = sparse_bound("float32", nbytes, flops)
+        rows.append({
+            "kernel": f"{name} {what}", **base, "max_abs_err": err, "group": launch.group, "blocks": launch.blocks,
+            "ms": time_ms(torch, kernel_fn, flush), "device_ms": time_ms(torch, kernel_fn, flush, cover=True),
+            "plain_ms": time_ms(torch, plain_fn, flush, reps=10), "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            "design_bytes": design_bytes[name],
+        })
+    nbytes = sum(row["bytes"] for row in rows)
+    flops = E * (6 * K4_K + 4 * K4_F)
+    bound_ms, bound_by = sparse_bound("float32", nbytes, flops)
+    rows.append({
+        "kernel": f"K4b {what}", **base, "max_abs_err": max(errs.values()), "group": launch.group,
+        "blocks": launch.blocks,
+        "ms": time_ms(torch, lambda: sa.attend_grad(f, g, h, dout, plan), flush),
+        "device_ms": time_ms(torch, lambda: sa.attend_grad(f, g, h, dout, plan), flush, cover=True),
+        "plain_ms": time_ms(torch, lambda: sa.attend_backward(f, g, h, dout, plan), flush, reps=10),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        "design_bytes": sum(design_bytes.values()),
+    })
+    return rows
+
+
+def dropout_shapes(N: int):
+    """The dropout rate of the full_graph model and the (N, F) activations
+    its five dropouts take in a train step, read from the model: the
+    trunk's (emb1 and each GraphConv, net_size wide) and the head's (the
+    RanPAC width)."""
+    from grl_torch.models import create_model
+
+    config = full_graph_config(tempfile.mkdtemp(prefix="grl_torch_shapes_"))
+    model = create_model("GraphCNNDropEdge", **config["model"]["args"], device="cpu")
+    return model.dropout.rate, [(N, model.net_size), (N, model.w_rand.kernel.shape[1])]
+
+
+def bits(torch, t):
+    """``t``'s bits as integers of its width, so that -0 and 0 differ."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def dropout_cases(torch, flush, N: int):
+    """D against its plain version, bit for bit, at the step's dropout
+    shapes in both dtypes, forward and backward (the same kernel on a
+    gradient under the forward's seed: one mask, zero wherever the seed's
+    hash drops), two launches equal, the keep share within binomial
+    bounds and another seed another mask; timed beside
+    ``torch.nn.functional.dropout`` on the same tensor."""
+    from grl_torch.ops import dropout as D
+    from grl_torch.ops import hashing
+
+    rate, shapes = dropout_shapes(N)
+    rows = []
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for shape in shapes:
+            gen = torch.Generator(device="cuda").manual_seed(shape[1])
+            x, dy = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(2))
+            seed = device_seed(7919 * shape[1])
+            other = device_seed(7919 * shape[1] + 1)
+            y = D._launch(x, seed, rate)
+            dx = D._launch(dy, seed, rate)
+            again = D._launch(x, seed, rate)
+            elsewhere = D._launch(x, other, rate)
+            torch.cuda.synchronize()
+            what = f"D {dtype_name} {shape}"
+            require(torch.equal(bits(torch, y), bits(torch, D.dropout_reference(x, seed, rate))),
+                    f"{what}: forward differs from its plain version")
+            require(torch.equal(bits(torch, dx), bits(torch, D.dropout_reference(dy, seed, rate))),
+                    f"{what}: backward differs from its plain version")
+            require(torch.equal(bits(torch, y), bits(torch, again)), f"{what}: two launches give other bits")
+            require(torch.equal(bits(torch, elsewhere), bits(torch, D.dropout_reference(x, other, rate))),
+                    f"{what}: forward at another seed differs from its plain version")
+            # The mask itself (randn draws an exact 0 now and then, so not y != 0).
+            ids = torch.arange(y.numel(), device="cuda")
+            mask = hashing.keep_bits(ids, seed, rate).view(shape)
+            require(not bool(((y != 0) & ~mask).any()) and not bool(((dx != 0) & ~mask).any()),
+                    f"{what}: forward or backward keeps an element the seed's mask drops")
+            kept, total = int(mask.sum()), y.numel()
+            require(keep_share_ok(kept, total, rate), f"{what}: keep share {kept / total}")
+            require(not torch.equal(mask, hashing.keep_bits(ids, other, rate).view(shape)),
+                    f"{what}: two seeds give one mask")
+            del ids, mask
+            nbytes = 2 * total * x.element_size()
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            for direction, t in (("forward", x), ("backward", dy)):
+                rows.append({
+                    "kernel": f"D {direction}", "dtype": dtype_name, "N": shape[0], "F": shape[1], "rate": rate,
+                    "keep_share": kept / total, "max_abs_err": 0.0,
+                    "ms": time_ms(torch, lambda: D._launch(t, seed, rate), flush, reps=20),
+                    "device_ms": time_ms(torch, lambda: D._launch(t, seed, rate), flush, reps=20, cover=True),
+                    "plain_ms": time_ms(torch, lambda: D.dropout_reference(t, seed, rate), flush, reps=5),
+                    "library_ms": time_ms(torch, lambda: torch.nn.functional.dropout(t, rate, True), flush, reps=20),
+                    "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes, "flops": 0,
+                })
+    for row in rows:
+        log(f"[kernel] {row['kernel']} {row['dtype']:>8} ({row['N']}, {row['F']}) rate {rate}: equal to the plain "
+            f"version bit for bit, keep share {row['keep_share']:.5f} | kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, torch.nn.functional.dropout "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes)")
+    return rows
+
+
 def sparse_kernel_cases(torch, flush):
     """K5 and K4 rows, the K5 keep-set probes and the small-graph cases."""
     import numpy as np
@@ -938,12 +1130,13 @@ def sparse_kernel_cases(torch, flush):
     log(f"[kernel] arxiv SBM graph: {N} nodes, {E} edges, L={data.num_relations}, max in-degree "
         f"{int(np.bincount(data.receivers, minlength=N).max())}; built and planned in "
         f"{time.perf_counter() - start:.2f} s")
-    rows = []
+    rows, grad_rows = [], []
     for dtype_name in ("float32", "bfloat16"):
         for F in K5_FS:
             for layout, what in ((csr.forward_layout, "forward"), (csr.backward_layout, "backward")):
                 rows.append(k5_case(torch, layout, dtype_name, F, flush, seed=F + len(rows), what=what))
         rows.append(k4_case(torch, atten, dtype_name, flush, seed=len(rows), what="arxiv", timed=True))
+        grad_rows += k4b_case(torch, atten, dtype_name, flush, seed=len(rows), what="arxiv", timed=True)
     for row in rows:
         if row["kernel"].startswith("K4"):
             library = "none (no single PyTorch call)"
@@ -955,6 +1148,16 @@ def sparse_kernel_cases(torch, flush):
             f"kernel {row['ms']:.4f} ms{slicing_note(row)}, plain {row['plain_ms']:.4f} ms, library {library}, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), gather floor {row['gather_floor_ms']:.4f} ms"
         )
+    for row in grad_rows:
+        log(
+                f"[kernel] {row['kernel']} {row['dtype']:>8} K={row['K']} F={row['F']} (groups of {row['group']} "
+                f"lanes, {row['blocks']} blocks): max abs err df {row['df']:.3e}, dg {row['dg']:.3e}, dh "
+                f"{row['dh']:.3e} against attend_backward, pairs {row['pairs']:.3e} against the plain walk; two "
+                f"launches equal | kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+                f"{row['plain_ms']:.4f} ms, library none (no single PyTorch call), bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, {row['bytes']} bytes)"
+        )
+    rows += grad_rows
     # Relation folding (L = 3) and K4's hub and isolated receivers, small.
     rng = np.random.RandomState(11)
     n, e = 4096, 40000
@@ -972,11 +1175,13 @@ def sparse_kernel_cases(torch, flush):
             err = check_close(torch, out, ref, dtype_name, f"K5 {what}", SPARSE_TOL[dtype_name])
             checks.append({"kernel": f"K5 {what}", "dtype": dtype_name, "max_abs_err": err})
         checks.append(k4_case(torch, hub, dtype_name, flush, seed=99, what="hub", timed=False))
+        checks += k4b_case(torch, hub, dtype_name, flush, seed=99, what="hub", timed=False)
         share = k5_mask_probe(torch, dtype_name)
         checks.append({"kernel": "K5 keep set", "dtype": dtype_name, "kept_share": share})
     for row in checks:
         log(f"[kernel] {row}")
-    log("[kernel] K5 keep set = plain hash keep set exactly (forward and transposed, f32 and bf16)")
+    log("[kernel] K5 keep set = plain hash keep set exactly (forward and transposed, f32 and bf16); K4b on the "
+        "hub graph within SPARSE_TOL of attend_backward, two launches equal, zero rows where a node has no edge")
     return rows, checks
 
 
@@ -1206,9 +1411,10 @@ def phase_kernel(torch):
     log(f"[kernel] f32 K2: blocks the card runs at once in clusters of S = 1..8: {f32_capacity}; f32 K1/K3: "
         f"{relagg.f32_forward_slots(0)} blocks at once")
     sparse_rows, sparse_checks = sparse_kernel_cases(torch, flush)
+    dropout_rows = dropout_cases(torch, flush, len(arxiv_graph().features))
     ell_rows, ell_checks = ell_kernel_cases(torch, flush)
     del flush
-    return results + sparse_rows + ell_rows, {"kept_share": shares, **invariants, "bf16_dropedge": bf16_checks,
+    return results + sparse_rows + dropout_rows + ell_rows, {"kept_share": shares, **invariants, "bf16_dropedge": bf16_checks,
                                               "k2_clusters": clusters, "f32_k2_capacity": f32_capacity,
                                               "k2_split_sweep": sweep, "f32_forward_slots": relagg.f32_forward_slots(0),
                                               "sparse": sparse_checks, "ell": ell_checks}
@@ -1663,8 +1869,10 @@ def trace_kernel_ms(trace_path: str, names):
 
 # Kernel names of bf16 K1 and K2 in a trace.
 K1_BF16, K2_BF16 = "dropedge_fwd_sm90_kernel", "dropedge_bwd_sm90_kernel"
-# Kernel names of K5, K6 and K4 in a trace.
-SPARSE_KERNELS = {"K5": "csr_accumulate_kernel", "K6": "ell_accumulate_kernel", "K4": "sparse_attention_kernel"}
+# Kernel names of K5, K6, K4, K4b's two walks and D in a trace.
+SPARSE_KERNELS = {"K5": "csr_accumulate_kernel", "K6": "ell_accumulate_kernel", "K4": "sparse_attention_kernel",
+                  "K4b receivers": "attention_bwd_receivers_kernel", "K4b senders": "attention_bwd_senders_kernel",
+                  "D": "dropout_kernel"}
 
 
 def params_of(model):
@@ -1744,13 +1952,17 @@ def compare_steps(kernel, plain, lr: float = STEP_LR):
     in both paths at every step so far) against the largest parameter
     magnitude; of the parameter entries the plain path moved from their
     initial values, the share the two paths leave further apart than a
-    tenth of the learning rate ``lr``; the held entries that far apart; and
-    the relative difference of the clipped gradients."""
+    tenth of the learning rate ``lr``; the held entries that far apart, with
+    the tensors they lie in and the furthest of them (each with its
+    gradients at every step so far, kernel then plain); the relative
+    difference of the clipped gradients, and that of the gradients of the
+    attention's score projections f and g alone (0 where the model has no
+    attention)."""
     rows = []
     initial = plain[1][0]
     held = {n: True for n in initial}
-    for k_loss, p_loss, k_params, p_params, k_grads, p_grads in zip(
-            kernel[0], plain[0], kernel[1][1:], plain[1][1:], kernel[2], plain[2]):
+    for step, (k_loss, p_loss, k_params, p_params, k_grads, p_grads) in enumerate(zip(
+            kernel[0], plain[0], kernel[1][1:], plain[1][1:], kernel[2], plain[2])):
         held = {n: held[n] & (k_grads[n].abs() >= HELD_GRAD) & (v.abs() >= HELD_GRAD) for n, v in p_grads.items()}
         diff = {n: (k_params[n] - v).abs() for n, v in p_params.items()}
         grad_diff = math.sqrt(sum(float((k_grads[n] - v).square().sum()) for n, v in p_grads.items()))
@@ -1761,6 +1973,13 @@ def compare_steps(kernel, plain, lr: float = STEP_LR):
         held_worst = max(float((d * held[n]).max()) for n, d in diff.items())
         moved = sum(int((v != initial[n]).sum()) for n, v in p_params.items())
         far = {n: d > lr / 10 for n, d in diff.items()}
+        held_far = {n: int((f & held[n]).sum()) for n, f in far.items()}
+        furthest = sorted(((float(v), n, int(i)) for n, f in far.items() if held_far[n]
+                           for v, i in zip(*(diff[n] * (f & held[n])).flatten().topk(min(held_far[n], 4)))),
+                          reverse=True)[:8]
+        scores = [n for n in p_grads if n.startswith(SCORE_PROJECTIONS)]
+        score_diff = math.sqrt(sum(float((k_grads[n] - p_grads[n]).square().sum()) for n in scores))
+        score_norm = math.sqrt(sum(float(p_grads[n].square().sum()) for n in scores))
         rows.append({
             "loss_kernel": k_loss, "loss_plain": p_loss,
             "loss_rel_diff": abs(k_loss - p_loss) / abs(p_loss),
@@ -1768,9 +1987,14 @@ def compare_steps(kernel, plain, lr: float = STEP_LR):
             "param_max_diff_at": [worst_name, worst_at, float(k_grads[worst_name].flatten()[worst_at]),
                                   float(p_grads[worst_name].flatten()[worst_at])],
             "held": sum(int(h.sum()) for h in held.values()), "held_max_diff_of_scale": held_worst / scale,
-            "held_beyond_lr_10": sum(int((f & held[n]).sum()) for n, f in far.items()),
+            "held_beyond_lr_10": sum(held_far.values()),
+            "held_beyond_lr_10_in": {n: c for n, c in held_far.items() if c},
+            "held_beyond_lr_10_furthest": [
+                [n, i, v, [[float(g[n].flatten()[i]) for g in (k, p)] for k, p in
+                           zip(kernel[2][:step + 1], plain[2][:step + 1])]] for v, n, i in furthest],
             "moved": moved, "moved_share_beyond_lr_10": sum(int(f.sum()) for f in far.values()) / max(moved, 1),
             "grad_rel_diff": grad_diff / grad_norm,
+            "score_grad_rel_diff": score_diff / score_norm if score_norm else (math.inf if score_diff else 0.0),
         })
     return rows
 
@@ -1800,9 +2024,10 @@ def phase_train(torch, card: str):
     f1 = warper.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    launched = counts()
+    launched = counts(("K3", "K1", "K2", *D_COUNTS))
     routes = route_counts()
-    expected = {"K1": 3 * TRAIN_STEPS, "K2": 3 * TRAIN_STEPS, "K3": 3 * VAL_BATCHES}
+    expected = {"K1": 3 * TRAIN_STEPS, "K2": 3 * TRAIN_STEPS, "K3": 3 * VAL_BATCHES,
+                **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * TRAIN_STEPS)}
     require(launched == expected and routes["K3"]["sm90"] == expected["K3"]
             and routes["K2"]["sm90"] == expected["K2"],
             f"train path launched {launched} ({routes} by route), expected {expected}, all bf16 on dropedge_sm90.cu")
@@ -1828,7 +2053,8 @@ def phase_train(torch, card: str):
     steps_per_s = [v / nodes_per_step for v in nodes_per_s]
     log(
         f"[train] {card}: {TRAIN_STEPS} steps + {VAL_BATCHES} validation batches in {wall:.3f} s; "
-        f"launches {launched} = 3 x steps / 3 x validation batches; losses {[round(v, 4) for v in losses]}; "
+        f"launches {launched} = 3 x steps / 3 x validation batches (D: 5 x steps each way); losses "
+        f"{[round(v, 4) for v in losses]}; "
         f"validation loss {[round(v, 4) for v in val_loss]}, macro F1 {f1:.4f}"
     )
     log(
@@ -1866,8 +2092,9 @@ def phase_train(torch, card: str):
     reset_counts()
     served = server.predict(val_pages)
     torch.cuda.synchronize()
-    serve_launches = counts()
-    require(serve_launches == {"K3": 3, "K1": 0, "K2": 0}, f"serving the checkpoint launched {serve_launches}")
+    serve_launches = counts(("K3", "K1", "K2", *D_COUNTS))
+    require(serve_launches == {"K3": 3, "K1": 0, "K2": 0, "D forward": 0, "D backward": 0},
+            f"serving the checkpoint launched {serve_launches}")
     check_pages(served, val_pages, set(server.inferencer.id_to_class.values()))
     log(f"[train] model_latest serves {len(val_pages)} pages through KVInference: launches {serve_launches}")
 
@@ -1954,12 +2181,14 @@ def keep_share_ok(kept: int, total: int, rate: float) -> bool:
 
 def replayed_masks(torch, trainer, V_shape, A):
     """Two replays on the same inputs draw new masks: a chunk that draws a
-    DropEdge seed from the trainer's generator, reads K1's mask back on the
-    batch's A (V = I) and draws the trunk's dropout mask, run by a chunk
-    runner of its own (the warm-up, the capture, then replays). Each
-    replay's K1 mask must be the hash mask of the seed it drew, masks of
-    two replays must differ, and the keep shares must hold."""
-    from grl_torch.ops import relagg
+    DropEdge seed and a dropout seed from the trainer's generator, reads
+    K1's mask back on the batch's A (V = I) and D's on ones at the trunk's
+    rate, run by a chunk runner of its own (the warm-up, the capture, then
+    replays). Each replay's K1 and D masks must be the hash masks of the
+    seeds it drew, masks of two replays must differ, and the keep shares
+    must hold."""
+    from grl_torch.ops import hashing, relagg
+    from grl_torch.ops.dropout import apply_dropout
     from grl_torch.trainer.captured import CapturedSteps
 
     Bq, N, _ = V_shape
@@ -1970,17 +2199,21 @@ def replayed_masks(torch, trainer, V_shape, A):
     runner = CapturedSteps(torch.device("cuda"), [trainer.rngs.device])
 
     def chunk():
-        seed = trainer.rngs.kernel_seed()
-        return seed, relagg.dropedge_aggregate(eye, A, seed, RATE) != 0, trunk.dropout(ones, trainer.rngs) != 0
+        seed, drop_seed = trainer.rngs.kernel_seed(), trainer.rngs.kernel_seed()
+        return (seed, relagg.dropedge_aggregate(eye, A, seed, RATE) != 0, drop_seed,
+                apply_dropout(ones, drop_seed, trunk.dropout.rate) != 0)
 
     outs = [tuple(t.clone() for t in runner.run("masks", chunk)) for _ in range(4)][1:]
     torch.cuda.synchronize()
     require(runner.replays == 3, f"the mask chunk replayed {runner.replays} times, expected 3")
     support = A != 0
+    ids = torch.arange(ones.numel(), device="cuda")
     rows = []
-    for seed, k1, drop in outs:
+    for seed, k1, drop_seed, drop in outs:
         expected = support & relagg.dropedge_keep_mask(seed, A.shape, RATE, A.device)
         require(torch.equal(k1, expected), "a replayed K1 mask is not the hash mask of the seed its replay drew")
+        require(torch.equal(drop, hashing.keep_bits(ids, drop_seed, trunk.dropout.rate).view(drop.shape)),
+                "a replayed dropout mask is not the hash mask of the seed its replay drew")
         kept, total = int(k1.sum()), int(support.sum())
         dropped_in = int(drop.sum())
         rows.append({"seed": int(seed), "k1_keep_share": kept / total, "k1_entries": total,
@@ -1988,7 +2221,7 @@ def replayed_masks(torch, trainer, V_shape, A):
         require(keep_share_ok(kept, total, RATE), f"replayed K1 keep share {kept / total} of {total}")
         require(keep_share_ok(dropped_in, drop.numel(), trunk.dropout.rate),
                 f"replayed dropout keep share {dropped_in / drop.numel()}")
-    for (s0, k0, d0), (s1, k1, d1) in zip(outs, outs[1:]):
+    for (s0, k0, _, d0), (s1, k1, _, d1) in zip(outs, outs[1:]):
         require(int(s0) != int(s1) and not torch.equal(k0, k1) and not torch.equal(d0, d1),
                 "two replays drew the same DropEdge or dropout mask")
     return rows
@@ -2016,18 +2249,19 @@ def train_scan(torch, card: str, tmp: str, dirs, classes_path, charset_path, eag
     f1 = warper.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    launched, routes = counts(), route_counts()
+    launched, routes = counts(("K3", "K1", "K2", *D_COUNTS)), route_counts()
     runner = trainer.chunk_runner()
     require(runner.replays == SCAN_REPLAYS and len(runner.graphs) == 1,
             f"{runner.replays} replays of {len(runner.graphs)} graphs, expected {SCAN_REPLAYS} of 1")
     (key, (graph, _, recorded)), = runner.graphs.items()
-    recorded = {name: recorded[name] for name in ("K1", "K2", "K3") if recorded[name]}
-    expected = {"K1": 3 * TRAIN_STEPS, "K2": 3 * TRAIN_STEPS, "K3": 3 * VAL_BATCHES}
+    recorded = {name: recorded[name] for name in ("K1", "K2", "K3", *D_COUNTS) if recorded[name]}
+    expected = {"K1": 3 * TRAIN_STEPS, "K2": 3 * TRAIN_STEPS, "K3": 3 * VAL_BATCHES,
+                **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * TRAIN_STEPS)}
     require(launched == expected and routes["K2"]["sm90"] == expected["K2"]
             and routes["K3"]["sm90"] == expected["K3"],
             f"scan_steps {SCAN_K} path ran {launched} launches ({routes} by route), expected {expected}")
-    require(recorded == {"K1": 3 * SCAN_K, "K2": 3 * SCAN_K},
-            f"the captured chunk recorded {recorded}, expected 3 x {SCAN_K} K1 and K2")
+    require(recorded == {"K1": 3 * SCAN_K, "K2": 3 * SCAN_K, **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * SCAN_K)},
+            f"the captured chunk recorded {recorded}, expected 3 x {SCAN_K} K1 and K2 and 5 x {SCAN_K} D each way")
     series_path = os.path.join(warper.config["output_dir"], "experiment_series.jsonl")
     with open(series_path) as handle:
         records = [json.loads(line) for line in handle]
@@ -2132,7 +2366,7 @@ def train_scan(torch, card: str, tmp: str, dirs, classes_path, charset_path, eag
             f"{setup['capture_bytes']}: the graphs do not share their pool")
 
     masks = replayed_masks(torch, trainer, tuple(items[0][0].shape), A0)
-    log(f"[train scan] replays draw new masks: {masks} (K1 masks = the hash of each replay's seed, exactly)")
+    log(f"[train scan] replays draw new masks: {masks} (K1 and D masks = the hash of each replay's seeds, exactly)")
     return {
         "scan_steps": SCAN_K, "wall_s": wall, "launches": launched, "routes": routes, "recorded": recorded,
         "replays": runner.replays, "losses": losses, "macro_f1": f1, "nodes_per_s": nodes_per_s,
@@ -2218,6 +2452,8 @@ def phase_train_variants(torch, card: str):
     base = train_config(tmp, dirs, classes_path, charset_path)
     record = {}
     for name, (_, quantum, expected, expected_routes) in VARIANTS.items():
+        # Dropout 0.5 on both paths: D five times a step each way.
+        expected = {**expected, **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * VARIANT_STEPS)}
         warper = grl_torch.GNNLearningWarper(config=variant_config(base, tmp, name))
         initial = params_of(warper.model)
         reset_counts()
@@ -2225,7 +2461,7 @@ def phase_train_variants(torch, card: str):
         warper.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        launched, routes = counts(), route_counts()
+        launched, routes = counts(("K3", "K1", "K2", *D_COUNTS)), route_counts()
         require(launched == expected and routes == expected_routes,
                 f"{name} path launched {launched} ({routes} by route), expected {expected} ({expected_routes})")
         series_path = os.path.join(warper.config["output_dir"], "experiment_series.jsonl")
@@ -2251,18 +2487,34 @@ def sparse_counts():
     """Every kernel's launches as the device ran them."""
     from grl_torch.ops.ell import DIRECTIONS
 
-    return counts(("K5 forward", "K5 backward", "K4", *(f"K6 {d}" for d in DIRECTIONS), "K3", "K1", "K2"))
+    return counts(("K5 forward", "K5 backward", "K4", *K4B, *(f"K6 {d}" for d in DIRECTIONS), "K3", "K1", "K2",
+                   *D_COUNTS))
 
 
-def expected_launches(trainer, steps: int, evals: int):
+# Launch counts of K4b's two walks and of D's two directions.
+K4B = ("K4b receivers", "K4b senders")
+D_COUNTS = ("D forward", "D backward")
+# Dropout layers a train-mode forward of the flagship runs: after emb1, after
+# each of the three GraphConvs and in the head (gcn_family.py:133,142,241).
+DROPOUTS_A_FORWARD = 5
+
+
+def expected_launches(trainer, steps: int, evals: int, dropout_rate=None):
     """The kernel launches of ``steps`` train steps and ``evals`` eval
     forwards of ``trainer``'s model on its planned graph: a forward runs
     three GraphConvs (gcn3 through the projected tables where the kernel
     planned them) and K4 when the graph carries it; the backward takes
-    each GraphConv's input gradient (gcn1's too: emb1 is trained)."""
+    each GraphConv's input gradient (gcn1's too: emb1 is trained) and
+    K4b's two walks. A train step's forward runs D five times where the
+    dropout rate (by default the model's) is above 0, and its backward as
+    often; an eval runs none."""
     from grl_torch.ops.ell import ELLGraphKernel
 
     expected = dict.fromkeys(sparse_counts(), 0)
+    if dropout_rate is None:
+        dropout_rate = trainer.model.dropout.rate
+    if dropout_rate > 0:
+        expected.update(dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * steps))
     graph = trainer.graph
     forwards = steps + evals
     if isinstance(graph.kernel, ELLGraphKernel):
@@ -2274,6 +2526,7 @@ def expected_launches(trainer, steps: int, evals: int):
         expected.update({"K5 forward": 3 * forwards, "K5 backward": 3 * steps})
     if graph.atten_kernel is not None:
         expected["K4"] = forwards
+        expected.update(dict.fromkeys(K4B, steps))
     return expected
 
 
@@ -2294,13 +2547,23 @@ class swapped:
             setattr(module, name, value)
 
 
+def plain_d():
+    """D's launcher, ``apply_dropout``, as the swap to its plain version."""
+    from grl_torch.ops import dropout
+
+    return dropout, "apply_dropout", lambda x, seed, rate, direction: dropout.dropout_reference(x, seed, rate)
+
+
 def plain_sparse():
-    """The K5, K4 and K6 launchers swapped for their plain versions."""
+    """The K5, K4, K4b, K6 and D launchers swapped for their plain
+    versions."""
     from grl_torch.ops import csr_spmm, ell, sparse_attention
 
     return swapped((csr_spmm, "csr_accumulate", csr_spmm.csr_accumulate_reference),
                    (sparse_attention, "attend_forward", sparse_attention.attend_reference),
-                   (ell, "ell_accumulate", ell.ell_accumulate_reference))
+                   (sparse_attention, "attend_grad", sparse_attention.attend_backward_walks),
+                   (ell, "ell_accumulate", ell.ell_accumulate_reference),
+                   plain_d())
 
 
 def faulty(kernel: str, seed_shift: int = 0, rate=None):
@@ -2316,6 +2579,41 @@ def faulty(kernel: str, seed_shift: int = 0, rate=None):
         return launch(X, tables, seed + seed_shift, rate_ if rate is None else rate)
 
     return swapped((module, name, wrong))
+
+
+def k4b_pairs_off():
+    """K4b with its sender walk gathering each edge's pair from the next
+    slot of the transposed CSR (``t_edge`` rolled by one): a fault in the
+    table the kernel depends on, which the step limits must catch."""
+    from grl_torch.ops import sparse_attention
+
+    launch = sparse_attention.attend_grad
+
+    def wrong(f, g, h, dout, plan):
+        return launch(f, g, h, dout, plan._replace(t_edge=plan.t_edge.roll(1)))
+
+    return swapped((sparse_attention, "attend_grad", wrong))
+
+
+def k4b_without_mean():
+    """K4b's place taken by its backward with the ``sum alpha dalpha`` term
+    dropped from dscore (``dscore = alpha dalpha``), in PyTorch: it changes
+    only df and dg, so it moves only the gradients that reach f and g, a
+    fault the limits on the score projections' gradients must catch."""
+    from grl_torch.ops import sparse_attention
+    from grl_torch.ops.segment import segment_sum
+
+    def wrong(f, g, h, dout, plan):
+        s, r, N = plan.senders.long(), plan.receivers.long(), plan.num_nodes
+        f32, g32, dout32 = f.float(), g.float(), dout.float()
+        alpha = sparse_attention._alpha(f32, g32, plan)
+        dscore = alpha * (dout32[r] * h.float()[s]).sum(-1)
+        df = segment_sum(dscore[:, None] * g32[s], r, N)
+        dg = segment_sum(dscore[:, None] * f32[r], s, N)
+        dh = segment_sum(alpha[:, None] * dout32[r], s, N)
+        return df.to(f.dtype), dg.to(g.dtype), dh.to(h.dtype)
+
+    return swapped((sparse_attention, "attend_grad", wrong))
 
 
 @contextlib.contextmanager
@@ -2348,44 +2646,76 @@ def procedure_copy(torch, trainer, seed: int, lr: float, **model_args):
     return proc
 
 
-def two_full_graph_steps(torch, trainer, start, dtype_name: str, lr: float, swap=None):
+def two_full_graph_steps(torch, trainer, start, dtype_name: str, lr: float, swap=None, dropout_rate: float = 0.0,
+                         swapped_steps: int = 2):
     """Two full-graph train steps from the weights ``start`` at ``lr``,
-    dropout 0 and DropEdge 0.3, masks from generators seeded 7, inside
-    ``swap`` if given: losses, parameters before the first step and after
-    each, each step's clipped gradients, and the sparse kernels' launches."""
+    ``dropout_rate`` (0 by default) and DropEdge 0.3, masks from generators
+    seeded 7, the first ``swapped_steps`` of them inside ``swap`` if given:
+    losses, parameters before the first step and after each, each step's
+    clipped gradients, and the sparse kernels' launches."""
     proc = procedure_copy(torch, trainer, 7, lr, compute_dtype=dtype_name,
-                          dropout_rate=0.0, edge_dropout_rate=RATE)
+                          dropout_rate=dropout_rate, edge_dropout_rate=RATE)
     proc.model.load_state_dict(start)
     before = sparse_counts()
     losses, snapshots, grads = [], [params_of(proc.model)], []
-    with swap if swap is not None else contextlib.nullcontext():
-        for _ in range(2):
+    for step in range(2):
+        with swap if swap is not None and step < swapped_steps else contextlib.nullcontext():
             losses.append(float(proc.train_step()))
             snapshots.append(params_of(proc.model))
             grads.append({n: p.grad.float().clone() for n, p in proc.model.named_parameters()})
     launched = {k: v - before[k] for k, v in sparse_counts().items()}
-    # The gradients reach through the kernels' backward to emb1 (and K4's).
-    for name in ("trunk.emb1.linear.weight", "trunk.gcn1.h_weights", "trunk.self_atten.f.linear.weight"):
+    # The gradients reach through the kernels' backward to emb1 (and K4b's,
+    # through dh: where a model's f and g are constant over the nodes, as in
+    # a collapsed one, their gradient is zero in exact arithmetic).
+    for name in ("trunk.emb1.linear.weight", "trunk.gcn1.h_weights", "trunk.self_atten.h.linear.weight"):
         require(name not in grads[0] or bool((grads[0][name] != 0).any()), f"{name} got no gradient")
     return losses, snapshots, grads, launched
 
 
+def plain_dropout():
+    """D's launcher alone swapped for its plain version."""
+    return swapped(plain_d())
+
+
 # Runs of the full-graph comparison: each is two steps, on the kernels or
-# their plain versions, or with a fault planted in K5 or K6.
+# their plain versions, or with a fault planted in K5, K6 or K4b, at dropout
+# 0 or, where the name says so, at the config's 0.5: (swap, dropout rate,
+# the launch counts the swap takes off the kernels (ALL: every one), the
+# steps it is in place for).
+DROPOUT_ON = 0.5
+ALL = None
 FULL_GRAPH_RUNS = {
-    "kernel": lambda: None,
-    "plain": plain_sparse,
-    "plain again": plain_sparse,
-    "K5 seed+1": lambda: faulty("K5", seed_shift=1),
-    "K5 rate 0.25": lambda: faulty("K5", rate=0.25),
-    "K6 seed+1": lambda: faulty("K6", seed_shift=1),
-    "K6 rate 0.25": lambda: faulty("K6", rate=0.25),
+    "kernel": (lambda: None, 0.0, (), 2),
+    "plain": (plain_sparse, 0.0, ALL, 2),
+    "plain again": (plain_sparse, 0.0, ALL, 2),
+    "kernel, dropout 0.5": (lambda: None, DROPOUT_ON, (), 2),
+    "plain, dropout 0.5": (plain_sparse, DROPOUT_ON, ALL, 2),
+    "plain D, dropout 0.5": (plain_dropout, DROPOUT_ON, D_COUNTS, 2),
+    "plain step, then kernel step, dropout 0.5": (plain_sparse, DROPOUT_ON, ALL, 1),
+    "K5 seed+1": (lambda: faulty("K5", seed_shift=1), 0.0, (), 2),
+    "K5 rate 0.25": (lambda: faulty("K5", rate=0.25), 0.0, (), 2),
+    "K6 seed+1": (lambda: faulty("K6", seed_shift=1), 0.0, (), 2),
+    "K6 rate 0.25": (lambda: faulty("K6", rate=0.25), 0.0, (), 2),
+    "K4b pairs one edge off": (k4b_pairs_off, 0.0, (), 2),
+    "K4b without sum alpha dalpha": (k4b_without_mean, 0.0, K4B, 2),
 }
 # (start, deterministic, run, reference run, what the run must do against
-# the reference under FULL_GRAPH_STEP_LIMITS: "hold", "fail" or None, read
-# only). The held pair and the faults start from the learned weights; the
-# pairs from the main path's initial weights, and the runs outside
-# deterministic mode, show where the agreement of the paths is lost.
+# the reference under FULL_GRAPH_STEP_LIMITS: "hold", "fail", "equal" (to the
+# bit) or None, read only). The held pairs and the faults start from the
+# learned weights; the pairs from the main path's initial weights, and the
+# runs outside deterministic mode, show where the agreement of the paths is
+# lost. At the config's dropout 0.5, D is held against its plain version
+# with every other kernel on both sides, where the two must give the same
+# bits, and all the kernels against all the plain versions for one step
+# from one state: the plain path's first step, then the kernels' second
+# (with Adam's moments in play) against the plain path's. Two steps of
+# kernel against plain are not held there: at the first step a few emb1
+# gradient entries lie within rounding of zero, below Adam's eps, and the
+# summation order decides their sign, so Adam moves them apart by up to
+# 0.6 lr; the second step runs from those other weights, and entries it
+# holds move apart beyond lr/10. The plain path against itself, in other
+# summation orders, lands on either side and breaks the limit as often
+# (full_graph_spread.py; PERF.md).
 FULL_GRAPH_PAIRS = [
     ("init", False, "kernel", "plain", None),
     ("init", False, "plain again", "plain", None),
@@ -2395,14 +2725,19 @@ FULL_GRAPH_PAIRS = [
     ("learned", False, "plain again", "plain", None),
     ("learned", True, "plain again", "plain", None),
     ("learned", True, "kernel", "plain", "hold"),
+    ("learned", True, "kernel, dropout 0.5", "plain D, dropout 0.5", "equal"),
+    ("learned", True, "plain step, then kernel step, dropout 0.5", "plain, dropout 0.5", "hold"),
     ("learned", True, "K5 seed+1", "plain", "fail"),
     ("learned", True, "K5 rate 0.25", "plain", "fail"),
+    ("learned", True, "K4b pairs one edge off", "plain", "fail"),
+    ("learned", True, "K4b without sum alpha dalpha", "plain", "fail"),
 ]
 # The ell phase holds K6 the same way: from the learned weights in
 # deterministic mode, where the plain path reproduces itself.
 ELL_PAIRS = [
     ("learned", True, "plain again", "plain", None),
     ("learned", True, "kernel", "plain", "hold"),
+    ("learned", True, "kernel, dropout 0.5", "plain D, dropout 0.5", "equal"),
     ("learned", True, "K6 seed+1", "plain", "fail"),
     ("learned", True, "K6 rate 0.25", "plain", "fail"),
 ]
@@ -2421,12 +2756,15 @@ def full_graph_comparisons(torch, trainer, starts, dtype_names=("float32", "bflo
             key = (start, det, name)
             if key not in runs:
                 weights, lr = starts[start]
+                swap, dropout_rate, swapped_out, swapped_steps = FULL_GRAPH_RUNS[name]
                 with deterministic(torch, det):
-                    runs[key] = two_full_graph_steps(torch, trainer, weights, dtype_name, lr,
-                                                     FULL_GRAPH_RUNS[name]())
-                on_card = trainer.device.type == "cuda" and not name.startswith("plain")
-                expected = (expected_launches(trainer, 2, 0) if on_card
-                            else dict.fromkeys(sparse_counts(), 0))
+                    runs[key] = two_full_graph_steps(torch, trainer, weights, dtype_name, lr, swap(), dropout_rate,
+                                                     swapped_steps)
+                expected = dict.fromkeys(sparse_counts(), 0)
+                if trainer.device.type == "cuda":
+                    off = expected_launches(trainer, swapped_steps, 0, dropout_rate)
+                    expected = {k: v - off[k] if swapped_out is ALL or k in swapped_out else v
+                                for k, v in expected_launches(trainer, 2, 0, dropout_rate).items()}
                 require(runs[key][3] == expected, f"{name} full-graph steps launched {runs[key][3]}, "
                         f"expected {expected}")
             return runs[key]
@@ -2434,8 +2772,9 @@ def full_graph_comparisons(torch, trainer, starts, dtype_names=("float32", "bflo
         for start, det, name, reference, must in pairs:
             lr = starts[start][1]
             rows = compare_steps(run(start, det, name), run(start, det, reference), lr)
-            failed = step_failures(rows, FULL_GRAPH_STEP_LIMITS[dtype_name])
-            verdict = "fail" if failed else "hold"
+            failed = step_failures(rows, FULL_GRAPH_STEP_LIMITS[dtype_name], scores=True)
+            exact = all(row["loss_rel_diff"] == row["grad_rel_diff"] == row["param_max_diff"] == 0 for row in rows)
+            verdict = "equal" if must == "equal" and exact else ("fail" if failed else "hold")
             results.append({"start": start, "deterministic": det, "run": name, "reference": reference,
                             "dtype": dtype_name, "lr": lr, "must": must, "verdict": verdict, "rows": rows})
             for k, (row, limit) in enumerate(zip(rows, FULL_GRAPH_STEP_LIMITS[dtype_name])):
@@ -2446,10 +2785,12 @@ def full_graph_comparisons(torch, trainer, starts, dtype_names=("float32", "bflo
                     f"{row['param_scale']:.3f} (held entries {row['held_max_diff_of_scale']:.2e}, limit "
                     f"{limit[1]}; {row['held_beyond_lr_10']} of {row['held']} beyond lr/10, limit {limit[3]}); moved "
                     f"share beyond lr/10 {row['moved_share_beyond_lr_10']:.2e} of {row['moved']} (limit {limit[2]}); "
-                    f"gradient rel diff {row['grad_rel_diff']:.2e} (limit {limit[4]})"
+                    f"gradient rel diff {row['grad_rel_diff']:.2e}, of the score projections "
+                    f"{row['score_grad_rel_diff']:.2e} (limit {limit[4]})"
                 )
             log(f"[{tag}] {name} vs {reference}, {dtype_name}, {start}, deterministic {det}: "
-                f"{verdict}s the limits" + ("" if must is None else f" (must {must})"))
+                + ("gives the same bits" if verdict == "equal" else f"{verdict}s the limits")
+                + ("" if must is None else f" (must {must})"))
             if must is not None and verdict != must:
                 failures.append(f"{tag} {name} vs {reference} ({dtype_name}, {start}, deterministic "
                                 f"{det}) must {must} the limits: {rows}")
@@ -2460,10 +2801,9 @@ def captured_chunk_check(torch, trainer, K: int, weights, tag: str):
     """One chunk of K steps replayed from a graph against the same K steps
     run eagerly from the same state (weights, Adam state, generator), on a
     copy of ``trainer`` from ``weights`` at lr 1e-3 with its own graph,
-    under ``torch.use_deterministic_algorithms`` (outside it the plain
-    backward of K4 sums with ``index_add_``, whose float atomics change
-    the order, and the bits, from run to run): losses and parameters must
-    be equal bit for bit."""
+    under ``torch.use_deterministic_algorithms`` (outside it torch's own
+    scatter-adds, such as ``index_add_``, may sum in an order that changes
+    from run to run): losses and parameters must be equal bit for bit."""
     proc = procedure_copy(torch, trainer, 7, FULL_GRAPH_LEARN_LR)
     proc.model.load_state_dict(weights)
     with deterministic(torch, True):
@@ -2740,7 +3080,7 @@ def phase_gather_probe(torch, card: str, kernel_rows):
     c_rate = record["results"]["C_index_select_random_bf16"] * 1e6
     floors = {}
     for row in kernel_rows:
-        if row["dtype"] != "bfloat16" or "ms" not in row or not row["kernel"].startswith(("K4", "K5", "K6")):
+        if row["dtype"] != "bfloat16" or "ms" not in row or not row["kernel"].startswith(("K4 ", "K5", "K6")):
             continue
         if row["kernel"].startswith("K4"):
             floor_ms = row["edges"] / c_rate * 1e3
@@ -2863,6 +3203,24 @@ def main() -> int:
                "grl_tpu/ops/pallas/sparse_attention.py:106 _bucket_forward_pallas",
                {"full_graph": fg["K4"], "ell": el["K4"]}, main_row("K4 arxiv"), "bf16 N=169343 E=1184773 K=16 F=128"),
     }
+    k4b_replaces = ("grl_tpu/ops/pallas/sparse_attention.py:206-259 attend_bwd (the custom VJP of K4; XLA, a hand "
+                    "kernel for XLA code)")
+    for walk in ("receivers", "senders"):
+        sources[f"K4b {walk}"] = (
+            f"K4b K4's backward, the {walk[:-1]}-major walk", "grl_torch/csrc/sparse_attention_bwd.cu", k4b_replaces,
+            {"full_graph": fg[f"K4b {walk}"], "ell": el[f"K4b {walk}"]}, main_row(f"K4b {walk} arxiv"),
+            "bf16 N=169343 E=1184773 K=16 F=128")
+    dropout_main = max((r for r in kernel_rows if r["kernel"] == "D forward" and r["dtype"] == "bfloat16"),
+                       key=lambda r: r["F"])
+    for direction in ("forward", "backward"):
+        name = f"D {direction}"
+        sources[name] = (
+            f"D dropout with K0's hashed mask ({direction})", "grl_torch/csrc/dropout.cu",
+            "grl_tpu/models/gcn_family.py:114,245 flax nn.Dropout (XLA, a hand kernel for XLA code)",
+            {"train": train["launches"][name], "train scan_steps 4": scan["launches"][name],
+             "train_variants float32": f32["launches"][name], "train_variants bfloat16 ragged": ragged["launches"][name],
+             "full_graph": fg[name], "ell": el[name]},
+            main_row(name, F=dropout_main["F"]), f"bf16 ({dropout_main['N']}, {dropout_main['F']}) rate 0.5")
     for direction in ("forward", "backward", "projected forward", "projected backward"):
         sources[f"K6 {direction}"] = (
             f"K6 ELL gather-table aggregation with DropEdge ({direction})", "grl_torch/csrc/ell.cu",

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from grl_torch.ops.dropout import dropout
 from grl_torch.ops.relconv import drop_edge, relational_neighbor_aggregate
 from grl_torch.ops.segment import segment_softmax, segment_sum
 from grl_torch.ops.sparse import RelationalGraph, drop_edge_coo, relational_neighbor_coo
@@ -42,8 +43,8 @@ class Rngs:
     """The random streams of a train-mode forward.
 
     ``device`` is a generator on the tensors' device and draws every mask
-    (dropout, DropEdge on the plain path, the self-loop mask of the kernel
-    path) and every seed of the DropEdge kernels K1/K2, K5 and K6
+    (DropEdge on the plain path, the self-loop mask of the kernel path) and
+    every seed of the DropEdge kernels K1/K2, K5 and K6 and of dropout's D
     (:meth:`kernel_seed`): a one-element tensor on the device that the
     kernels read there, so that drawing a seed never waits on the device
     and a captured CUDA graph that registers this generator draws new
@@ -59,7 +60,7 @@ class Rngs:
         return cls(torch.Generator(device=device).manual_seed(seed))
 
     def kernel_seed(self) -> torch.Tensor:
-        """A fresh seed for one K1/K2, K5 or K6 mask (``gcn_family.py:92``,
+        """A fresh seed for one K1/K2, K5, K6 or D mask (``gcn_family.py:92``,
         ``layers.py:218-220``): an int32 tensor of one element on the
         generator's device."""
         return torch.randint(0, 2**31 - 1, (1,), generator=self.device, device=self.device.device,
@@ -91,7 +92,7 @@ def is_sparse_adjacency(A: Any) -> bool:
         f"grl_torch takes a dense (B, N, L, N) tensor or a RelationalGraph, not "
         f"{type(A).__name__} (layout {getattr(A, 'layout', None)}); node-partitioned "
         "shards arrive with ROADMAP.md Queue 1, slice 4, and the sampled path's "
-        "TreeGraph with item 11."
+        "TreeGraph with item 7."
     )
 
 
@@ -215,9 +216,11 @@ class GraphConv(nn.Module):
 
 
 class Dropout(nn.Module):
-    """flax ``nn.Dropout``: in train mode, ``where(mask, x / keep, 0)`` with
-    an iid keep mask drawn from ``rngs.device``; the identity in eval mode
-    or at rate 0."""
+    """flax ``nn.Dropout``: in train mode, ``where(mask, x / keep, 0)``
+    with an iid keep mask; the identity in eval mode or at rate 0, zeros
+    at rate 1. The mask is D's (:mod:`grl_torch.ops.dropout`): K0's hash
+    of each element's index under a seed drawn from ``rngs.device``
+    (``Rngs.kernel_seed``), regenerated in the backward."""
 
     def __init__(self, rate: float = 0.5):
         super().__init__()
@@ -226,9 +229,9 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor, rngs: Optional[Rngs] = None) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
             return x
-        keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=require_rngs(rngs).device, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        return dropout(x, require_rngs(rngs).kernel_seed(), self.rate)
 
 
 class EdgeDropout(nn.Module):

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "grl_torch"
 # Every CUDA source of the port (csrc/<name>.cu); each may include the
 # shared headers csrc/*.cuh.
-SOURCES = ("dropedge_sm90", "relagg_ragged", "dropedge_f32", "csr_spmm", "sparse_attention", "ell", "gather_probe")
+SOURCES = ("dropedge_sm90", "relagg_ragged", "dropedge_f32", "csr_spmm", "sparse_attention", "sparse_attention_bwd",
+           "dropout", "ell", "gather_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -11,8 +11,9 @@ ones plus each graph's recorded launches times its replays.
 
 Names: ``K3`` (and ``K3 sm90``, ``K3 ragged``, ``K3 float32`` by route),
 ``K1``, ``K2`` (``K2 sm90``, ``K2 float32``), ``K5 forward``, ``K5
-backward``, ``K4``, and ``K6 <direction>`` for each of
-:data:`grl_torch.ops.ell.DIRECTIONS`.
+backward``, ``K4``, ``K4b receivers`` and ``K4b senders`` (K4's backward,
+two launches), ``D forward`` and ``D backward`` (dropout), and ``K6
+<direction>`` for each of :data:`grl_torch.ops.ell.DIRECTIONS`.
 """
 from __future__ import annotations
 

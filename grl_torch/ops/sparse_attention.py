@@ -11,22 +11,29 @@ in h's dtype, computed in float32; a receiver with no edge gets zeros.
 Differentiable in ``f``, ``g`` and ``h``.
 
 The plan is a receiver-major CSR (row pointers and senders, in the stable
-order of the edge list). The forward is K4 (``grl_torch/csrc/
+order of the edge list) and its transpose. The forward is K4 (``grl_torch/csrc/
 sparse_attention.cu``): one launch for every receiver, whatever its
 degree, where the TPU split receivers into degree buckets and sent hubs
 wider than ``MAX_PALLAS_WIDTH = 32`` to XLA (:188-191). How it is laid
 out on the card (lanes a receiver, column slices of h sized for the L2,
 blocks) is :func:`attention_launch`, a pure function of
-the shapes and the card's L2 and SM count. The backward is
-plain PyTorch on the same edge order, as the TPU computed it in XLA
-outside Pallas (``attend_bwd``, :206-259): recompute the scores and alpha,
-``dalpha = <dout[r], h[s]>``, ``dscore = alpha (dalpha - sum alpha dalpha)``,
-then ``df``, ``dg`` and ``dh`` by float32 segment sums.
+the shapes and the card's L2 and SM count. The backward, ``attend_bwd``
+(:206-259, XLA on the TPU), is K4b (``grl_torch/csrc/
+sparse_attention_bwd.cu``), scatter-free in both directions as
+``attend_bwd`` is: a receiver-major walk recomputes the scores and alpha,
+``dalpha = <dout[r], h[s]>`` and ``dscore = alpha (dalpha - sum alpha
+dalpha)``, writes ``df`` and one ``(dscore, alpha)`` pair per edge; a
+sender-major walk over the transposed CSR gathers the pairs through
+``t_edge`` (each edge's receiver-major position, as ``gids=fwd.edge_flat``
+is on the TPU, :157-164) and writes ``dg`` and ``dh``. Its layout is
+:func:`backward_launch`.
 
 :func:`attend_forward` takes the plain version (:func:`attend_reference`,
 the segment path of ``SparseNodeSelfAtten``, ``layers.py:292-299``) for
 CPU tensors and launches K4 for CUDA tensors, or raises; it counts launches
-as ``K4`` in :mod:`grl_torch.ops.launches`.
+as ``K4`` in :mod:`grl_torch.ops.launches`. :func:`attend_grad` does the
+same for the backward: :func:`attend_backward_walks` on the CPU, K4b's two
+launches (``K4b receivers``, ``K4b senders``) on CUDA.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ import numpy as np
 import torch
 
 from grl_torch.ops import _build, launches
-from grl_torch.ops.segment import segment_softmax, segment_sum
+from grl_torch.ops.segment import segment_max, segment_softmax, segment_sum
 from grl_torch.ops.sparse import gather_slices, l2_bytes, slice_grid, sm_count
 
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
@@ -64,28 +71,39 @@ SLICED_L2_MULTIPLE = 2
 
 
 class AttentionPlan(NamedTuple):
-    """Receiver-major CSR of an edge set, on one device."""
+    """Receiver-major CSR of an edge set and its transpose, on one device."""
 
     rowptr: torch.Tensor  # int32 (num_nodes + 1,)
     senders: torch.Tensor  # int32 (E,), grouped by receiver
     receivers: torch.Tensor  # int32 (E,), non-decreasing
     num_nodes: int
+    # The sender-major CSR of the same edges (grl_tpu's ``bwd`` tables,
+    # sparse_attention.py:157-164), which K4b's sender walk takes.
+    colptr: torch.Tensor  # int32 (num_nodes + 1,)
+    t_receivers: torch.Tensor  # int32 (E,), grouped by sender
+    t_edge: torch.Tensor  # int32 (E,), each edge's position in the receiver-major order
 
 
 def plan_attention(senders: np.ndarray, receivers: np.ndarray, num_nodes: int,
                    device=None) -> AttentionPlan:
-    """Host planner: a stable sort of the edges by receiver."""
+    """Host planner: a stable sort of the edges by receiver, then of that
+    order by sender."""
     senders = np.asarray(senders, np.int64)
     receivers = np.asarray(receivers, np.int64)
     order = np.argsort(receivers, kind="stable")
-    counts = np.bincount(receivers, minlength=num_nodes)
-    rowptr = np.zeros(num_nodes + 1, np.int64)
-    np.cumsum(counts, out=rowptr[1:])
+    by_receiver = senders[order], receivers[order]
+    t_edge = np.argsort(by_receiver[0], kind="stable")
+
+    def pointers(ids):
+        ptr = np.zeros(num_nodes + 1, np.int64)
+        np.cumsum(np.bincount(ids, minlength=num_nodes), out=ptr[1:])
+        return ptr
 
     def put(array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(dtype=torch.int32, device=device)
 
-    return AttentionPlan(put(rowptr), put(senders[order]), put(receivers[order]), int(num_nodes))
+    return AttentionPlan(put(pointers(receivers)), put(by_receiver[0]), put(by_receiver[1]), int(num_nodes),
+                         put(pointers(senders)), put(by_receiver[1][t_edge]), put(t_edge))
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +137,50 @@ def attend_backward(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, dout: tor
     dg = segment_sum(dscore[:, None] * f32[r], s, N)
     dh = segment_sum(alpha[:, None] * dout32[r], s, N)
     return df.to(f.dtype), dg.to(g.dtype), dh.to(h.dtype)
+
+
+def receiver_walk(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, dout: torch.Tensor,
+                  plan: AttentionPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K4b, launch 1: ``(df, pairs)``, df in f's dtype and the
+    float32 ``(E, 2)`` pairs ``(dscore, alpha)`` in receiver-major order,
+    with the kernel's arithmetic: ``m = max score``, ``p = exp(score - m)``,
+    ``l = sum p``, ``u = sum p dalpha``, ``alpha = p / l`` and
+    ``dscore = alpha (dalpha - u / l)``."""
+    s, r, N = plan.senders.long(), plan.receivers.long(), plan.num_nodes
+    f32, g32 = f.float(), g.float()
+    scores = (f32[r] * g32[s]).sum(-1)
+    p = torch.exp(scores - segment_max(scores, r, N)[r])
+    dalpha = (dout.float()[r] * h.float()[s]).sum(-1)
+    inv = 1.0 / segment_sum(p, r, N)[r]
+    alpha = p * inv
+    dscore = alpha * (dalpha - segment_sum(p * dalpha, r, N)[r] * inv)
+    df = segment_sum(dscore[:, None] * g32[s], r, N)
+    return df.to(f.dtype), torch.stack([dscore, alpha], dim=-1)
+
+
+def sender_walk(f: torch.Tensor, dout: torch.Tensor, pairs: torch.Tensor,
+                plan: AttentionPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K4b, launch 2: ``(dg, dh)``, each a float32 sum over a
+    sender's edges in the transposed CSR, whose pairs are gathered through
+    ``t_edge`` (``dg[s] = sum dscore f[r]``, ``dh[s] = sum alpha
+    dout[r]``), cast once to f's and dout's dtype."""
+    N = plan.num_nodes
+    owner = torch.repeat_interleave(torch.arange(N, device=pairs.device), (plan.colptr[1:] - plan.colptr[:-1]).long())
+    pair, r = pairs[plan.t_edge.long()], plan.t_receivers.long()
+    dg = segment_sum(pair[:, :1] * f.float()[r], owner, N)
+    dh = segment_sum(pair[:, 1:] * dout.float()[r], owner, N)
+    return dg.to(f.dtype), dh.to(dout.dtype)
+
+
+def attend_backward_walks(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, dout: torch.Tensor,
+                          plan: AttentionPlan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`attend_backward` as K4b computes it, in its two walks
+    (:func:`receiver_walk`, then :func:`sender_walk`): in float32, each
+    output cast once to its input's dtype where f and g share one dtype
+    and h and dout another, as on every path of the port."""
+    df, pairs = receiver_walk(f, g, h, dout, plan)
+    dg, dh = sender_walk(f, dout, pairs, plan)
+    return df, dg.to(g.dtype), dh.to(h.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +269,117 @@ def _launch(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, plan: AttentionPl
     return out
 
 
+# Elements of an f, g, df or dg row that one lane of K4b holds
+# (kKPerLane in csrc/sparse_attention_bwd.cu): a group covers K.
+K_PER_LANE = 4
+
+
+class BackwardLaunch(NamedTuple):
+    """How K4b's two launches are laid out on the card."""
+
+    group: int  # lanes that own one receiver (launch 1) or sender (launch 2): a power of two, 1..32
+    blocks: int  # blocks of THREADS threads
+
+
+def backward_launch(N: int, K: int, F: int, itemsize: int, sm_count: int) -> BackwardLaunch:
+    """K4b's layout for ``N`` nodes, ``(N, K)`` f and g and ``(N, F)`` h
+    and dout of ``itemsize``-byte elements on a card of ``sm_count`` SMs:
+    a group has a lane for each 16-byte vector of an h row and at least one
+    for every ``K_PER_LANE`` elements of K, rounded up to a power of two
+    and at most 32 (a wider row takes several passes of the group); the
+    grid is one wave of blocks, or fewer where the nodes need fewer."""
+    need = max(F * itemsize // 16, -(-K // K_PER_LANE), 1)
+    group = min(32, 1 << (need - 1).bit_length())
+    blocks = max(1, min(-(-N // (THREADS // group)), sm_count * BLOCKS_PER_SM))
+    return BackwardLaunch(group, blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_library() -> ctypes.CDLL:
+    """The built K4b library with its C signatures declared (once)."""
+    lib = _build.load_library("sparse_attention_bwd")
+    tail = [ctypes.c_int] * 6 + [ctypes.c_int, ctypes.c_void_p]  # N, K, F, group_log2, blocks, dtype; device, stream
+    # rowptr, senders, f, g, h, dout, pairs, df
+    lib.grl_attention_bwd_receivers.argtypes = [ctypes.c_void_p] * 8 + tail
+    # colptr, t_receivers, t_edge, pairs, f, dout, dg, dh
+    lib.grl_attention_bwd_senders.argtypes = [ctypes.c_void_p] * 8 + tail
+    lib.grl_attention_bwd_receivers.restype = lib.grl_attention_bwd_senders.restype = ctypes.c_int
+    return lib
+
+
+def _backward_layout(f: torch.Tensor, dout: torch.Tensor, others, plan: AttentionPlan,
+                     launch: Optional[BackwardLaunch]) -> BackwardLaunch:
+    """Checks K4b's operands (f (N, K), dout (N, F) and ``others`` of
+    f's or dout's shape, all float32 or all bfloat16, contiguous, 16-byte
+    aligned, on the plan's device) and returns ``launch``, by default
+    :func:`backward_launch` for this card."""
+    tensors = (f, dout, *others)
+    if dout.dtype not in _DTYPE_CODES or any(t.dtype != dout.dtype for t in tensors):
+        raise TypeError(f"CUDA K4b takes operands all float32 or all bfloat16; got {[t.dtype for t in tensors]}")
+    N, K = f.shape
+    F = dout.shape[-1]
+    if dout.shape != (N, F) or any(t.shape not in ((N, K), (N, F)) for t in others) or N != plan.num_nodes:
+        raise ValueError(f"K4b needs (N, K) and (N, F) operands for the plan's {plan.num_nodes} nodes; got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 or t.device != dout.device for t in tensors):
+        raise ValueError("CUDA K4b needs contiguous, 16-byte aligned operands on one device")
+    if plan.colptr.device != dout.device:
+        raise ValueError(f"plan on {plan.colptr.device} but dout on {dout.device}")
+    if F % 8 or not 1 <= K <= 32 * K_PER_LANE:
+        raise ValueError(f"CUDA K4b needs F a multiple of 8 and 1 <= K <= {32 * K_PER_LANE}; got F={F}, K={K}")
+    if launch is None:
+        launch = backward_launch(N, K, F, dout.element_size(), sm_count(dout.device.index))
+    group = launch.group
+    if group < 1 or group > 32 or group & (group - 1) or group * K_PER_LANE < K or launch.blocks < 1:
+        raise ValueError(f"K4b cannot launch {launch} at K={K}")
+    return launch
+
+
+def _launch_receivers(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, dout: torch.Tensor,
+                      plan: AttentionPlan, launch: Optional[BackwardLaunch] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K4b's receiver walk on the current stream, once: ``(df,
+    pairs)`` as :func:`receiver_walk` gives them; no synchronisation."""
+    launch = _backward_layout(f, dout, (g, h), plan, launch)
+    N, K = f.shape
+    df = torch.empty_like(f)
+    pairs = torch.empty(plan.senders.numel(), 2, dtype=torch.float32, device=f.device)
+    if N == 0:
+        return df, pairs
+    lib = _backward_library()
+    err = lib.grl_attention_bwd_receivers(
+        plan.rowptr.data_ptr(), plan.senders.data_ptr(), f.data_ptr(), g.data_ptr(), h.data_ptr(),
+        dout.data_ptr(), pairs.data_ptr(), df.data_ptr(), N, K, dout.shape[-1], launch.group.bit_length() - 1,
+        launch.blocks, _DTYPE_CODES[f.dtype], f.device.index, torch.cuda.current_stream(f.device).cuda_stream,
+    )
+    _build.check_launch(lib, err, "K4b receivers")
+    return df, pairs
+
+
+def _launch_senders(f: torch.Tensor, dout: torch.Tensor, pairs: torch.Tensor, plan: AttentionPlan,
+                    launch: Optional[BackwardLaunch] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K4b's sender walk on the current stream, once: ``(dg, dh)``
+    as :func:`sender_walk` gives them; no synchronisation."""
+    launch = _backward_layout(f, dout, (), plan, launch)
+    E = plan.t_edge.numel()
+    if pairs.dtype != torch.float32 or pairs.shape != (E, 2) or not pairs.is_contiguous() or pairs.device != f.device:
+        raise ValueError(f"K4b's sender walk takes the receiver walk's float32 ({E}, 2) pairs; got "
+                         f"{pairs.dtype} {tuple(pairs.shape)} on {pairs.device}")
+    N, K = f.shape
+    dg, dh = torch.empty_like(f), torch.empty_like(dout)
+    if N == 0:
+        return dg, dh
+    lib = _backward_library()
+    err = lib.grl_attention_bwd_senders(
+        plan.colptr.data_ptr(), plan.t_receivers.data_ptr(), plan.t_edge.data_ptr(), pairs.data_ptr(),
+        f.data_ptr(), dout.data_ptr(), dg.data_ptr(), dh.data_ptr(), N, K, dout.shape[-1],
+        launch.group.bit_length() - 1, launch.blocks, _DTYPE_CODES[f.dtype], f.device.index,
+        torch.cuda.current_stream(f.device).cuda_stream,
+    )
+    _build.check_launch(lib, err, "K4b senders")
+    return dg, dh
+
+
 def attend_forward(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                    plan: AttentionPlan) -> torch.Tensor:
     """``(N, F)`` attention output in h's dtype: the plain version for CPU
@@ -221,6 +394,23 @@ def attend_forward(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     return out
 
 
+def attend_grad(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, dout: torch.Tensor,
+                plan: AttentionPlan) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(df, dg, dh)`` of the attention for ``dout``, each in its input's
+    dtype: the plain walks for CPU tensors, K4b's two launches for CUDA
+    tensors (counted as ``K4b receivers`` and ``K4b senders`` in
+    :mod:`grl_torch.ops.launches`)."""
+    if h.device.type == "cpu":
+        return attend_backward_walks(f, g, h, dout, plan)
+    if h.device.type != "cuda":
+        raise ValueError(f"K4b runs on CUDA or CPU tensors, not {h.device}")
+    df, pairs = _launch_receivers(f, g, h, dout, plan)
+    launches.count("K4b receivers")
+    dg, dh = _launch_senders(f, dout, pairs, plan)
+    launches.count("K4b senders")
+    return df, dg, dh
+
+
 class _Attend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, f, g, h, plan: AttentionPlan):
@@ -231,7 +421,7 @@ class _Attend(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         f, g, h = ctx.saved_tensors
-        df, dg, dh = attend_backward(f, g, h, dout, ctx.plan)
+        df, dg, dh = attend_grad(f, g, h, dout.contiguous(), ctx.plan)
         return df, dg, dh, None
 
 

@@ -17,7 +17,7 @@ import torch
 
 import numpy as np
 
-from grl_torch.ops import csr_spmm, ell, hashing, launches, relagg, sparse, sparse_attention
+from grl_torch.ops import csr_spmm, dropout, ell, hashing, launches, relagg, sparse, sparse_attention
 from grl_torch.probes import gather
 
 pytestmark = pytest.mark.cuda
@@ -515,6 +515,99 @@ def test_k4_gradients_are_the_plain_backward():
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-5 * float(b.grad.abs().max()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K, F", [(16, 128), (8, 16), (16, 264), (12, 1040)])
+def test_k4b_matches_plain_version(K, F, dtype):
+    """K4b through ``attend_grad``: one launch of each walk, within
+    SPARSE_TOL of ``attend_backward`` on a graph with a 300-edge hub,
+    receivers of degree G - 1, G and G + 1 and 7 with no edge; zero rows
+    where a node has no edge; a second call gives the same bits."""
+    N = 3001
+    group = sparse_attention.backward_launch(N, K, F, torch.empty((), dtype=dtype).element_size(), 132).group
+    kernel, f, g, h = attention_problem(N, 20000, K, F, dtype, seed=K + F,
+                                        degrees=(max(group - 1, 1), group, group + 1))
+    dout = torch.randn(N, F, device="cuda").to(dtype)
+    before = launches.device_counts()
+    grads = sparse_attention.attend_grad(f, g, h, dout, kernel.plan)
+    torch.cuda.synchronize()
+    assert launched_since(before) == {"K4b receivers": 1, "K4b senders": 1}
+    for out, ref in zip(grads, sparse_attention.attend_backward(f, g, h, dout, kernel.plan)):
+        assert_close_to_plain(out, ref)
+    assert torch.all(grads[0][-7:] == 0)
+    no_out = kernel.plan.colptr[1:] == kernel.plan.colptr[:-1]
+    assert torch.all(grads[1][no_out] == 0) and torch.all(grads[2][no_out] == 0)
+    again = sparse_attention.attend_grad(f, g, h, dout, kernel.plan)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
+def test_k4b_every_group_matches_plain_walks(group, dtype):
+    """Each walk at groups of any width and a one-block grid against its
+    plain version on the same inputs (the sender walk on the kernel's own
+    pairs)."""
+    kernel, f, g, h = attention_problem(1001, 9000, 4, 128, dtype, seed=group,
+                                        degrees=(group - 1, group, group + 1, 2 * group + 1))
+    dout = torch.randn(1001, 128, device="cuda").to(dtype)
+    plan = kernel.plan
+    for blocks in (1, 64):
+        launch = sparse_attention.BackwardLaunch(group, blocks)
+        df, pairs = sparse_attention._launch_receivers(f, g, h, dout, plan, launch)
+        ref_df, ref_pairs = sparse_attention.receiver_walk(f, g, h, dout, plan)
+        dg, dh = sparse_attention._launch_senders(f, dout, pairs, plan, launch)
+        ref_dg, ref_dh = sparse_attention.sender_walk(f, dout, pairs, plan)
+        torch.cuda.synchronize()
+        assert_close_to_plain(pairs, ref_pairs)
+        for out, ref in ((df, ref_df), (dg, ref_dg), (dh, ref_dh)):
+            assert_close_to_plain(out, ref)
+
+
+def test_k4b_refuses_what_it_cannot_take():
+    kernel, f, g, h = attention_problem(500, 4000, 16, 128, torch.float32)
+    dout = torch.randn(500, 128, device="cuda")
+    with pytest.raises(TypeError):
+        sparse_attention.attend_grad(f, g, h, dout.bfloat16(), kernel.plan)
+    with pytest.raises(ValueError):
+        sparse_attention.attend_grad(f, g, h, torch.randn(500 * 128 + 1, device="cuda")[1:].view(500, 128),
+                                     kernel.plan)
+    wide, *_ = attention_problem(500, 4000, 132, 128, torch.float32)
+    with pytest.raises(ValueError):
+        sparse_attention.attend_grad(*(torch.randn(500, d, device="cuda") for d in (132, 132, 128, 128)), wide.plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3001, 256), (3001, 1280), (7, 13), (1,)])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_matches_plain_version_bit_for_bit(shape, dtype, rate):
+    """D against its plain version on the bits (ragged tails included), an
+    int seed and its tensor giving the same output, two launches equal."""
+    x = torch.randn(shape, device="cuda").to(dtype)
+    seed = hashing.seed_tensor(2**31 + 77, "cuda")
+    y = dropout._launch(x, seed, rate)
+    ref = dropout.dropout_reference(x, 2**31 + 77, rate)
+    width = {4: torch.int32, 2: torch.int16}[x.element_size()]
+    assert torch.equal(y.view(width), ref.view(width))
+    assert torch.equal(dropout._launch(x, seed, rate).view(width), y.view(width))
+
+
+def test_dropout_autograd_runs_d_both_ways_with_one_mask():
+    x = torch.randn(513, 256, device="cuda", requires_grad=True)
+    dy = torch.randn(513, 256, device="cuda")
+    seed = hashing.seed_tensor(5, "cuda")
+    before = launches.device_counts()
+    y = dropout.dropout(x, seed, 0.5)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert launched_since(before) == {"D forward": 1, "D backward": 1}
+    assert torch.equal(x.grad, dropout.dropout_reference(dy, seed, 0.5))
+    mask = hashing.keep_bits(torch.arange(x.numel(), device="cuda"), seed, 0.5).view(x.shape)
+    assert not bool(((y != 0) & ~mask).any()) and not bool(((x.grad != 0) & ~mask).any())
+    # A non-contiguous input and a contiguous view at an odd offset.
+    base = torch.randn(3, 515, device="cuda")
+    for view in (base.t(), base.view(-1)[1:1 + 1024]):
+        assert torch.equal(dropout.apply_dropout(view, seed, 0.5), dropout.dropout_reference(view.contiguous(), seed, 0.5))
+
+
 # ---------------------------------------------------------------------------
 # K6 (the ELL tables, configs/arxiv_full_graph.yaml's plan) and P.
 # ---------------------------------------------------------------------------
@@ -693,7 +786,9 @@ def mask_readers(dtype):
     k5 = csr_spmm.CSRGraphKernel(*edges, N, Lr, device="cuda")
     k6 = ell.ELLGraphKernel(*edges, N, Lr, device="cuda", **CONFIG_PLAN)
     flat = torch.eye(N, device="cuda", dtype=dtype)
+    ones = torch.ones(N, 256, device="cuda", dtype=dtype)
     return {
+        "D": lambda seed: dropout.apply_dropout(ones, seed, RATE) != 0,
         "K1": lambda seed: relagg.dropedge_aggregate(eye, A, seed, RATE) != 0,
         "K2": lambda seed: relagg.dropedge_aggregate_grad(eye_g, A, seed, RATE) != 0,
         "K5": lambda seed: k5.neighbor_aggregate(flat, seed, RATE) != 0,
@@ -702,7 +797,7 @@ def mask_readers(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K5", "K6", "D"])
 def test_captured_kernel_reads_the_seed_each_replay_draws(kernel, dtype):
     """A chunk that draws a seed on the device and runs the kernel on it,
     run by the chunk runner: the warm-up eagerly, then captured once and
@@ -728,7 +823,7 @@ def test_captured_kernel_reads_the_seed_each_replay_draws(kernel, dtype):
     for seed, (_, mask) in zip(seeds, outs):
         assert torch.equal(mask, read(hashing.seed_tensor(seed, "cuda")))
     assert not torch.equal(outs[1][1], outs[2][1])
-    name = {"K1": "K1", "K2": "K2", "K5": "K5 forward", "K6": "K6 forward"}[kernel]
+    name = {"K1": "K1", "K2": "K2", "K5": "K5 forward", "K6": "K6 forward", "D": "D forward"}[kernel]
     assert launches.device_counts()[name] == 4 + 4  # the chunks, then the eager calls
 
 
