@@ -100,8 +100,9 @@ before the result line is printed; no phase's failure is passed over.
    followed by a kernel step against two plain steps; beside two runs of
    the plain versions and four runs with a fault planted in K5 or K4b (its
    sender walk reading each pair one edge off; its ``sum alpha dalpha``
-   term dropped, which only the score projections' gradients show), which
-   must fail the limits (``FULL_GRAPH_PAIRS``).
+   term dropped from the pairs the receiver walk writes, which only the
+   score projections' gradients show), which must fail the limits
+   (``FULL_GRAPH_PAIRS``).
 
 6. ``ell``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
    ``configs/arxiv_full_graph.yaml`` as written (``kernel_impl: ell``, its
@@ -114,14 +115,18 @@ before the result line is printed; no phase's failure is passed over.
    counterpart of ``scripts/probe_gather.py``: index_select rates (A-D) and
    the four Pallas probes as CUDA kernels (``grl_torch/csrc/
    gather_probe.cu``), each held against its plain version (E1, E2, F
-   exactly, G within 1e-5); M rows/s and GB/s beside the HBM peak, and the
-   measured gather floors of K5, K6 (A rate) and K4 (C rate).
+   exactly, G within 1e-5 at both grids); M rows/s and GB/s beside the HBM
+   peak (G also by device time, with its cluster, warps and rows in
+   flight), and the measured gather floors of K5, K6 (A rate) and K4 (C
+   rate).
 
 The ``kernel`` phase also holds K5 (forward and backward, on the arxiv
 graph at F = 256 and 512, and a small L = 3 graph), K4 and K4b (on the
 arxiv graph at K = 16, F = 128, and a small graph with a hub and isolated
 receivers; K4b against ``attend_backward`` and each of its walks against
-its plain version, two launches equal to the bit), D (at the step's
+its plain version, two launches equal to the bit, and on the arxiv graph
+its rings of 2, 4 and 8 rows, equal to the bit, and groups of 8, 16 and 32
+lanes, within SPARSE_TOL, timed), D (at the step's
 dropout shapes, forward and backward, equal to its plain version bit for
 bit, keep share within binomial bounds, beside
 ``torch.nn.functional.dropout``) and K6 (all four directions on the arxiv graph planned with
@@ -311,6 +316,10 @@ K4_K, K4_F = 16, 128
 # online softmax against a two-pass one), ~1e-7 relative. bfloat16: both
 # accumulate in float32 and round once, one bf16 rounding apart.
 SPARSE_TOL = {"float32": (0.0, 1e-5), "bfloat16": (1e-2, 1e-5)}
+# K4b's ring depths (rows in flight a lane) and group widths swept on the
+# arxiv graph.
+RING_DEPTHS = (2, 4, 8)
+GROUP_WIDTHS = (8, 16, 32)
 # Kernel path against plain path over two full-graph Adam steps, dropout 0
 # and DropEdge 0.3 (one hash mask on both paths; dropout 0.5 is held from
 # one state, FULL_GRAPH_PAIRS): the limits of STEP_LIMITS'
@@ -392,8 +401,9 @@ def phase_env(torch) -> str:
     log(f"[env] built {sorted(paths)} for sm_90a in {build_s:.2f} s")
     for name, text in sorted(_build.build_logs.items()):
         for line in text.splitlines():
-            # The sources of the K1/K2/K3 kernels in full: each kernel's name, registers and spills.
-            if name in ("dropedge_sm90", "relagg_ragged", "dropedge_f32") or "registers" in line or "spill" in line or "smem" in line:
+            # The sources of the K1/K2/K3, K4b and P kernels in full: each kernel's name, registers and spills.
+            if name in ("dropedge_sm90", "relagg_ragged", "dropedge_f32", "sparse_attention_bwd", "gather_probe") \
+                    or "registers" in line or "spill" in line or "smem" in line:
                 log(f"[env] ptxas {name}: {line.strip()}")
     return card
 
@@ -985,7 +995,7 @@ def k4b_case(torch, kernel, dtype_name: str, flush, seed: int, what: str, timed:
     no_out = plan.colptr[1:] == plan.colptr[:-1]
     require(bool((df[no_in] == 0).all()) and bool((dg[no_out] == 0).all()) and bool((dh[no_out] == 0).all()),
             f"K4b {what} {dtype_name}: a node with no edge got a nonzero gradient row")
-    launch = sa.backward_launch(N, K4_K, K4_F, h.element_size(), sparse.sm_count(0)) if timed else None
+    launch = sa.backward_launch(N, K4_K, K4_F, h.element_size(), sparse.sm_count(0))
     base = {"dtype": dtype_name, "N": N, "edges": E, "K": K4_K, "F": K4_F, "isolated": int(no_in.sum()),
             "no_out_edges": int(no_out.sum()), **errs, **walk_errs}
     if not timed:
@@ -1011,22 +1021,55 @@ def k4b_case(torch, kernel, dtype_name: str, flush, seed: int, what: str, timed:
                         lambda: sa._launch_senders(f, dout, pairs, plan),
                         lambda: sa.sender_walk(f, dout, pairs, plan), max(errs["dg"], errs["dh"])),
     }
+    # The ring's depth swept on each walk (device time; the planned depth's
+    # outputs must be every depth's, bit for bit).
+    depths = {}
+    for stages in RING_DEPTHS:
+        forced = launch._replace(stages=stages)
+        df_s, pairs_s = sa._launch_receivers(f, g, h, dout, plan, forced)
+        dg_s, dh_s = sa._launch_senders(f, dout, pairs_s, plan, forced)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip((df_s, pairs_s, dg_s, dh_s), (df, pairs, dg, dh))),
+                f"K4b {what} {dtype_name}: a ring of {stages} rows gives other bits than {launch.stages}")
+        depths[stages] = (
+            time_ms(torch, lambda: sa._launch_receivers(f, g, h, dout, plan, forced), flush, cover=True),
+            time_ms(torch, lambda: sa._launch_senders(f, dout, pairs, plan, forced), flush, cover=True))
+    # The group width swept the same way (a narrower group takes an h or
+    # dout row in several passes; its sums take another order, so each is
+    # held to the plain walks, not to the planned bits).
+    groups = {}
+    for group in GROUP_WIDTHS:
+        forced = launch._replace(group=group)  # one wave of blocks at any group on this graph
+        df_s, pairs_s = sa._launch_receivers(f, g, h, dout, plan, forced)
+        dg_s, dh_s = sa._launch_senders(f, dout, pairs_s, plan, forced)
+        torch.cuda.synchronize()
+        for out, ref, what_ in ((df_s, ref_df, "df"), (pairs_s, ref_pairs, "pairs"), (dg_s, ref_dg, "dg"),
+                                (dh_s, ref_dh, "dh")):
+            check_close(torch, out, ref, "float32" if what_ == "pairs" else dtype_name,
+                        f"K4b {what} {dtype_name} {what_} at groups of {group}",
+                        SPARSE_TOL["float32" if what_ == "pairs" else dtype_name])
+        groups[group] = (
+            time_ms(torch, lambda: sa._launch_receivers(f, g, h, dout, plan, forced), flush, cover=True),
+            time_ms(torch, lambda: sa._launch_senders(f, dout, pairs, plan, forced), flush, cover=True))
+    layout = {"group": launch.group, "blocks": launch.blocks, "stages": launch.stages, "smem": launch.smem,
+              "feed": "cp.async, 16 bytes a lane"}
     rows = []
-    for name, (nbytes, flops, kernel_fn, plain_fn, err) in walks.items():
+    for i, (name, (nbytes, flops, kernel_fn, plain_fn, err)) in enumerate(walks.items()):
         bound_ms, bound_by = sparse_bound("float32", nbytes, flops)
         rows.append({
-            "kernel": f"{name} {what}", **base, "max_abs_err": err, "group": launch.group, "blocks": launch.blocks,
+            "kernel": f"{name} {what}", **base, "max_abs_err": err, **layout,
             "ms": time_ms(torch, kernel_fn, flush), "device_ms": time_ms(torch, kernel_fn, flush, cover=True),
             "plain_ms": time_ms(torch, plain_fn, flush, reps=10), "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
             "design_bytes": design_bytes[name],
+            "stages_device_ms": {str(k): v[i] for k, v in depths.items()},
+            "group_device_ms": {str(k): v[i] for k, v in groups.items()},
         })
     nbytes = sum(row["bytes"] for row in rows)
     flops = E * (6 * K4_K + 4 * K4_F)
     bound_ms, bound_by = sparse_bound("float32", nbytes, flops)
     rows.append({
-        "kernel": f"K4b {what}", **base, "max_abs_err": max(errs.values()), "group": launch.group,
-        "blocks": launch.blocks,
+        "kernel": f"K4b {what}", **base, "max_abs_err": max(errs.values()), **layout,
         "ms": time_ms(torch, lambda: sa.attend_grad(f, g, h, dout, plan), flush),
         "device_ms": time_ms(torch, lambda: sa.attend_grad(f, g, h, dout, plan), flush, cover=True),
         "plain_ms": time_ms(torch, lambda: sa.attend_backward(f, g, h, dout, plan), flush, reps=10),
@@ -1149,13 +1192,16 @@ def sparse_kernel_cases(torch, flush):
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), gather floor {row['gather_floor_ms']:.4f} ms"
         )
     for row in grad_rows:
+        sweep = row.get("stages_device_ms")
         log(
-                f"[kernel] {row['kernel']} {row['dtype']:>8} K={row['K']} F={row['F']} (groups of {row['group']} "
-                f"lanes, {row['blocks']} blocks): max abs err df {row['df']:.3e}, dg {row['dg']:.3e}, dh "
-                f"{row['dh']:.3e} against attend_backward, pairs {row['pairs']:.3e} against the plain walk; two "
-                f"launches equal | kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
-                f"{row['plain_ms']:.4f} ms, library none (no single PyTorch call), bound {row['bound_ms']:.4f} ms "
+            f"[kernel] {row['kernel']} {row['dtype']:>8} K={row['K']} F={row['F']} (groups of {row['group']} "
+            f"lanes, {row['blocks']} blocks, rings of {row['stages']} rows fed by {row['feed']}, {row['smem']} "
+            f"bytes of shared memory a block): max abs err df {row['df']:.3e}, dg {row['dg']:.3e}, dh "
+            f"{row['dh']:.3e} against attend_backward, pairs {row['pairs']:.3e} against the plain walk; two "
+            f"launches equal | kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, library none (no single PyTorch call), bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}, {row['bytes']} bytes)"
+            + (f"; device ms by ring depth {sweep}, by group width {row['group_device_ms']}" if sweep else "")
         )
     rows += grad_rows
     # Relation folding (L = 3) and K4's hub and isolated receivers, small.
@@ -2596,24 +2642,29 @@ def k4b_pairs_off():
 
 
 def k4b_without_mean():
-    """K4b's place taken by its backward with the ``sum alpha dalpha`` term
-    dropped from dscore (``dscore = alpha dalpha``), in PyTorch: it changes
-    only df and dg, so it moves only the gradients that reach f and g, a
-    fault the limits on the score projections' gradients must catch."""
-    from grl_torch.ops import sparse_attention
+    """K4b with the ``sum alpha dalpha`` term dropped from dscore where the
+    receiver walk writes it, once, into the pair buffer: the walk's pairs
+    become ``(alpha dalpha, alpha)``, df is summed from them, and the
+    sender walk (K4b's kernel on CUDA tensors, its plain version on CPU
+    ones) reads them. It changes only df and dg, so it moves only the
+    gradients that reach f and g, a fault the limits on the score
+    projections' gradients must catch."""
+    import torch
+
+    from grl_torch.ops import sparse_attention as sa
     from grl_torch.ops.segment import segment_sum
 
     def wrong(f, g, h, dout, plan):
+        on_card = h.device.type == "cuda"
+        _, pairs = (sa._launch_receivers if on_card else sa.receiver_walk)(f, g, h, dout, plan)
         s, r, N = plan.senders.long(), plan.receivers.long(), plan.num_nodes
-        f32, g32, dout32 = f.float(), g.float(), dout.float()
-        alpha = sparse_attention._alpha(f32, g32, plan)
-        dscore = alpha * (dout32[r] * h.float()[s]).sum(-1)
-        df = segment_sum(dscore[:, None] * g32[s], r, N)
-        dg = segment_sum(dscore[:, None] * f32[r], s, N)
-        dh = segment_sum(alpha[:, None] * dout32[r], s, N)
-        return df.to(f.dtype), dg.to(g.dtype), dh.to(h.dtype)
+        alpha = pairs[:, 1]
+        pairs = torch.stack([alpha * (dout.float()[r] * h.float()[s]).sum(-1), alpha], dim=-1)
+        df = segment_sum(pairs[:, :1] * g.float()[s], r, N).to(f.dtype)
+        dg, dh = (sa._launch_senders if on_card else sa.sender_walk)(f, dout, pairs, plan)
+        return df, dg, dh
 
-    return swapped((sparse_attention, "attend_grad", wrong))
+    return swapped((sa, "attend_grad", wrong))
 
 
 @contextlib.contextmanager
@@ -3073,8 +3124,17 @@ def phase_gather_probe(torch, card: str, kernel_rows):
         log(f"[gather_probe] {name}: {rate} M rows/s, {record['gb_per_s'][name]} GB/s "
             f"({record['gb_per_s'][name] * 1e9 / HBM_BYTES_PER_S:.3f} of the HBM peak)")
     for key, row in record["kernels"].items():
-        log(f"[gather_probe] P-{key}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs err {row['max_abs_err']:.3e}")
+        log(f"[gather_probe] P-{key}: kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, max abs "
+            f"err {row['max_abs_err']:.3e}")
+        if key.startswith("G"):
+            rate = row["rows"] / row["device_ms"] * 1e-3
+            log(f"[gather_probe] P-{key}: {row['rows'] // row['chunk'] // row['cluster']} output rows, each over a "
+                f"cluster of {row['cluster']} CTAs of {row['warps']} warps with {row['depth']} row copies in flight "
+                f"a warp ({row['rows_in_flight']} rows, {row['rows_in_flight'] * gather.F * 4 / 1e6:.1f} MB in flight "
+                f"on the card; {row['smem']} bytes of shared memory a CTA): {rate:.1f} M rows/s, "
+                f"{row['bytes'] / row['device_ms'] * 1e-6:.1f} GB/s by device time ({peak_rows} M rows/s at the HBM "
+                f"peak); device ms by cluster x warps x depth {row['sweep_device_ms']}")
     log("[gather_probe] E1, E2, F = plain versions exactly; G within 1e-5 of the largest sum")
     a_rate = record["results"]["A_index_select_random_f32"] * 1e6
     c_rate = record["results"]["C_index_select_random_bf16"] * 1e6
@@ -3260,7 +3320,9 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "shape": shape,
             **{key: row[key] for key in ("slices", "slice_cols", "l2_bytes", "one_slice_ms", "one_slice_device_ms",
-                                         "group", "blocks", "in_l2_device_ms") if key in row},
+                                         "group", "blocks", "in_l2_device_ms", "stages", "feed", "smem",
+                                         "stages_device_ms", "group_device_ms", "cluster", "warps", "depth",
+                                         "rows_in_flight", "sweep_device_ms") if key in row},
         })
     record["kernels"] = kernels
     write_record(record)

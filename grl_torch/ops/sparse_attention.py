@@ -269,9 +269,12 @@ def _launch(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, plan: AttentionPl
     return out
 
 
-# Elements of an f, g, df or dg row that one lane of K4b holds
-# (kKPerLane in csrc/sparse_attention_bwd.cu): a group covers K.
-K_PER_LANE = 4
+# Rows a lane of K4b keeps in flight (the ring's slots) unless a launch
+# says otherwise.
+BACKWARD_STAGES = 4
+# The widest f or g row K4b takes, in bytes: a lane holds one in registers
+# (K = F / 8 in the model: F up to 1024 in bfloat16, 256 in float32).
+MAX_BACKWARD_ROW_BYTES = 128
 
 
 class BackwardLaunch(NamedTuple):
@@ -279,26 +282,37 @@ class BackwardLaunch(NamedTuple):
 
     group: int  # lanes that own one receiver (launch 1) or sender (launch 2): a power of two, 1..32
     blocks: int  # blocks of THREADS threads
+    stages: int  # rows of h (launch 1) or dout (launch 2) in flight a lane: 2, 4 or 8
+
+    @property
+    def smem(self) -> int:
+        """Shared memory a block of the receiver walk takes (the sender
+        walk takes the rings alone): its lanes' rings of 16-byte slots, and
+        each group's dalpha parts, a row of G + 1 floats a lane."""
+        return self.stages * THREADS * 16 + THREADS * (self.group + 1) * 4
 
 
 def backward_launch(N: int, K: int, F: int, itemsize: int, sm_count: int) -> BackwardLaunch:
     """K4b's layout for ``N`` nodes, ``(N, K)`` f and g and ``(N, F)`` h
     and dout of ``itemsize``-byte elements on a card of ``sm_count`` SMs:
-    a group has a lane for each 16-byte vector of an h row and at least one
-    for every ``K_PER_LANE`` elements of K, rounded up to a power of two
-    and at most 32 (a wider row takes several passes of the group); the
-    grid is one wave of blocks, or fewer where the nodes need fewer."""
-    need = max(F * itemsize // 16, -(-K // K_PER_LANE), 1)
+    a group has a lane for each 16-byte vector of an h row, rounded up to a
+    power of two and at most 32 (a wider row takes several passes of the
+    group); each lane owns whole f and g rows, so K does not set the group.
+    The ring holds ``BACKWARD_STAGES`` rows a lane, fed by per-lane
+    ``cp.async``; the grid is one wave of blocks, or fewer where the nodes
+    need fewer."""
+    need = max(F * itemsize // 16, 1)
     group = min(32, 1 << (need - 1).bit_length())
     blocks = max(1, min(-(-N // (THREADS // group)), sm_count * BLOCKS_PER_SM))
-    return BackwardLaunch(group, blocks)
+    return BackwardLaunch(group, blocks, BACKWARD_STAGES)
 
 
 @functools.lru_cache(maxsize=None)
 def _backward_library() -> ctypes.CDLL:
     """The built K4b library with its C signatures declared (once)."""
     lib = _build.load_library("sparse_attention_bwd")
-    tail = [ctypes.c_int] * 6 + [ctypes.c_int, ctypes.c_void_p]  # N, K, F, group_log2, blocks, dtype; device, stream
+    # N, K, F, group_log2, blocks, stages, dtype; device, stream
+    tail = [ctypes.c_int] * 7 + [ctypes.c_int, ctypes.c_void_p]
     # rowptr, senders, f, g, h, dout, pairs, df
     lib.grl_attention_bwd_receivers.argtypes = [ctypes.c_void_p] * 8 + tail
     # colptr, t_receivers, t_edge, pairs, f, dout, dg, dh
@@ -325,14 +339,31 @@ def _backward_layout(f: torch.Tensor, dout: torch.Tensor, others, plan: Attentio
         raise ValueError("CUDA K4b needs contiguous, 16-byte aligned operands on one device")
     if plan.colptr.device != dout.device:
         raise ValueError(f"plan on {plan.colptr.device} but dout on {dout.device}")
-    if F % 8 or not 1 <= K <= 32 * K_PER_LANE:
-        raise ValueError(f"CUDA K4b needs F a multiple of 8 and 1 <= K <= {32 * K_PER_LANE}; got F={F}, K={K}")
+    itemsize = dout.element_size()
+    if F % 8 or K < 1 or _padded(K, itemsize) * itemsize > MAX_BACKWARD_ROW_BYTES:
+        raise ValueError(f"CUDA K4b needs F a multiple of 8 and 1 <= K <= {MAX_BACKWARD_ROW_BYTES // itemsize}; "
+                         f"got F={F}, K={K}")
     if launch is None:
-        launch = backward_launch(N, K, F, dout.element_size(), sm_count(dout.device.index))
-    group = launch.group
-    if group < 1 or group > 32 or group & (group - 1) or group * K_PER_LANE < K or launch.blocks < 1:
-        raise ValueError(f"K4b cannot launch {launch} at K={K}")
+        launch = backward_launch(N, K, F, itemsize, sm_count(dout.device.index))
+    group, stages = launch.group, launch.stages
+    if group < 1 or group > 32 or group & (group - 1) or launch.blocks < 1 or stages not in (2, 4, 8):
+        raise ValueError(f"K4b cannot launch {launch}")
     return launch
+
+
+def _padded(K: int, itemsize: int) -> int:
+    """K rounded up to whole 16-byte vectors of ``itemsize``-byte elements."""
+    elems = 16 // itemsize
+    return -(-K // elems) * elems
+
+
+def _pad_rows(t: torch.Tensor) -> torch.Tensor:
+    """``(N, K)`` t with zero columns up to :func:`_padded` K, for K4b's
+    16-byte row loads (a zero column of f and g leaves every score as it
+    is, and its df and dg columns are cut off)."""
+    K = t.shape[-1]
+    pad = _padded(K, t.element_size()) - K
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
 def _launch_receivers(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, dout: torch.Tensor,
@@ -342,18 +373,20 @@ def _launch_receivers(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, dout: t
     pairs)`` as :func:`receiver_walk` gives them; no synchronisation."""
     launch = _backward_layout(f, dout, (g, h), plan, launch)
     N, K = f.shape
-    df = torch.empty_like(f)
     pairs = torch.empty(plan.senders.numel(), 2, dtype=torch.float32, device=f.device)
     if N == 0:
-        return df, pairs
+        return torch.empty_like(f), pairs
+    f_in, g_in = _pad_rows(f), _pad_rows(g)
+    df = torch.empty_like(f_in)
     lib = _backward_library()
     err = lib.grl_attention_bwd_receivers(
-        plan.rowptr.data_ptr(), plan.senders.data_ptr(), f.data_ptr(), g.data_ptr(), h.data_ptr(),
-        dout.data_ptr(), pairs.data_ptr(), df.data_ptr(), N, K, dout.shape[-1], launch.group.bit_length() - 1,
-        launch.blocks, _DTYPE_CODES[f.dtype], f.device.index, torch.cuda.current_stream(f.device).cuda_stream,
+        plan.rowptr.data_ptr(), plan.senders.data_ptr(), f_in.data_ptr(), g_in.data_ptr(), h.data_ptr(),
+        dout.data_ptr(), pairs.data_ptr(), df.data_ptr(), N, f_in.shape[1], dout.shape[-1],
+        launch.group.bit_length() - 1, launch.blocks, launch.stages, _DTYPE_CODES[f.dtype], f.device.index,
+        torch.cuda.current_stream(f.device).cuda_stream,
     )
     _build.check_launch(lib, err, "K4b receivers")
-    return df, pairs
+    return (df if df.shape[1] == K else df[:, :K].contiguous()), pairs
 
 
 def _launch_senders(f: torch.Tensor, dout: torch.Tensor, pairs: torch.Tensor, plan: AttentionPlan,
@@ -366,18 +399,20 @@ def _launch_senders(f: torch.Tensor, dout: torch.Tensor, pairs: torch.Tensor, pl
         raise ValueError(f"K4b's sender walk takes the receiver walk's float32 ({E}, 2) pairs; got "
                          f"{pairs.dtype} {tuple(pairs.shape)} on {pairs.device}")
     N, K = f.shape
-    dg, dh = torch.empty_like(f), torch.empty_like(dout)
+    dh = torch.empty_like(dout)
     if N == 0:
-        return dg, dh
+        return torch.empty_like(f), dh
+    f_in = _pad_rows(f)
+    dg = torch.empty_like(f_in)
     lib = _backward_library()
     err = lib.grl_attention_bwd_senders(
         plan.colptr.data_ptr(), plan.t_receivers.data_ptr(), plan.t_edge.data_ptr(), pairs.data_ptr(),
-        f.data_ptr(), dout.data_ptr(), dg.data_ptr(), dh.data_ptr(), N, K, dout.shape[-1],
-        launch.group.bit_length() - 1, launch.blocks, _DTYPE_CODES[f.dtype], f.device.index,
+        f_in.data_ptr(), dout.data_ptr(), dg.data_ptr(), dh.data_ptr(), N, f_in.shape[1], dout.shape[-1],
+        launch.group.bit_length() - 1, launch.blocks, launch.stages, _DTYPE_CODES[f.dtype], f.device.index,
         torch.cuda.current_stream(f.device).cuda_stream,
     )
     _build.check_launch(lib, err, "K4b senders")
-    return dg, dh
+    return (dg if dg.shape[1] == K else dg[:, :K].contiguous()), dh
 
 
 def attend_forward(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,

@@ -19,9 +19,11 @@ F = 128 float32, seed 0):
   Pallas kernels, as CUDA kernels (``grl_torch/csrc/gather_probe.cu``) —
   E1 gathers rows of a window resident in shared memory, E2 is the
   per-element ``take_along_axis`` form, F streams window i into shared
-  memory and gathers 16,384 rows from it, G sums 1024 rows a block through
-  a ring of 8 single-row bulk copies (``cp.async.bulk``, one ``mbarrier`` a
-  slot), at the script's 32 blocks and at one block per SM.
+  memory and gathers 16,384 rows from it, G sums 1024 rows an output row
+  through rings of single-row bulk copies (``cp.async.bulk``, one
+  ``mbarrier`` a slot; laid out by :func:`row_dma_plan`: a cluster of CTAs
+  an output row, several issuing warps a CTA), at the script's 32 output
+  rows and at one per SM.
 
 Deviation: the TPU's window is 2048 float32 rows (1 MB of VMEM); a block
 has at most 227 KB of shared memory, so E1, E2 and F use windows of 256
@@ -46,7 +48,7 @@ import json
 import statistics
 import sys
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,6 +65,18 @@ REPS = 40
 # Data-sheet HBM rates (NVIDIA H100 SXM, H200 SXM), matched on the card's name.
 HBM_BYTES_PER_S = {"H100": 3.35e12, "H200": 4.8e12}
 G_TOLERANCE = 1e-5  # relative, of the largest sum: float32 in another order
+# G's layout (row_dma_plan): the portable cluster size, CTAs an SM, issuing
+# warps a CTA, and row copies in flight a warp where the shared memory
+# allows. On an H100 the rate follows the warps consuming rows on each SM,
+# not the rows in flight: two CTAs of 8 warps an SM beat one, and 32 rows
+# in flight a warp lost to 16 and 4 (G_SWEEP; PERF.md).
+G_MAX_CLUSTER, G_CTAS_PER_SM, G_WARPS, G_DEPTH = 8, 2, 8, 8
+SMEM_BYTES = 232_448  # 227 KB, the most a block can take on an H100
+SM_SMEM_BYTES = 233_472  # 228 KB an SM, 1 KB of it reserved for each CTA
+# Layouts of G timed beside the plan on the card, as (cluster, warps,
+# depth): what the rate does with the CTAs, the issuing warps and the rows
+# in flight.
+G_SWEEP = ((1, 8, 16), (2, 8, 8), (4, 8, 8), (8, 8, 8), (8, 4, 8), (8, 8, 4), (8, 8, 16), (4, 8, 32))
 
 
 # ---------------------------------------------------------------------------
@@ -74,7 +88,7 @@ def _library() -> ctypes.CDLL:
     tail = [ctypes.c_int, ctypes.c_void_p]  # device, stream
     lib.grl_probe_window_gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + tail
     lib.grl_probe_window_take_along.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + tail
-    lib.grl_probe_row_dma_sum.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + tail
+    lib.grl_probe_row_dma_sum.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + tail
     for fn in (lib.grl_probe_window_gather, lib.grl_probe_window_take_along, lib.grl_probe_row_dma_sum):
         fn.restype = ctypes.c_int
     return lib
@@ -184,18 +198,58 @@ def row_dma_sum_reference(V: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return V[idx.reshape(-1).long()].view(*idx.shape, V.shape[1]).float().sum(1)
 
 
-def row_dma_sum(V: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """G: block b sums rows ``V[idx[b, j]]`` copied one by one through a
-    ring of bulk copies; ``(blocks, F)`` float32."""
+class RowDmaPlan(NamedTuple):
+    """How G is laid out on the card."""
+
+    cluster: int  # CTAs (a thread-block cluster) that split one output row's rows
+    chunk: int  # rows a CTA sums: ceil(rows / cluster), the last CTA fewer
+    warps: int  # issuing warps a CTA, each with its own ring
+    depth: int  # row copies in flight a warp
+    smem: int  # bytes of shared memory a CTA
+
+    def rows_in_flight(self, blocks: int) -> int:
+        """Row copies in flight on the card for ``blocks`` output rows."""
+        return blocks * self.cluster * self.warps * self.depth
+
+
+def row_dma_smem(F_: int, chunk: int, warps: int, depth: int) -> int:
+    """A CTA's shared memory (``dma_smem_bytes`` in gather_probe.cu): the
+    rings, the warps' sums, an mbarrier a slot and the chunk's indices."""
+    return (warps * depth + warps) * F_ * 4 + warps * depth * 8 + chunk * 4
+
+
+def row_dma_plan(blocks: int, rows: int, F_: int, sm_count: int) -> RowDmaPlan:
+    """G's layout for ``blocks`` output rows of ``rows`` float32 rows of
+    ``F_`` each on a card of ``sm_count`` SMs: the largest cluster (up to
+    ``G_MAX_CLUSTER``) whose CTAs still fit one wave of ``G_CTAS_PER_SM``
+    CTAs an SM (32 output rows on 132 SMs: 8; 132: 2), ``G_WARPS`` warps a
+    CTA and ``G_DEPTH`` rows in flight a warp, fewer where that many CTAs'
+    shared memory would not fit an SM (F = 512: 6 at 32 output rows, 5 at
+    132)."""
+    cluster = max(1, min(G_MAX_CLUSTER, G_CTAS_PER_SM * sm_count // max(blocks, 1), rows))
+    chunk = -(-rows // cluster)
+    budget = min(SMEM_BYTES, SM_SMEM_BYTES // G_CTAS_PER_SM - 1024)
+    depth = min(G_DEPTH, (budget - row_dma_smem(F_, chunk, G_WARPS, 0)) // (G_WARPS * (F_ * 4 + 8)))
+    if depth < 1:
+        raise ValueError(f"G's rows of {F_} floats and {chunk} indices do not fit a block's shared memory")
+    return RowDmaPlan(cluster, chunk, G_WARPS, depth, row_dma_smem(F_, chunk, G_WARPS, depth))
+
+
+def row_dma_sum(V: torch.Tensor, idx: torch.Tensor, plan: Optional[RowDmaPlan] = None) -> torch.Tensor:
+    """G: output row b sums rows ``V[idx[b, j]]``, each copied by one bulk
+    copy, laid out by ``plan`` (by default :func:`row_dma_plan` for this
+    card); ``(blocks, F)`` float32."""
     if not _on_card("P-G", V, idx):
         return row_dma_sum_reference(V, idx)
     if V.shape[1] > 512:
         raise ValueError(f"CUDA P-G sums rows of at most 512 floats, not {V.shape[1]}")
     blocks, rows = idx.shape
+    if plan is None:
+        plan = row_dma_plan(blocks, rows, V.shape[1], torch.cuda.get_device_properties(V.device).multi_processor_count)
     out = torch.empty(blocks, V.shape[1], dtype=torch.float32, device=V.device)
     lib = _library()
-    err = lib.grl_probe_row_dma_sum(V.data_ptr(), idx.data_ptr(), out.data_ptr(), V.shape[1], rows,
-                                    blocks, V.device.index, _stream(V))
+    err = lib.grl_probe_row_dma_sum(V.data_ptr(), idx.data_ptr(), out.data_ptr(), V.shape[1], rows, blocks,
+                                    plan.cluster, plan.warps, plan.depth, V.device.index, _stream(V))
     _build.check_launch(lib, err, "P-G")
     row_dma_sum.launches += 1
     return out
@@ -300,10 +354,19 @@ def check_kernels(inputs: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return errors
 
 
-def time_ms(fn: Callable[[], object], flush: Optional[torch.Tensor], reps: int = REPS) -> float:
+# Cycles of the spin kernel that keeps the card busy after the flush under
+# ``time_ms(cover=True)``, ~1 ms: long enough for the host to enqueue a call
+# behind it (chip_smoke.HOST_COVER_CYCLES).
+HOST_COVER_CYCLES = 2_000_000
+
+
+def time_ms(fn: Callable[[], object], flush: Optional[torch.Tensor], reps: int = REPS,
+            cover: bool = False) -> float:
     """Median time of one call in ms: CUDA events around single calls with
     ``flush`` (a buffer larger than the L2) zeroed before each, or the host
-    clock when ``flush`` is None (CPU tensors)."""
+    clock when ``flush`` is None (CPU tensors). ``cover=True`` keeps the
+    card busy from the flush until the call is enqueued, so the events hold
+    the device's work alone (``device_ms``)."""
     for _ in range(3):
         fn()
     if flush is None:
@@ -316,11 +379,29 @@ def time_ms(fn: Callable[[], object], flush: Optional[torch.Tensor], reps: int =
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for start, end in events:
         flush.zero_()
+        if cover:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def sweep_row_dma(V: torch.Tensor, idx: torch.Tensor, flush: torch.Tensor, reps: int) -> Dict[str, float]:
+    """``device_ms`` of G under each layout of ``G_SWEEP`` (keyed
+    ``"cluster x warps x depth"``), each held to the plain version first."""
+    ref = row_dma_sum_reference(V, idx)
+    limit = G_TOLERANCE * float(ref.abs().max())
+    out = {}
+    for cluster, warps, depth in G_SWEEP:
+        chunk = -(-idx.shape[1] // cluster)
+        plan = RowDmaPlan(cluster, chunk, warps, depth, row_dma_smem(V.shape[1], chunk, warps, depth))
+        err = float((row_dma_sum(V, idx, plan) - ref).abs().max())
+        if err > limit:
+            raise AssertionError(f"P-G under {plan} disagrees with its plain version: {err:.3e} > {limit:.3e}")
+        out[f"{cluster}x{warps}x{depth}"] = time_ms(lambda: row_dma_sum(V, idx, plan), flush, reps, cover=True)
+    return out
 
 
 def hbm_bytes_per_s(device: torch.device) -> Optional[float]:
@@ -333,8 +414,9 @@ def hbm_bytes_per_s(device: torch.device) -> Optional[float]:
 
 def measure(inputs: Dict[str, torch.Tensor], quick: bool = False) -> dict:
     """Time every probe on ``inputs``. Returns the script's record, the
-    bytes each probe moves, and for E1, E2, F, G: the kernel, plain and
-    library times and the bound."""
+    bytes each probe moves, and for E1, E2, F, G: the kernel (also as
+    ``device_ms``), plain and library times and the bound; G's rows add
+    its plan and the row copies in flight on the card."""
     V32 = inputs["V32"]
     device = V32.device
     on_card = device.type == "cuda"
@@ -367,9 +449,17 @@ def measure(inputs: Dict[str, torch.Tensor], quick: bool = False) -> dict:
         bound_ms = nbytes / hbm * 1e3 if hbm else None
         kernels[key] = {
             "name": names[key], "rows": rows, "bytes": nbytes, "ms": ms,
+            "device_ms": time_ms(kernel, flush, reps, cover=on_card),
             "plain_ms": time_ms(plain, flush, reps), "library_ms": time_ms(lib_call, flush, reps),
             "bound_ms": bound_ms, "bound_by": "bytes",
         }
+        if key.startswith("G"):
+            idx = inputs["idx_g" if key == "G" else "idx_g_fill"]
+            sms = torch.cuda.get_device_properties(device).multi_processor_count if on_card else 132
+            plan = row_dma_plan(idx.shape[0], idx.shape[1], F, sms)
+            kernels[key].update(plan._asdict(), rows_in_flight=plan.rows_in_flight(idx.shape[0]))
+            if on_card:
+                kernels[key]["sweep_device_ms"] = sweep_row_dma(V32, idx, flush, reps)
     return {
         "unit": "M rows/s (row = 512 B f32 / 256 B bf16)",
         "shapes": {"N": N, "F": F, "E": E // (QUICK_DIVISOR if quick else 1), "window_rows": WINDOW_ROWS,

@@ -62,7 +62,7 @@ class BuiltinOptimizer(BaseOptimizer):
     def __init__(self, type_optimizer: str = "Adam", lr: float = 1e-3, **kwargs: Any):
         if type_optimizer not in _TORCH_OPTIMIZERS:
             later = (
-                f" {type_optimizer} is not ported yet (ROADMAP.md Queue 1, item 5: "
+                f" {type_optimizer} is not ported yet (ROADMAP.md Queue 1, item 3: "
                 "the optimizers other than Adam/AdamW)."
                 if type_optimizer in _NOT_PORTED else ""
             )

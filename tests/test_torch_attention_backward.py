@@ -169,11 +169,53 @@ def test_attend_grad_takes_the_walks_on_the_cpu_and_refuses_other_devices():
     (169343, 16, 128, 4, 32, 528),  # float32: 32 vectors
     (169343, 16, 264, 4, 32, 528),  # wider rows take several passes of 32 lanes
     (100, 16, 16, 4, 4, 2),  # 4 vectors; 64 groups a block
-    (100, 64, 16, 2, 16, 7),  # K sets the group: 64 / 4 lanes
+    (100, 64, 16, 2, 2, 1),  # lanes own whole f and g rows: K no longer sets the group
     (0, 16, 128, 2, 16, 1),
 ])
 def test_backward_launch(N, K, F, itemsize, group, blocks):
-    assert attention.backward_launch(N, K, F, itemsize, 132) == attention.BackwardLaunch(group, blocks)
+    launch = attention.backward_launch(N, K, F, itemsize, 132)
+    assert launch == attention.BackwardLaunch(group, blocks, attention.BACKWARD_STAGES)
+    assert launch.smem == attention.BACKWARD_STAGES * attention.THREADS * 16 + attention.THREADS * (group + 1) * 4
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("F", [128, 512])
+def test_backward_ring_fits_shared_memory(F, itemsize):
+    """Each lane's ring holds one 16-byte slot a row in flight (the
+    per-lane cp.async feed), whatever F, beside a row of G + 1 dalpha parts
+    a lane: at every depth the kernel takes, a block fits the 227 KB a
+    block may use, and at the planned depth the blocks of one wave
+    (BLOCKS_PER_SM an SM, 1 KB each reserved) fit the SM's 228 KB."""
+    planned = attention.backward_launch(169343, 16, F, itemsize, 132)
+    assert planned.stages == attention.BACKWARD_STAGES and planned.stages in (2, 4, 8)
+    assert planned.group == min(32, F * itemsize // 16)
+    assert attention.BLOCKS_PER_SM * (planned.smem + 1024) <= 233_472
+    for stages in (2, 4, 8):
+        launch = planned._replace(stages=stages)
+        assert launch.smem == stages * 4096 + 256 * (planned.group + 1) * 4 <= 232_448
+
+
+@pytest.mark.parametrize("K, itemsize, padded", [(16, 2, 16), (12, 2, 16), (4, 2, 8), (12, 4, 12), (3, 4, 4),
+                                                 (64, 2, 64)])
+def test_odd_k_is_padded_to_whole_vectors_without_changing_the_walks(K, itemsize, padded):
+    """K4b loads f and g rows as 16-byte vectors, so the wrapper pads K to
+    whole vectors with zero columns: every score stays as it is, and the
+    padded walks' df and dg cut back to K are the unpadded walks' exactly
+    (the extra columns are zero)."""
+    assert attention._padded(K, itemsize) == padded
+    dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    senders, receivers, N = graph("hub", seed=13)
+    plan = attention.plan_attention(senders, receivers, N)
+    f, g, h, dout = (torch.from_numpy(a).to(dtype) for a in operands(N, K=K, seed=14))
+    fp, gp = attention._pad_rows(f), attention._pad_rows(g)
+    assert fp.shape == gp.shape == (N, padded) and (fp.data_ptr() == f.data_ptr()) == (padded == K)
+    df, pairs = attention.receiver_walk(f, g, h, dout, plan)
+    dfp, pairs_p = attention.receiver_walk(fp, gp, h, dout, plan)
+    dg, dh = attention.sender_walk(f, dout, pairs, plan)
+    dgp, dhp = attention.sender_walk(fp, dout, pairs_p, plan)
+    assert torch.equal(pairs_p, pairs) and torch.equal(dhp, dh)
+    assert torch.equal(dfp[:, :K], df) and torch.equal(dgp[:, :K], dg)
+    assert not dfp[:, K:].any() and not dgp[:, K:].any()
 
 
 @pytest.mark.parametrize("change", [
@@ -181,10 +223,13 @@ def test_backward_launch(N, K, F, itemsize, group, blocks):
     dict(misaligned=True),
     dict(K=132),
     dict(F=12),
-    dict(launch=attention.BackwardLaunch(3, 4)),
-    dict(launch=attention.BackwardLaunch(64, 4)),
-    dict(launch=attention.BackwardLaunch(2, 4)),  # 2 lanes hold 8 of K = 16
-    dict(launch=attention.BackwardLaunch(16, 0)),
+    dict(launch=attention.BackwardLaunch(3, 4, 4)),
+    dict(launch=attention.BackwardLaunch(64, 4, 4)),
+    dict(launch=attention.BackwardLaunch(16, 4, 3)),  # a ring of 3 rows: not a power of two
+    dict(launch=attention.BackwardLaunch(16, 0, 4)),
+    dict(launch=attention.BackwardLaunch(16, 4, 16)),  # deeper than the kernel's 8
+    dict(K=40),  # 160-byte float32 f and g rows: a lane holds at most 128 bytes
+    dict(K=72, dtype=torch.bfloat16),  # 144 bytes
 ])
 def test_launch_refuses_what_it_cannot_take(change):
     """Checked before anything is built or launched."""

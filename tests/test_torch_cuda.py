@@ -543,23 +543,28 @@ def test_k4b_matches_plain_version(K, F, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
 def test_k4b_every_group_matches_plain_walks(group, dtype):
-    """Each walk at groups of any width and a one-block grid against its
-    plain version on the same inputs (the sender walk on the kernel's own
-    pairs)."""
+    """Each walk at groups of any width, rings of 2, 4 and 8 rows and a
+    one-block grid against its plain version on the same inputs (the sender
+    walk on the kernel's own pairs), on a graph with a 300-edge hub (many
+    rounds, pairs parked) and degrees about G; a second launch gives the
+    same bits."""
     kernel, f, g, h = attention_problem(1001, 9000, 4, 128, dtype, seed=group,
                                         degrees=(group - 1, group, group + 1, 2 * group + 1))
     dout = torch.randn(1001, 128, device="cuda").to(dtype)
     plan = kernel.plan
-    for blocks in (1, 64):
-        launch = sparse_attention.BackwardLaunch(group, blocks)
+    for blocks, stages in ((1, 4), (64, 2), (64, 8)):
+        launch = sparse_attention.BackwardLaunch(group, blocks, stages)
         df, pairs = sparse_attention._launch_receivers(f, g, h, dout, plan, launch)
         ref_df, ref_pairs = sparse_attention.receiver_walk(f, g, h, dout, plan)
         dg, dh = sparse_attention._launch_senders(f, dout, pairs, plan, launch)
         ref_dg, ref_dh = sparse_attention.sender_walk(f, dout, pairs, plan)
+        again = (*sparse_attention._launch_receivers(f, g, h, dout, plan, launch),
+                 *sparse_attention._launch_senders(f, dout, pairs, plan, launch))
         torch.cuda.synchronize()
         assert_close_to_plain(pairs, ref_pairs)
         for out, ref in ((df, ref_df), (dg, ref_dg), (dh, ref_dh)):
             assert_close_to_plain(out, ref)
+        assert all(torch.equal(a, b) for a, b in zip((df, pairs, dg, dh), again))
 
 
 def test_k4b_refuses_what_it_cannot_take():
@@ -763,6 +768,30 @@ def test_probe_kernels_match_plain_versions():
     assert errors["E1"] == errors["E2"] == errors["F"] == 0.0
     assert {name: kernel.launches - before[name] for name, kernel in gather.KERNELS.items()} == {
         "E1": 1, "E2": 1, "F": 1, "G": 2}
+
+
+@pytest.mark.parametrize("F", [128, 512])
+@pytest.mark.parametrize("blocks, rows", [(32, 1024), (132, 1024), (7, 1001)])
+def test_row_dma_sum_matches_plain_version(F, blocks, rows):
+    """G at the script's grid, at one output row an SM, and at rows that
+    do not split evenly over its cluster, under its plan and under a plan
+    of one CTA a row (another order of the sums): within G_TOLERANCE of
+    the largest sum; one launch a call; two launches give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(F + blocks)
+    V = torch.randn(20000, F, generator=gen, device="cuda")
+    idx = torch.randint(0, 20000, (blocks, rows), generator=gen, device="cuda", dtype=torch.int32)
+    ref = gather.row_dma_sum_reference(V, idx)
+    planned = gather.row_dma_plan(blocks, rows, F, torch.cuda.get_device_properties(0).multi_processor_count)
+    alone = planned._replace(cluster=1, chunk=rows, depth=2,
+                             smem=gather.row_dma_smem(F, rows, planned.warps, 2))
+    for plan in (planned, alone):
+        before = gather.row_dma_sum.launches
+        out = gather.row_dma_sum(V, idx, plan)
+        again = gather.row_dma_sum(V, idx, plan)
+        torch.cuda.synchronize()
+        assert gather.row_dma_sum.launches - before == 2
+        assert torch.equal(out, again)
+        torch.testing.assert_close(out, ref, rtol=0, atol=gather.G_TOLERANCE * float(ref.abs().max()))
 
 
 # ---------------------------------------------------------------------------

@@ -76,6 +76,35 @@ def test_g_sums_the_taken_rows_in_float32():
     np.testing.assert_allclose(out.numpy(), expected, rtol=0, atol=gather.G_TOLERANCE * np.abs(expected).max())
 
 
+@pytest.mark.parametrize("blocks, rows, F, plan", [
+    (32, 1024, 128, (8, 128, 8, 8, 37888)),  # the script's grid: 8 CTAs an output row, 2 an SM
+    (132, 1024, 128, (2, 512, 8, 8, 39424)),  # one output row an SM: 2 CTAs each
+    (32, 1024, 512, (8, 128, 8, 6, 115584)),  # 2 KB rows: fewer in flight a warp, 2 CTAs still fit an SM
+    (132, 1024, 512, (2, 512, 8, 5, 100672)),
+    (7, 1001, 128, (8, 126, 8, 8, 37880)),  # 1001 rows over 8 CTAs: the last takes 119
+    (5, 3, 16, (3, 1, 8, 8, 5124)),  # fewer rows than CTAs a row could take: one row a CTA
+])
+def test_row_dma_plan(blocks, rows, F, plan):
+    """G's layout: the largest cluster (at most 8) whose CTAs still fit one
+    wave of two CTAs an SM on 132 SMs, chunks covering the rows (the last
+    CTA may take fewer), 8 warps, 8 rows in flight a warp or fewer where
+    two CTAs' shared memory would not fit an SM."""
+    got = gather.row_dma_plan(blocks, rows, F, 132)
+    assert tuple(got) == plan
+    assert (got.cluster - 1) * got.chunk < rows <= got.cluster * got.chunk
+    assert blocks * got.cluster <= max(2 * 132, blocks)
+    assert got.smem == gather.row_dma_smem(F, got.chunk, got.warps, got.depth)
+    assert 2 * (got.smem + 1024) <= gather.SM_SMEM_BYTES
+    assert 2 * (gather.row_dma_smem(F, got.chunk, got.warps, got.depth + 1) + 1024) > gather.SM_SMEM_BYTES \
+        or got.depth == gather.G_DEPTH
+    assert got.rows_in_flight(blocks) == blocks * got.cluster * got.warps * got.depth
+
+
+def test_row_dma_plan_refuses_what_cannot_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        gather.row_dma_plan(132, 60000, 512, 132)  # 30,000 indices a CTA: 120 KB
+
+
 def test_wrappers_refuse_other_devices_and_oversized_windows():
     meta = torch.zeros(32, 16, device="meta")
     idx = torch.zeros(2, 8, dtype=torch.int32, device="meta")
@@ -123,4 +152,8 @@ def test_command_line_prints_the_scripts_keys(tmp_path):
     assert not any(name.startswith("D_") for name in record["results"])  # --quick skips D
     assert all(v > 0 for v in record["results"].values())
     for kernel in record["kernels"].values():
-        assert kernel["max_abs_err"] == 0.0 and kernel["bound_ms"] is None
+        assert kernel["max_abs_err"] == 0.0 and kernel["bound_ms"] is None and kernel["device_ms"] > 0
+    g = record["kernels"]["G"]
+    plan = gather.row_dma_plan(gather.G_BLOCKS, gather.G_ROWS, gather.F, 132)
+    assert {k: g[k] for k in plan._fields} == plan._asdict()
+    assert g["rows_in_flight"] == plan.rows_in_flight(gather.G_BLOCKS)
