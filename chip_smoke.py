@@ -111,7 +111,25 @@ before the result line is printed; no phase's failure is passed over.
    (``grl_torch/csrc/ell.cu``) aggregates in all four directions. The same
    checks and measurements as ``full_graph`` (and the tables' planning
    seconds), with K6 with a wrong seed or rate planted as the faults.
-7. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
+7. ``tile``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
+   ``configs/arxiv_full_graph.yaml`` with ``kernel_impl: tile``,
+   ``kernel_plan: {tile_size: 128, tile_dtype: bfloat16, plan_projected:
+   true}`` (the LPA order, tile's default) and the SBM at 661 communities
+   (bench.py's "clustered" structure), 20 steps for the file's 200: K7
+   (``grl_torch/csrc/tile.cu``) on the 3198 tiles, which must cover
+   810,156 edges, and K6 on the 364,975 residual edges, in all four
+   directions. The same checks and measurements as ``ell`` (and the
+   planning seconds of the LPA order, the tile tables and the residual),
+   with K7 under a wrong relation mix and K7's backward with its mask keyed
+   on swapped endpoints planted as the faults.
+8. ``demo``: the entry points as subprocesses from a scratch working
+   directory: ``python -m grl_torch.demo_training`` on
+   ``configs/arxiv_full_graph.yaml`` for 20 epochs and on
+   ``configs/synthetic_kv.yaml`` for one, then ``python -m
+   grl_torch.demo_inference`` on ``configs/synthetic_kv_infer.yaml`` with
+   that checkpoint and a synthetic page: exit codes, the printed lines and
+   the annotated boxes.
+9. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
    counterpart of ``scripts/probe_gather.py``: index_select rates (A-D) and
    the four Pallas probes as CUDA kernels (``grl_torch/csrc/
    gather_probe.cu``), each held against its plain version (E1, E2, F
@@ -145,7 +163,15 @@ walks h in such slices too, with all of g counted beside each
 its layout (``group``, ``blocks``) and its in-L2 floor
 (``in_l2_device_ms``: h and g folded onto rows that fit the L2,
 :func:`fold`), and two launches, one slice and two must give the planned
-bits.
+bits. K7 runs all four directions on the clustered arxiv plan of the
+``tile`` phase (F = 256 and 512, bf16 and f32 operands on bf16 tiles;
+within SPARSE_TOL of its plain version, two launches equal to the bit; its
+rows hold ``torch.bmm`` on the masked, gathered stacks as ``library_ms``,
+and, in bf16 at F = 256, K6 over every edge of the same graph planned as
+the arxiv config's ELL and over the tile plan's residual alone) and on a
+small L = 3 graph with f32 and bf16 tiles (the keep set with V = I equal to
+the pair hash's, the same in the transposed tables, and <g, K7 V> =
+<K7' g, V>).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -402,7 +428,7 @@ def phase_env(torch) -> str:
     for name, text in sorted(_build.build_logs.items()):
         for line in text.splitlines():
             # The sources of the K1/K2/K3, K4b and P kernels in full: each kernel's name, registers and spills.
-            if name in ("dropedge_sm90", "relagg_ragged", "dropedge_f32", "sparse_attention_bwd", "gather_probe") \
+            if name in ("dropedge_sm90", "relagg_ragged", "dropedge_f32", "sparse_attention_bwd", "tile", "gather_probe") \
                     or "registers" in line or "spill" in line or "smem" in line:
                 log(f"[env] ptxas {name}: {line.strip()}")
     return card
@@ -1395,6 +1421,260 @@ def k6_k5_keep_sets(torch, dtype_name: str) -> float:
     return float(seen5.sum()) / E
 
 
+# K7's main case and the tile phase: configs/arxiv_full_graph.yaml's SBM
+# with 661 communities (~256 nodes each, bench.py's "clustered" structure)
+# planned as a tile graph: B = 128, bfloat16 tiles, the project-first
+# tables, the LPA order (tile's default reorder). grl_tpu's planner makes
+# 3198 tiles covering 810,156 of its 1,175,131 edges (BENCH_r05.json), and
+# the port's planner equals it (tests/test_torch_tile.py).
+TILE_COMMUNITIES = 661
+TILE_PLAN = {"tile_size": 128, "tile_dtype": "bfloat16", "plan_projected": True}
+TILE_EXPECTED = {"tiles_total": 3198, "covered_edges": 810156}
+# K7's small case: L = 3, B = 64 (the last block ragged), rows of up to
+# 8-16 tiles, float32 tiles under bfloat16 operands too.
+K7_SMALL = {"N": 1000, "L": 3, "E": 30000, "tile_size": 64, "tile_min_edges": 40}
+
+
+def tile_config(tmp: str):
+    """configs/arxiv_full_graph.yaml with kernel_impl tile, TILE_PLAN and
+    661 communities, 20 steps for its 200, its outputs under ``tmp``."""
+    from grl_torch.config import load_config
+
+    config = load_config(FULL_GRAPH_YAML)
+    config["model"]["args"]["kernel_impl"] = "tile"
+    config["kernel_plan"] = dict(TILE_PLAN)
+    config["data_config"]["large_graph"]["args"]["communities"] = TILE_COMMUNITIES
+    config["num_epochs"] = FULL_GRAPH_STEPS
+    config["output_dir"] = os.path.join(tmp, "out")
+    return config
+
+
+@functools.lru_cache(maxsize=None)
+def clustered_graph():
+    """The tile phase's SBM graph (numpy), built as FullGraphProcedure builds it."""
+    from grl_torch.trainer.procedures.full_graph_procedure import large_graph_from_config
+
+    return large_graph_from_config(tile_config(tempfile.mkdtemp(prefix="grl_torch_graph_")))
+
+
+def tile_operand(torch, plan, direction: str, F: int, dtype_name: str, seed: int):
+    """A random operand of a K7 call in ``direction``: V (N, F), Vr (N*L, F),
+    g (N, L*F) or g (N, F)."""
+    N, L = plan.num_nodes, plan.L
+    rows, cols = {"forward": (N, F), "projected forward": (N * L, F), "backward": (N, L * F),
+                  "projected backward": (N, F)}[direction]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(rows, cols, generator=gen, device="cuda").to(getattr(torch, dtype_name))
+
+
+def k7_library_ms(torch, plan, X, direction: str, seed, flush):
+    """torch.bmm over every bucket of every relation, on tiles already
+    masked and rounded and source blocks already gathered: the PyTorch
+    call for K7's products (never called by the port)."""
+    from grl_torch.ops import tile
+
+    *_, blocks = tile.relation_blocks(X, plan, direction)
+    mixes = [m & 0xFFFFFFFF for m in plan.rel_mix.tolist()]
+    operands = [pair for r, view in enumerate(plan.relation_views()) if view is not None
+                for pair in tile.bucket_operands(view[0], blocks[r], plan.B, seed, RATE, mixes[r], plan.transposed)]
+    return time_ms(torch, lambda: [torch.bmm(a, b) for a, b in operands], flush)
+
+
+def k7_case(torch, plan, direction: str, dtype_name: str, F: int, flush, seed: int, what: str, timed: bool = True):
+    """K7 in one direction against its plain version, two launches equal to
+    the bit (timed when ``timed``); one result row."""
+    from grl_torch.ops import tile
+
+    X = tile_operand(torch, plan, direction, F, dtype_name, seed)
+    mask_seed = device_seed(104729 * (seed + 1))
+    out = tile.tile_accumulate(X, plan, mask_seed, RATE, direction)
+    again = tile.tile_accumulate(X, plan, mask_seed, RATE, direction)
+    ref = tile.tile_apply_reference(X, plan, mask_seed, RATE, direction)
+    torch.cuda.synchronize()
+    name = f"K7 {direction}"
+    require(torch.equal(out, again), f"{name} {what} {dtype_name} F={F}: two launches give other bits")
+    err = check_close(torch, out, ref, dtype_name, f"{name} {what} {dtype_name} F={F}", SPARSE_TOL[dtype_name])
+    row = {"kernel": name, "case": what, "dtype": dtype_name, "tile_dtype": str(plan.tiles.dtype).split(".")[-1],
+           "F": F, "B": plan.B, "L": plan.L, "slots": plan.num_slots, "tiles": plan.num_tiles, "rate": RATE,
+           "max_abs_err": err, "differ_share": float((out != ref).float().mean())}
+    if not timed:
+        return row
+    itemsize = X.element_size()
+    # The real tiles and their columns read once (a padding slot adds exact
+    # zeros, so the function never needs it), the row tables once, X read
+    # once, out written once; 2 B^2 F operations a tile. float32 products
+    # are bounded at the card's float32 product rate (3xTF32 on the tensor
+    # cores, as for the f32 K1/K3), with the bound at the rate outside them,
+    # where K7's f32 FMA runs, beside it (bound_fp32_ms).
+    nbytes = (plan.num_tiles * (plan.B * plan.B * plan.tiles.element_size() + 4) + 12 * plan.rows.shape[0]
+              + 4 * plan.row_of_block.numel() + itemsize * (X.numel() + out.numel()))
+    flops = 2 * plan.B * plan.B * F * plan.num_tiles
+    f32 = dtype_name == "float32"
+    bound_ms, bound_by = sparse_bound("3xTF32" if f32 else dtype_name, nbytes, flops)
+    if f32:
+        row["bound_fp32_ms"] = sparse_bound("float32", nbytes, flops)[0]
+    row.update({
+        "ms": time_ms(torch, lambda: tile.tile_accumulate(X, plan, mask_seed, RATE, direction), flush),
+        "device_ms": time_ms(torch, lambda: tile.tile_accumulate(X, plan, mask_seed, RATE, direction), flush,
+                             cover=True),
+        # The plain version builds every masked tile and gathered stack: the median of 5.
+        "plain_ms": time_ms(torch, lambda: tile.tile_apply_reference(X, plan, mask_seed, RATE, direction), flush,
+                            reps=5),
+        "library_ms": k7_library_ms(torch, plan, X, direction, mask_seed, flush),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+    })
+    return row
+
+
+def k6_direction_ms(torch, tables, F: int, flush, seed: int) -> dict:
+    """K6 at F in bf16 over one planned direction: its ms and device ms."""
+    from grl_torch.ops import ell
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(tables.num_src_rows, F, generator=gen, device="cuda").to(torch.bfloat16)
+    mask_seed = device_seed(seed)
+    return {"ms": time_ms(torch, lambda: ell.ell_accumulate(X, tables, mask_seed, RATE), flush),
+            "device_ms": time_ms(torch, lambda: ell.ell_accumulate(X, tables, mask_seed, RATE), flush, cover=True),
+            "cells": tables.num_cells, "edges": int((tables.weight != 0).sum())}
+
+
+def k7_keep_set(torch, kernel, dtype_name: str) -> float:
+    """V = I on the small graph: K7's forward reads back the masked tiles,
+    equal to its plain version bit for bit; the kept cells are exactly the
+    tiles' nonzero cells that the pair hash keeps under each relation's mix;
+    the transposed tables keep the same edges. Returns the kept share."""
+    from grl_torch.ops import hashing, tile
+
+    N, L = kernel.num_nodes, kernel.L
+    eye = torch.eye(N, device="cuda", dtype=getattr(torch, dtype_name))
+    seed = device_seed(2027)
+    ahead = tile.tile_accumulate(eye, kernel.tables.fwd, seed, RATE, "forward").view(N, L, N)
+    full = tile.tile_accumulate(eye, kernel.tables.fwd, seed, 0.0, "forward").view(N, L, N)
+    back = tile.tile_accumulate(eye, kernel.tables.bwd, seed, RATE, "projected backward").view(N, L, N)
+    torch.cuda.synchronize()
+    require(torch.equal(ahead.view(N, L * N), tile.tile_apply_reference(eye, kernel.tables.fwd, seed, RATE)),
+            f"K7's V = I readback differs from its plain version ({dtype_name})")
+    ids = torch.arange(N, device="cuda")
+    for r in range(L):
+        kept = hashing.keep_pair_bits(ids[:, None], ids[None, :], seed, RATE, tile._rel_seed_mix(r))
+        require(torch.equal(ahead[:, r] != 0, (full[:, r] != 0) & kept),
+                f"K7's keep set of relation {r} is not the pair hash's ({dtype_name})")
+    require(torch.equal(ahead != 0, back.permute(2, 1, 0) != 0),
+            f"K7's transposed tables keep other edges than its forward ({dtype_name})")
+    return float((ahead != 0).sum()) / float((full != 0).sum())
+
+
+def k7_adjoint(torch, plan_pair, F: int, what: str) -> dict:
+    """<g, K7(V)> = <K7'(g), V> in float32, both modes, within 1e-5 of
+    sum |g * K7(V)|: a backward whose mask is keyed on swapped endpoints
+    breaks it."""
+    from grl_torch.ops import tile
+
+    fwd, bwd = plan_pair
+    found = {}
+    for forward, backward in (("forward", "backward"), ("projected forward", "projected backward")):
+        V = tile_operand(torch, fwd, forward, F, "float32", 11)
+        g = tile_operand(torch, fwd, backward, F, "float32", 12)
+        out = tile.tile_accumulate(V, fwd, device_seed(31), RATE, forward).double()
+        lhs = float((g.double() * out).sum())
+        rhs = float((tile.tile_accumulate(g, bwd, device_seed(31), RATE, backward).double() * V.double()).sum())
+        scale = float((g.double() * out).abs().sum())
+        require(abs(lhs - rhs) <= 1e-5 * scale, f"K7 {what} {forward}: <g, K7 V> {lhs} != <K7' g, V> {rhs}")
+        found[forward] = {"lhs": lhs, "rhs": rhs, "rel": abs(lhs - rhs) / scale}
+    return found
+
+
+def tile_kernel_cases(torch, flush):
+    """K7 rows on the clustered arxiv plan (four directions, F = 256 and
+    512, bf16 and f32 operands on bf16 tiles), beside K6 over all the
+    graph's edges planned as the arxiv config's ELL and over the tile
+    plan's residual alone; the small L = 3 graph (f32 and bf16 tiles, both
+    operand dtypes, untimed), its keep set, and the adjoint check."""
+    import numpy as np
+
+    from grl_torch.config import load_config
+    from grl_torch.ops import ell, tile
+
+    data = clustered_graph()
+    N = len(data.features)
+    start = time.perf_counter()
+    kernel = tile.TileGraphKernel(data.senders, data.receivers, data.relations, data.weights, N,
+                                  data.num_relations, device="cuda", **TILE_PLAN)
+    plan_s = time.perf_counter() - start
+    found = {"tiles_total": kernel.tiles_total, "covered_edges": kernel.covered_edges}
+    require(found == TILE_EXPECTED, f"the clustered arxiv graph planned {found}, expected {TILE_EXPECTED}")
+    fwd, bwd = kernel.tables.fwd, kernel.tables.bwd
+    log(f"[kernel] clustered arxiv graph ({N} nodes, {len(data.senders)} edges, {TILE_COMMUNITIES} communities) "
+        f"planned as tiles ({TILE_PLAN}) in {plan_s:.2f} s ({kernel.plan_seconds}): {kernel.tiles_total} tiles "
+        f"covering {kernel.covered_edges} edges; forward buckets {fwd.shapes}, backward {bwd.shapes}; "
+        f"{fwd.tiles.numel() * fwd.tiles.element_size() / 1e6:.1f} MB of tiles a direction")
+    rows = []
+    for dtype_name in ("float32", "bfloat16"):
+        for F in K5_FS:
+            for direction in tile.DIRECTIONS:
+                plan = bwd if "backward" in direction else fwd
+                rows.append(k7_case(torch, plan, direction, dtype_name, F, flush, seed=F + len(rows),
+                                    what="clustered arxiv"))
+    # K7 plus the residual on K6 against K6 over every edge, bf16 at the
+    # path's width (F = 256 in all four directions).
+    all_ell = ell.ELLGraphKernel(data.senders, data.receivers, data.relations, data.weights, N, data.num_relations,
+                                 device="cuda", **dict(load_config(FULL_GRAPH_YAML)["kernel_plan"]))
+    versus = {}
+    for name, everything, residual in zip(tile.DIRECTIONS, ell_directions(all_ell.tables),
+                                          ell_directions(kernel._ell.tables)):
+        versus[name] = {"all_edges": k6_direction_ms(torch, everything[1], NET_SIZE, flush, 5),
+                        "residual": k6_direction_ms(torch, residual[1], NET_SIZE, flush, 6)}
+    for row in rows:
+        if row["dtype"] == "bfloat16" and row["F"] == NET_SIZE:
+            pair = versus[row["kernel"][len("K7 "):]]
+            row.update(k6_all_edges_ms=pair["all_edges"]["ms"], k6_all_edges_device_ms=pair["all_edges"]["device_ms"],
+                       k6_residual_ms=pair["residual"]["ms"], k6_residual_device_ms=pair["residual"]["device_ms"])
+    for row in rows:
+        beside = (f" | K7 + K6 residual {row['ms'] + row['k6_residual_ms']:.4f} ms (device "
+                  f"{row['device_ms'] + row['k6_residual_device_ms']:.4f}) against K6 over all edges "
+                  f"{row['k6_all_edges_ms']:.4f} ms (device {row['k6_all_edges_device_ms']:.4f})"
+                  if "k6_residual_ms" in row else "")
+        simt = row.get("bound_fp32_ms")
+        log(f"[kernel] {row['kernel']} {row['dtype']:>8} F={row['F']} ({row['tiles']} tiles in {row['slots']} "
+            f"slots, {row['tile_dtype']} tiles): max_abs_err {row['max_abs_err']:.3e}, differing outputs "
+            f"{row['differ_share']:.3e} | kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}{'' if simt is None else f', float32 outside the tensor cores {simt:.4f} ms'})"
+            f"{beside}")
+    log(f"[kernel] K6 at F={NET_SIZE} bf16 over all edges (the arxiv config's ELL plan) and over the tile plan's "
+        f"residual: {versus}")
+    checks = {"versus_all_ell": versus, "plan_seconds": kernel.plan_seconds, "plan_s": plan_s,
+              "adjoint_clustered": k7_adjoint(torch, (fwd, bwd), NET_SIZE, "clustered arxiv")}
+    del kernel, all_ell
+    rng = np.random.RandomState(3)
+    n, e = K7_SMALL["N"], K7_SMALL["E"]
+    edges = (rng.randint(0, n, e), rng.randint(0, n, e), rng.randint(0, K7_SMALL["L"], e),
+             (rng.rand(e) + 0.5).astype(np.float32))
+    small_rows = []
+    for tile_dtype in ("float32", "bfloat16"):
+        small = tile.TileGraphKernel(*edges, n, K7_SMALL["L"], tile_size=K7_SMALL["tile_size"],
+                                     tile_min_edges=K7_SMALL["tile_min_edges"], reorder="none", tile_dtype=tile_dtype,
+                                     plan_projected=True, device="cuda")
+        widths = sorted({w for shapes in small.tables.fwd.shapes for _, w in shapes})
+        require(max(widths) >= 8, f"the small tile graph's widest bucket is {max(widths)}")
+        for dtype_name in ("float32", "bfloat16"):
+            for F in (64, 136):
+                for direction in tile.DIRECTIONS:
+                    plan = small.tables.bwd if "backward" in direction else small.tables.fwd
+                    small_rows.append(k7_case(torch, plan, direction, dtype_name, F, flush, seed=F, timed=False,
+                                              what=f"L=3 widths {widths}"))
+        checks[f"keep_share {tile_dtype} tiles"] = {d: k7_keep_set(torch, small, d) for d in ("float32", "bfloat16")}
+        checks[f"adjoint small {tile_dtype} tiles"] = k7_adjoint(torch, (small.tables.fwd, small.tables.bwd), 64,
+                                                                   "small")
+    checks["small"] = small_rows
+    log(f"[kernel] K7 on the small L = 3 graph (B = 64, ragged last block), four directions, f32/bf16 tiles and "
+        f"operands, F = 64 and 136: largest max_abs_err {max(r['max_abs_err'] for r in small_rows):.3e}; two "
+        f"launches equal; keep sets = the pair hash's, the transposed tables the same: "
+        f"{ {k: v for k, v in checks.items() if k.startswith('keep_share')} }; <g, K7 V> = <K7' g, V>: "
+        f"{ {k: v for k, v in checks.items() if k.startswith('adjoint')} }")
+    return rows, checks
+
+
 def phase_kernel(torch):
     from grl_torch.ops import relagg
 
@@ -1459,11 +1739,12 @@ def phase_kernel(torch):
     sparse_rows, sparse_checks = sparse_kernel_cases(torch, flush)
     dropout_rows = dropout_cases(torch, flush, len(arxiv_graph().features))
     ell_rows, ell_checks = ell_kernel_cases(torch, flush)
+    tile_rows, tile_checks = tile_kernel_cases(torch, flush)
     del flush
-    return results + sparse_rows + dropout_rows + ell_rows, {"kept_share": shares, **invariants, "bf16_dropedge": bf16_checks,
-                                              "k2_clusters": clusters, "f32_k2_capacity": f32_capacity,
-                                              "k2_split_sweep": sweep, "f32_forward_slots": relagg.f32_forward_slots(0),
-                                              "sparse": sparse_checks, "ell": ell_checks}
+    return results + sparse_rows + dropout_rows + ell_rows + tile_rows, {
+        "kept_share": shares, **invariants, "bf16_dropedge": bf16_checks, "k2_clusters": clusters,
+        "f32_k2_capacity": f32_capacity, "k2_split_sweep": sweep, "f32_forward_slots": relagg.f32_forward_slots(0),
+        "sparse": sparse_checks, "ell": ell_checks, "tile": tile_checks}
 
 
 # ---------------------------------------------------------------------------
@@ -1918,7 +2199,7 @@ K1_BF16, K2_BF16 = "dropedge_fwd_sm90_kernel", "dropedge_bwd_sm90_kernel"
 # Kernel names of K5, K6, K4, K4b's two walks and D in a trace.
 SPARSE_KERNELS = {"K5": "csr_accumulate_kernel", "K6": "ell_accumulate_kernel", "K4": "sparse_attention_kernel",
                   "K4b receivers": "attention_bwd_receivers_kernel", "K4b senders": "attention_bwd_senders_kernel",
-                  "D": "dropout_kernel"}
+                  "D": "dropout_kernel", "K7": "tile_apply_kernel"}
 
 
 def params_of(model):
@@ -2533,8 +2814,8 @@ def sparse_counts():
     """Every kernel's launches as the device ran them."""
     from grl_torch.ops.ell import DIRECTIONS
 
-    return counts(("K5 forward", "K5 backward", "K4", *K4B, *(f"K6 {d}" for d in DIRECTIONS), "K3", "K1", "K2",
-                   *D_COUNTS))
+    return counts(("K5 forward", "K5 backward", "K4", *K4B, *(f"K6 {d}" for d in DIRECTIONS),
+                   "K7", *(f"K7 {d}" for d in DIRECTIONS), "K3", "K1", "K2", *D_COUNTS))
 
 
 # Launch counts of K4b's two walks and of D's two directions.
@@ -2551,10 +2832,13 @@ def expected_launches(trainer, steps: int, evals: int, dropout_rate=None):
     three GraphConvs (gcn3 through the projected tables where the kernel
     planned them) and K4 when the graph carries it; the backward takes
     each GraphConv's input gradient (gcn1's too: emb1 is trained) and
-    K4b's two walks. A train step's forward runs D five times where the
-    dropout rate (by default the model's) is above 0, and its backward as
-    often; an eval runs none."""
+    K4b's two walks. The tile kernel runs K7 on its tiles and K6 on its
+    residual in each of those directions (K6 alone where it planned no
+    tile). A train step's forward runs D five times where the dropout rate
+    (by default the model's) is above 0, and its backward as often; an
+    eval runs none."""
     from grl_torch.ops.ell import ELLGraphKernel
+    from grl_torch.ops.tile import TileGraphKernel
 
     expected = dict.fromkeys(sparse_counts(), 0)
     if dropout_rate is None:
@@ -2563,11 +2847,17 @@ def expected_launches(trainer, steps: int, evals: int, dropout_rate=None):
         expected.update(dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * steps))
     graph = trainer.graph
     forwards = steps + evals
-    if isinstance(graph.kernel, ELLGraphKernel):
+    if isinstance(graph.kernel, (ELLGraphKernel, TileGraphKernel)):
         plain_convs = 2 if graph.kernel.tables.proj is not None else 3
-        expected.update({"K6 forward": plain_convs * forwards, "K6 backward": plain_convs * steps,
-                         "K6 projected forward": (3 - plain_convs) * forwards,
-                         "K6 projected backward": (3 - plain_convs) * steps})
+        by_direction = {"forward": plain_convs * forwards, "backward": plain_convs * steps,
+                        "projected forward": (3 - plain_convs) * forwards,
+                        "projected backward": (3 - plain_convs) * steps}
+        tiles = isinstance(graph.kernel, TileGraphKernel) and graph.kernel.tiles_total > 0
+        if not tiles or graph.kernel._ell is not None:
+            expected.update({f"K6 {d}": n for d, n in by_direction.items()})
+        if tiles:
+            expected.update({f"K7 {d}": n for d, n in by_direction.items()})
+            expected["K7"] = sum(by_direction.values())
     elif graph.kernel is not None:
         expected.update({"K5 forward": 3 * forwards, "K5 backward": 3 * steps})
     if graph.atten_kernel is not None:
@@ -2601,14 +2891,15 @@ def plain_d():
 
 
 def plain_sparse():
-    """The K5, K4, K4b, K6 and D launchers swapped for their plain
+    """The K5, K4, K4b, K6, K7 and D launchers swapped for their plain
     versions."""
-    from grl_torch.ops import csr_spmm, ell, sparse_attention
+    from grl_torch.ops import csr_spmm, ell, sparse_attention, tile
 
     return swapped((csr_spmm, "csr_accumulate", csr_spmm.csr_accumulate_reference),
                    (sparse_attention, "attend_forward", sparse_attention.attend_reference),
                    (sparse_attention, "attend_grad", sparse_attention.attend_backward_walks),
                    (ell, "ell_accumulate", ell.ell_accumulate_reference),
+                   (tile, "tile_accumulate", tile.tile_apply_reference),
                    plain_d())
 
 
@@ -2625,6 +2916,30 @@ def faulty(kernel: str, seed_shift: int = 0, rate=None):
         return launch(X, tables, seed + seed_shift, rate_ if rate is None else rate)
 
     return swapped((module, name, wrong))
+
+
+def k7_fault(kind: str):
+    """K7 (or, on CPU tensors, its plain version) with a planted fault the
+    step limits must catch: ``"mix"``, every relation's mask keyed on the
+    next relation's seed mix (a wrong ``_rel_seed_mix``); ``"swap"``, the
+    backward's mask keyed on swapped endpoints ``(send, recv)``."""
+    import torch
+
+    from grl_torch.ops import tile
+
+    launch = tile.tile_accumulate
+
+    def wrong(X, plan, seed=0, rate=0.0, direction="forward"):
+        if kind == "mix":
+            import numpy as np
+
+            mixes = np.array([tile._rel_seed_mix(r + 1) for r in range(plan.L)], np.uint32).view(np.int32)
+            plan = plan._replace(rel_mix=torch.from_numpy(mixes).to(plan.rel_mix.device))
+        elif "backward" in direction:
+            plan = plan._replace(transposed=not plan.transposed)
+        return launch(X, plan, seed, rate, direction)
+
+    return swapped((tile, "tile_accumulate", wrong))
 
 
 def k4b_pairs_off():
@@ -2749,6 +3064,8 @@ FULL_GRAPH_RUNS = {
     "K6 rate 0.25": (lambda: faulty("K6", rate=0.25), 0.0, (), 2),
     "K4b pairs one edge off": (k4b_pairs_off, 0.0, (), 2),
     "K4b without sum alpha dalpha": (k4b_without_mean, 0.0, K4B, 2),
+    "K7 wrong relation mix": (lambda: k7_fault("mix"), 0.0, (), 2),
+    "K7 backward mask on swapped endpoints": (lambda: k7_fault("swap"), 0.0, (), 2),
 }
 # (start, deterministic, run, reference run, what the run must do against
 # the reference under FULL_GRAPH_STEP_LIMITS: "hold", "fail", "equal" (to the
@@ -2791,6 +3108,15 @@ ELL_PAIRS = [
     ("learned", True, "kernel, dropout 0.5", "plain D, dropout 0.5", "equal"),
     ("learned", True, "K6 seed+1", "plain", "fail"),
     ("learned", True, "K6 rate 0.25", "plain", "fail"),
+]
+# The tile phase holds K7 (with K6 on the residual) the same way, with its
+# two planted faults.
+TILE_PAIRS = [
+    ("learned", True, "plain again", "plain", None),
+    ("learned", True, "kernel", "plain", "hold"),
+    ("learned", True, "kernel, dropout 0.5", "plain D, dropout 0.5", "equal"),
+    ("learned", True, "K7 wrong relation mix", "plain", "fail"),
+    ("learned", True, "K7 backward mask on swapped endpoints", "plain", "fail"),
 ]
 
 
@@ -2885,16 +3211,19 @@ def ell_config(tmp: str):
     return config
 
 
-def train_sparse_path(torch, card: str, tag: str, config, pairs):
+def train_sparse_path(torch, card: str, tag: str, config, pairs, describe=None):
     """``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on ``config``:
     the main path with its launch counts, then a step timed on the card, a
-    traced window, the learning check and the kernel-versus-plain pairs."""
+    traced window, the learning check and the kernel-versus-plain pairs.
+    ``describe(trainer)``, where given, checks the planned graph and returns
+    what the record keeps of it."""
     import grl_torch
 
     start = time.perf_counter()
     warper = grl_torch.GNNLearningWarper(config=config)
     setup_s = time.perf_counter() - start
     trainer = warper.trainer
+    described = describe(trainer) if describe is not None else {}
     graph = trainer.graph
     N, E = graph.num_nodes, graph.num_edges()
     args = config["model"]["args"]
@@ -3061,6 +3390,7 @@ def train_sparse_path(torch, card: str, tag: str, config, pairs):
     require(learn_acc > FULL_GRAPH_LEARN_ACC, f"{tag} learning check failed: accuracy {learn_acc}")
     require(not failures, "; ".join(failures))
     return {
+        **described,
         "nodes": N, "edges": E, "steps": FULL_GRAPH_STEPS, "evals": FULL_GRAPH_EVALS, "setup_s": setup_s,
         "plan_seconds": plan_seconds,
         "wall_s": wall, "steps_per_s": FULL_GRAPH_STEPS / wall, "edges_per_s": E * FULL_GRAPH_STEPS / wall,
@@ -3091,6 +3421,85 @@ def phase_ell(torch, card: str):
     require(args["kernel_impl"] == "ell" and not args["use_attention"] and config["kernel_plan"]["plan_projected"],
             f"configs/arxiv_full_graph.yaml is not the file this phase expects: {args}")
     return train_sparse_path(torch, card, "ell", config, ELL_PAIRS)
+
+
+def phase_tile(torch, card: str):
+    """The arxiv config with kernel_impl tile, TILE_PLAN and 661 communities
+    (K7 on the tiles, K6 on the residual)."""
+    config = tile_config(tempfile.mkdtemp(prefix="grl_torch_tile_"))
+
+    def describe(trainer):
+        from grl_torch.ops.tile import TileGraphKernel
+
+        kernel = trainer.graph.kernel
+        require(isinstance(kernel, TileGraphKernel), f"the tile config planned {type(kernel).__name__}")
+        found = {"tiles_total": kernel.tiles_total, "covered_edges": kernel.covered_edges}
+        require(found == TILE_EXPECTED, f"the tile phase planned {found}, expected {TILE_EXPECTED}")
+        residual = trainer.graph.num_edges() - kernel.covered_edges
+        log(f"[tile] {kernel.tiles_total} tiles of {kernel.tile_size} x {kernel.tile_size} (threshold "
+            f"{kernel.tile_min_edges} edges) cover {kernel.covered_edges} edges, {residual} on the ELL residual; "
+            f"planning seconds: {kernel.plan_seconds} (LPA, the tile tables, the residual's tables)")
+        return {**found, "residual_edges": residual, "tile_min_edges": kernel.tile_min_edges,
+                "forward_buckets": kernel.tables.fwd.shapes, "backward_buckets": kernel.tables.bwd.shapes}
+
+    return train_sparse_path(torch, card, "tile", config, TILE_PAIRS, describe=describe)
+
+
+# ---------------------------------------------------------------------------
+# demo
+# ---------------------------------------------------------------------------
+DEMO_PAGE_SEED = 3
+
+
+def phase_demo(torch, card: str):
+    """The port's entry points, each a subprocess run from a scratch
+    working directory (the configs write their outputs relative to it, so
+    nothing lands in the checkout): ``python -m grl_torch.demo_training`` on
+    configs/arxiv_full_graph.yaml for 20 epochs (K6 and D on the card), on
+    configs/synthetic_kv.yaml for one epoch, and ``python -m
+    grl_torch.demo_inference`` on configs/synthetic_kv_infer.yaml, which
+    reads that run's checkpoint, on a synthetic page."""
+    from grl_torch.data.synthetic import synthetic_page
+
+    tmp = tempfile.mkdtemp(prefix="grl_torch_demo_")
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    record = {}
+
+    def run(tag, module, *args):
+        start = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m", module, *args], cwd=tmp, env=env, capture_output=True,
+                              text=True, timeout=600)
+        seconds = time.perf_counter() - start
+        last = done.stdout.strip().splitlines()[-1] if done.stdout.strip() else ""
+        log(f"[demo] {card}: python -m {module} {' '.join(args)}: exit {done.returncode} in {seconds:.2f} s; "
+            f"last line: {last}")
+        require(done.returncode == 0, f"{module} {args} exited {done.returncode}: {done.stderr[-3000:]}")
+        record[tag] = {"seconds": seconds, "last_line": last}
+        return done.stdout
+
+    yaml = os.path.join(REPO, "configs")
+    for tag, config, epochs in (("train arxiv", FULL_GRAPH_YAML, FULL_GRAPH_STEPS),
+                                ("train synthetic_kv", os.path.join(yaml, "synthetic_kv.yaml"), 1)):
+        out = run(tag, "grl_torch.demo_training", "--config", config, "--epochs", str(epochs))
+        lines = [line for line in out.splitlines() if line.startswith("final macro F1: ")]
+        require(len(lines) == 1, f"demo_training printed no final metric: {out[-2000:]}")
+        record[tag]["final"] = value = float(lines[0].split(": ")[1])
+        require(math.isfinite(value) and 0.0 <= value <= 1.0, f"demo_training's final metric {value}")
+    page = [{"location": box["location"], "text": box["text"]} for box in synthetic_page(DEMO_PAGE_SEED)]
+    with open(os.path.join(tmp, "page.json"), "w") as handle:
+        json.dump(page, handle)
+    out = run("infer synthetic_kv", "grl_torch.demo_inference", "--config", os.path.join(yaml, "synthetic_kv_infer.yaml"),
+              "--input", "page.json", "--output", "out.json")
+    require("wrote out.json" in out, f"demo_inference printed {out[-2000:]}")
+    with open(os.path.join(tmp, "out.json")) as handle:
+        boxes = json.load(handle)
+    require(len(boxes) == len(page) and all(
+        box["text"] == raw["text"] and {"key_type", "formal_key", "confidence"} <= set(box)
+        and 0.0 <= box["confidence"] <= 1.0 for box, raw in zip(boxes, page)),
+        f"demo_inference did not annotate every box: {boxes[:3]}")
+    record["infer synthetic_kv"]["boxes"] = len(boxes)
+    log(f"[demo] {len(boxes)} boxes annotated, e.g. {[(b['text'], b['formal_key'], b['key_type']) for b in boxes[:3]]}")
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -3203,6 +3612,10 @@ def main() -> int:
         timed("full_graph")
         record["ell"] = ell_path = phase_ell(torch, card)
         timed("ell")
+        record["tile"] = tile_path = phase_tile(torch, card)
+        timed("tile")
+        record["demo"] = phase_demo(torch, card)
+        timed("demo")
         record["gather_probe"] = probe = phase_gather_probe(torch, card, kernel_rows)
         timed("gather_probe")
     finally:
@@ -3215,7 +3628,7 @@ def main() -> int:
                     and all(r.get(k) == v for k, v in shape.items()))
 
     dense = {"N": 256, "F": NET_SIZE, "density": SPARSE_DENSITY}
-    fg, el = full_graph["launches"], ell_path["launches"]
+    fg, el, tp = full_graph["launches"], ell_path["launches"], tile_path["launches"]
     f32, ragged = variants["float32"], variants["bfloat16 ragged"]
     scan = train["scan"]
     k3_replaces = "grl_tpu/ops/pallas/relagg.py:99 _agg_forward (pallas_neighbor_aggregate)"
@@ -3279,15 +3692,25 @@ def main() -> int:
             "grl_tpu/models/gcn_family.py:114,245 flax nn.Dropout (XLA, a hand kernel for XLA code)",
             {"train": train["launches"][name], "train scan_steps 4": scan["launches"][name],
              "train_variants float32": f32["launches"][name], "train_variants bfloat16 ragged": ragged["launches"][name],
-             "full_graph": fg[name], "ell": el[name]},
+             "full_graph": fg[name], "ell": el[name], "tile": tp[name]},
             main_row(name, F=dropout_main["F"]), f"bf16 ({dropout_main['N']}, {dropout_main['F']}) rate 0.5")
     for direction in ("forward", "backward", "projected forward", "projected backward"):
         sources[f"K6 {direction}"] = (
             f"K6 ELL gather-table aggregation with DropEdge ({direction})", "grl_torch/csrc/ell.cu",
             "grl_tpu/ops/ell.py:244-320 ell_aggregate / ell_aggregate_projected (XLA gathers; a hand kernel "
-            "for XLA code)", {"ell": el[f"K6 {direction}"], "full_graph": fg[f"K6 {direction}"]},
+            "for XLA code)", {"ell": el[f"K6 {direction}"], "full_graph": fg[f"K6 {direction}"],
+                              "tile": tp[f"K6 {direction}"]},
             main_row(f"K6 {direction}", F=NET_SIZE),
             f"bf16 N=169343 E=1184773 L=1 F=256 rate=0.3, the config's kernel_plan ({direction} tables)")
+    for direction in ("forward", "backward", "projected forward", "projected backward"):
+        sources[f"K7 {direction}"] = (
+            f"K7 tile-dense aggregation with the pair-hash DropEdge ({direction})", "grl_torch/csrc/tile.cu",
+            "grl_tpu/ops/tile.py:220 _apply_tables, via tile_aggregate (:502) / tile_aggregate_projected (:565) "
+            "(XLA; a hand kernel for XLA code)",
+            {"tile": tp[f"K7 {direction}"], "full_graph": fg[f"K7 {direction}"], "ell": el[f"K7 {direction}"]},
+            main_row(f"K7 {direction}", F=NET_SIZE),
+            f"bf16 operands and tiles, N=169343 E=1175131 ({TILE_COMMUNITIES} communities) L=1 F=256 rate=0.3, "
+            f"B=128: {TILE_EXPECTED['tiles_total']} tiles ({direction} tables)")
     pallas_lines = {"E1": ":154 vmem_take_kernel", "E2": ":177 vmem_tala_kernel", "F": ":219 windowed_kernel",
                     "G": ":285 dma_kernel"}
     shapes = probe["shapes"]
@@ -3322,7 +3745,9 @@ def main() -> int:
             **{key: row[key] for key in ("slices", "slice_cols", "l2_bytes", "one_slice_ms", "one_slice_device_ms",
                                          "group", "blocks", "in_l2_device_ms", "stages", "feed", "smem",
                                          "stages_device_ms", "group_device_ms", "cluster", "warps", "depth",
-                                         "rows_in_flight", "sweep_device_ms") if key in row},
+                                         "rows_in_flight", "sweep_device_ms", "tiles", "slots",
+                                         "k6_all_edges_ms", "k6_all_edges_device_ms", "k6_residual_ms",
+                                         "k6_residual_device_ms") if key in row},
         })
     record["kernels"] = kernels
     write_record(record)

@@ -1,4 +1,5 @@
-"""K0: the stateless DropEdge hash shared by K1, K2 and K5.
+"""K0: the stateless DropEdge hash shared by K1, K2, K5 and K6, and its
+pair form, which K7 keys on both endpoints of an edge.
 
 Counterpart of ``grl_tpu/ops/pallas/csr_spmm.py`` · ``_mix32`` and
 ``_hash_keep`` (:179-213). An edge (or an element of a dense adjacency)
@@ -9,6 +10,15 @@ is kept iff
 with ``mix`` the murmur3 fmix32 round and ``keep = 1 - rate`` rounded to
 float32. The seed goes in twice, by xor and by add: a single xor makes
 every mask an xor-translate of one fixed set (``csr_spmm.py:196-204``).
+
+K7's tiles hold no edge ids, so its mask is ``_hash_keep_pair``
+(``grl_tpu/ops/tile.py:63-79``), keyed on the (receiver, sender) pair:
+
+    x = mix(mix(mix(recv ^ s) + send) + s),  kept iff (x >> 8) * 2^-24 < keep,
+
+where ``s`` is the seed xor the relation's mix (:func:`keep_pair_bits`).
+A tile cell's coordinates give both endpoints in either table layout, so
+the forward and the transposed walk draw one mask.
 
 torch has no full ``uint32`` arithmetic, so the values are held in int64
 and every product is reduced mod 2^32 (:func:`_mul32`). The CUDA kernels
@@ -94,3 +104,24 @@ def hash_keep(gid: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """``_hash_keep(gid, seed, rate)``: float32 ``1/keep`` where an id is
     kept, 0 where it is dropped."""
     return keep_bits(gid, seed, rate).to(torch.float32) * keep_scale(rate)
+
+
+def keep_pair_bits(recv: torch.Tensor, send: torch.Tensor, seed: Seed, rate: float, mix: int = 0) -> torch.Tensor:
+    """Boolean keep mask of the edges ``(recv, send)`` (broadcast against
+    each other), ``_hash_keep_pair`` under the seed ``seed ^ mix``."""
+    keep = keep_probability(rate)
+    if isinstance(seed, torch.Tensor):
+        s = (seed.reshape(()).to(device=recv.device, dtype=torch.int64) & 0xFFFFFFFF) ^ (mix & 0xFFFFFFFF)
+    else:
+        s = (int(seed) ^ mix) & 0xFFFFFFFF
+    x = mix32((recv.to(torch.int64) & 0xFFFFFFFF) ^ s)
+    x = mix32((x + (send.to(torch.int64) & 0xFFFFFFFF)) & 0xFFFFFFFF)
+    x = mix32((x + s) & 0xFFFFFFFF)
+    u = (x >> 8).to(torch.float32) * 2.0**-24
+    return u < keep
+
+
+def hash_keep_pair(recv: torch.Tensor, send: torch.Tensor, seed: Seed, rate: float, mix: int = 0) -> torch.Tensor:
+    """``_hash_keep_pair(recv, send, seed ^ mix, rate)``: float32 ``1/keep``
+    where an edge is kept, 0 where it is dropped."""
+    return keep_pair_bits(recv, send, seed, rate, mix).to(torch.float32) * keep_scale(rate)

@@ -10,11 +10,12 @@ sparse model aggregates neighbours:
 * ``ell`` (the default, and what ``pallas`` means on the sparse path) —
   K6, the dual degree-bucketed ELL gather tables with DropEdge fused
   (:class:`grl_torch.ops.ell.ELLGraphKernel`);
-* ``tile`` is the kernel K7, not ported yet: it raises
-  ``NotImplementedError`` naming its ROADMAP item.
+* ``tile`` — K7, the tile-dense hybrid: dense adjacency tiles after an
+  LPA node order, plus the ELL residual on K6
+  (:class:`grl_torch.ops.tile.TileGraphKernel`).
 
 A kernel that reorders the node space at plan time (ELL's
-``reorder: degree``) exposes ``node_perm``: the carried edge arrays are
+``reorder: degree``, tile's ``lpa`` and ``rcm``) exposes ``node_perm``: the carried edge arrays are
 relabeled into that space, and the caller places features and labels
 there (``FullGraphProcedure`` does). ``attention=True`` also plans K4 over
 the same edge set, in that space
@@ -32,11 +33,10 @@ from grl_torch.ops.csr_spmm import CSRGraphKernel
 from grl_torch.ops.ell import ELLGraphKernel
 from grl_torch.ops.sparse import RelationalGraph
 from grl_torch.ops.sparse_attention import SparseAttentionKernel
+from grl_torch.ops.tile import TileGraphKernel
 
-SPARSE_KERNELS = {"ell": ELLGraphKernel, "pallas": ELLGraphKernel, "pallas_csr": CSRGraphKernel}
-NOT_PORTED = {
-    "tile": "K7 (grl_tpu/ops/tile.py, the tile-dense hybrid), ROADMAP.md Queue 2",
-}
+SPARSE_KERNELS = {"ell": ELLGraphKernel, "pallas": ELLGraphKernel, "pallas_csr": CSRGraphKernel,
+                  "tile": TileGraphKernel}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,15 +62,9 @@ def attach_kernel(
     and are ignored by ELL, as in ``grl_tpu``."""
     if impl == "xla" and not attention:
         return graph
-    if impl in NOT_PORTED:
-        raise NotImplementedError(
-            f"kernel_impl={impl!r} is {NOT_PORTED[impl]}; not ported yet. "
-            "Use kernel_impl='ell' (K6), 'pallas_csr' (K5) or 'xla'."
-        )
     if impl != "xla" and impl not in SPARSE_KERNELS:
         raise ValueError(
-            f"Unknown sparse kernel_impl {impl!r}; expected one of: xla, "
-            f"{', '.join(sorted([*SPARSE_KERNELS, *NOT_PORTED]))}"
+            f"Unknown sparse kernel_impl {impl!r}; expected one of: xla, {', '.join(sorted(SPARSE_KERNELS))}"
         )
     mask = graph.mask.cpu().numpy()
     kernel = None

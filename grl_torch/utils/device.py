@@ -13,13 +13,15 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda``, raising when no GPU is visible; else as given."""
+def resolve_device(device: DeviceLike = None, flag: str = "device='cpu'") -> torch.device:
+    """``None`` -> ``cuda``, raising when no GPU is visible; else as given.
+    ``flag`` is what the error tells the caller to pass for the CPU (a
+    command line names its own option)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "grl_torch runs on CUDA and no GPU is available; pass "
-                "device='cpu' explicitly to run on the CPU."
+                f"grl_torch runs on CUDA and no GPU is available; pass "
+                f"{flag} explicitly to run on the CPU."
             )
         return torch.device("cuda")
     device = torch.device(device)

@@ -1,4 +1,4 @@
-"""K1-K6 and P on the card: the CUDA kernels against their plain versions
+"""K1-K7 and P on the card: the CUDA kernels against their plain versions
 (bf16 K1/K2, and bf16 K3 at N % 8 == 0 and F % 8 == 0: dropedge_sm90.cu;
 bf16 K3 at other N or F: relagg_ragged.cu; f32 K1, K2 and K3:
 dropedge_f32.cu; the rest as named in their modules), and K5, K6 and K4
@@ -17,7 +17,7 @@ import torch
 
 import numpy as np
 
-from grl_torch.ops import csr_spmm, dropout, ell, hashing, launches, relagg, sparse, sparse_attention
+from grl_torch.ops import csr_spmm, dropout, ell, hashing, launches, relagg, sparse, sparse_attention, tile
 from grl_torch.probes import gather
 
 pytestmark = pytest.mark.cuda
@@ -937,3 +937,106 @@ def test_two_bucket_chunks_share_one_pool_and_equal_eager(tmp_path):
     for items in (wide, narrow, narrow, wide):
         eager_losses, replayed_losses, differing = replay_against_eager(proc, items)
         assert np.array_equal(eager_losses, replayed_losses) and not differing
+
+
+# ---------------------------------------------------------------------------
+# K7 (the tile-dense hybrid's tiles) and the optimizers of optax's rules.
+# ---------------------------------------------------------------------------
+def tile_graph(tile_dtype="float32", N=1000, L=3, E=30000, seed=3):
+    """Uniform random edges at L = 3, B = 64 (16 blocks, the last one 40 rows:
+    ragged), a threshold of 40 edges a tile: rows of up to 8-16 tiles; 20
+    masked-out edges, the rest on the ELL residual."""
+    rng = np.random.RandomState(seed)
+    edges = (rng.randint(0, N, E), rng.randint(0, N, E), rng.randint(0, L, E), (rng.rand(E) + 0.5).astype(np.float32))
+    edges[3][:20] = 0.0
+    return tile.TileGraphKernel(*edges, N, L, tile_size=64, tile_min_edges=40, reorder="none",
+                                tile_dtype=tile_dtype, plan_projected=True, device="cuda")
+
+
+def tile_operands(kernel, F, dtype, seed=0):
+    """An operand of each direction: V (N, F), Vr (N*L, F), g (N, L*F), g (N, F)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    N, L = kernel.num_nodes, kernel.L
+    shapes = {"forward": (N, F), "projected forward": (N * L, F), "backward": (N, L * F),
+              "projected backward": (N, F)}
+    return {d: torch.randn(*shape, generator=gen, device="cuda").to(dtype) for d, shape in shapes.items()}
+
+
+@pytest.mark.parametrize("tile_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [64, 136])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_k7_matches_plain_version(rate, F, dtype, tile_dtype):
+    """All four directions against tile_apply_reference, one launch each;
+    two launches give the same bits."""
+    kernel = tile_graph(tile_dtype)
+    assert kernel.tiles_total > 0 and max(w for shapes in kernel.tables.fwd.shapes for _, w in shapes) >= 8
+    seed = hashing.seed_tensor(17, "cuda")
+    for direction, X in tile_operands(kernel, F, dtype).items():
+        plan = kernel.tables.bwd if "backward" in direction else kernel.tables.fwd
+        before = launches.device_counts()
+        out = tile.tile_accumulate(X, plan, seed, rate, direction)
+        torch.cuda.synchronize()
+        assert launched_since(before) == {"K7": 1, f"K7 {direction}": 1}
+        assert_close_to_plain(out, tile.tile_apply_reference(X, plan, seed, rate, direction))
+        assert torch.equal(out, tile.tile_accumulate(X, plan, seed, rate, direction))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_keep_set_and_adjoint(dtype):
+    """V = I reads the masked tiles back, equal to the plain version's bits;
+    the transposed tables keep the same edges; and <g, K7(V)> = <K7'(g), V>
+    in both modes."""
+    kernel = tile_graph("bfloat16")
+    N, L, fwd, bwd = kernel.num_nodes, kernel.L, kernel.tables.fwd, kernel.tables.bwd
+    eye = torch.eye(N, device="cuda", dtype=dtype)
+    ahead = tile.tile_accumulate(eye, fwd, 5, 0.3, "forward")  # (N, L*N): A_r masked, row recv
+    back = tile.tile_accumulate(eye, bwd, 5, 0.3, "projected backward")  # (N*L, N): row send*L + r, column recv
+    torch.cuda.synchronize()
+    assert torch.equal(ahead, tile.tile_apply_reference(eye, fwd, 5, 0.3, "forward"))
+    assert torch.equal(ahead.view(N, L, N) != 0, back.view(N, L, N).permute(2, 1, 0) != 0)
+    kept = ahead[ahead != 0].float()
+    assert torch.all(kept > 0)
+    X = tile_operands(kernel, 64, torch.float32)
+    for forward, backward in (("forward", "backward"), ("projected forward", "projected backward")):
+        out = tile.tile_accumulate(X[forward], fwd, 5, 0.3, forward)
+        g = X[backward]
+        lhs = float((out.double() * g.double()).sum())
+        rhs = float((tile.tile_accumulate(g, bwd, 5, 0.3, backward).double() * X[forward].double()).sum())
+        assert abs(lhs - rhs) <= 1e-5 * max(abs(lhs), 1.0)
+
+
+@pytest.mark.parametrize("name, kwargs", [
+    ("SGD", {"momentum": 0.9}), ("RMSprop", {"momentum": 0.5}), ("Adagrad", {}), ("Adadelta", {}),
+    ("Lamb", {"weight_decay": 0.01}), ("Lion", {}),
+])
+def test_captured_optimizer_step_equals_eager(name, kwargs):
+    """Steps 2-5 replayed from one captured step (the lr changed between
+    them through its device tensor) equal the same steps run eagerly, bit
+    for bit; a zero parameter takes Lamb's trust ratio of 1."""
+    from grl_torch.trainer import optimizers
+    from grl_torch.trainer.captured import CapturedSteps
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    start = [torch.randn(37, 5, generator=gen, device="cuda"), torch.zeros(11, device="cuda")]
+    grads = [[torch.randn(p.shape, generator=gen, device="cuda") for p in start] for _ in range(5)]
+    runs = []
+    for captured in (True, False):
+        params = [torch.nn.Parameter(p.clone()) for p in start]
+        for p, g in zip(params, grads[0]):
+            p.grad = g.clone()
+        opt = optimizers.BuiltinOptimizer(name, 0.01, **kwargs).make(params)
+        runner = CapturedSteps(torch.device("cuda"), [])
+        for step, lr in enumerate((0.01, 0.01, 0.003, 0.003, 0.02)):
+            optimizers.set_learning_rate(opt, lr)
+            for p, g in zip(params, grads[step]):
+                p.grad.copy_(g)
+            if captured:
+                runner.run("step", opt.step)
+            else:
+                opt.step()
+        torch.cuda.synchronize()
+        assert runner.replays == (4 if captured else 0)
+        runs.append([p.detach().clone() for p in params])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -250,12 +250,11 @@ def test_attach_kernel_refusals_and_the_missing_kernel_error():
     assert kernels.attach_kernel(graph, "xla") is graph
     only_atten = kernels.attach_kernel(graph, "xla", attention=True)
     assert only_atten.kernel is None and only_atten.atten_kernel is not None
-    # ell and pallas plan K6, as grl_tpu plans its ELL tables; tile is K7.
-    for impl in ("ell", "pallas"):
-        assert type(kernels.attach_kernel(graph, impl).kernel).__name__ == "ELLGraphKernel"
-        assert type(jax_kernels.attach_kernel(jgraph, impl).kernel).__name__ == "ELLGraphKernel"
-    with pytest.raises(NotImplementedError, match="K7.*ROADMAP"):
-        kernels.attach_kernel(graph, "tile")
+    # ell and pallas plan K6, as grl_tpu plans its ELL tables; tile plans
+    # the tile-dense hybrid (K7 and its ELL residual) in both.
+    for impl, name in (("ell", "ELLGraphKernel"), ("pallas", "ELLGraphKernel"), ("tile", "TileGraphKernel")):
+        assert type(kernels.attach_kernel(graph, impl).kernel).__name__ == name
+        assert type(jax_kernels.attach_kernel(jgraph, impl).kernel).__name__ == name
     with pytest.raises(ValueError, match="Unknown sparse kernel_impl"):
         kernels.attach_kernel(graph, "nope")
     with pytest.raises(TypeError):

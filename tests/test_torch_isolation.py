@@ -4,7 +4,9 @@ Subprocesses block ``jax`` and ``grl_tpu`` (``sys.modules[name] = None``
 makes any import of them fail), then import grl_torch and serve one page,
 take one train step, or train the sparse flagship through
 FullGraphProcedure (K5, K4 and the sparse modules; K6 with the arxiv
-config's plan, and the gather probe's checks), on ``device="cpu"``.
+config's plan, and the gather probe's checks; K7 with its ELL residual,
+under one of optax's rules, with the demo entry points imported), on
+``device="cpu"``.
 A scan of the sources finds no import of either package in grl_torch/ or
 chip_smoke.py.
 """
@@ -157,6 +159,40 @@ TRAIN_ELL_AND_PROBE = textwrap.dedent(
 )
 
 
+TRAIN_TILE = textwrap.dedent(
+    """
+    import sys
+    for name in {blocked!r}:
+        sys.modules[name] = None
+    import grl_torch
+    from grl_torch import demo_inference, demo_training
+    from grl_torch.ops import reorder, tile
+
+    config = {{
+        "seed": 0, "output_dir": {tmp!r}, "num_epochs": 3, "scan_steps": 2, "max_grad_norm": 5.0,
+        "model": {{"type": "GraphCNNDropEdge", "args": {{
+            "input_dim": 8, "output_dim": 3, "num_edges": 2, "net_size": 32, "kernel_impl": "tile",
+            "use_attention": False}}}},
+        "kernel_plan": {{"tile_size": 64, "tile_min_edges": 20, "tile_dtype": "bfloat16", "plan_projected": True}},
+        "data_config": {{"large_graph": {{"type": "sbm", "args": {{
+            "num_nodes": 600, "num_classes": 3, "num_relations": 2, "avg_degree": 8, "feature_dim": 8,
+            "communities": 8}}}}}},
+        "procedure": {{"type": "FullGraphProcedure", "args": {{}}}},
+        "optimizer": {{"type": "BuiltinOptimizer", "args": {{"type_optimizer": "Lion", "lr": 1e-3}}}},
+        "logging": {{"use_tensorboard": False, "experiment_tracking": False}},
+    }}
+    warper = grl_torch.GNNLearningWarper(config=config, device="cpu")
+    acc = warper.train()
+    kernel = warper.trainer.graph.kernel
+    assert isinstance(kernel, tile.TileGraphKernel) and kernel.tiles_total > 0 and kernel.node_perm is not None
+    assert kernel.tables.proj is not None and warper.trainer.state.step == 3
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("TILE", acc)
+    """
+)
+
+
 def run_blocked(script: str, tmp_path) -> str:
     # One OpenMP thread: the suite's worker processes share the cores.
     env = {**os.environ, "OMP_NUM_THREADS": "1",
@@ -187,6 +223,13 @@ def test_ell_path_and_probe_run_with_jax_and_grl_tpu_blocked(tmp_path):
     """Three full-graph steps on K6 with the arxiv config's kernel_plan
     (project-first gcn3, the degree reorder), and the probe's checks."""
     assert "ELL" in run_blocked(TRAIN_ELL_AND_PROBE, tmp_path)
+
+
+def test_tile_path_and_entry_points_run_with_jax_and_grl_tpu_blocked(tmp_path):
+    """Three full-graph steps on K7 and its ELL residual (the LPA order,
+    bfloat16 tiles, project-first gcn3) under Lion, and the demo modules
+    and the reorder imported."""
+    assert "TILE" in run_blocked(TRAIN_TILE, tmp_path)
 
 
 def imported_roots(path: Path):
@@ -231,7 +274,7 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 def test_wrapper_refuses_other_devices():
     """CPU tensors take the plain version; any other device either launches
     the kernel (CUDA) or raises, never falling back."""
-    from grl_torch.ops import csr_spmm, ell, sparse_attention
+    from grl_torch.ops import csr_spmm, ell, sparse_attention, tile
     from grl_torch.ops.relagg import neighbor_aggregate
     from grl_torch.probes import gather
 
@@ -252,3 +295,10 @@ def test_wrapper_refuses_other_devices():
         table.neighbor_aggregate_projected(torch.zeros(4, 8, device="meta"))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         gather.row_dma_sum(torch.zeros(4, 8, device="meta"), torch.zeros(1, 2, dtype=torch.int32, device="meta"))
+    tiles = tile.TileGraphKernel([0, 1, 1], [1, 2, 2], [0, 0, 0], [1.0, 1.0, 1.0], 4, 1, tile_size=64,
+                                 tile_min_edges=1, reorder="none", plan_projected=True, device="cpu")
+    assert tiles.tiles_total == 1
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tiles.neighbor_aggregate(torch.zeros(4, 8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tiles.neighbor_aggregate_projected(torch.zeros(4, 8, device="meta"))

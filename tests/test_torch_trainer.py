@@ -146,10 +146,77 @@ def test_optimizer_registry():
     assert type(adamw) is torch.optim.AdamW and adamw.param_groups[0]["weight_decay"] == 0.01
     optimizers.set_learning_rate(adamw, 0.5)
     assert adamw.param_groups[0]["lr"] == 0.5
-    with pytest.raises(KeyError, match="ROADMAP"):
-        optimizers.BuiltinOptimizer("SGD")
+    # The other names grl_tpu accepts build optax's rules.
+    for name, cls in (("SGD", optimizers.OptaxSGD), ("RMSprop", optimizers.OptaxRMSprop),
+                      ("Adagrad", optimizers.OptaxAdagrad), ("Adadelta", optimizers.OptaxAdadelta),
+                      ("Lamb", optimizers.OptaxLamb), ("Lion", optimizers.OptaxLion)):
+        assert type(optimizers.BuiltinOptimizer(name, 0.1).make(params)) is cls
     with pytest.raises(KeyError, match="available"):
         optimizers.BuiltinOptimizer("Nope")
+
+
+# grl_tpu's keyword mapping, each optimizer's defaults and its options.
+OPTAX_RULES = [
+    ("SGD", {}), ("SGD", {"momentum": 0.9, "weight_decay": 0.1}), ("SGD", {"momentum": 0.9, "nesterov": True}),
+    ("RMSprop", {}), ("RMSprop", {"alpha": 0.9, "eps": 1e-6, "momentum": 0.5}),
+    ("Adagrad", {}), ("Adagrad", {"eps": 1e-6}),
+    ("Adadelta", {}), ("Adadelta", {"rho": 0.8, "eps": 1e-5}),
+    ("Lamb", {}), ("Lamb", {"b1": 0.8, "b2": 0.99, "eps": 1e-4, "weight_decay": 0.01}),
+    ("Lion", {}), ("Lion", {"b1": 0.8, "b2": 0.9, "weight_decay": 0.1}),
+]
+
+
+@pytest.mark.parametrize("name, kwargs", OPTAX_RULES)
+def test_optimizers_match_optax(name, kwargs):
+    """Five steps against grl_tpu's optax transformation, the lr changed
+    between them (set_learning_rate on both sides), from float32
+    parameters, one of them all zero (Lamb's trust ratio is then 1):
+    within 1e-6 of each parameter's scale (float32 in another order; the
+    reciprocal square roots may differ in their last bit)."""
+    from grl_tpu.trainer import optimizers as jax_optimizers
+
+    rng = np.random.RandomState(len(name) + len(kwargs))
+    shapes = ((3, 4), (7,), (2, 2, 5))
+    start = [rng.randn(*shape).astype(np.float32) for shape in shapes]
+    start[1][:] = 0.0
+    params = [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in start]
+    opt = optimizers.BuiltinOptimizer(name, 0.01, **kwargs).make(params)
+    tx = jax_optimizers.BuiltinOptimizer(name, 0.01, **kwargs).make()
+    jparams = [jnp.asarray(a) for a in start]
+    state = tx.init(jparams)
+    for step, lr in enumerate((0.01, 0.01, 0.003, 0.003, 0.02)):
+        optimizers.set_learning_rate(opt, lr)
+        state = jax_optimizers.set_learning_rate(state, lr)
+        grads = [rng.randn(*shape).astype(np.float32) for shape in shapes]
+        for p, g in zip(params, grads):
+            p.grad = torch.from_numpy(g)
+        opt.step()
+        updates, state = tx.update([jnp.asarray(g) for g in grads], state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for k, (p, want) in enumerate(zip(params, jparams)):
+            want = np.asarray(want)
+            np.testing.assert_allclose(p.detach().numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max(),
+                                       err_msg=f"{name} {kwargs} step {step + 1} parameter {k}")
+
+
+def test_optax_rule_state_round_trips_a_checkpoint():
+    """An optax rule's state_dict loads into a fresh optimizer (match_device
+    keeps it plain on the CPU) and the next step equals the original's."""
+    start = [torch.randn(4, 3, generator=torch.Generator().manual_seed(1))]
+    runs = []
+    for reload in (False, True):
+        params = [torch.nn.Parameter(p.clone()) for p in start]
+        opt = optimizers.BuiltinOptimizer("Lamb", 0.01, weight_decay=0.01).make(params)
+        for step in range(3):
+            params[0].grad = torch.full((4, 3), 0.1 * (step + 1))
+            if reload and step == 2:
+                fresh = optimizers.BuiltinOptimizer("Lamb", 0.01, weight_decay=0.01).make(params)
+                fresh.load_state_dict(opt.state_dict())
+                opt = optimizers.match_device(fresh)
+                assert not isinstance(opt.param_groups[0]["lr"], torch.Tensor)
+            opt.step()
+        runs.append(params[0].detach().clone())
+    assert torch.equal(*runs)
 
 
 def test_one_device_mesh_is_a_no_op_and_the_rest_is_refused(tmp_path):
