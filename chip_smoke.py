@@ -166,12 +166,18 @@ its layout (``group``, ``blocks``) and its in-L2 floor
 bits. K7 runs all four directions on the clustered arxiv plan of the
 ``tile`` phase (F = 256 and 512, bf16 and f32 operands on bf16 tiles;
 within SPARSE_TOL of its plain version, two launches equal to the bit; its
-rows hold ``torch.bmm`` on the masked, gathered stacks as ``library_ms``,
-and, in bf16 at F = 256, K6 over every edge of the same graph planned as
-the arxiv config's ELL and over the tile plan's residual alone) and on a
-small L = 3 graph with f32 and bf16 tiles (the keep set with V = I equal to
-the pair hash's, the same in the transposed tables, and <g, K7 V> =
-<K7' g, V>).
+rows hold the route and launch plan ``tile.launch_plan`` picks (bf16 x
+bf16 the persistent route: ``BN``, ``chunks``, ``consumers``, ``stages``,
+``smem``, ``ctas``), the time at rate 0 (``rate0_ms``, no cell hashed),
+``torch.bmm`` on the masked, gathered stacks as ``library_ms``, on the
+persistent route the simple route's kernel on the same operands at rate
+0.3 and 0 (``simple_ms``, ``simple_rate0_ms``), and, in bf16 at F =
+256, K6 over every edge of the same graph planned as the arxiv config's
+ELL and over the tile plan's residual alone, with the break-even edges a
+tile they give) and on a small L = 3 graph with f32 and bf16 tiles (B =
+64: one consumer warpgroup, the last block ragged; the keep set with V = I
+equal to the pair hash's, the same in the transposed tables, and <g, K7 V>
+= <K7' g, V>).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -1494,9 +1500,12 @@ def k7_case(torch, plan, direction: str, dtype_name: str, F: int, flush, seed: i
     name = f"K7 {direction}"
     require(torch.equal(out, again), f"{name} {what} {dtype_name} F={F}: two launches give other bits")
     err = check_close(torch, out, ref, dtype_name, f"{name} {what} {dtype_name} F={F}", SPARSE_TOL[dtype_name])
+    layout = tile.launch_plan(plan, F, X.dtype, direction, torch.cuda.get_device_properties(0).multi_processor_count)
     row = {"kernel": name, "case": what, "dtype": dtype_name, "tile_dtype": str(plan.tiles.dtype).split(".")[-1],
            "F": F, "B": plan.B, "L": plan.L, "slots": plan.num_slots, "tiles": plan.num_tiles, "rate": RATE,
-           "max_abs_err": err, "differ_share": float((out != ref).float().mean())}
+           "max_abs_err": err, "differ_share": float((out != ref).float().mean()),
+           "plan_route": layout.route, "BN": layout.BN, "chunks": layout.chunks, "consumers": layout.consumers,
+           "stages": layout.stages, "smem": layout.smem_bytes, "ctas": layout.ctas}
     if not timed:
         return row
     itemsize = X.element_size()
@@ -1522,7 +1531,22 @@ def k7_case(torch, plan, direction: str, dtype_name: str, F: int, flush, seed: i
                             reps=5),
         "library_ms": k7_library_ms(torch, plan, X, direction, mask_seed, flush),
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        # No cell hashed: the staging and the products alone.
+        "rate0_ms": time_ms(torch, lambda: tile.tile_accumulate(X, plan, mask_seed, 0.0, direction), flush),
     })
+    if layout.route != "simple":
+        # The simple route's kernel on the same operands at both rates,
+        # held to the plain version too.
+        simple = tile._launch(X, plan, mask_seed, RATE, direction, route="simple")
+        torch.cuda.synchronize()
+        check_close(torch, simple, ref, dtype_name, f"{name} {what} {dtype_name} F={F} simple route",
+                    SPARSE_TOL[dtype_name])
+        row.update({
+            "simple_ms": time_ms(torch, lambda: tile._launch(X, plan, mask_seed, RATE, direction, route="simple"),
+                                 flush),
+            "simple_rate0_ms": time_ms(torch, lambda: tile._launch(X, plan, mask_seed, 0.0, direction,
+                                                                   route="simple"), flush),
+        })
     return row
 
 
@@ -1629,15 +1653,26 @@ def tile_kernel_cases(torch, flush):
             pair = versus[row["kernel"][len("K7 "):]]
             row.update(k6_all_edges_ms=pair["all_edges"]["ms"], k6_all_edges_device_ms=pair["all_edges"]["device_ms"],
                        k6_residual_ms=pair["residual"]["ms"], k6_residual_device_ms=pair["residual"]["device_ms"])
+            # Whether tiles pay: K7's time a tile against what K6 saves an
+            # edge once the covered edges leave it (both device times).
+            saved = (row["k6_all_edges_device_ms"] - row["k6_residual_device_ms"]) / kernel.covered_edges
+            row["breakeven_edges_per_tile"] = (row["device_ms"] / row["tiles"] / saved) if saved > 0 else None
     for row in rows:
+        breakeven = row.get("breakeven_edges_per_tile")
         beside = (f" | K7 + K6 residual {row['ms'] + row['k6_residual_ms']:.4f} ms (device "
                   f"{row['device_ms'] + row['k6_residual_device_ms']:.4f}) against K6 over all edges "
-                  f"{row['k6_all_edges_ms']:.4f} ms (device {row['k6_all_edges_device_ms']:.4f})"
+                  f"{row['k6_all_edges_ms']:.4f} ms (device {row['k6_all_edges_device_ms']:.4f}); break-even "
+                  + (f"{breakeven:.0f} edges a tile" if breakeven is not None else "none (K6 saved no time)")
                   if "k6_residual_ms" in row else "")
+        simple = (f"; the simple route {row['simple_ms']:.4f} ms, at rate 0 "
+                  f"{row['simple_rate0_ms']:.4f} ms" if "simple_ms" in row else "")
         simt = row.get("bound_fp32_ms")
         log(f"[kernel] {row['kernel']} {row['dtype']:>8} F={row['F']} ({row['tiles']} tiles in {row['slots']} "
-            f"slots, {row['tile_dtype']} tiles): max_abs_err {row['max_abs_err']:.3e}, differing outputs "
-            f"{row['differ_share']:.3e} | kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+            f"slots, {row['tile_dtype']} tiles): {row['plan_route']} route (BN {row['BN']} x {row['chunks']}, "
+            f"{row['consumers']} consumers, {row['stages']} stages, {row['smem']} B, {row['ctas']} CTAs): "
+            f"max_abs_err {row['max_abs_err']:.3e}, differing outputs "
+            f"{row['differ_share']:.3e} | kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}; at rate 0 "
+            f"{row['rate0_ms']:.4f}){simple}, plain "
             f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}{'' if simt is None else f', float32 outside the tensor cores {simt:.4f} ms'})"
             f"{beside}")
@@ -2196,10 +2231,11 @@ def trace_kernel_ms(trace_path: str, names):
 
 # Kernel names of bf16 K1 and K2 in a trace.
 K1_BF16, K2_BF16 = "dropedge_fwd_sm90_kernel", "dropedge_bwd_sm90_kernel"
-# Kernel names of K5, K6, K4, K4b's two walks and D in a trace.
+# Kernel names of K5, K6, K4, K4b's two walks, D and K7 (both routes:
+# tile_apply_kernel, tile_apply_persistent_kernel) in a trace.
 SPARSE_KERNELS = {"K5": "csr_accumulate_kernel", "K6": "ell_accumulate_kernel", "K4": "sparse_attention_kernel",
                   "K4b receivers": "attention_bwd_receivers_kernel", "K4b senders": "attention_bwd_senders_kernel",
-                  "D": "dropout_kernel", "K7": "tile_apply_kernel"}
+                  "D": "dropout_kernel", "K7": "tile_apply"}
 
 
 def params_of(model):
@@ -3747,7 +3783,9 @@ def main() -> int:
                                          "stages_device_ms", "group_device_ms", "cluster", "warps", "depth",
                                          "rows_in_flight", "sweep_device_ms", "tiles", "slots",
                                          "k6_all_edges_ms", "k6_all_edges_device_ms", "k6_residual_ms",
-                                         "k6_residual_device_ms") if key in row},
+                                         "k6_residual_device_ms", "plan_route", "BN", "chunks", "consumers", "ctas",
+                                         "rate0_ms", "simple_ms", "simple_rate0_ms", "breakeven_edges_per_tile")
+               if key in row},
         })
     record["kernels"] = kernels
     write_record(record)

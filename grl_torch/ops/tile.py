@@ -36,11 +36,17 @@ product, the stitch by ``inv_perm``) for CPU tensors, and launches K7
 (``grl_torch/csrc/tile.cu``) for CUDA tensors, or raises. One launch covers
 every relation and bucket of a call, in one of :data:`DIRECTIONS`; launches
 are counted as ``K7`` and ``K7 <direction>`` in :mod:`grl_torch.ops.launches`.
+:func:`launch_plan` lays a launch out on the host: bf16 tiles under bf16
+operands take the persistent route (a CTA a SM walking a list of work
+items through a ring of staged tile and source slices, ``wgmma``), every
+other dtype pair the simple route (a CTA an output tile, ``mma.sync`` or
+FMA).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -50,14 +56,30 @@ import torch
 from grl_torch.ops import _build, launches
 from grl_torch.ops.ell import ELLGraphKernel, _pad_rows
 from grl_torch.ops.hashing import Seed, hash_keep_pair, keep_probability, seed_tensor
+from grl_torch.ops.sparse import sm_count
 
 _DTYPE_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
 # The directions of one call: which tables (forward or transposed) and how
 # the source and the output are laid out (see :func:`_layout`).
 DIRECTIONS = ("forward", "backward", "projected forward", "projected backward")
-# CUDA K7's output tile: 64 rows of a block, 64 columns (grl_torch/csrc/tile.cu).
+# CUDA K7 works on 64-row parts of a block (grl_torch/csrc/tile.cu).
 _CUDA_ROWS = 64
 _MAX_BLOCKS = 65535
+# K7's routes (:func:`launch_plan`): "persistent" for bfloat16 tiles under
+# bfloat16 operands, "simple" (a CTA an output tile of 64 x 64) for the rest.
+ROUTES = ("persistent", "simple")
+# The persistent route's staged boxes: 64 x 64 bfloat16 (8 KB), 128-byte
+# rows; a work item's output columns BN (a multiple of 64, at most 256);
+# its consumer warpgroups' bf16 staging boxes for the epilogue (64 rows of
+# 64 + 8 columns each); the card's shared memory a block; the ring's depth
+# at most.
+_BOX_BYTES = 64 * 64 * 2
+_MAX_BN = 256
+_EPILOGUE_BYTES = 64 * 72 * 2
+SMEM_LIMIT = 232448
+_MAX_STAGES = 8
+# The H100's SM count: the CTAs that launch_plan lays out by default.
+H100_SMS = 132
 
 
 def default_min_edges(tile_size: int, feature_dim: int = 128) -> int:
@@ -182,6 +204,12 @@ class TilePlan(NamedTuple):
     nb: int
     num_nodes: int
     transposed: bool
+    # On the host: each (relation, block)'s tile count, (L, nb), which
+    # launch_plan weighs work items by; and the launches laid out so far,
+    # by (route, F, operand dtype, direction, SMs), with their work lists
+    # on the device.
+    tile_counts: np.ndarray
+    launch_cache: dict
 
     @property
     def L(self) -> int:
@@ -220,12 +248,14 @@ def place_plans(plans: Sequence[Optional[_DirectionPlan]], B: int, nb: int, num_
     on ``device``, the tiles cast to ``tile_dtype``."""
     tiles, cols, out_blocks, rows, shapes = [], [], [], [], []
     row_of_block = np.full((len(plans), nb), -1, np.int64)
+    tile_counts = np.zeros((len(plans), nb), np.int32)
     row, slot = 0, 0
     for r, plan in enumerate(plans):
         if plan is None:
             shapes.append(None)
             continue
         row_of_block[r] = row + plan.inv_perm
+        tile_counts[r] = np.concatenate(plan.counts)[plan.inv_perm]
         for bucket, count in zip(plan.buckets, plan.counts):
             n_rows, W = bucket.col.shape
             tiles.append(torch.from_numpy(bucket.tiles.reshape(-1)).to(tile_dtype))
@@ -251,6 +281,7 @@ def place_plans(plans: Sequence[Optional[_DirectionPlan]], B: int, nb: int, num_
         rows=put(np.concatenate(rows) if rows else np.zeros((0, 3)), torch.int32),
         row_of_block=put(row_of_block.reshape(-1), torch.int32), rel_mix=put(mix, torch.int32),
         shapes=tuple(shapes), B=int(B), nb=int(nb), num_nodes=int(num_nodes), transposed=bool(transposed),
+        tile_counts=tile_counts, launch_cache={},
     )
 
 
@@ -357,9 +388,131 @@ def tile_apply_reference(X: torch.Tensor, plan: TilePlan, seed: Seed = 0, rate: 
 # ---------------------------------------------------------------------------
 # Launching the kernel
 # ---------------------------------------------------------------------------
+class LaunchPlan(NamedTuple):
+    """One K7 launch laid out on the host (:func:`launch_plan`).
+
+    The persistent route: ``ctas`` CTAs, each of one producer warpgroup and
+    ``consumers`` consumer warpgroups (one a 64-row part of a work item);
+    CTA i walks work items ``items[cta_first[i]:cta_first[i + 1]]``, each
+    ``(block * parts + part) * chunks + chunk``: ``64 * consumers`` rows of
+    an output block and ``BN`` of its columns, through a ring of ``stages``
+    stages in ``smem_bytes`` of dynamic shared memory. The simple route:
+    one CTA an output tile of 64 rows and ``BN`` = 64 columns, ``ctas`` of
+    them, no work list. Either way the source of relation r starts at
+    element ``r * src_rel_offset`` of X, row n at ``n * src_row_stride``
+    (``src_relations`` is L where the relations read other columns or rows,
+    else 1); out's row n at ``n * out_row_stride``, relation r at ``r *
+    out_rel_offset`` where ``stacked``.
+    """
+
+    route: str
+    BN: int
+    chunks: int
+    consumers: int
+    parts: int
+    stages: int
+    smem_bytes: int
+    ctas: int
+    items: np.ndarray  # int32
+    cta_first: np.ndarray  # int32 (ctas + 1,)
+    src_relations: int
+    src_row_stride: int
+    src_rel_offset: int
+    out_row_stride: int
+    out_rel_offset: int
+    stacked: bool
+
+
+def stage_bytes(BN: int, consumers: int) -> int:
+    """One stage of the persistent route's ring: a 64 x 64 tile slice for
+    each consumer warpgroup and 64 source rows of BN columns."""
+    return _BOX_BYTES * (consumers + BN // 64)
+
+
+def persistent_smem(BN: int, consumers: int, stages: int) -> int:
+    """Dynamic shared memory of a persistent CTA: 1024 bytes of alignment
+    slack, the ring, the consumers' epilogue boxes and a full and an empty
+    mbarrier a stage (csrc/tile.cu checks the same sum)."""
+    return 1024 + stages * stage_bytes(BN, consumers) + consumers * _EPILOGUE_BYTES + 16 * stages
+
+
+def _source_geometry(direction: str, L: int, F: int):
+    """(src_relations, src_row_stride, src_rel_offset, out_row_stride,
+    out_rel_offset, stacked) of a call in ``direction``, in elements, as
+    :func:`_layout` views X and out."""
+    stacked = direction in ("forward", "projected backward")
+    if direction in ("forward", "projected backward"):
+        src = (1, F, 0)  # every relation reads X (N, F)
+    elif direction in ("projected forward", "backward"):
+        src = (L, L * F, F)  # row n*L + r of (N*L, F), or column r*F of (N, L*F): one address
+    else:
+        raise ValueError(f"unknown K7 direction {direction!r}; expected one of {DIRECTIONS}")
+    out = (L * F, F) if stacked else (F, 0)
+    return src + out + (stacked,)
+
+
+def _work_list(costs: np.ndarray, ctas: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Items 0.. in order, each given to the CTA with the least work so far
+    (ties to the lowest index): CTAs run items of nearby blocks at the same
+    time, and finish together. Returns (items, cta_first)."""
+    owner = np.empty(len(costs), np.int64)
+    heap = [(0, c) for c in range(ctas)]
+    for i, cost in enumerate(costs.tolist()):
+        load, c = heapq.heappop(heap)
+        owner[i] = c
+        heapq.heappush(heap, (load + cost, c))
+    order = np.argsort(owner, kind="stable")
+    first = np.concatenate([[0], np.cumsum(np.bincount(owner, minlength=ctas))])
+    return order.astype(np.int32), first.astype(np.int32)
+
+
+def launch_plan(plan: TilePlan, F: int, x_dtype: torch.dtype, direction: str = "forward", sms: int = H100_SMS,
+                route: Optional[str] = None) -> LaunchPlan:
+    """How K7 runs ``plan`` on operands of ``x_dtype`` with F columns in
+    ``direction`` on a card of ``sms`` SMs, decided on the host alone.
+
+    The route follows the dtypes: bfloat16 tiles under bfloat16 operands
+    take the persistent route, anything else the simple one (``route``
+    forces one; the persistent route takes only bf16 x bf16). Persistent:
+    F in the fewest column chunks of at most 256, BN a chunk's width
+    rounded up to 64; two consumer warpgroups where 128 divides B (a work
+    item is 128 rows) else one; as many ring stages as fit the card's 232,448
+    bytes (at most 8), one CTA a SM or one a work item where there are
+    fewer. A work item weighs its tile slices (each tile's B / 64) plus one
+    for each output it writes; :func:`_work_list` deals them out.
+    """
+    if F <= 0 or F % 8:
+        raise ValueError(f"CUDA K7 needs F a positive multiple of 8, got {F}")
+    if plan.B % _CUDA_ROWS:
+        raise ValueError(f"CUDA K7 needs tile_size a multiple of {_CUDA_ROWS}, got {plan.B}")
+    bf16 = plan.tiles.dtype == torch.bfloat16 and x_dtype == torch.bfloat16
+    route = route or ("persistent" if bf16 else "simple")
+    if route not in ROUTES or (route == "persistent" and not bf16):
+        raise ValueError(f"K7 route {route!r} does not take {plan.tiles.dtype} tiles under {x_dtype} operands")
+    L, B, nb = plan.L, plan.B, plan.nb
+    geometry = _source_geometry(direction, L, F)
+    empty = np.zeros(0, np.int32)
+    if route == "simple":
+        chunks, parts = -(-F // 64), B // _CUDA_ROWS
+        return LaunchPlan(route, 64, chunks, 0, parts, 0, 0, chunks * parts * nb, empty, empty, *geometry)
+    boxes = -(-F // 64)
+    chunks = -(-boxes // (_MAX_BN // 64))
+    BN = 64 * -(-boxes // chunks)
+    consumers = 2 if B % 128 == 0 else 1
+    parts = B // (64 * consumers)
+    stages = min(_MAX_STAGES, (SMEM_LIMIT - 1024 - consumers * _EPILOGUE_BYTES) // (stage_bytes(BN, consumers) + 16))
+    stacked = geometry[-1]
+    block_cost = plan.tile_counts.sum(axis=0).astype(np.int64) * (B // 64) + (L if stacked else 1)
+    costs = np.repeat(block_cost, parts * chunks)
+    ctas = max(1, min(int(sms), len(costs)))
+    items, cta_first = _work_list(costs, ctas)
+    return LaunchPlan(route, BN, chunks, consumers, parts, stages, persistent_smem(BN, consumers, stages), ctas,
+                      items, cta_first, *geometry)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The built K7 library with its C signature declared (once)."""
+    """The built K7 library with its C signatures declared (once)."""
     lib = _build.load_library("tile")
     lib.grl_tile_apply.argtypes = (
         [ctypes.c_void_p] * 7  # tiles, col, rows, row_of_block, rel_mix, X, out
@@ -370,12 +523,39 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_int, ctypes.c_void_p]  # device, stream
     )
     lib.grl_tile_apply.restype = ctypes.c_int
+    lib.grl_tile_persistent.argtypes = (
+        [ctypes.c_void_p] * 8  # tiles, col, rows, row_of_block, rel_mix, work, X, out
+        + [ctypes.c_int] * 6  # num_nodes, nb, B, L, F, src_relations
+        + [ctypes.c_longlong] * 4  # src_row_stride, src_rel_offset, out_row_stride, out_rel_offset
+        + [ctypes.c_int] * 10  # stack, transposed, BN, chunks, consumers, parts, stages, smem_bytes, ctas, use_hash
+        + [ctypes.c_void_p, ctypes.c_float]  # seed (a device pointer), keep
+        + [ctypes.c_int, ctypes.c_void_p]  # device, stream
+    )
+    lib.grl_tile_persistent.restype = ctypes.c_int
     return lib
 
 
-def _launch(X: torch.Tensor, plan: TilePlan, seed: Seed, rate: float, direction: str) -> torch.Tensor:
-    """Launch K7 once on the current stream over every relation; no
-    synchronisation."""
+def _cached_launch(plan: TilePlan, F: int, X: torch.Tensor, direction: str, route: Optional[str]):
+    """(launch plan, its work list on X's device as int32 cta_first then
+    items) from the plan's cache, laid out at the first call. A call being
+    captured into a CUDA graph cannot upload a new list: it raises."""
+    sms = sm_count(X.device.index)
+    key = (route, F, X.dtype, direction, sms)
+    found = plan.launch_cache.get(key)
+    if found is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"K7's launch for F={F} {direction} was not laid out before the CUDA graph capture; "
+                               f"run the call once outside the capture first")
+        layout = launch_plan(plan, F, X.dtype, direction, sms, route)
+        work = torch.from_numpy(np.concatenate([layout.cta_first, layout.items])).to(X.device)
+        found = plan.launch_cache[key] = (layout, work)
+    return found
+
+
+def _launch(X: torch.Tensor, plan: TilePlan, seed: Seed, rate: float, direction: str,
+            route: Optional[str] = None) -> torch.Tensor:
+    """Launch K7 once on the current stream over every relation, on the
+    route :func:`launch_plan` picks (or ``route``); no synchronisation."""
     if X.dtype not in _DTYPE_CODES or plan.tiles.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA K7 takes float32 or bfloat16 operands and tiles, not {X.dtype} / {plan.tiles.dtype}")
     F, _, shape, stacked = _layout(direction, X, plan)
@@ -387,24 +567,28 @@ def _launch(X: torch.Tensor, plan: TilePlan, seed: Seed, rate: float, direction:
                          f"got B={plan.B}, {plan.nb} blocks")
     if plan.tiles.device != X.device:
         raise ValueError(f"tables on {plan.tiles.device} but X on {X.device}")
-    L = plan.L
-    src_row_stride, src_rel_offset = {"forward": (F, 0), "projected forward": (L * F, F),
-                                      "backward": (L * F, F), "projected backward": (F, 0)}[direction]
-    out_row_stride, out_rel_offset = (L * F, F) if stacked else (F, 0)
+    layout, work = _cached_launch(plan, F, X, direction, route)
     out = torch.empty(shape, dtype=X.dtype, device=X.device)
     if out.numel() == 0:
         return out
     lib = _library()
     use_hash = float(rate) > 0.0
     seed = seed_tensor(seed, X.device) if use_hash else None
-    err = lib.grl_tile_apply(
-        plan.tiles.data_ptr(), plan.col.data_ptr(), plan.rows.data_ptr(), plan.row_of_block.data_ptr(),
-        plan.rel_mix.data_ptr(), X.data_ptr(), out.data_ptr(), plan.num_nodes, plan.nb, plan.B, L, F,
-        src_row_stride, src_rel_offset, out_row_stride, out_rel_offset, int(stacked), int(plan.transposed),
-        _DTYPE_CODES[plan.tiles.dtype], _DTYPE_CODES[X.dtype], int(use_hash),
-        seed.data_ptr() if use_hash else None, keep_probability(rate),
-        X.device.index, torch.cuda.current_stream(X.device).cuda_stream,
-    )
+    tables = (plan.tiles.data_ptr(), plan.col.data_ptr(), plan.rows.data_ptr(), plan.row_of_block.data_ptr(),
+              plan.rel_mix.data_ptr())
+    geometry = (layout.src_row_stride, layout.src_rel_offset, layout.out_row_stride, layout.out_rel_offset)
+    tail = (seed.data_ptr() if use_hash else None, keep_probability(rate),
+            X.device.index, torch.cuda.current_stream(X.device).cuda_stream)
+    if layout.route == "persistent":
+        err = lib.grl_tile_persistent(
+            *tables, work.data_ptr(), X.data_ptr(), out.data_ptr(), plan.num_nodes, plan.nb, plan.B, plan.L, F,
+            layout.src_relations, *geometry, int(stacked), int(plan.transposed), layout.BN, layout.chunks,
+            layout.consumers, layout.parts, layout.stages, layout.smem_bytes, layout.ctas, int(use_hash), *tail)
+    else:
+        err = lib.grl_tile_apply(
+            *tables, X.data_ptr(), out.data_ptr(), plan.num_nodes, plan.nb, plan.B, plan.L, F, *geometry,
+            int(stacked), int(plan.transposed), _DTYPE_CODES[plan.tiles.dtype], _DTYPE_CODES[X.dtype],
+            int(use_hash), *tail)
     _build.check_launch(lib, err, "K7")
     return out
 

@@ -982,6 +982,78 @@ def test_k7_matches_plain_version(rate, F, dtype, tile_dtype):
         assert torch.equal(out, tile.tile_accumulate(X, plan, seed, rate, direction))
 
 
+def sparse_relation_graph(B, N=1000, L=3, E=30000, seed=5):
+    """Uniform random edges at L = 3 with relation 1 given 300 of them, too
+    few for any tile: its tables are empty (row_of_block -1). N = 1000 is
+    ragged at every B. Thresholds under the mean block count make most
+    block pairs of relations 0 and 2 tiles: rows of up to nb tiles."""
+    rng = np.random.RandomState(seed)
+    rel = rng.choice([0, 2], E)
+    rel[:300] = 1
+    edges = (rng.randint(0, N, E), rng.randint(0, N, E), rel, (rng.rand(E) + 0.5).astype(np.float32))
+    min_edges = {64: 40, 128: 140, 192: 250, 256: 500}[B]
+    return tile.TileGraphKernel(*edges, N, L, tile_size=B, tile_min_edges=min_edges, reorder="none",
+                                tile_dtype="bfloat16", plan_projected=True, device="cuda")
+
+
+@pytest.mark.parametrize("B", [64, 128, 192, 256])
+@pytest.mark.parametrize("F", [40, 64, 136, 264])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_k7_persistent_route_matches_plain_version(rate, F, B):
+    """bf16 tiles under bf16 operands take the persistent route (one
+    consumer warpgroup where 128 does not divide B, else two; F = 40 and
+    136 partial column boxes, 264 two column chunks): all four directions
+    against tile_apply_reference, with a ragged last block and a relation
+    with no tables (exact zeros where stacked), one launch each, two
+    launches equal to the bit."""
+    kernel = sparse_relation_graph(B)
+    assert kernel.tiles_total > 0 and kernel.tables.fwd.shapes[1] is None
+    assert kernel.num_nodes % B != 0
+    seed = hashing.seed_tensor(23, "cuda")
+    for direction, X in tile_operands(kernel, F, torch.bfloat16, seed=F).items():
+        plan = kernel.tables.bwd if "backward" in direction else kernel.tables.fwd
+        layout = tile.launch_plan(plan, F, X.dtype, direction, torch.cuda.get_device_properties(0).multi_processor_count)
+        assert layout.route == "persistent" and layout.consumers == (2 if B % 128 == 0 else 1)
+        assert layout.chunks == -(-F // 256)
+        before = launches.device_counts()
+        out = tile.tile_accumulate(X, plan, seed, rate, direction)
+        torch.cuda.synchronize()
+        assert launched_since(before) == {"K7": 1, f"K7 {direction}": 1}
+        assert_close_to_plain(out, tile.tile_apply_reference(X, plan, seed, rate, direction))
+        assert torch.equal(out, tile.tile_accumulate(X, plan, seed, rate, direction))
+        if direction == "forward":
+            assert not bool(out.view(kernel.num_nodes, kernel.L, F)[:, 1].any())
+        elif direction == "projected backward":
+            assert not bool(out.view(kernel.num_nodes, kernel.L, F)[:, 1].any())
+
+
+def test_k7_persistent_route_replays_in_a_cuda_graph(monkeypatch):
+    """A K7 call captured after an eager one replays its bits, and reads its
+    seed from device memory: a new seed written before a replay draws the
+    new seed's mask. A launch whose work list was never laid out is refused
+    while a capture runs (it would upload the list inside the capture)."""
+    kernel = sparse_relation_graph(128)
+    plan = kernel.tables.fwd
+    X = tile_operands(kernel, 256, torch.bfloat16)["forward"]
+    seed = hashing.seed_tensor(3, "cuda")
+    eager = tile.tile_accumulate(X, plan, seed, 0.3)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tile.tile_accumulate(X, plan, seed, 0.3)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    seed.copy_(hashing.seed_tensor(4, "cuda"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, tile.tile_accumulate(X, plan, hashing.seed_tensor(4, "cuda"), 0.3))
+    assert not torch.equal(captured, eager)
+    wide = tile_operands(kernel, 128, torch.bfloat16)["forward"]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    with pytest.raises(RuntimeError, match="capture"):
+        tile.tile_accumulate(wide, plan, seed, 0.3)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k7_keep_set_and_adjoint(dtype):
     """V = I reads the masked tiles back, equal to the plain version's bits;
