@@ -74,7 +74,31 @@ before the result line is printed; no phase's failure is passed over.
    float32 (``compute_dtype`` left at its default, so float32 K1, K2 and
    K3 run), and in bfloat16 without DropEdge at ``BucketPadding`` quantum 2
    (230-node batches: every K3 takes the ragged route).
-5. ``full_graph``: the sparse large-graph path, ``GNNLearningWarper.train``
+5. ``ssl``: the self-supervised family through ``GNNLearningWarper.train``
+   at the same width on the train phase's pages, one epoch a leg (each
+   with its launch counts set to 0 just before it and read just after),
+   through the data chain of ``tests/test_procedures.py``'s
+   ``make_split(ssl=True)`` (node dropping, DGI negatives, SSL labels,
+   ``NumpyPadding``) with ``pairwise_similarity`` added. Pretraining
+   ``SSLGCN`` (float32, ``kernel_impl: xla``, as ``grl_tpu`` builds it) on
+   five tasks: no K1, K2 or K3, D 30 times a step each way, the trunk and
+   the used heads changed, the checkpoint written; prints steps/s, one SSL
+   step's device ms (CUDA events over 5 steps) and the host seconds a page
+   of the data chain, by processor. DGI with ``node_property``, 4 steps:
+   the discriminator's bilinear changes, the checkpoint holds ``encoder.*``
+   and ``discriminator.*``. ``FinetuneKVProcedure`` on the flagship
+   (``kernel_impl: pallas``, bf16, DropEdge 0.3, dropout 0.5) from the
+   pretraining's checkpoint: the parameter count loaded
+   (``FINETUNE_LOADED``), the trunk equal to the checkpoint's bit for bit,
+   K1 = K2 = 3 x steps and K3 = 3 x validation batches, the learning check
+   and two steps kernel against plain under ``STEP_LIMITS`` from the
+   loaded state; from the DGI checkpoint nothing loads, as in ``grl_tpu``.
+   The fine-tuned checkpoint served through ``KVInference`` (K3) and held
+   to the plain path under ``SERVE_AGREEMENT``. ``JointTrainingProcedure``
+   (as many steps as the KV loader's batches) and
+   ``GraphClassificationProcedure`` (a graph-label processor registered for
+   the leg, 3 classes), finite losses and their D counts.
+6. ``full_graph``: the sparse large-graph path, ``GNNLearningWarper.train``
    -> ``FullGraphProcedure`` on ``configs/arxiv_full_graph.yaml`` as it is
    (169,343 nodes, 1,184,773 edges, widths 128/256/40, bfloat16, DropEdge
    0.3, dropout 0.5) with ``kernel_impl: pallas_csr``, sparse attention,
@@ -104,14 +128,14 @@ before the result line is printed; no phase's failure is passed over.
    score projections' gradients show), which must fail the limits
    (``FULL_GRAPH_PAIRS``).
 
-6. ``ell``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
+7. ``ell``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
    ``configs/arxiv_full_graph.yaml`` as written (``kernel_impl: ell``, its
    ``kernel_plan``: project-first tables, arithmetic widths of quantum 2,
    the degree reorder; no attention), 20 steps for the file's 200: K6
    (``grl_torch/csrc/ell.cu``) aggregates in all four directions. The same
    checks and measurements as ``full_graph`` (and the tables' planning
    seconds), with K6 with a wrong seed or rate planted as the faults.
-7. ``tile``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
+8. ``tile``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
    ``configs/arxiv_full_graph.yaml`` with ``kernel_impl: tile``,
    ``kernel_plan: {tile_size: 128, tile_dtype: bfloat16, plan_projected:
    true}`` (the LPA order, tile's default) and the SBM at 661 communities
@@ -122,14 +146,14 @@ before the result line is printed; no phase's failure is passed over.
    planning seconds of the LPA order, the tile tables and the residual),
    with K7 under a wrong relation mix and K7's backward with its mask keyed
    on swapped endpoints planted as the faults.
-8. ``demo``: the entry points as subprocesses from a scratch working
+9. ``demo``: the entry points as subprocesses from a scratch working
    directory: ``python -m grl_torch.demo_training`` on
    ``configs/arxiv_full_graph.yaml`` for 20 epochs and on
    ``configs/synthetic_kv.yaml`` for one, then ``python -m
    grl_torch.demo_inference`` on ``configs/synthetic_kv_infer.yaml`` with
    that checkpoint and a synthetic page: exit codes, the printed lines and
    the annotated boxes.
-9. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
+10. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
    counterpart of ``scripts/probe_gather.py``: index_select rates (A-D) and
    the four Pallas probes as CUDA kernels (``grl_torch/csrc/
    gather_probe.cu``), each held against its plain version (E1, E2, F
@@ -322,6 +346,14 @@ STEP_LIMITS = {
     "float32": [(1e-4, 1e-4, 1e-4, 0, 1e-3)] * 2,
     "bfloat16": [(5e-3, math.inf, 1e-2, math.inf, 2e-2), (5e-2, math.inf, 0.1, math.inf, 0.1)],
 }
+
+
+# Parameter tensors GraphCNNDropEdge loads from an SSL checkpoint of the
+# same widths (FinetuneKVProcedure): from an SSLGCN one the trunk's 17 and
+# the classifier's 2; from a DGI one none, since every name there starts
+# with encoder. or discriminator. (grl_tpu merges by top-level path too).
+# tests/test_torch_ssl_procedures.py holds grl_tpu's counts to these.
+FINETUNE_LOADED = {"SSLGCN": 19, "DGI": 0}
 
 
 # The full_graph phase: configs/arxiv_full_graph.yaml with the overrides
@@ -1860,6 +1892,21 @@ def flat_predictions(pages):
     return keys, confidences
 
 
+def agree(kernel_pages, plain_pages, dtype_name: str, tag: str) -> dict:
+    """The share of boxes whose class the kernel path and the plain path
+    agree on and their largest confidence difference, held to
+    SERVE_AGREEMENT."""
+    k_keys, k_conf = flat_predictions(kernel_pages)
+    p_keys, p_conf = flat_predictions(plain_pages)
+    same = sum(a == b for a, b in zip(k_keys, p_keys)) / len(k_keys)
+    conf_err = max(abs(a - b) for a, b in zip(k_conf, p_conf))
+    min_same, max_conf_err = SERVE_AGREEMENT[dtype_name]
+    log(f"{tag}, {dtype_name}: classes agree on {same:.5f} of {len(k_keys)} boxes (need >= {min_same}), max "
+        f"confidence diff {conf_err:.3e} (need <= {max_conf_err})")
+    require(same >= min_same and conf_err <= max_conf_err, f"{tag}: the kernel path disagrees ({dtype_name})")
+    return {"class_agreement": same, "max_confidence_diff": conf_err}
+
+
 def check_pages(pages, samples, valid_keys):
     require(len(pages) == len(samples), f"{len(pages)} pages back for {len(samples)} sent")
     for page, sample in zip(pages, samples):
@@ -1972,17 +2019,7 @@ def phase_serve(torch):
         check_pages(kernel_pages, samples, valid_keys)
         plain_pages = warper("xla", dtype_name).predict(samples)
         check_pages(plain_pages, samples, valid_keys)
-        k_keys, k_conf = flat_predictions(kernel_pages)
-        p_keys, p_conf = flat_predictions(plain_pages)
-        same = sum(a == b for a, b in zip(k_keys, p_keys)) / len(k_keys)
-        conf_err = max(abs(a - b) for a, b in zip(k_conf, p_conf))
-        min_same, max_conf_err = SERVE_AGREEMENT[dtype_name]
-        log(
-            f"[serve] pallas vs xla, {dtype_name}: classes agree on {same:.5f} of {len(k_keys)} "
-            f"boxes (need >= {min_same}), max confidence diff {conf_err:.3e} (need <= {max_conf_err})"
-        )
-        require(same >= min_same and conf_err <= max_conf_err, f"kernel path disagrees ({dtype_name})")
-        agreement[dtype_name] = {"class_agreement": same, "max_confidence_diff": conf_err}
+        agreement[dtype_name] = agree(kernel_pages, plain_pages, dtype_name, "[serve] pallas vs xla")
 
     return {
         "pages": PAGES, "boxes": boxes, "batch_size": B, "batches": batches,
@@ -1995,9 +2032,10 @@ def phase_serve(torch):
     }
 
 
-def timed_encode(inferencer, samples):
-    """Encode a request as KVInference does, timing each host processor."""
-    dataset = inferencer.dataset
+@contextlib.contextmanager
+def timed_processors(dataset):
+    """Times each host processor of ``dataset`` while the block runs;
+    yields the seconds by processor name."""
     processors = dataset.data_processors
     stage_s = {type(p).__name__: 0.0 for p in processors}
 
@@ -2011,11 +2049,17 @@ def timed_encode(inferencer, samples):
 
     dataset.data_processors = [timed(p) for p in processors]
     try:
+        yield stage_s
+    finally:
+        dataset.data_processors = processors
+
+
+def timed_encode(inferencer, samples):
+    """Encode a request as KVInference does, timing each host processor."""
+    with timed_processors(inferencer.dataset) as stage_s:
         start = time.perf_counter()
         inferencer._encode_samples(samples)
         return time.perf_counter() - start, stage_s
-    finally:
-        dataset.data_processors = processors
 
 
 # Cycles the card spins before a request's forwards (~30 ms at 1.98 GHz),
@@ -2139,6 +2183,12 @@ def train_config(tmp, dirs, classes_path, charset_path):
     }
 
 
+def series(warper, path):
+    """The values a run logged under ``path`` (experiment_series.jsonl)."""
+    with open(os.path.join(warper.config["output_dir"], "experiment_series.jsonl")) as handle:
+        return [r["value"] for r in map(json.loads, handle) if r["path"] == path]
+
+
 def reset_counts() -> None:
     """Every launch count to 0 (``grl_torch.ops.launches``)."""
     from grl_torch.ops import launches
@@ -2253,26 +2303,49 @@ def fixed_batches(procedure, count: int):
 
 
 class plain_relagg:
-    """Swaps relagg's K1 and K2 launchers for their plain versions, for
-    the kernel-versus-plain comparison only; restored on exit."""
+    """Swaps relagg's K1 and K2 launchers for their plain versions (or the
+    ``float64`` ones of :func:`float64_relagg`), for the kernel-versus-plain
+    comparison only; restored on exit."""
 
-    def __init__(self, relagg):
+    def __init__(self, relagg, float64: bool = False):
         self.relagg = relagg
+        self.swap = (float64_relagg(relagg) if float64 else
+                     (relagg.dropedge_aggregate_reference, relagg.dropedge_aggregate_grad_reference))
 
     def __enter__(self):
         self.saved = (self.relagg._dropedge_forward, self.relagg.dropedge_aggregate_grad)
-        self.relagg._dropedge_forward = self.relagg.dropedge_aggregate_reference
-        self.relagg.dropedge_aggregate_grad = self.relagg.dropedge_aggregate_grad_reference
+        self.relagg._dropedge_forward, self.relagg.dropedge_aggregate_grad = self.swap
 
     def __exit__(self, *exc):
         self.relagg._dropedge_forward, self.relagg.dropedge_aggregate_grad = self.saved
 
 
-def two_steps(torch, tmp, input_batches, dtype_name: str, plain: bool):
-    """Two full-width train steps from seed-0 weights, dropout off and
-    DropEdge 0.3, masks from generators seeded 7: losses, parameters
-    before the first step and after each step, and each step's clipped
-    gradients."""
+def float64_relagg(relagg):
+    """Plain K1 and K2 summed in float64 and rounded once to the operand's
+    dtype: the plain path in another summation order, as exact as float32
+    allows, to tell the kernels' rounding from a state's sensitivity."""
+    def forward(V, A, seed, rate):
+        B, N, L, _ = A.shape
+        masked = relagg._masked_float(A, seed, rate).double().reshape(B, N * L, N)
+        out = (masked @ V.double()) / relagg.keep_probability(rate)
+        return out.reshape(B, N, L, V.shape[-1]).to(V.dtype)
+
+    def grad(g, A, seed, rate):
+        B, N, L, _ = A.shape
+        masked = relagg._masked_float(A, seed, rate).double().reshape(B, N * L, N)
+        dV = masked.transpose(1, 2) @ g.double().reshape(B, N * L, g.shape[-1])
+        return (dV / relagg.keep_probability(rate)).to(g.dtype)
+
+    return forward, grad
+
+
+
+def two_steps(torch, tmp, input_batches, dtype_name: str, plain: bool, state=None, float64: bool = False):
+    """Two full-width train steps from seed-0 weights (or the model state
+    ``state``), dropout off and DropEdge 0.3, masks from generators seeded
+    7: losses, parameters before the first step and after each step, and
+    each step's clipped gradients. ``plain`` swaps K1 and K2 for their
+    plain versions, summed in float64 with ``float64``."""
     from grl_torch.models import Rngs, create_model
     from grl_torch.ops import relagg
     from grl_torch.trainer.procedures import BaseProcedure
@@ -2284,8 +2357,10 @@ def two_steps(torch, tmp, input_batches, dtype_name: str, plain: bool):
     }
     model = create_model("GraphCNNDropEdge", **args, device="cuda",
                          generator=torch.Generator().manual_seed(0))
+    if state is not None:
+        model.load_state_dict(state)
     config = {
-        "output_dir": os.path.join(tmp, f"steps-{dtype_name}-{plain}"), "max_grad_norm": 5.0,
+        "output_dir": os.path.join(tmp, f"steps-{dtype_name}-{plain}-{float64}"), "max_grad_norm": 5.0,
         "optimizer": {"type": "BuiltinOptimizer", "args": {"type_optimizer": "Adam", "lr": STEP_LR}},
         "logging": {"use_tensorboard": False},
     }
@@ -2296,7 +2371,7 @@ def two_steps(torch, tmp, input_batches, dtype_name: str, plain: bool):
     dtype = getattr(torch, dtype_name)
     before = counts()
     losses, snapshots, grads = [], [params_of(model)], []
-    with plain_relagg(relagg) if plain else contextlib.nullcontext():
+    with plain_relagg(relagg, float64) if plain else contextlib.nullcontext():
         for V, A, labels in input_batches:
             loss, _ = step(V.to(dtype), A.to(dtype), labels, rngs, 1.0)
             losses.append(float(loss))
@@ -2395,12 +2470,9 @@ def phase_train(torch, card: str):
             and routes["K2"]["sm90"] == expected["K2"],
             f"train path launched {launched} ({routes} by route), expected {expected}, all bf16 on dropedge_sm90.cu")
 
-    series_path = os.path.join(warper.config["output_dir"], "experiment_series.jsonl")
-    with open(series_path) as handle:
-        records = [json.loads(line) for line in handle]
-    losses = [r["value"] for r in records if r["path"] == "Train/step_loss"]
-    nodes_per_s = [r["value"] for r in records if r["path"] == "Train/nodes_per_sec"]
-    val_loss = [r["value"] for r in records if r["path"] == "Validation/loss"]
+    losses = series(warper, "Train/step_loss")
+    nodes_per_s = series(warper, "Train/nodes_per_sec")
+    val_loss = series(warper, "Validation/loss")
     require(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses + val_loss),
             f"train losses {losses}, validation losses {val_loss}")
     changed = sum(not torch.equal(initial[n], p) for n, p in params_of(warper.model).items())
@@ -2625,11 +2697,8 @@ def train_scan(torch, card: str, tmp: str, dirs, classes_path, charset_path, eag
             f"scan_steps {SCAN_K} path ran {launched} launches ({routes} by route), expected {expected}")
     require(recorded == {"K1": 3 * SCAN_K, "K2": 3 * SCAN_K, **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * SCAN_K)},
             f"the captured chunk recorded {recorded}, expected 3 x {SCAN_K} K1 and K2 and 5 x {SCAN_K} D each way")
-    series_path = os.path.join(warper.config["output_dir"], "experiment_series.jsonl")
-    with open(series_path) as handle:
-        records = [json.loads(line) for line in handle]
-    losses = [r["value"] for r in records if r["path"] == "Train/step_loss"]
-    nodes_per_s = [r["value"] for r in records if r["path"] == "Train/nodes_per_sec"]
+    losses = series(warper, "Train/step_loss")
+    nodes_per_s = series(warper, "Train/nodes_per_sec")
     require(len(losses) == TRAIN_STEPS and trainer.state.step == TRAIN_STEPS
             and all(math.isfinite(v) for v in losses), f"scan losses {losses}, step {trainer.state.step}")
     changed = sum(not torch.equal(initial[n], p) for n, p in params_of(warper.model).items())
@@ -2827,10 +2896,7 @@ def phase_train_variants(torch, card: str):
         launched, routes = counts(("K3", "K1", "K2", *D_COUNTS)), route_counts()
         require(launched == expected and routes == expected_routes,
                 f"{name} path launched {launched} ({routes} by route), expected {expected} ({expected_routes})")
-        series_path = os.path.join(warper.config["output_dir"], "experiment_series.jsonl")
-        with open(series_path) as handle:
-            records = [json.loads(line) for line in handle]
-        losses = [r["value"] for r in records if r["path"] == "Train/step_loss"]
+        losses = series(warper, "Train/step_loss")
         require(len(losses) == VARIANT_STEPS and all(math.isfinite(v) for v in losses), f"{name} losses {losses}")
         changed = sum(not torch.equal(initial[n], p) for n, p in params_of(warper.model).items())
         require(changed == len(initial), f"{name}: only {changed} of {len(initial)} parameter tensors changed")
@@ -2840,6 +2906,376 @@ def phase_train_variants(torch, card: str):
             f"{VARIANT_VAL_BATCHES} validation batches in {wall:.3f} s; launches {launched}, by route {routes}; "
             f"losses {[round(v, 4) for v in losses]}")
         record[name] = {"N": N, "wall_s": wall, "launches": launched, "routes": routes, "losses": losses}
+    return record
+
+
+# ---------------------------------------------------------------------------
+# ssl
+# ---------------------------------------------------------------------------
+# SSLLabeling's tasks in the ssl phase's data chain: make_split(ssl=True)'s
+# (tests/test_procedures.py:14-80), with pairwise_similarity, which the
+# pretraining leg trains, labeled and padded too.
+SSL_LABELS = ["node_property", "edge_mask", "pairwise_distance", "pairwise_similarity", "graph_edit_distance",
+              "dgi"]
+# The tasks of the pretraining, DGI and joint legs.
+SSL_TASKS = ["node_property", "edge_mask", "pairwise_distance", "pairwise_similarity", "graph_edit_distance"]
+DGI_TASKS = ["dgi", "node_property"]
+JOINT_TASKS = ["node_property", "edge_mask", "pairwise_distance"]
+# Trunk passes of each task's loss (graph_edit_distance and dgi run the
+# trunk twice, on the graph and its copy), and dropout layers a pass of
+# SSLGCN (after emb1 and each GraphConv, and on the node embedding; the
+# node-classification head adds one after RanPAC): D's launches a step.
+SSL_TRUNK_PASSES = {"node_property": 1, "edge_mask": 1, "pairwise_distance": 1, "pairwise_similarity": 1,
+                    "graph_edit_distance": 2, "dgi": 2}
+SSL_DROPOUTS_A_PASS = 5
+# One epoch of the train phase's pages: 8 steps, 2 validation batches; the
+# DGI leg trains on the first 32 pages (4 steps).
+SSL_STEPS, SSL_VAL_BATCHES = TRAIN_PAGES // B, VAL_PAGES // B
+DGI_PAGES = 32
+SSL_TIMED_STEPS = 5
+# The pretraining epoch's steps 4..7 run under torch.profiler (the idle share).
+SSL_PROFILE_START, SSL_PROFILE_STEPS = SSL_STEPS - 4, 3
+# Pages of the training split whose processor chain is timed on the host.
+SSL_LABEL_PAGES = 16
+GRAPH_CLASSES = 3
+
+
+def ssl_split(data_dir, classes_path, charset_path, shuffle):
+    """A split through the self-supervised data chain: make_split(ssl=True)
+    of tests/test_procedures.py:14-80 at batch B, with pairwise_similarity's
+    targets labeled, kept and padded too."""
+    pairs = ("edge_mask", "pairwise_distance")
+    return {
+        "data_path": [data_dir], "class_path": classes_path, "charset_path": charset_path,
+        "key_types": ["key", "value"], "batch_size": B, "shuffle": shuffle, "drop_last": False,
+        "data_collate": {
+            "BucketPadding": {
+                "quantum": 64, "only_selected_items": True,
+                "extra_keys": {"node_property": -100, "aug_textline_encoding": 0, "aug_adjacency_matrix": 0,
+                               "negative_textline_encoding": 0, "negative_adjacency_matrix": 0},
+                "keep_keys": [f"{t}_{k}" for t in pairs for k in ("indices", "targets")]
+                + ["graph_edit_distance", "dgi", "pairwise_similarity_indices", "pairwise_similarity_targets"],
+            },
+            "NumpyPadding": {
+                "name_value_pairs": {**{k: v for t in pairs for k, v in ((f"{t}_indices", 0), (f"{t}_targets", -100))},
+                                     "graph_edit_distance": -100, "pairwise_similarity_indices": 0,
+                                     "pairwise_similarity_targets": -100},
+                "only_selected_items": False,
+            },
+        },
+        "data_process": {
+            "TextlineEncoding": {"is_normalized_text": True},
+            "HeuristicGraphBuilder": {"num_edges": 6, "edge_type": "normal_binary"},
+            "NodeLabeling": {},
+            "NodeDropAugmentor": {"drop_rate": 0.15, "seed": 0},
+            "DGINegativeSampling": {"seed": 0},
+            "SSLLabeling": {"tasks": list(SSL_LABELS)},
+        },
+        "augmentations": {},
+    }
+
+
+def ssl_config(base, tmp, name, model_type, model_args, procedure, training, validation, **extra):
+    """The train phase's recipe (``base``: Adam 5e-3, clip 5.0, seed 0) for
+    one epoch of a leg of the ssl phase."""
+    config = copy.deepcopy(base)
+    config.update(experiment_name=f"ssl-{name}", num_epochs=1, output_dir=os.path.join(tmp, name), **extra)
+    config["model"] = {"type": model_type, "args": model_args}
+    config["procedure"] = procedure
+    config["data_config"]["training"], config["data_config"]["validation"] = training, validation
+    config["logging"] = {"use_tensorboard": False, "summary_dir_name": "summary"}
+    return config
+
+
+def train_leg(torch, warper, tag: str, steps: int, expected: dict):
+    """``warper.train()`` with every launch count set to 0 just before it
+    and read just after: the launches (``expected``), ``steps`` finite step
+    losses, and the seconds it took."""
+    reset_counts()
+    start = time.perf_counter()
+    warper.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launched = counts(("K3", "K1", "K2", *D_COUNTS))
+    require(launched == expected, f"ssl {tag} launched {launched}, expected {expected}")
+    losses = series(warper, "Train/step_loss")
+    val_loss = series(warper, "Validation/loss")
+    require(len(losses) == steps and all(math.isfinite(v) for v in losses + val_loss),
+            f"ssl {tag}: train losses {losses}, validation losses {val_loss}")
+    return {"wall_s": wall, "launches": launched, "losses": losses, "validation_loss": val_loss}
+
+
+def ssl_launches(d_a_step: int, steps: int, **kernels):
+    """No K1, K2 or K3 but ``kernels``; D ``d_a_step`` times a step each way."""
+    return {"K3": 0, "K1": 0, "K2": 0, **kernels, **dict.fromkeys(D_COUNTS, d_a_step * steps)}
+
+
+def phase_ssl(torch, card: str):
+    """The self-supervised family through ``GNNLearningWarper.train`` at the
+    sumi width on the train phase's pages, each leg with its launch counts
+    set to 0 just before it and read just after."""
+    import grl_torch
+    from grl_torch.data import processors
+    from grl_torch.models import Rngs, create_model
+    from grl_torch.trainer.procedures import BaseProcedure
+    from grl_torch.utils.checkpoint import CheckpointHandler
+
+    import numpy as np
+
+    # SSLLabeling samples its pairs from numpy's global generator.
+    np.random.seed(0)
+    tmp = tempfile.mkdtemp(prefix="grl_torch_ssl_")
+    dirs, classes_path, charset_path = write_training_files(tmp)
+    base = train_config(tmp, dirs, classes_path, charset_path)
+    kv_train, kv_val = base["data_config"]["training"], base["data_config"]["validation"]
+    ssl_train = ssl_split(dirs["training"], classes_path, charset_path, shuffle=True)
+    ssl_val = ssl_split(dirs["validation"], classes_path, charset_path, shuffle=False)
+    ssl_args = {key: base["model"]["args"][key] for key in ("input_dim", "output_dim", "num_edges", "net_size",
+                                                            "dropout_rate")}
+    ft_args = base["model"]["args"]
+    record = {"launches": {}}
+    log(f"[ssl] SSLGCN {ssl_args}; {TRAIN_PAGES} training + {VAL_PAGES} validation pages, batch {B}, one epoch "
+        f"a leg; fine-tuned flagship {ft_args}")
+
+    # 1. SSL pretraining: five tasks, float32, no K1/K2/K3; the epoch's last
+    # SSL_PROFILE_STEPS + 1 steps traced.
+    config = ssl_config(base, tmp, "pretrain", "SSLGCN", ssl_args,
+                        {"type": "SSLPretrainProcedure", "args": {"tasks": SSL_TASKS}}, ssl_train, ssl_val)
+    config["logging"]["profile"] = {"start_step": SSL_PROFILE_START, "num_steps": SSL_PROFILE_STEPS}
+    pre = grl_torch.GNNLearningWarper(config=config)
+    initial = params_of(pre.model)
+    d_a_step = SSL_DROPOUTS_A_PASS * sum(SSL_TRUNK_PASSES[t] for t in SSL_TASKS)
+    leg = train_leg(torch, pre, "pretrain", SSL_STEPS, ssl_launches(d_a_step, SSL_STEPS))
+    trained = tuple(["trunk."] + [f"head_{t}." for t in SSL_TASKS])
+    changed = {n for n, p in params_of(pre.model).items() if not torch.equal(initial[n], p)}
+    require(changed == {n for n in initial if n.startswith(trained)},
+            f"pretraining changed {sorted(changed)}; expected the trunk and the heads of {SSL_TASKS} exactly")
+    pre_checkpoint = os.path.join(pre.trainer.model_dir, CheckpointHandler.LATEST)
+    saved = CheckpointHandler().restore_checkpoint(pre_checkpoint, map_location="cuda")["model"]
+    require(set(saved) == set(pre.model.state_dict()), f"the SSLGCN checkpoint holds {sorted(saved)}")
+    batch = next(iter(pre.trainer.train_loader))
+    N = batch["textline_encoding"].shape[1]
+    require(N == 256, f"SSL batches padded to N={N}")
+    steps_per_s = [v / (B * N) for v in series(pre, "Train/nodes_per_sec")]
+    data = pre.trainer._task_batch(batch)
+    for _ in range(2):
+        pre.trainer._ssl_fn(data)
+    torch.cuda.synchronize()
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(SSL_TIMED_STEPS):
+        pre.trainer._ssl_fn(data)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = begin.elapsed_time(end) / SSL_TIMED_STEPS
+    trace = os.path.join(pre.config["output_dir"], "traces",
+                         f"steps_{SSL_PROFILE_START}_{SSL_PROFILE_START + SSL_PROFILE_STEPS}.json")
+    idle, busy_ms, window_ms = device_idle_share(trace)
+    traced_steps = SSL_PROFILE_STEPS + 1
+    dataset = pre.trainer.train_loader.dataset
+    with timed_processors(dataset) as stage_s:
+        for index in range(SSL_LABEL_PAGES):
+            dataset[index]
+    page_s = sum(stage_s.values()) / SSL_LABEL_PAGES
+    label_s = stage_s["SSLLabeling"] / SSL_LABEL_PAGES
+    record["pretrain"] = {**leg, "steps_per_s": steps_per_s, "step_ms": step_ms, "idle_share": idle,
+                          "traced_busy_ms_a_step": busy_ms / traced_steps,
+                          "traced_window_ms_a_step": window_ms / traced_steps, "host_page_s": page_s,
+                          "host_stage_s": {k: v / SSL_LABEL_PAGES for k, v in stage_s.items()},
+                          "changed": len(changed)}
+    record["launches"]["pretrain"] = leg["launches"]
+    log(f"[ssl] pretraining {SSL_TASKS}: {SSL_STEPS} steps + {SSL_VAL_BATCHES} validation batches in "
+        f"{leg['wall_s']:.3f} s, steps/s {[round(v, 3) for v in steps_per_s]} (B={B}, N={N}); launches "
+        f"{leg['launches']} (D {d_a_step} a step each way); losses {[round(v, 4) for v in leg['losses']]}; "
+        f"{len(changed)} parameter tensors changed (trunk and the used heads)")
+    log(f"[ssl] {card}: one SSL step (6 trunk passes forward and backward, clip, Adam, the monitoring forward; "
+        f"float32) {step_ms:.3f} ms on the card (CUDA events, mean of {SSL_TIMED_STEPS}); traced steps "
+        f"{SSL_PROFILE_START}..{SSL_PROFILE_START + SSL_PROFILE_STEPS}: device busy {busy_ms / traced_steps:.3f} ms "
+        f"of {window_ms / traced_steps:.3f} ms a step, idle share "
+        + ("not measured (no device events in the trace)" if idle is None else f"{idle:.4f}")
+        + f"; host data chain "
+        f"{page_s:.4f} s a page, of which SSLLabeling {label_s:.4f} s "
+        f"({ {k: round(v / SSL_LABEL_PAGES, 4) for k, v in stage_s.items()} } s a page, {SSL_LABEL_PAGES} pages)")
+
+    # 2. DGI with node_property: the discriminator trains beside the encoder.
+    dgi_dir = os.path.join(tmp, "dgi_training")
+    os.makedirs(dgi_dir)
+    for name in sorted(os.listdir(dirs["training"]))[:DGI_PAGES]:
+        os.symlink(os.path.join(dirs["training"], name), os.path.join(dgi_dir, name))
+    dgi = grl_torch.GNNLearningWarper(config=ssl_config(
+        base, tmp, "dgi", "SSLGCN", ssl_args, {"type": "SSLPretrainProcedure", "args": {"tasks": DGI_TASKS}},
+        ssl_split(dgi_dir, classes_path, charset_path, shuffle=True), ssl_val))
+    bilinear = dgi.trainer.dgi.discriminator.bilinear.detach().clone()
+    dgi_steps = DGI_PAGES // B
+    d_a_step = SSL_DROPOUTS_A_PASS * sum(SSL_TRUNK_PASSES[t] for t in DGI_TASKS)
+    leg = train_leg(torch, dgi, "dgi", dgi_steps, ssl_launches(d_a_step, dgi_steps))
+    require(not torch.equal(bilinear, dgi.trainer.dgi.discriminator.bilinear), "DGI's bilinear did not change")
+    dgi_checkpoint = os.path.join(dgi.trainer.model_dir, CheckpointHandler.LATEST)
+    keys = set(CheckpointHandler().restore_checkpoint(dgi_checkpoint)["model"])
+    require("discriminator.bilinear" in keys and all(k.startswith(("encoder.", "discriminator.")) for k in keys),
+            f"the DGI checkpoint holds {sorted(keys)}")
+    record["dgi"] = leg
+    record["launches"]["dgi"] = leg["launches"]
+    log(f"[ssl] DGI {DGI_TASKS}: {dgi_steps} steps in {leg['wall_s']:.3f} s, launches {leg['launches']}; losses "
+        f"{[round(v, 4) for v in leg['losses']]}; discriminator.bilinear changed; checkpoint of "
+        f"{len(keys)} encoder.* / discriminator.* tensors")
+
+    # 3. Fine-tuning the flagship on K1/K2/K3 from the pretraining's checkpoint.
+    def finetune(name, checkpoint):
+        return grl_torch.GNNLearningWarper(config=ssl_config(
+            base, tmp, name, "GraphCNNDropEdge", ft_args, {"type": "FinetuneKVProcedure", "args": {}}, kv_train,
+            kv_val, optimize_settings={"ssl_pretrain_path": checkpoint}))
+
+    ft = finetune("finetune", pre_checkpoint)
+    ft.trainer._ensure_initialized()
+    require(ft.trainer.loaded == (FINETUNE_LOADED["SSLGCN"], 1),
+            f"fine-tuning loaded {ft.trainer.loaded} (parameters, buffers), expected "
+            f"({FINETUNE_LOADED['SSLGCN']}, 1)")
+    loaded = {k: v.clone() for k, v in ft.model.state_dict().items()}
+    trunk = [k for k in loaded if k.startswith("trunk.")]
+    require(all(torch.equal(loaded[k], saved[k]) for k in trunk), "the fine-tuned trunk is not the checkpoint's")
+    expected = {"K1": 3 * SSL_STEPS, "K2": 3 * SSL_STEPS, "K3": 3 * SSL_VAL_BATCHES,
+                **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * SSL_STEPS)}
+    leg = train_leg(torch, ft, "finetune", SSL_STEPS, expected)
+    routes = route_counts()
+    require(routes["K3"]["sm90"] == expected["K3"] and routes["K2"]["sm90"] == expected["K2"],
+            f"fine-tuning ran K3/K2 by route {routes}, expected all on dropedge_sm90.cu")
+    batches = fixed_batches(ft.trainer, 2)
+    model = create_model("GraphCNNDropEdge", **ft_args, device="cuda", generator=torch.Generator().manual_seed(1))
+    model.load_state_dict(loaded)
+    learner = BaseProcedure(model, {**ft.config, "output_dir": os.path.join(tmp, "finetune-learn")}, device="cuda")
+    learner.init_state()
+    learn_step = learner.build_train_step(NUM_CLASSES * 2 + 1, (-100,))
+    rngs = Rngs.from_seed(3, torch.device("cuda"))
+    V, A, labels = batches[0]
+    learn = [float(learn_step(V, A, labels, rngs, 1.0)[0]) for _ in range(LEARN_STEPS)]
+    tail = sum(learn[-5:]) / 5
+    log(f"[ssl] fine-tuning from the pretrained trunk ({ft.trainer.loaded[0]} parameter tensors and the RanPAC "
+        f"buffer loaded, the trunk equal to the checkpoint's): {SSL_STEPS} steps + {SSL_VAL_BATCHES} validation "
+        f"batches in {leg['wall_s']:.3f} s, launches {leg['launches']} (by route {routes}); losses "
+        f"{[round(v, 4) for v in leg['losses']]}; learning check, {LEARN_STEPS} steps on one batch from the "
+        f"loaded state: first loss {learn[0]:.4f}, mean of the last 5 {tail:.4f} = {tail / learn[0]:.4f} of it "
+        f"(need < {LEARN_SHARE})")
+    require(tail < LEARN_SHARE * learn[0], f"fine-tune learning check failed: {learn}")
+    # Kernel against plain over two steps, under STEP_LIMITS, from the
+    # weights the learning check reached (the loaded state after its 20
+    # steps): from the loaded state itself (first loss in the thousands, so
+    # the clip leaves most gradient entries near Adam's eps) a held entry can
+    # land lr/10 apart at step 2 from summation order alone (PERF.md §6).
+    # Beside it, from the loaded state, kernel against plain and the plain
+    # path summed in float64 against plain, in float32, recorded.
+    learned = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    comparison, failures = {}, []
+    for dtype_name in ("float32", "bfloat16"):
+        kernel = two_steps(torch, tmp, batches, dtype_name, plain=False, state=learned)
+        plain = two_steps(torch, tmp, batches, dtype_name, plain=True, state=learned)
+        comparison[dtype_name] = rows = compare_steps(kernel, plain)
+        for k, (row, limit) in enumerate(zip(rows, STEP_LIMITS[dtype_name])):
+            log(f"[ssl] fine-tune kernel vs plain from the learned weights, {dtype_name}, step {k + 1}: loss rel "
+                f"{row['loss_rel_diff']:.2e} (need <= {limit[0]}); held max diff {row['held_max_diff_of_scale']:.2e} "
+                f"of scale (need <= {limit[1]}), {row['held_beyond_lr_10']} held entries lr/10 apart (need <= "
+                f"{limit[3]}); moved share lr/10 apart {row['moved_share_beyond_lr_10']:.2e} (need <= {limit[2]}); "
+                f"gradient rel {row['grad_rel_diff']:.2e} (need <= {limit[4]})")
+        failures += [f"fine-tune kernel vs plain {dtype_name} step {k + 1}: {rows[k]}"
+                     for k in step_failures(rows, STEP_LIMITS[dtype_name])]
+    require(not failures, "; ".join(failures))
+    plain = two_steps(torch, tmp, batches, "float32", plain=True, state=loaded)
+    from_loaded = {
+        "kernel_vs_plain": compare_steps(two_steps(torch, tmp, batches, "float32", plain=False, state=loaded), plain),
+        "plain_float64_vs_plain": compare_steps(
+            two_steps(torch, tmp, batches, "float32", plain=True, state=loaded, float64=True), plain),
+    }
+    for name, rows in from_loaded.items():
+        log(f"[ssl] from the loaded weights, float32, {name.replace('_', ' ')} (recorded): " + "; ".join(
+            f"step {k + 1} held max diff {r['held_max_diff_of_scale']:.2e} of scale, {r['held_beyond_lr_10']} held "
+            f"entries lr/10 apart, moved share {r['moved_share_beyond_lr_10']:.2e}, gradient rel "
+            f"{r['grad_rel_diff']:.2e}, within STEP_LIMITS: {k not in step_failures(rows, STEP_LIMITS['float32'])}"
+            for k, r in enumerate(rows)))
+    dgi_ft = finetune("finetune-dgi", dgi_checkpoint)
+    dgi_ft.trainer._ensure_initialized()
+    require(dgi_ft.trainer.loaded == (FINETUNE_LOADED["DGI"], 0),
+            f"fine-tuning from the DGI checkpoint loaded {dgi_ft.trainer.loaded}, expected "
+            f"({FINETUNE_LOADED['DGI']}, 0) as grl_tpu")
+    record["finetune"] = {**leg, "loaded": ft.trainer.loaded, "dgi_loaded": dgi_ft.trainer.loaded, "routes": routes,
+                          "learning_losses": learn, "kernel_vs_plain": comparison, "from_loaded": from_loaded}
+    record["launches"]["finetune"] = leg["launches"]
+    log(f"[ssl] fine-tuning from the DGI checkpoint loads {dgi_ft.trainer.loaded} (parameters, buffers), as grl_tpu")
+
+    # 4. Serving the fine-tuned checkpoint on K3, held to the plain path.
+    ft_checkpoint = os.path.join(ft.trainer.model_dir, CheckpointHandler.LATEST)
+    pages = []
+    for name in sorted(os.listdir(dirs["validation"])):
+        with open(os.path.join(dirs["validation"], name)) as handle:
+            pages.append([{"location": b["location"], "text": b["text"]} for b in json.load(handle)])
+
+    def server(kernel_impl, dtype_name):
+        return grl_torch.GNNLearningWarper(
+            config=serve_config(tmp, classes_path, charset_path, ft_checkpoint, kernel_impl, dtype_name))
+
+    main = server("pallas", "bfloat16")
+    reset_counts()
+    served = main.predict(pages)
+    torch.cuda.synchronize()
+    serve_launches = counts(("K3", "K1", "K2", *D_COUNTS))
+    serve_batches = -(-len(pages) // B)
+    require(serve_launches == {"K3": 3 * serve_batches, "K1": 0, "K2": 0, "D forward": 0, "D backward": 0},
+            f"serving the fine-tuned checkpoint launched {serve_launches}")
+    valid_keys = set(main.inferencer.id_to_class.values())
+    agreement = {}
+    for dtype_name in ("bfloat16", "float32"):
+        kernel_pages = served if dtype_name == "bfloat16" else server("pallas", dtype_name).predict(pages)
+        plain_pages = server("xla", dtype_name).predict(pages)
+        for out in (kernel_pages, plain_pages):
+            check_pages(out, pages, valid_keys)
+        agreement[dtype_name] = agree(kernel_pages, plain_pages, dtype_name,
+                                      "[ssl] serving the fine-tuned checkpoint, pallas vs xla")
+    record["serve"] = {"pages": len(pages), "launches": serve_launches, "agreement": agreement}
+    record["launches"]["serve"] = serve_launches
+    log(f"[ssl] served {len(pages)} pages from the fine-tuned checkpoint: launches {serve_launches}")
+
+    # 5. Joint training and graph classification on SSLGCN.
+    config = ssl_config(base, tmp, "joint", "SSLGCN", ssl_args,
+                        {"type": "JointTrainingProcedure", "args": {"tasks": JOINT_TASKS}}, kv_train, kv_val)
+    config["data_config"].update(ssl_training=ssl_train, ssl_validation=ssl_val)
+    joint = grl_torch.GNNLearningWarper(config=config)
+    # The supervised forward runs the node-classification head's dropout too.
+    d_a_step = SSL_DROPOUTS_A_PASS * (1 + sum(SSL_TRUNK_PASSES[t] for t in JOINT_TASKS)) + 1
+    leg = train_leg(torch, joint, "joint", SSL_STEPS, ssl_launches(d_a_step, SSL_STEPS))
+    require(joint.trainer.state.step == len(joint.trainer.train_loader) == SSL_STEPS,
+            f"joint training took {joint.trainer.state.step} steps for {len(joint.trainer.train_loader)} batches")
+    record["joint"] = leg
+    record["launches"]["joint"] = leg["launches"]
+    log(f"[ssl] joint training {JOINT_TASKS}: {SSL_STEPS} steps (the KV loader's batches) in {leg['wall_s']:.3f} s, "
+        f"launches {leg['launches']}; losses {[round(v, 4) for v in leg['losses']]}")
+
+    class PageGraphLabel(processors.BaseDataProcess):
+        """A graph label of GRAPH_CLASSES classes: the page's characters."""
+
+        def __call__(self, sample):
+            sample["graph_label"] = sum(len(line["text"]) for line in sample["label"].values()) % GRAPH_CLASSES
+            return sample
+
+    def graph_split(split):
+        split = copy.deepcopy(split)
+        split["data_process"]["PageGraphLabel"] = {}
+        split["data_collate"]["BucketPadding"]["only_selected_items"] = False
+        return split
+
+    processors.PageGraphLabel = PageGraphLabel
+    try:
+        graphs = grl_torch.GNNLearningWarper(config=ssl_config(
+            base, tmp, "graph-classification", "SSLGCN", {**ssl_args, "n_graph_classes": GRAPH_CLASSES},
+            {"type": "GraphClassificationProcedure", "args": {"n_graph_classes": GRAPH_CLASSES}},
+            graph_split(kv_train), graph_split(kv_val)))
+        leg = train_leg(torch, graphs, "graph classification", SSL_STEPS,
+                        ssl_launches(SSL_DROPOUTS_A_PASS, SSL_STEPS))
+    finally:
+        del processors.PageGraphLabel
+    require(graphs.trainer.num_classes == GRAPH_CLASSES, f"{graphs.trainer.num_classes} graph classes")
+    record["graph_classification"] = leg
+    record["launches"]["graph_classification"] = leg["launches"]
+    log(f"[ssl] graph classification ({GRAPH_CLASSES} classes, task mode): {SSL_STEPS} steps in "
+        f"{leg['wall_s']:.3f} s, launches {leg['launches']}; losses {[round(v, 4) for v in leg['losses']]}")
     return record
 
 
@@ -3644,6 +4080,8 @@ def main() -> int:
         timed("train")
         record["train_variants"] = variants = phase_train_variants(torch, card)
         timed("train_variants")
+        record["ssl"] = ssl = phase_ssl(torch, card)
+        timed("ssl")
         record["full_graph"] = full_graph = phase_full_graph(torch, card)
         timed("full_graph")
         record["ell"] = ell_path = phase_ell(torch, card)
@@ -3676,7 +4114,8 @@ def main() -> int:
         "K3": ("K3 relational neighbor aggregation (bf16, N % 8 == 0 and F % 8 == 0)",
                "grl_torch/csrc/dropedge_sm90.cu", k3_replaces,
                {"serve": serve["k3_routes"]["sm90"], "train": train["routes"]["K3"]["sm90"],
-                "train scan_steps 4": scan["routes"]["K3"]["sm90"], "full_graph": fg["K3"], "ell": el["K3"]},
+                "train scan_steps 4": scan["routes"]["K3"]["sm90"], "ssl finetune": ssl["finetune"]["routes"]["K3"]["sm90"],
+                "ssl serve": ssl["launches"]["serve"]["K3"], "full_graph": fg["K3"], "ell": el["K3"]},
                main_row("K3", **dense), "bf16 B=8 N=256 L=6 F=256"),
         "K3 ragged": ("K3 relational neighbor aggregation (bf16, other N and F: cp.async + wgmma)",
                       "grl_torch/csrc/relagg_ragged.cu",
@@ -3687,7 +4126,7 @@ def main() -> int:
                    main_row("K3", "float32", **dense), "f32 B=8 N=256 L=6 F=256"),
         "K1": ("K1 DropEdge neighbor aggregation (forward, bf16)", "grl_torch/csrc/dropedge_sm90.cu", k1_replaces,
                {"train": train["launches"]["K1"], "train scan_steps 4": scan["launches"]["K1"],
-                "full_graph": fg["K1"], "ell": el["K1"]},
+                "ssl finetune": ssl["launches"]["finetune"]["K1"], "full_graph": fg["K1"], "ell": el["K1"]},
                main_row("K1", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
         "K1 f32": ("K1 DropEdge neighbor aggregation (forward, float32)", "grl_torch/csrc/dropedge_f32.cu",
                    k1_replaces,
@@ -3695,7 +4134,8 @@ def main() -> int:
                    main_row("K1", "float32", **dense), "f32 B=8 N=256 L=6 F=256 rate=0.3"),
         "K2": ("K2 DropEdge neighbor aggregation (backward, dV, bf16)", "grl_torch/csrc/dropedge_sm90.cu",
                k2_replaces, {"train": train["routes"]["K2"]["sm90"], "train scan_steps 4": scan["routes"]["K2"]["sm90"],
-                             "full_graph": fg["K2"], "ell": el["K2"]},
+                             "ssl finetune": ssl["finetune"]["routes"]["K2"]["sm90"], "full_graph": fg["K2"],
+                             "ell": el["K2"]},
                main_row("K2", **dense), "bf16 B=8 N=256 L=6 F=256 rate=0.3"),
         "K2 f32": ("K2 DropEdge neighbor aggregation (backward, dV, float32)", "grl_torch/csrc/dropedge_f32.cu",
                    k2_replaces, {"train_variants float32": f32["routes"]["K2"]["float32"]},
@@ -3728,6 +4168,7 @@ def main() -> int:
             "grl_tpu/models/gcn_family.py:114,245 flax nn.Dropout (XLA, a hand kernel for XLA code)",
             {"train": train["launches"][name], "train scan_steps 4": scan["launches"][name],
              "train_variants float32": f32["launches"][name], "train_variants bfloat16 ragged": ragged["launches"][name],
+             **{f"ssl {leg}": n[name] for leg, n in ssl["launches"].items()},
              "full_graph": fg[name], "ell": el[name], "tile": tp[name]},
             main_row(name, F=dropout_main["F"]), f"bf16 ({dropout_main['N']}, {dropout_main['F']}) rate 0.5")
     for direction in ("forward", "backward", "projected forward", "projected backward"):

@@ -1,4 +1,6 @@
-from grl_torch.data.collate import BucketPadding, next_bucket, stack_batch
+from grl_torch.data.augmentor import BaseAugmentor, DGINegativeSampling, NodeDropAugmentor
+from grl_torch.data.collate import BucketPadding, NumpyPadding, next_bucket, stack_batch
+from grl_torch.data.corpus import build_corpus_and_classes
 from grl_torch.data.dataloader import BaseDataLoader, DataLoader, prefetch_iter
 from grl_torch.data.datasets import (
     BaseDataset,
@@ -15,15 +17,24 @@ from grl_torch.data.graph_builder import (
 from grl_torch.data.normalize_text import normalize_text
 from grl_torch.data.processors import (
     BaseDataProcess,
+    CLNodeLabeling,
+    EdgeLabeling,
+    GraphLabeling,
     HeuristicGraphBuilder,
     NodeLabeling,
+    SSLLabeling,
     TextlineEncoding,
 )
 
 __all__ = [
+    "BaseAugmentor",
+    "DGINegativeSampling",
+    "NodeDropAugmentor",
     "BucketPadding",
+    "NumpyPadding",
     "next_bucket",
     "stack_batch",
+    "build_corpus_and_classes",
     "BaseDataLoader",
     "DataLoader",
     "prefetch_iter",
@@ -38,7 +49,11 @@ __all__ = [
     "build_heuristic_adjacency",
     "normalize_text",
     "BaseDataProcess",
+    "CLNodeLabeling",
+    "EdgeLabeling",
+    "GraphLabeling",
     "HeuristicGraphBuilder",
     "NodeLabeling",
+    "SSLLabeling",
     "TextlineEncoding",
 ]

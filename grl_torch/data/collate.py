@@ -1,10 +1,12 @@
-"""Batch collation: bucketed padding + array stacking.
+"""Batch collation: padding strategies + array stacking.
 
-Copies of ``grl_tpu/data/collate.py`` (``next_bucket``, ``BucketPadding``,
-``stack_batch``). :class:`BucketPadding` right-pads the node axis to a
-fixed bucket (a multiple of a quantum, or the next listed size), so
-batches fall into few shapes, and emits a ``node_mask`` so downstream
-losses and metrics ignore padding.
+Copies of ``grl_tpu/data/collate.py`` (``NumpyPadding``, ``next_bucket``,
+``BucketPadding``, ``stack_batch``). :class:`BucketPadding` right-pads the
+node axis to a fixed bucket (a multiple of a quantum, or the next listed
+size), so batches fall into few shapes, and emits a ``node_mask`` so
+downstream losses and metrics ignore padding. :class:`NumpyPadding` pads
+named per-sample arrays (the self-supervised targets' index and target
+lists, say) symmetrically to one shape per batch.
 """
 from __future__ import annotations
 
@@ -20,6 +22,34 @@ class BaseCollate:
 
     def __call__(self, batch: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
         raise NotImplementedError
+
+
+class NumpyPadding(BaseCollate):
+    """Reference-compatible max-shape symmetric padding
+    (``grl_tpu/data/collate.py:31-59``): each array named in
+    ``name_value_pairs`` is padded with its value, ``(d // 2, d - d // 2)``
+    on each axis, to the shape with the largest product in the batch (not
+    the per-axis maximum: the reference's quirk, kept). A name some item
+    lacks as an array is left alone."""
+
+    def __init__(self, name_value_pairs: Dict[str, float], only_selected_items: bool = False):
+        self.name_value_pairs = dict(name_value_pairs)
+        self.only_selected_items = only_selected_items
+
+    def __call__(self, batch: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        for name, value in self.name_value_pairs.items():
+            arrays = [item.get(name) for item in batch]
+            present = [a for a in arrays if isinstance(a, np.ndarray)]
+            if len(present) != len(arrays) or not present:
+                continue
+            max_shape = max((list(a.shape) for a in present), key=lambda s: np.prod(s))
+            for item in batch:
+                arr = item[name]
+                pads = [(d // 2, d - d // 2) for d in np.subtract(max_shape, arr.shape)]
+                item[name] = np.pad(arr, pads, constant_values=value)
+        if self.only_selected_items:
+            batch = [{k: v for k, v in item.items() if k in self.name_value_pairs} for item in batch]
+        return batch
 
 
 def next_bucket(n: int, quantum: int = 64, buckets: Sequence[int] = ()) -> int:

@@ -13,6 +13,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 from grl_torch.config import ConfigDict
+from grl_torch.data import augmentor as augmentor_module
 from grl_torch.data import processors as processors_module
 from grl_torch.utils.json_handler import read_json
 from grl_torch.utils.logging import get_logger
@@ -94,19 +95,22 @@ class BaseDataset:
         return class_to_id, id_to_class
 
     def _load_data_processors(self) -> List[Any]:
-        augmentations = dict(self.data_config.get("augmentations", {}) or {})
-        if augmentations:
-            raise NotImplementedError(
-                f"Augmentors {sorted(augmentations)} are not in the port yet; "
-                "they arrive with the dense-zoo slice (ROADMAP.md Queue 1, slice 2)."
-            )
+        """``augmentations`` from the augmentors, then ``data_process``:
+        each name from the processors, else from the augmentors, so that
+        an augmentor that needs the built features and graph (node
+        dropping, DGI negatives) can run after the builder."""
         chain: List[Any] = []
-        for name, args in dict(self.data_config.get("data_process", {}) or {}).items():
-            cls = getattr(processors_module, name, None)
+        for name, args in dict(self.data_config.get("augmentations", {}) or {}).items():
+            cls = getattr(augmentor_module, name, None)
             if cls is None:
-                raise NotImplementedError(
-                    f"Data processor {name!r} is not in the port yet "
-                    "(ROADMAP.md Queue 1, slice 2)."
+                raise KeyError(f"Augmentor {name!r} is not in grl_torch.data.augmentor")
+            chain.append(cls._from_config(args))
+        for name, args in dict(self.data_config.get("data_process", {}) or {}).items():
+            cls = getattr(processors_module, name, None) or getattr(augmentor_module, name, None)
+            if cls is None:
+                raise KeyError(
+                    f"Data processor {name!r} is neither in grl_torch.data.processors nor in "
+                    "grl_torch.data.augmentor"
                 )
             chain.append(cls._from_config(args))
         return chain

@@ -6,6 +6,7 @@ from grl_torch.models.base import (
 )
 from grl_torch.models.convert import optimizer_state_from_optax, state_dict_from_flax
 from grl_torch.models.gcn_family import GCNTrunk, GraphCNNDropEdge
+from grl_torch.models.ssl_gcn import DGI, SSL_TASKS, SSLGCN, Discriminator, ReadOut
 from grl_torch.models.layers import (
     Dense,
     Dropout,
@@ -26,6 +27,11 @@ __all__ = [
     "state_dict_from_flax",
     "GCNTrunk",
     "GraphCNNDropEdge",
+    "DGI",
+    "SSL_TASKS",
+    "SSLGCN",
+    "Discriminator",
+    "ReadOut",
     "Dense",
     "Dropout",
     "EdgeDropout",

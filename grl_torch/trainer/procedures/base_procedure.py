@@ -38,6 +38,19 @@ from grl_torch.utils.logging import get_logger
 from grl_torch.utils.tensorboard import MetricsWriter
 
 
+def apply_gradients(optimizer: torch.optim.Optimizer, params, max_grad_norm: Optional[float]) -> None:
+    """The update after ``backward``: a zero gradient for each parameter the
+    loss did not reach (optax updates every leaf of the tree: Adam's step
+    count and any weight decay advance for all of them), the global-norm
+    clip where ``max_grad_norm`` is set, then the optimizer's step."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if max_grad_norm:
+        optim_module.clip_by_global_norm_(params, float(max_grad_norm))
+    optimizer.step()
+
+
 class TrainState:
     """The train state a checkpoint holds: model, optimizer and step."""
 
@@ -212,9 +225,7 @@ class BaseProcedure:
             logits = model((V, A), rngs=rngs, lambda_value=lam)
             loss = criterion(logits, labels)
             loss.backward()
-            if max_grad_norm:
-                optim_module.clip_by_global_norm_(params, float(max_grad_norm))
-            state.optimizer.step()
+            apply_gradients(state.optimizer, params, max_grad_norm)
             preds = logits.detach().argmax(dim=-1)
             return loss.detach(), confusion_matrix(preds, labels, num_classes, ignore_values)
 

@@ -8,7 +8,8 @@ stepwise:
   ``C x C`` matrix once per step, as ``grl_tpu`` does, and derives macro
   P/R/F1 from it;
 * ``scan_steps = K > 1`` is ``grl_tpu``'s ``_train_epoch_scanned``
-  (:meth:`KVProcedure._train_epoch_scanned`): batches wait in buffers by
+  (:meth:`KVProcedure._train_epoch_scanned`; this class's own step only,
+  :meth:`KVProcedure._use_scan`): batches wait in buffers by
   shape until K of one shape are ready, then run as one chunk, which on
   the card is one replay of a CUDA graph captured once for that shape
   (:mod:`grl_torch.trainer.captured`; the first chunk of a shape runs
@@ -164,6 +165,14 @@ class KVProcedure(BaseProcedure):
             self._train_body = self.build_train_body(self.num_classes, self._ignore)
             self._eval_fn = self.build_eval_step(self.num_classes, self._ignore)
             self._lam = torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def _use_scan(self) -> bool:
+        """Chunks of ``scan_steps`` steps (``kv_procedure.py:152-162``) run
+        the plain KV step only: a subclass that overrides
+        ``_run_train_batch`` (self-supervised, joint, graph classification)
+        keeps one step a batch, since a chunk would run the KV step's body
+        in place of its own."""
+        return self._scan_k > 1 and type(self)._run_train_batch is KVProcedure._run_train_batch
 
     def _lambda_value(self, epoch: int) -> float:
         """Per-step cosine lambda (reference: kv_procedure.py:201-204)."""
@@ -323,7 +332,7 @@ class KVProcedure(BaseProcedure):
         """(reference: kv_procedure.py:180-244)."""
         train_metrics = Dictlist()
         epoch_start = time.time()
-        if self._scan_k > 1:
+        if self._use_scan():
             num_nodes = self._train_epoch_scanned(epoch, train_metrics)
         else:
             num_nodes = self._train_epoch_stepwise(epoch, train_metrics)

@@ -152,8 +152,8 @@ def test_next_bucket_matches(n):
 
 
 def test_unported_processors_raise(files):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        datasets.CassiaDataset(make_config(files, {"EdgeLabeling": {}}))
+    with pytest.raises(KeyError, match="neither in grl_torch.data.processors nor in grl_torch.data.augmentor"):
+        datasets.CassiaDataset(make_config(files, {"NoSuchProcessor": {}}))
 
 
 @pytest.mark.parametrize("shuffle, drop_last, prefetch", [(True, False, 2), (False, True, 0)])

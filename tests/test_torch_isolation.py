@@ -5,8 +5,9 @@ makes any import of them fail), then import grl_torch and serve one page,
 take one train step, or train the sparse flagship through
 FullGraphProcedure (K5, K4 and the sparse modules; K6 with the arxiv
 config's plan, and the gather probe's checks; K7 with its ELL residual,
-under one of optax's rules, with the demo entry points imported), on
-``device="cpu"``.
+under one of optax's rules, with the demo entry points imported), or
+pretrain SSLGCN self-supervised and fine-tune the flagship from its
+checkpoint, on ``device="cpu"``.
 A scan of the sources finds no import of either package in grl_torch/ or
 chip_smoke.py.
 """
@@ -193,6 +194,68 @@ TRAIN_TILE = textwrap.dedent(
 )
 
 
+SSL_THEN_FINETUNE = textwrap.dedent(
+    """
+    import sys
+    for name in {blocked!r}:
+        sys.modules[name] = None
+    import json
+    import numpy as np
+    import torch
+    import grl_torch
+    from grl_torch.data.synthetic import synthetic_dataset_files
+    from grl_torch.utils.checkpoint import CheckpointHandler
+
+    data_dir, classes, charset = synthetic_dataset_files({tmp!r}, num_pages=2, seed=0)
+    input_dim = len(json.load(open(charset))["charset"]) + 4
+    tasks = ["node_property", "edge_mask", "pairwise_distance", "pairwise_similarity", "graph_edit_distance", "dgi"]
+    pairs = ["edge_mask", "pairwise_distance", "pairwise_similarity"]
+    process = {{"TextlineEncoding": {{}}, "HeuristicGraphBuilder": {{}}, "NodeLabeling": {{}}}}
+    ssl_process = {{**process, "NodeDropAugmentor": {{"drop_rate": 0.15, "seed": 0}},
+                    "DGINegativeSampling": {{"seed": 0}}, "SSLLabeling": {{"tasks": tasks}}}}
+    extra = {{"node_property": -100, "aug_textline_encoding": 0, "aug_adjacency_matrix": 0,
+              "negative_textline_encoding": 0, "negative_adjacency_matrix": 0}}
+    keep = [f"{{t}}_{{k}}" for t in pairs for k in ("indices", "targets")] + ["graph_edit_distance", "dgi"]
+    padded = {{**{{f"{{t}}_indices": 0 for t in pairs}}, **{{f"{{t}}_targets": -100 for t in pairs}}}}
+    ssl_collate = {{"BucketPadding": {{"quantum": 64, "only_selected_items": True, "extra_keys": extra,
+                                       "keep_keys": keep}},
+                    "NumpyPadding": {{"name_value_pairs": padded}}}}
+
+    def split(process, collate):
+        return {{"data_path": [data_dir], "class_path": classes, "charset_path": charset,
+                 "key_types": ["key", "value"], "batch_size": 2, "data_process": process,
+                 "data_collate": collate}}
+
+    def config(name, model, procedure, process, collate, **extra):
+        return {{"seed": 0, "output_dir": {tmp!r}, "experiment_name": name, "num_epochs": 1,
+                 "max_grad_norm": 5.0, "model": model, "procedure": procedure,
+                 "data_config": {{"dataset": {{"type": "CassiaDataset"}},
+                                  "training": split(process, collate), "validation": split(process, collate)}},
+                 "logging": {{"use_tensorboard": False, "experiment_tracking": False}}, **extra}}
+
+    args = {{"input_dim": input_dim, "output_dim": 15, "num_edges": 6, "net_size": 16}}
+    np.random.seed(0)
+    pre = grl_torch.GNNLearningWarper(config=config(
+        "ssl", {{"type": "SSLGCN", "args": args}}, {{"type": "SSLPretrainProcedure", "args": {{"tasks": tasks}}}},
+        ssl_process, ssl_collate), device="cpu")
+    pre.train()
+    assert pre.trainer.state.step == 1
+    checkpoint = pre.trainer.model_dir + "/" + CheckpointHandler.LATEST
+    assert all(k.startswith(("encoder.", "discriminator.")) for k in torch.load(checkpoint)["model"])
+    collate = {{"BucketPadding": {{"quantum": 64, "only_selected_items": True}}}}
+    fine = grl_torch.GNNLearningWarper(config=config(
+        "finetune", {{"type": "GraphCNNDropEdge", "args": {{**args, "kernel_impl": "pallas"}}}},
+        {{"type": "FinetuneKVProcedure", "args": {{}}}}, process, collate,
+        optimize_settings={{"ssl_pretrain_path": checkpoint}}), device="cpu")
+    fine.train()
+    assert fine.trainer.state.step == 1 and fine.trainer.loaded == (0, 0)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("SSL", fine.trainer.loaded)
+    """
+)
+
+
 def run_blocked(script: str, tmp_path) -> str:
     # One OpenMP thread: the suite's worker processes share the cores.
     env = {**os.environ, "OMP_NUM_THREADS": "1",
@@ -230,6 +293,13 @@ def test_tile_path_and_entry_points_run_with_jax_and_grl_tpu_blocked(tmp_path):
     bfloat16 tiles, project-first gcn3) under Lion, and the demo modules
     and the reorder imported."""
     assert "TILE" in run_blocked(TRAIN_TILE, tmp_path)
+
+
+def test_ssl_pretraining_then_finetuning_with_jax_and_grl_tpu_blocked(tmp_path):
+    """One SSL pretraining step of every task (DGI too) through the warper,
+    then one fine-tuning step of the flagship on the kernel path from its
+    checkpoint (a DGI tree: nothing loads, as in grl_tpu)."""
+    assert "SSL" in run_blocked(SSL_THEN_FINETUNE, tmp_path)
 
 
 def imported_roots(path: Path):
