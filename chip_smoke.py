@@ -146,14 +146,23 @@ before the result line is printed; no phase's failure is passed over.
    planning seconds of the LPA order, the tile tables and the residual),
    with K7 under a wrong relation mix and K7's backward with its mask keyed
    on swapped endpoints planted as the faults.
-9. ``demo``: the entry points as subprocesses from a scratch working
+9. ``tile_variants``: the ``tile`` phase's config with ``tile_dtype`` left
+   out of the kernel plan (float32 tiles, the default), in two legs: the
+   config's bfloat16 compute (K7 on its ``persistent_f32tiles`` route) and
+   ``compute_dtype: float32`` (``persistent_tf32``, 3xTF32). Each leg is
+   the ``tile`` phase's run with its checks and measurements (the launch
+   counts by direction and by route, all on the leg's route and equal to
+   the ``tile`` phase's by direction; a replayed chunk equal to the same
+   chunk run eagerly; the replayed step's ms), and ``TILE_PAIRS`` in the
+   leg's dtype.
+10. ``demo``: the entry points as subprocesses from a scratch working
    directory: ``python -m grl_torch.demo_training`` on
    ``configs/arxiv_full_graph.yaml`` for 20 epochs and on
    ``configs/synthetic_kv.yaml`` for one, then ``python -m
    grl_torch.demo_inference`` on ``configs/synthetic_kv_infer.yaml`` with
    that checkpoint and a synthetic page: exit codes, the printed lines and
    the annotated boxes.
-10. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
+11. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
    counterpart of ``scripts/probe_gather.py``: index_select rates (A-D) and
    the four Pallas probes as CUDA kernels (``grl_torch/csrc/
    gather_probe.cu``), each held against its plain version (E1, E2, F
@@ -188,14 +197,15 @@ its layout (``group``, ``blocks``) and its in-L2 floor
 (``in_l2_device_ms``: h and g folded onto rows that fit the L2,
 :func:`fold`), and two launches, one slice and two must give the planned
 bits. K7 runs all four directions on the clustered arxiv plan of the
-``tile`` phase (F = 256 and 512, bf16 and f32 operands on bf16 tiles;
-within SPARSE_TOL of its plain version, two launches equal to the bit; its
-rows hold the route and launch plan ``tile.launch_plan`` picks (bf16 x
-bf16 the persistent route: ``BN``, ``chunks``, ``consumers``, ``stages``,
-``smem``, ``ctas``), the time at rate 0 (``rate0_ms``, no cell hashed),
-``torch.bmm`` on the masked, gathered stacks as ``library_ms``, on the
-persistent route the simple route's kernel on the same operands at rate
-0.3 and 0 (``simple_ms``, ``simple_rate0_ms``), and, in bf16 at F =
+``tile`` phase (F = 256 and 512, bf16 and f32 operands on bf16 and on
+float32 tiles; within SPARSE_TOL of its plain version, two launches equal
+to the bit; its rows hold the route and launch plan ``tile.launch_plan``
+picks (``persistent``, ``persistent_f32tiles`` or ``persistent_tf32``:
+``BN``, ``chunks``, ``consumers``, ``stages``, ``smem``, ``ctas``), the
+time at rate 0 (``rate0_ms``, no cell hashed), ``torch.bmm`` on the
+masked, gathered stacks as ``library_ms``, the simple route's kernel on
+the same operands at rate 0.3 and 0 (``simple_ms``, ``simple_rate0_ms``),
+and, in bf16 at F =
 256, K6 over every edge of the same graph planned as the arxiv config's
 ELL and over the tile plan's residual alone, with the break-even edges a
 tile they give) and on a small L = 3 graph with f32 and bf16 tiles (B =
@@ -226,9 +236,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit: HBM3
 # bandwidth, bf16 tensor-core rate, float32 rate outside the tensor cores,
 # and float32 products in 3xTF32 on the tensor cores (three TF32 products,
-# at 495 TFLOP/s, for each float32 one), as the float32 K1/K3 run them.
+# at 495 TFLOP/s, for each float32 one), as the float32 K1/K3 run them, or
+# in 2xTF32 where one factor is exact in TF32 (K7's bf16 tiles under
+# float32 operands: two TF32 products for each float32 one).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xTF32": 495e12 / 3}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xTF32": 495e12 / 3, "2xTF32": 495e12 / 2}
 
 B, L = 8, 6
 KERNEL_NS = (64, 192, 256)
@@ -1544,14 +1556,16 @@ def k7_case(torch, plan, direction: str, dtype_name: str, F: int, flush, seed: i
     # The real tiles and their columns read once (a padding slot adds exact
     # zeros, so the function never needs it), the row tables once, X read
     # once, out written once; 2 B^2 F operations a tile. float32 products
-    # are bounded at the card's float32 product rate (3xTF32 on the tensor
-    # cores, as for the f32 K1/K3), with the bound at the rate outside them,
-    # where K7's f32 FMA runs, beside it (bound_fp32_ms).
+    # are bounded at the card's float32 product rate on the tensor cores:
+    # 3xTF32 on float32 tiles, as for the f32 K1/K3, and 2xTF32 on bf16
+    # tiles, whose cells are exact in TF32; the bound at the rate outside
+    # them, where the simple route's f32 FMA runs, beside it (bound_fp32_ms).
     nbytes = (plan.num_tiles * (plan.B * plan.B * plan.tiles.element_size() + 4) + 12 * plan.rows.shape[0]
               + 4 * plan.row_of_block.numel() + itemsize * (X.numel() + out.numel()))
     flops = 2 * plan.B * plan.B * F * plan.num_tiles
     f32 = dtype_name == "float32"
-    bound_ms, bound_by = sparse_bound("3xTF32" if f32 else dtype_name, nbytes, flops)
+    peak = ("2xTF32" if plan.tiles.dtype == torch.bfloat16 else "3xTF32") if f32 else dtype_name
+    bound_ms, bound_by = sparse_bound(peak, nbytes, flops)
     if f32:
         row["bound_fp32_ms"] = sparse_bound("float32", nbytes, flops)[0]
     row.update({
@@ -1566,19 +1580,17 @@ def k7_case(torch, plan, direction: str, dtype_name: str, F: int, flush, seed: i
         # No cell hashed: the staging and the products alone.
         "rate0_ms": time_ms(torch, lambda: tile.tile_accumulate(X, plan, mask_seed, 0.0, direction), flush),
     })
-    if layout.route != "simple":
-        # The simple route's kernel on the same operands at both rates,
-        # held to the plain version too.
-        simple = tile._launch(X, plan, mask_seed, RATE, direction, route="simple")
-        torch.cuda.synchronize()
-        check_close(torch, simple, ref, dtype_name, f"{name} {what} {dtype_name} F={F} simple route",
-                    SPARSE_TOL[dtype_name])
-        row.update({
-            "simple_ms": time_ms(torch, lambda: tile._launch(X, plan, mask_seed, RATE, direction, route="simple"),
-                                 flush),
-            "simple_rate0_ms": time_ms(torch, lambda: tile._launch(X, plan, mask_seed, 0.0, direction,
-                                                                   route="simple"), flush),
-        })
+    # The simple route's kernel on the same operands at both rates, held
+    # to the plain version too.
+    simple, _ = tile._launch(X, plan, mask_seed, RATE, direction, route="simple")
+    torch.cuda.synchronize()
+    check_close(torch, simple, ref, dtype_name, f"{name} {what} {dtype_name} F={F} simple route",
+                SPARSE_TOL[dtype_name])
+    row.update({
+        "simple_ms": time_ms(torch, lambda: tile._launch(X, plan, mask_seed, RATE, direction, "simple"), flush),
+        "simple_rate0_ms": time_ms(torch, lambda: tile._launch(X, plan, mask_seed, 0.0, direction, "simple"),
+                                   flush),
+    })
     return row
 
 
@@ -1596,9 +1608,11 @@ def k6_direction_ms(torch, tables, F: int, flush, seed: int) -> dict:
 
 def k7_keep_set(torch, kernel, dtype_name: str) -> float:
     """V = I on the small graph: K7's forward reads back the masked tiles,
-    equal to its plain version bit for bit; the kept cells are exactly the
-    tiles' nonzero cells that the pair hash keeps under each relation's mix;
-    the transposed tables keep the same edges. Returns the kept share."""
+    equal to its plain version bit for bit (float32 tiles under float32
+    operands: 3xTF32 gives each masked cell back as its TF32 hi plus lo
+    parts, within SPARSE_TOL of it); the kept cells are exactly the tiles'
+    nonzero cells that the pair hash keeps under each relation's mix; the
+    transposed tables keep the same edges. Returns the kept share."""
     from grl_torch.ops import hashing, tile
 
     N, L = kernel.num_nodes, kernel.L
@@ -1608,8 +1622,12 @@ def k7_keep_set(torch, kernel, dtype_name: str) -> float:
     full = tile.tile_accumulate(eye, kernel.tables.fwd, seed, 0.0, "forward").view(N, L, N)
     back = tile.tile_accumulate(eye, kernel.tables.bwd, seed, RATE, "projected backward").view(N, L, N)
     torch.cuda.synchronize()
-    require(torch.equal(ahead.view(N, L * N), tile.tile_apply_reference(eye, kernel.tables.fwd, seed, RATE)),
-            f"K7's V = I readback differs from its plain version ({dtype_name})")
+    ref = tile.tile_apply_reference(eye, kernel.tables.fwd, seed, RATE)
+    what = f"K7's V = I readback ({kernel.tables.fwd.tiles.dtype} tiles, {dtype_name})"
+    if dtype_name == "float32" and kernel.tables.fwd.tiles.dtype == torch.float32:
+        check_close(torch, ahead.view(N, L * N), ref, dtype_name, what, SPARSE_TOL[dtype_name])
+    else:
+        require(torch.equal(ahead.view(N, L * N), ref), f"{what} differs from its plain version")
     ids = torch.arange(N, device="cuda")
     for r in range(L):
         kept = hashing.keep_pair_bits(ids[:, None], ids[None, :], seed, RATE, tile._rel_seed_mix(r))
@@ -1642,10 +1660,11 @@ def k7_adjoint(torch, plan_pair, F: int, what: str) -> dict:
 
 def tile_kernel_cases(torch, flush):
     """K7 rows on the clustered arxiv plan (four directions, F = 256 and
-    512, bf16 and f32 operands on bf16 tiles), beside K6 over all the
-    graph's edges planned as the arxiv config's ELL and over the tile
-    plan's residual alone; the small L = 3 graph (f32 and bf16 tiles, both
-    operand dtypes, untimed), its keep set, and the adjoint check."""
+    512, bf16 and f32 operands on bf16 and on float32 tiles), beside K6
+    over all the graph's edges planned as the arxiv config's ELL and over
+    the tile plan's residual alone; the small L = 3 graph (f32 and bf16
+    tiles, both operand dtypes, untimed), its keep set, and the adjoint
+    check."""
     import numpy as np
 
     from grl_torch.config import load_config
@@ -1664,13 +1683,24 @@ def tile_kernel_cases(torch, flush):
         f"planned as tiles ({TILE_PLAN}) in {plan_s:.2f} s ({kernel.plan_seconds}): {kernel.tiles_total} tiles "
         f"covering {kernel.covered_edges} edges; forward buckets {fwd.shapes}, backward {bwd.shapes}; "
         f"{fwd.tiles.numel() * fwd.tiles.element_size() / 1e6:.1f} MB of tiles a direction")
+    # The float32 tables of this graph without a second LPA order: its
+    # weights are 1, so every cell is a small integer, which bf16 holds
+    # exactly, and the bf16 tables cast to float32 are the planner's float32
+    # tables.
+    cells = torch.cat([fwd.tiles, bwd.tiles]).float()
+    require(bool((cells == cells.round()).all()) and float(cells.max()) <= 256,
+            "the clustered plan's tile cells are not small integers")
+    del cells
+    f32_tables = [plan._replace(tiles=plan.tiles.float(), launch_cache={}) for plan in (fwd, bwd)]
     rows = []
-    for dtype_name in ("float32", "bfloat16"):
-        for F in K5_FS:
-            for direction in tile.DIRECTIONS:
-                plan = bwd if "backward" in direction else fwd
-                rows.append(k7_case(torch, plan, direction, dtype_name, F, flush, seed=F + len(rows),
-                                    what="clustered arxiv"))
+    for tables in ((fwd, bwd), f32_tables):
+        for dtype_name in ("float32", "bfloat16"):
+            for F in K5_FS:
+                for direction in tile.DIRECTIONS:
+                    plan = tables[1] if "backward" in direction else tables[0]
+                    rows.append(k7_case(torch, plan, direction, dtype_name, F, flush, seed=F + len(rows),
+                                        what="clustered arxiv"))
+    del f32_tables
     # K7 plus the residual on K6 against K6 over every edge, bf16 at the
     # path's width (F = 256 in all four directions).
     all_ell = ell.ELLGraphKernel(data.senders, data.receivers, data.relations, data.weights, N, data.num_relations,
@@ -1696,8 +1726,7 @@ def tile_kernel_cases(torch, flush):
                   f"{row['k6_all_edges_ms']:.4f} ms (device {row['k6_all_edges_device_ms']:.4f}); break-even "
                   + (f"{breakeven:.0f} edges a tile" if breakeven is not None else "none (K6 saved no time)")
                   if "k6_residual_ms" in row else "")
-        simple = (f"; the simple route {row['simple_ms']:.4f} ms, at rate 0 "
-                  f"{row['simple_rate0_ms']:.4f} ms" if "simple_ms" in row else "")
+        simple = f"; the simple route {row['simple_ms']:.4f} ms, at rate 0 {row['simple_rate0_ms']:.4f} ms"
         simt = row.get("bound_fp32_ms")
         log(f"[kernel] {row['kernel']} {row['dtype']:>8} F={row['F']} ({row['tiles']} tiles in {row['slots']} "
             f"slots, {row['tile_dtype']} tiles): {row['plan_route']} route (BN {row['BN']} x {row['chunks']}, "
@@ -3283,11 +3312,14 @@ def phase_ssl(torch, card: str):
 # full_graph and ell
 # ---------------------------------------------------------------------------
 def sparse_counts():
-    """Every kernel's launches as the device ran them."""
+    """Every kernel's launches as the device ran them (K7's by direction
+    and by route too: ``tile.ROUTES``)."""
     from grl_torch.ops.ell import DIRECTIONS
+    from grl_torch.ops.tile import ROUTES
 
     return counts(("K5 forward", "K5 backward", "K4", *K4B, *(f"K6 {d}" for d in DIRECTIONS),
-                   "K7", *(f"K7 {d}" for d in DIRECTIONS), "K3", "K1", "K2", *D_COUNTS))
+                   "K7", *(f"K7 {d}" for d in DIRECTIONS), *(f"K7 {r}" for r in ROUTES), "K3", "K1", "K2",
+                   *D_COUNTS))
 
 
 # Launch counts of K4b's two walks and of D's two directions.
@@ -3298,19 +3330,22 @@ D_COUNTS = ("D forward", "D backward")
 DROPOUTS_A_FORWARD = 5
 
 
-def expected_launches(trainer, steps: int, evals: int, dropout_rate=None):
+def expected_launches(trainer, steps: int, evals: int, dropout_rate=None, dtype_name=None):
     """The kernel launches of ``steps`` train steps and ``evals`` eval
     forwards of ``trainer``'s model on its planned graph: a forward runs
     three GraphConvs (gcn3 through the projected tables where the kernel
     planned them) and K4 when the graph carries it; the backward takes
     each GraphConv's input gradient (gcn1's too: emb1 is trained) and
-    K4b's two walks. The tile kernel runs K7 on its tiles and K6 on its
-    residual in each of those directions (K6 alone where it planned no
-    tile). A train step's forward runs D five times where the dropout rate
-    (by default the model's) is above 0, and its backward as often; an
-    eval runs none."""
+    K4b's two walks. The tile kernel runs K7 on its tiles, every launch on
+    the route of its tile dtype under the compute dtype (``dtype_name``, by
+    default the model's), and K6 on its residual in each of those
+    directions (K6 alone where it planned no tile). A train step's forward
+    runs D five times where the dropout rate (by default the model's) is
+    above 0, and its backward as often; an eval runs none."""
+    import torch
+
     from grl_torch.ops.ell import ELLGraphKernel
-    from grl_torch.ops.tile import TileGraphKernel
+    from grl_torch.ops.tile import TileGraphKernel, route_for
 
     expected = dict.fromkeys(sparse_counts(), 0)
     if dropout_rate is None:
@@ -3330,6 +3365,8 @@ def expected_launches(trainer, steps: int, evals: int, dropout_rate=None):
         if tiles:
             expected.update({f"K7 {d}": n for d, n in by_direction.items()})
             expected["K7"] = sum(by_direction.values())
+            dtype = getattr(torch, dtype_name or trainer.model.compute_dtype or "float32")
+            expected[f"K7 {route_for(graph.kernel.tables.fwd.tiles.dtype, dtype)}"] = expected["K7"]
     elif graph.kernel is not None:
         expected.update({"K5 forward": 3 * forwards, "K5 backward": 3 * steps})
     if graph.atten_kernel is not None:
@@ -3611,9 +3648,9 @@ def full_graph_comparisons(torch, trainer, starts, dtype_names=("float32", "bflo
                                                      swapped_steps)
                 expected = dict.fromkeys(sparse_counts(), 0)
                 if trainer.device.type == "cuda":
-                    off = expected_launches(trainer, swapped_steps, 0, dropout_rate)
+                    off = expected_launches(trainer, swapped_steps, 0, dropout_rate, dtype_name)
                     expected = {k: v - off[k] if swapped_out is ALL or k in swapped_out else v
-                                for k, v in expected_launches(trainer, 2, 0, dropout_rate).items()}
+                                for k, v in expected_launches(trainer, 2, 0, dropout_rate, dtype_name).items()}
                 require(runs[key][3] == expected, f"{name} full-graph steps launched {runs[key][3]}, "
                         f"expected {expected}")
             return runs[key]
@@ -3683,12 +3720,13 @@ def ell_config(tmp: str):
     return config
 
 
-def train_sparse_path(torch, card: str, tag: str, config, pairs, describe=None):
+def train_sparse_path(torch, card: str, tag: str, config, pairs, describe=None,
+                      dtype_names=("float32", "bfloat16")):
     """``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on ``config``:
     the main path with its launch counts, then a step timed on the card, a
-    traced window, the learning check and the kernel-versus-plain pairs.
-    ``describe(trainer)``, where given, checks the planned graph and returns
-    what the record keeps of it."""
+    traced window, the learning check and the kernel-versus-plain pairs in
+    each of ``dtype_names``. ``describe(trainer)``, where given, checks the
+    planned graph and returns what the record keeps of it."""
     import grl_torch
 
     start = time.perf_counter()
@@ -3858,7 +3896,7 @@ def train_sparse_path(torch, card: str, tag: str, config, pairs, describe=None):
     }
     del learner
     chunk_check = captured_chunk_check(torch, trainer, K, starts["learned"][0], tag)
-    comparison, failures = full_graph_comparisons(torch, trainer, starts, pairs=pairs, tag=tag)
+    comparison, failures = full_graph_comparisons(torch, trainer, starts, dtype_names, pairs=pairs, tag=tag)
     require(learn_acc > FULL_GRAPH_LEARN_ACC, f"{tag} learning check failed: accuracy {learn_acc}")
     require(not failures, "; ".join(failures))
     return {
@@ -3899,22 +3937,64 @@ def phase_tile(torch, card: str):
     """The arxiv config with kernel_impl tile, TILE_PLAN and 661 communities
     (K7 on the tiles, K6 on the residual)."""
     config = tile_config(tempfile.mkdtemp(prefix="grl_torch_tile_"))
+    return train_sparse_path(torch, card, "tile", config, TILE_PAIRS, describe=describe_tiles("tile", "bfloat16"))
+
+
+def describe_tiles(tag: str, tile_dtype: str):
+    """The tile paths' check of the planned graph: the clustered plan's
+    tiles and covered edges, in ``tile_dtype``."""
 
     def describe(trainer):
         from grl_torch.ops.tile import TileGraphKernel
 
         kernel = trainer.graph.kernel
-        require(isinstance(kernel, TileGraphKernel), f"the tile config planned {type(kernel).__name__}")
+        require(isinstance(kernel, TileGraphKernel), f"the {tag} config planned {type(kernel).__name__}")
         found = {"tiles_total": kernel.tiles_total, "covered_edges": kernel.covered_edges}
-        require(found == TILE_EXPECTED, f"the tile phase planned {found}, expected {TILE_EXPECTED}")
+        require(found == TILE_EXPECTED, f"the {tag} phase planned {found}, expected {TILE_EXPECTED}")
+        dtype = str(kernel.tables.fwd.tiles.dtype).split(".")[-1]
+        require(dtype == tile_dtype, f"the {tag} phase planned {dtype} tiles, expected {tile_dtype}")
         residual = trainer.graph.num_edges() - kernel.covered_edges
-        log(f"[tile] {kernel.tiles_total} tiles of {kernel.tile_size} x {kernel.tile_size} (threshold "
+        log(f"[{tag}] {kernel.tiles_total} {dtype} tiles of {kernel.tile_size} x {kernel.tile_size} (threshold "
             f"{kernel.tile_min_edges} edges) cover {kernel.covered_edges} edges, {residual} on the ELL residual; "
             f"planning seconds: {kernel.plan_seconds} (LPA, the tile tables, the residual's tables)")
-        return {**found, "residual_edges": residual, "tile_min_edges": kernel.tile_min_edges,
+        return {**found, "residual_edges": residual, "tile_min_edges": kernel.tile_min_edges, "tile_dtype": dtype,
                 "forward_buckets": kernel.tables.fwd.shapes, "backward_buckets": kernel.tables.bwd.shapes}
 
-    return train_sparse_path(torch, card, "tile", config, TILE_PAIRS, describe=describe)
+    return describe
+
+
+# The tile_variants phase's legs: the compute dtype, on float32 tiles, and
+# the K7 route it takes.
+TILE_VARIANTS = {"bfloat16": "persistent_f32tiles", "float32": "persistent_tf32"}
+
+
+def phase_tile_variants(torch, card: str, tile_launches):
+    """The tile phase's config with tile_dtype left out of its kernel plan
+    (float32 tiles, the default), in the config's bf16 compute and in
+    float32: every K7 launch on the leg's route (``TILE_VARIANTS``), as
+    many a direction as the tile phase's ``tile_launches``."""
+    from grl_torch.ops.tile import DIRECTIONS, ROUTES
+
+    legs = {}
+    for dtype_name, route in TILE_VARIANTS.items():
+        config = tile_config(tempfile.mkdtemp(prefix=f"grl_torch_tile_{dtype_name}_"))
+        del config["kernel_plan"]["tile_dtype"]
+        config["model"]["args"]["compute_dtype"] = dtype_name
+        tag = f"tile_variants {dtype_name}"
+        leg = train_sparse_path(torch, card, tag, config, TILE_PAIRS, describe=describe_tiles(tag, "float32"),
+                                dtype_names=(dtype_name,))
+        launched = leg["launches"]
+        by_route = {r: launched[f"K7 {r}"] for r in ROUTES}
+        require(by_route == {r: launched["K7"] if r == route else 0 for r in ROUTES} and launched["K7"] > 0,
+                f"{tag}: K7 ran {by_route} by route, expected all {launched['K7']} on {route}")
+        for d in DIRECTIONS:
+            require(launched[f"K7 {d}"] == tile_launches[f"K7 {d}"],
+                    f"{tag}: K7 {d} ran {launched[f'K7 {d}']} times, the tile phase {tile_launches[f'K7 {d}']}")
+        log(f"[{tag}] K7 by route {by_route}, by direction "
+            f"{ {d: launched[f'K7 {d}'] for d in DIRECTIONS} } (the tile phase's, on bf16 tiles); one step replayed "
+            f"{leg['replayed_step_ms']:.3f} ms, eager {leg['step_ms']:.3f} ms")
+        legs[dtype_name] = {**leg, "route": route}
+    return legs
 
 
 # ---------------------------------------------------------------------------
@@ -4088,6 +4168,8 @@ def main() -> int:
         timed("ell")
         record["tile"] = tile_path = phase_tile(torch, card)
         timed("tile")
+        record["tile_variants"] = tile_variants = phase_tile_variants(torch, card, tile_path["launches"])
+        timed("tile_variants")
         record["demo"] = phase_demo(torch, card)
         timed("demo")
         record["gather_probe"] = probe = phase_gather_probe(torch, card, kernel_rows)
@@ -4179,15 +4261,21 @@ def main() -> int:
                               "tile": tp[f"K6 {direction}"]},
             main_row(f"K6 {direction}", F=NET_SIZE),
             f"bf16 N=169343 E=1184773 L=1 F=256 rate=0.3, the config's kernel_plan ({direction} tables)")
-    for direction in ("forward", "backward", "projected forward", "projected backward"):
-        sources[f"K7 {direction}"] = (
-            f"K7 tile-dense aggregation with the pair-hash DropEdge ({direction})", "grl_torch/csrc/tile.cu",
-            "grl_tpu/ops/tile.py:220 _apply_tables, via tile_aggregate (:502) / tile_aggregate_projected (:565) "
-            "(XLA; a hand kernel for XLA code)",
-            {"tile": tp[f"K7 {direction}"], "full_graph": fg[f"K7 {direction}"], "ell": el[f"K7 {direction}"]},
-            main_row(f"K7 {direction}", F=NET_SIZE),
-            f"bf16 operands and tiles, N=169343 E=1175131 ({TILE_COMMUNITIES} communities) L=1 F=256 rate=0.3, "
-            f"B=128: {TILE_EXPECTED['tiles_total']} tiles ({direction} tables)")
+    k7_replaces = ("grl_tpu/ops/tile.py:220 _apply_tables, via tile_aggregate (:502) / tile_aggregate_projected "
+                   "(:565) (XLA; a hand kernel for XLA code)")
+    k7_routes = {"persistent": ("", "bfloat16", "bfloat16", {"tile": tp, "full_graph": fg, "ell": el}),
+                 **{route: (f", {route} route", dtype_name, "float32",
+                            {f"tile_variants {dtype_name}": tile_variants[dtype_name]["launches"]})
+                    for dtype_name, route in TILE_VARIANTS.items()}}
+    for route, (suffix, dtype_name, tile_dtype, paths) in k7_routes.items():
+        for direction in ("forward", "backward", "projected forward", "projected backward"):
+            sources[f"K7 {direction}{suffix}"] = (
+                f"K7 tile-dense aggregation with the pair-hash DropEdge ({direction}; {tile_dtype} tiles under "
+                f"{dtype_name} operands, the {route} route)", "grl_torch/csrc/tile.cu", k7_replaces,
+                {path: launched[f"K7 {direction}"] for path, launched in paths.items()},
+                main_row(f"K7 {direction}", dtype_name, F=NET_SIZE, tile_dtype=tile_dtype),
+                f"{dtype_name} operands, {tile_dtype} tiles, N=169343 E=1175131 ({TILE_COMMUNITIES} communities) "
+                f"L=1 F=256 rate=0.3, B=128: {TILE_EXPECTED['tiles_total']} tiles ({direction} tables)")
     pallas_lines = {"E1": ":154 vmem_take_kernel", "E2": ":177 vmem_tala_kernel", "F": ":219 windowed_kernel",
                     "G": ":285 dma_kernel"}
     shapes = probe["shapes"]

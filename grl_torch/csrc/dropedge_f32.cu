@@ -307,34 +307,6 @@ constexpr int kFwdStageFloats = kBM * kFwdAStride + kFwdBK * kFwdVStride;
 constexpr int kBTFloats = kBN * kFwdBK;
 constexpr int kFwdSmemBytes = 1024 + 4 * kBTFloats * 4 + kFwdStages * kFwdStageFloats * 4;
 
-// A float32 x split into TF32 hi + lo, x - hi - lo within 2^-22 |x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// d (64 x 128, the warpgroup's accumulators) += a (64 x 8, TF32, from
-// registers) @ b (8 x 128, TF32, K-major in shared memory at descriptor b).
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 // Accumulator d[i] of thread tid (of 256) lies at tile row
 // 64 (tid / 128) + 16 (tid / 32 % 4) + (tid % 32) / 4 + 8 ((i / 2) % 2) and
 // column 8 (i / 4) + 2 (tid % 4) + i % 2 (wgmma's m64nN fragment, one
@@ -494,7 +466,7 @@ dropedge_fwd_f32_kernel(const float* __restrict__ A, const float* __restrict__ V
       const int q = tid / kBN + 2 * j;
       uint32_t h[4], l[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(Vs[(4 * q + e) * kFwdVStride + n], h[e], l[e]);
+      for (int e = 0; e < 4; ++e) grl::split_tf32(Vs[(4 * q + e) * kFwdVStride + n], h[e], l[e]);
       const int at = n * kFwdBK + ((q ^ (n & 7)) << 2);
       *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
       *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
@@ -520,18 +492,18 @@ dropedge_fwd_f32_kernel(const float* __restrict__ A, const float* __restrict__ V
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float* p = As + row * kFwdAStride + 8 * kk + t;
-      split_tf32(p[0], a_hi[kk][0], a_lo[kk][0]);                    // (row, t)
-      split_tf32(p[8 * kFwdAStride], a_hi[kk][1], a_lo[kk][1]);      // (row + 8, t)
-      split_tf32(p[4], a_hi[kk][2], a_lo[kk][2]);                    // (row, t + 4)
-      split_tf32(p[8 * kFwdAStride + 4], a_hi[kk][3], a_lo[kk][3]);  // (row + 8, t + 4)
+      grl::split_tf32(p[0], a_hi[kk][0], a_lo[kk][0]);                    // (row, t)
+      grl::split_tf32(p[8 * kFwdAStride], a_hi[kk][1], a_lo[kk][1]);      // (row + 8, t)
+      grl::split_tf32(p[4], a_hi[kk][2], a_lo[kk][2]);                    // (row, t + 4)
+      grl::split_tf32(p[8 * kFwdAStride + 4], a_hi[kk][3], a_lo[kk][3]);  // (row + 8, t + 4)
     }
     grl::fence_registers(acc);
     grl::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // k-step kk: 8 floats = 32 bytes along each K-major row
-      wgmma_tf32(acc, a_lo[kk], grl::descriptor(hi + 8 * kk, 16, 1024));
-      wgmma_tf32(acc, a_hi[kk], grl::descriptor(lo + 8 * kk, 16, 1024));
-      wgmma_tf32(acc, a_hi[kk], grl::descriptor(hi + 8 * kk, 16, 1024));
+      grl::wgmma_tf32<kBN>(acc, a_lo[kk], grl::descriptor(hi + 8 * kk, 16, 1024));
+      grl::wgmma_tf32<kBN>(acc, a_hi[kk], grl::descriptor(lo + 8 * kk, 16, 1024));
+      grl::wgmma_tf32<kBN>(acc, a_hi[kk], grl::descriptor(hi + 8 * kk, 16, 1024));
     }
     grl::wgmma_commit();
   };

@@ -35,12 +35,15 @@ through :func:`~grl_torch.ops.hashing.hash_keep_pair`, a float32 batched
 product, the stitch by ``inv_perm``) for CPU tensors, and launches K7
 (``grl_torch/csrc/tile.cu``) for CUDA tensors, or raises. One launch covers
 every relation and bucket of a call, in one of :data:`DIRECTIONS`; launches
-are counted as ``K7`` and ``K7 <direction>`` in :mod:`grl_torch.ops.launches`.
-:func:`launch_plan` lays a launch out on the host: bf16 tiles under bf16
-operands take the persistent route (a CTA a SM walking a list of work
-items through a ring of staged tile and source slices, ``wgmma``), every
-other dtype pair the simple route (a CTA an output tile, ``mma.sync`` or
-FMA).
+are counted as ``K7``, ``K7 <direction>`` and ``K7 <route>`` in
+:mod:`grl_torch.ops.launches`. :func:`launch_plan` lays a launch out on the
+host, on the persistent route of its dtype pair (:func:`route_for`): a CTA
+a SM walking a list of work items through a ring of staged tile and source
+slices into ``wgmma``; bf16 tiles under bf16 operands on ``persistent``,
+float32 tiles under bf16 operands on ``persistent_f32tiles`` (each cell
+masked and rounded to bf16 once, in shared memory), float32 operands on
+``persistent_tf32`` (3xTF32). The first kernel, ``simple`` (a CTA an
+output tile, ``mma.sync`` or FMA), runs only where a caller forces it.
 """
 from __future__ import annotations
 
@@ -65,16 +68,21 @@ DIRECTIONS = ("forward", "backward", "projected forward", "projected backward")
 # CUDA K7 works on 64-row parts of a block (grl_torch/csrc/tile.cu).
 _CUDA_ROWS = 64
 _MAX_BLOCKS = 65535
-# K7's routes (:func:`launch_plan`): "persistent" for bfloat16 tiles under
-# bfloat16 operands, "simple" (a CTA an output tile of 64 x 64) for the rest.
-ROUTES = ("persistent", "simple")
-# The persistent route's staged boxes: 64 x 64 bfloat16 (8 KB), 128-byte
-# rows; a work item's output columns BN (a multiple of 64, at most 256);
-# its consumer warpgroups' bf16 staging boxes for the epilogue (64 rows of
-# 64 + 8 columns each); the card's shared memory a block; the ring's depth
-# at most.
+# K7's routes (:func:`launch_plan`): the persistent route of each dtype
+# pair (:func:`route_for`), and "simple" (a CTA an output tile of 64 x 64),
+# which runs only where a caller forces it. A persistent route's index here
+# is its code in csrc/tile.cu (enum Route).
+ROUTES = ("persistent", "persistent_f32tiles", "persistent_tf32", "simple")
+# The persistent routes' staged pieces: bfloat16 source boxes of 64 x 64
+# (8 KB), 128-byte rows; the TF32 route's steps of 32 source rows, whose
+# tile slices pad each row by 16 bytes; a work item's output columns BN (a
+# multiple of 64, at most 256, on the TF32 route 128); the consumer
+# warpgroups' bf16 staging boxes for the epilogue (64 rows of 64 + 8
+# columns each, bf16 outputs only); the card's shared memory a block; the
+# ring's depth at most.
 _BOX_BYTES = 64 * 64 * 2
-_MAX_BN = 256
+_TF32_ROWS = 32
+_MAX_BN = {"persistent": 256, "persistent_f32tiles": 256, "persistent_tf32": 128}
 _EPILOGUE_BYTES = 64 * 72 * 2
 SMEM_LIMIT = 232448
 _MAX_STAGES = 8
@@ -391,7 +399,7 @@ def tile_apply_reference(X: torch.Tensor, plan: TilePlan, seed: Seed = 0, rate: 
 class LaunchPlan(NamedTuple):
     """One K7 launch laid out on the host (:func:`launch_plan`).
 
-    The persistent route: ``ctas`` CTAs, each of one producer warpgroup and
+    A persistent route: ``ctas`` CTAs, each of one producer warpgroup and
     ``consumers`` consumer warpgroups (one a 64-row part of a work item);
     CTA i walks work items ``items[cta_first[i]:cta_first[i + 1]]``, each
     ``(block * parts + part) * chunks + chunk``: ``64 * consumers`` rows of
@@ -423,17 +431,30 @@ class LaunchPlan(NamedTuple):
     stacked: bool
 
 
-def stage_bytes(BN: int, consumers: int) -> int:
-    """One stage of the persistent route's ring: a 64 x 64 tile slice for
-    each consumer warpgroup and 64 source rows of BN columns."""
-    return _BOX_BYTES * (consumers + BN // 64)
+def route_for(tile_dtype: torch.dtype, x_dtype: torch.dtype) -> str:
+    """The persistent route of a (tile dtype, operand dtype) pair."""
+    if x_dtype == torch.float32:
+        return "persistent_tf32"
+    return "persistent" if tile_dtype == torch.bfloat16 else "persistent_f32tiles"
 
 
-def persistent_smem(BN: int, consumers: int, stages: int) -> int:
+def stage_bytes(BN: int, consumers: int, route: str = "persistent", cell: int = 2) -> int:
+    """One stage of a persistent route's ring, for tiles of ``cell`` bytes a
+    cell: a tile slice of 64 rows for each consumer warpgroup and its source
+    rows of BN columns. The bf16-operand routes stage 64 contraction
+    columns (BN / 64 bf16 boxes of the source); the TF32 route 32, its
+    slice rows padded by 16 bytes, the source as TF32 hi and lo copies."""
+    if route == "persistent_tf32":
+        return consumers * 64 * (_TF32_ROWS * cell + 16) + 2 * BN * _TF32_ROWS * 4
+    return consumers * 64 * 64 * cell + (BN // 64) * _BOX_BYTES
+
+
+def persistent_smem(BN: int, consumers: int, stages: int, route: str = "persistent", cell: int = 2) -> int:
     """Dynamic shared memory of a persistent CTA: 1024 bytes of alignment
-    slack, the ring, the consumers' epilogue boxes and a full and an empty
-    mbarrier a stage (csrc/tile.cu checks the same sum)."""
-    return 1024 + stages * stage_bytes(BN, consumers) + consumers * _EPILOGUE_BYTES + 16 * stages
+    slack, the ring, the consumers' epilogue boxes (bf16 outputs only) and a
+    full and an empty mbarrier a stage (csrc/tile.cu checks the same sum)."""
+    epilogue = 0 if route == "persistent_tf32" else consumers * _EPILOGUE_BYTES
+    return 1024 + stages * stage_bytes(BN, consumers, route, cell) + epilogue + 16 * stages
 
 
 def _source_geometry(direction: str, L: int, F: int):
@@ -471,43 +492,64 @@ def launch_plan(plan: TilePlan, F: int, x_dtype: torch.dtype, direction: str = "
     """How K7 runs ``plan`` on operands of ``x_dtype`` with F columns in
     ``direction`` on a card of ``sms`` SMs, decided on the host alone.
 
-    The route follows the dtypes: bfloat16 tiles under bfloat16 operands
-    take the persistent route, anything else the simple one (``route``
-    forces one; the persistent route takes only bf16 x bf16). Persistent:
-    F in the fewest column chunks of at most 256, BN a chunk's width
-    rounded up to 64; two consumer warpgroups where 128 divides B (a work
-    item is 128 rows) else one; as many ring stages as fit the card's 232,448
-    bytes (at most 8), one CTA a SM or one a work item where there are
-    fewer. A work item weighs its tile slices (each tile's B / 64) plus one
-    for each output it writes; :func:`_work_list` deals them out.
+    The route is the dtype pair's persistent route (:func:`route_for`);
+    ``route`` forces it or the simple route, which takes every pair.
+    Persistent: F in the fewest column chunks of at most 256 (the TF32
+    route: 128), BN a chunk's width rounded up to 64, laid out by
+    :func:`persistent_layout`.
     """
     if F <= 0 or F % 8:
         raise ValueError(f"CUDA K7 needs F a positive multiple of 8, got {F}")
     if plan.B % _CUDA_ROWS:
         raise ValueError(f"CUDA K7 needs tile_size a multiple of {_CUDA_ROWS}, got {plan.B}")
-    bf16 = plan.tiles.dtype == torch.bfloat16 and x_dtype == torch.bfloat16
-    route = route or ("persistent" if bf16 else "simple")
-    if route not in ROUTES or (route == "persistent" and not bf16):
-        raise ValueError(f"K7 route {route!r} does not take {plan.tiles.dtype} tiles under {x_dtype} operands")
-    L, B, nb = plan.L, plan.B, plan.nb
-    geometry = _source_geometry(direction, L, F)
-    empty = np.zeros(0, np.int32)
+    takes = route_for(plan.tiles.dtype, x_dtype)
+    route = route or takes
+    if route not in ("simple", takes):
+        raise ValueError(f"K7 route {route!r} does not take {plan.tiles.dtype} tiles under {x_dtype} operands "
+                         f"(its routes: {takes!r}, 'simple')")
     if route == "simple":
-        chunks, parts = -(-F // 64), B // _CUDA_ROWS
-        return LaunchPlan(route, 64, chunks, 0, parts, 0, 0, chunks * parts * nb, empty, empty, *geometry)
+        empty = np.zeros(0, np.int32)
+        chunks, parts = -(-F // 64), plan.B // _CUDA_ROWS
+        return LaunchPlan(route, 64, chunks, 0, parts, 0, 0, chunks * parts * plan.nb, empty, empty,
+                          *_source_geometry(direction, plan.L, F))
     boxes = -(-F // 64)
-    chunks = -(-boxes // (_MAX_BN // 64))
-    BN = 64 * -(-boxes // chunks)
+    chunks = -(-boxes // (_MAX_BN[route] // 64))
+    return persistent_layout(plan, F, route, 64 * -(-boxes // chunks), direction, sms)
+
+
+def persistent_layout(plan: TilePlan, F: int, route: str, BN: int, direction: str = "forward",
+                      sms: int = H100_SMS) -> LaunchPlan:
+    """A persistent route's launch with chunks of BN columns (a multiple of
+    64 up to the route's most): :func:`launch_plan`'s choice, or a width a
+    measurement forces. Two consumer warpgroups where 128 divides B (a work
+    item is 128 rows) else one; as many ring stages as fit the card's
+    232,448 bytes (at most 8), one CTA a SM or one a work item where there
+    are fewer. A work item weighs its tile slices (each tile's B / 64) plus
+    one for each output it writes; :func:`_work_list` deals them out."""
+    if route not in _MAX_BN or BN % 64 or not 64 <= BN <= _MAX_BN[route]:
+        raise ValueError(f"K7 route {route!r} is not persistent or does not take BN {BN} "
+                         f"(BN a multiple of 64 up to {_MAX_BN})")
+    L, B = plan.L, plan.B
+    geometry = _source_geometry(direction, L, F)
+    chunks = -(-F // BN)
     consumers = 2 if B % 128 == 0 else 1
     parts = B // (64 * consumers)
-    stages = min(_MAX_STAGES, (SMEM_LIMIT - 1024 - consumers * _EPILOGUE_BYTES) // (stage_bytes(BN, consumers) + 16))
+    cell = plan.tiles.element_size()
+    room = SMEM_LIMIT - persistent_smem(BN, consumers, 0, route, cell)
+    stages = min(_MAX_STAGES, room // (stage_bytes(BN, consumers, route, cell) + 16))
     stacked = geometry[-1]
     block_cost = plan.tile_counts.sum(axis=0).astype(np.int64) * (B // 64) + (L if stacked else 1)
     costs = np.repeat(block_cost, parts * chunks)
     ctas = max(1, min(int(sms), len(costs)))
     items, cta_first = _work_list(costs, ctas)
-    return LaunchPlan(route, BN, chunks, consumers, parts, stages, persistent_smem(BN, consumers, stages), ctas,
-                      items, cta_first, *geometry)
+    return LaunchPlan(route, BN, chunks, consumers, parts, stages, persistent_smem(BN, consumers, stages, route, cell),
+                      ctas, items, cta_first, *geometry)
+
+
+def work_tensor(layout: LaunchPlan, device: torch.device) -> torch.Tensor:
+    """A persistent layout's work list on ``device``: int32 cta_first, then
+    the items."""
+    return torch.from_numpy(np.concatenate([layout.cta_first, layout.items])).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -527,7 +569,8 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 8  # tiles, col, rows, row_of_block, rel_mix, work, X, out
         + [ctypes.c_int] * 6  # num_nodes, nb, B, L, F, src_relations
         + [ctypes.c_longlong] * 4  # src_row_stride, src_rel_offset, out_row_stride, out_rel_offset
-        + [ctypes.c_int] * 10  # stack, transposed, BN, chunks, consumers, parts, stages, smem_bytes, ctas, use_hash
+        + [ctypes.c_int] * 13  # stack, transposed, tile_dtype, dtype, route (its index in ROUTES), BN,
+                               # chunks, consumers, parts, stages, smem_bytes, ctas, use_hash
         + [ctypes.c_void_p, ctypes.c_float]  # seed (a device pointer), keep
         + [ctypes.c_int, ctypes.c_void_p]  # device, stream
     )
@@ -536,9 +579,9 @@ def _library() -> ctypes.CDLL:
 
 
 def _cached_launch(plan: TilePlan, F: int, X: torch.Tensor, direction: str, route: Optional[str]):
-    """(launch plan, its work list on X's device as int32 cta_first then
-    items) from the plan's cache, laid out at the first call. A call being
-    captured into a CUDA graph cannot upload a new list: it raises."""
+    """(launch plan, its :func:`work_tensor` on X's device) from the plan's
+    cache, laid out at the first call. A call being captured into a CUDA
+    graph cannot upload a new list: it raises."""
     sms = sm_count(X.device.index)
     key = (route, F, X.dtype, direction, sms)
     found = plan.launch_cache.get(key)
@@ -547,15 +590,17 @@ def _cached_launch(plan: TilePlan, F: int, X: torch.Tensor, direction: str, rout
             raise RuntimeError(f"K7's launch for F={F} {direction} was not laid out before the CUDA graph capture; "
                                f"run the call once outside the capture first")
         layout = launch_plan(plan, F, X.dtype, direction, sms, route)
-        work = torch.from_numpy(np.concatenate([layout.cta_first, layout.items])).to(X.device)
-        found = plan.launch_cache[key] = (layout, work)
+        found = plan.launch_cache[key] = (layout, work_tensor(layout, X.device))
     return found
 
 
 def _launch(X: torch.Tensor, plan: TilePlan, seed: Seed, rate: float, direction: str,
-            route: Optional[str] = None) -> torch.Tensor:
+            route: Optional[str] = None,
+            layout: Optional[Tuple[LaunchPlan, torch.Tensor]] = None) -> Tuple[torch.Tensor, str]:
     """Launch K7 once on the current stream over every relation, on the
-    route :func:`launch_plan` picks (or ``route``); no synchronisation."""
+    route :func:`launch_plan` picks (or ``route``), or as ``layout`` (a
+    persistent layout and its :func:`work_tensor`) lays it out; no
+    synchronisation. Returns the output and the route that ran."""
     if X.dtype not in _DTYPE_CODES or plan.tiles.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA K7 takes float32 or bfloat16 operands and tiles, not {X.dtype} / {plan.tiles.dtype}")
     F, _, shape, stacked = _layout(direction, X, plan)
@@ -567,10 +612,10 @@ def _launch(X: torch.Tensor, plan: TilePlan, seed: Seed, rate: float, direction:
                          f"got B={plan.B}, {plan.nb} blocks")
     if plan.tiles.device != X.device:
         raise ValueError(f"tables on {plan.tiles.device} but X on {X.device}")
-    layout, work = _cached_launch(plan, F, X, direction, route)
+    layout, work = layout or _cached_launch(plan, F, X, direction, route)
     out = torch.empty(shape, dtype=X.dtype, device=X.device)
     if out.numel() == 0:
-        return out
+        return out, layout.route
     lib = _library()
     use_hash = float(rate) > 0.0
     seed = seed_tensor(seed, X.device) if use_hash else None
@@ -579,18 +624,19 @@ def _launch(X: torch.Tensor, plan: TilePlan, seed: Seed, rate: float, direction:
     geometry = (layout.src_row_stride, layout.src_rel_offset, layout.out_row_stride, layout.out_rel_offset)
     tail = (seed.data_ptr() if use_hash else None, keep_probability(rate),
             X.device.index, torch.cuda.current_stream(X.device).cuda_stream)
-    if layout.route == "persistent":
-        err = lib.grl_tile_persistent(
-            *tables, work.data_ptr(), X.data_ptr(), out.data_ptr(), plan.num_nodes, plan.nb, plan.B, plan.L, F,
-            layout.src_relations, *geometry, int(stacked), int(plan.transposed), layout.BN, layout.chunks,
-            layout.consumers, layout.parts, layout.stages, layout.smem_bytes, layout.ctas, int(use_hash), *tail)
-    else:
+    dtypes = (_DTYPE_CODES[plan.tiles.dtype], _DTYPE_CODES[X.dtype])
+    if layout.route == "simple":
         err = lib.grl_tile_apply(
             *tables, X.data_ptr(), out.data_ptr(), plan.num_nodes, plan.nb, plan.B, plan.L, F, *geometry,
-            int(stacked), int(plan.transposed), _DTYPE_CODES[plan.tiles.dtype], _DTYPE_CODES[X.dtype],
-            int(use_hash), *tail)
+            int(stacked), int(plan.transposed), *dtypes, int(use_hash), *tail)
+    else:
+        err = lib.grl_tile_persistent(
+            *tables, work.data_ptr(), X.data_ptr(), out.data_ptr(), plan.num_nodes, plan.nb, plan.B, plan.L, F,
+            layout.src_relations, *geometry, int(stacked), int(plan.transposed), *dtypes,
+            ROUTES.index(layout.route), layout.BN, layout.chunks, layout.consumers, layout.parts, layout.stages,
+            layout.smem_bytes, layout.ctas, int(use_hash), *tail)
     _build.check_launch(lib, err, "K7")
-    return out
+    return out, layout.route
 
 
 def tile_accumulate(X: torch.Tensor, plan: TilePlan, seed: Seed = 0, rate: float = 0.0,
@@ -598,8 +644,8 @@ def tile_accumulate(X: torch.Tensor, plan: TilePlan, seed: Seed = 0, rate: float
     """Every relation of ``plan`` applied to ``X`` in ``direction``.
 
     CPU tensors take :func:`tile_apply_reference`; CUDA tensors launch K7
-    (counted as ``K7`` and ``K7 <direction>`` in
-    :mod:`grl_torch.ops.launches`) or raise.
+    on the dtype pair's route (counted as ``K7``, ``K7 <direction>`` and
+    ``K7 <route>`` in :mod:`grl_torch.ops.launches`) or raise.
     """
     keep_probability(rate)
     rows = {"forward": plan.num_nodes, "projected forward": plan.num_nodes * plan.L,
@@ -610,8 +656,8 @@ def tile_accumulate(X: torch.Tensor, plan: TilePlan, seed: Seed = 0, rate: float
         return tile_apply_reference(X, plan, seed, rate, direction)
     if X.device.type != "cuda":
         raise ValueError(f"K7 runs on CUDA or CPU tensors, not {X.device}")
-    out = _launch(X, plan, seed, rate, direction)
-    launches.count("K7", f"K7 {direction}")
+    out, route = _launch(X, plan, seed, rate, direction)
+    launches.count("K7", f"K7 {direction}", f"K7 {route}")
     return out
 
 

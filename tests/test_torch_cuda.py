@@ -967,8 +967,8 @@ def tile_operands(kernel, F, dtype, seed=0):
 @pytest.mark.parametrize("F", [64, 136])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_k7_matches_plain_version(rate, F, dtype, tile_dtype):
-    """All four directions against tile_apply_reference, one launch each;
-    two launches give the same bits."""
+    """All four directions against tile_apply_reference, one launch each,
+    on the dtype pair's route; two launches give the same bits."""
     kernel = tile_graph(tile_dtype)
     assert kernel.tiles_total > 0 and max(w for shapes in kernel.tables.fwd.shapes for _, w in shapes) >= 8
     seed = hashing.seed_tensor(17, "cuda")
@@ -977,12 +977,13 @@ def test_k7_matches_plain_version(rate, F, dtype, tile_dtype):
         before = launches.device_counts()
         out = tile.tile_accumulate(X, plan, seed, rate, direction)
         torch.cuda.synchronize()
-        assert launched_since(before) == {"K7": 1, f"K7 {direction}": 1}
+        route = tile.route_for(plan.tiles.dtype, dtype)
+        assert launched_since(before) == {"K7": 1, f"K7 {direction}": 1, f"K7 {route}": 1}
         assert_close_to_plain(out, tile.tile_apply_reference(X, plan, seed, rate, direction))
         assert torch.equal(out, tile.tile_accumulate(X, plan, seed, rate, direction))
 
 
-def sparse_relation_graph(B, N=1000, L=3, E=30000, seed=5):
+def sparse_relation_graph(B, N=1000, L=3, E=30000, seed=5, tile_dtype="bfloat16"):
     """Uniform random edges at L = 3 with relation 1 given 300 of them, too
     few for any tile: its tables are empty (row_of_block -1). N = 1000 is
     ragged at every B. Thresholds under the mean block count make most
@@ -993,7 +994,7 @@ def sparse_relation_graph(B, N=1000, L=3, E=30000, seed=5):
     edges = (rng.randint(0, N, E), rng.randint(0, N, E), rel, (rng.rand(E) + 0.5).astype(np.float32))
     min_edges = {64: 40, 128: 140, 192: 250, 256: 500}[B]
     return tile.TileGraphKernel(*edges, N, L, tile_size=B, tile_min_edges=min_edges, reorder="none",
-                                tile_dtype="bfloat16", plan_projected=True, device="cuda")
+                                tile_dtype=tile_dtype, plan_projected=True, device="cuda")
 
 
 @pytest.mark.parametrize("B", [64, 128, 192, 256])
@@ -1018,7 +1019,7 @@ def test_k7_persistent_route_matches_plain_version(rate, F, B):
         before = launches.device_counts()
         out = tile.tile_accumulate(X, plan, seed, rate, direction)
         torch.cuda.synchronize()
-        assert launched_since(before) == {"K7": 1, f"K7 {direction}": 1}
+        assert launched_since(before) == {"K7": 1, f"K7 {direction}": 1, "K7 persistent": 1}
         assert_close_to_plain(out, tile.tile_apply_reference(X, plan, seed, rate, direction))
         assert torch.equal(out, tile.tile_accumulate(X, plan, seed, rate, direction))
         if direction == "forward":
@@ -1076,6 +1077,83 @@ def test_k7_keep_set_and_adjoint(dtype):
         lhs = float((out.double() * g.double()).sum())
         rhs = float((tile.tile_accumulate(g, bwd, 5, 0.3, backward).double() * X[forward].double()).sum())
         assert abs(lhs - rhs) <= 1e-5 * max(abs(lhs), 1.0)
+
+
+# The routes of float32 tiles under bf16 operands and of float32 operands
+# (3xTF32; bf16 tiles: 2xTF32 with 1/keep on the sums), by (tile dtype,
+# operand dtype).
+NEW_K7_ROUTES = [("float32", torch.bfloat16, "persistent_f32tiles"), ("float32", torch.float32, "persistent_tf32"),
+                 ("bfloat16", torch.float32, "persistent_tf32")]
+
+
+@pytest.mark.parametrize("tile_dtype, dtype, route", NEW_K7_ROUTES)
+@pytest.mark.parametrize("graph", ["tile_graph", "empty relation B=64", "empty relation B=128"])
+@pytest.mark.parametrize("F", [40, 136, 264])
+def test_k7_new_routes_match_plain_version(F, graph, tile_dtype, dtype, route):
+    """The dtype pair's route (one consumer warpgroup at B = 64, two at
+    128; F = 40 a partial column box, 136 and 264 more than one column
+    chunk on the TF32 route): all four directions at rates 0 and 0.3
+    against tile_apply_reference, one launch each, counted on the route;
+    two launches equal to the bit; the last block ragged; where a relation
+    has no tables, exact zeros in the stacked directions."""
+    if graph == "tile_graph":
+        kernel = tile_graph(tile_dtype)
+    else:
+        kernel = sparse_relation_graph(int(graph.split("=")[1]), tile_dtype=tile_dtype)
+        assert kernel.tables.fwd.shapes[1] is None
+    assert kernel.tiles_total > 0 and kernel.num_nodes % kernel.tile_size != 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seed = hashing.seed_tensor(29, "cuda")
+    for rate in (0.0, 0.3):
+        for direction, X in tile_operands(kernel, F, dtype, seed=F).items():
+            plan = kernel.tables.bwd if "backward" in direction else kernel.tables.fwd
+            layout = tile.launch_plan(plan, F, dtype, direction, sms)
+            assert layout.route == route and layout.consumers == (2 if kernel.tile_size % 128 == 0 else 1)
+            before = launches.device_counts()
+            out = tile.tile_accumulate(X, plan, seed, rate, direction)
+            torch.cuda.synchronize()
+            assert launched_since(before) == {"K7": 1, f"K7 {direction}": 1, f"K7 {route}": 1}
+            assert_close_to_plain(out, tile.tile_apply_reference(X, plan, seed, rate, direction))
+            assert torch.equal(out, tile.tile_accumulate(X, plan, seed, rate, direction))
+            if graph != "tile_graph" and direction in ("forward", "projected backward"):
+                assert not bool(out.view(kernel.num_nodes, kernel.L, F)[:, 1].any())
+
+
+@pytest.mark.parametrize("tile_dtype, dtype, route", NEW_K7_ROUTES)
+def test_k7_new_routes_keep_set_and_adjoint(tile_dtype, dtype, route):
+    """V = I reads the masked tiles back: equal to the plain version's bits
+    (float32 tiles under float32 operands: within the plain tolerance, each
+    cell as its TF32 hi plus lo parts), the kept cells exactly the nonzero
+    ones the pair hash keeps, the transposed tables keeping the same edges;
+    and <g, K7(V)> = <K7'(g), V> in both modes, within 1e-5 of sum |g K7(V)|
+    in float32 and 2^-7 in bf16 (each side's outputs rounded once to
+    bf16)."""
+    kernel = tile_graph(tile_dtype)
+    N, L, fwd, bwd = kernel.num_nodes, kernel.L, kernel.tables.fwd, kernel.tables.bwd
+    eye = torch.eye(N, device="cuda", dtype=dtype)
+    ahead = tile.tile_accumulate(eye, fwd, 5, 0.3, "forward")
+    full = tile.tile_accumulate(eye, fwd, 5, 0.0, "forward").view(N, L, N)
+    back = tile.tile_accumulate(eye, bwd, 5, 0.3, "projected backward")
+    torch.cuda.synchronize()
+    ref = tile.tile_apply_reference(eye, fwd, 5, 0.3, "forward")
+    if tile_dtype == "float32" and dtype == torch.float32:
+        assert_close_to_plain(ahead, ref)
+    else:
+        assert torch.equal(ahead, ref)
+    ahead = ahead.view(N, L, N)
+    ids = torch.arange(N, device="cuda")
+    for r in range(L):
+        kept = hashing.keep_pair_bits(ids[:, None], ids[None, :], 5, 0.3, tile._rel_seed_mix(r))
+        assert torch.equal(ahead[:, r] != 0, (full[:, r] != 0) & kept)
+    assert torch.equal(ahead != 0, back.view(N, L, N).permute(2, 1, 0) != 0)
+    X = tile_operands(kernel, 64, dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for forward, backward in (("forward", "backward"), ("projected forward", "projected backward")):
+        out = tile.tile_accumulate(X[forward], fwd, 5, 0.3, forward).double()
+        g = X[backward].double()
+        lhs = float((out * g).sum())
+        rhs = float((tile.tile_accumulate(X[backward], bwd, 5, 0.3, backward).double() * X[forward].double()).sum())
+        assert abs(lhs - rhs) <= tol * float((out * g).abs().sum())
 
 
 @pytest.mark.parametrize("name, kwargs", [
