@@ -98,7 +98,26 @@ before the result line is printed; no phase's failure is passed over.
    (as many steps as the KV loader's batches) and
    ``GraphClassificationProcedure`` (a graph-label processor registered for
    the leg, 3 classes), finite losses and their D counts.
-6. ``full_graph``: the sparse large-graph path, ``GNNLearningWarper.train``
+6. ``zoo``: the dense model zoo through ``GNNLearningWarper.train`` ->
+   ``KVProcedure`` and ``.predict`` at the sumi width on the train phase's
+   pages, float32 on the plain path as ``grl_tpu`` builds it, one epoch a
+   leg (``ZOO_LEGS``: ``RobustGCN``, ``RPGraphCNNDropEdge``, ``ModGCN``,
+   ``DeepRPGCN``, ``DeepRPRobustGCN``, ``GATV2`` with V2 and V1 layers,
+   ``DGCNN``, each at its own default widths), each with its launch counts
+   set to 0 just before it and read just after: no K1, K2 or K3, D at
+   ``ZOO_DROPOUTS`` a step each way; finite losses, every parameter with a
+   nonzero gradient moved, BatchNorm's running statistics moved and equal
+   in the checkpoint, which ``KVInference`` serves on 8 pages with no
+   launch; the learning check (20 steps on one batch at ``ZOO_LEARN_LR``
+   under ``ZOO_LEARN_SHARE``); one step with D equal to it with D's plain
+   version bit for bit under deterministic algorithms (loss, parameters,
+   buffers, Adam state); one step's device ms by CUDA events, the peak
+   memory allocated and a traced step's device time by op.
+   ``DeepRPRobustGCN`` also at ``scan_steps: 4``: a replayed chunk equal
+   to the same chunk run eagerly, BatchNorm buffers and Adam state
+   included. Then ``python -m grl_torch.bayes_training`` as a subprocess
+   on a copy of ``configs/synthetic_kv.yaml`` at one epoch.
+7. ``full_graph``: the sparse large-graph path, ``GNNLearningWarper.train``
    -> ``FullGraphProcedure`` on ``configs/arxiv_full_graph.yaml`` as it is
    (169,343 nodes, 1,184,773 edges, widths 128/256/40, bfloat16, DropEdge
    0.3, dropout 0.5) with ``kernel_impl: pallas_csr``, sparse attention,
@@ -128,14 +147,14 @@ before the result line is printed; no phase's failure is passed over.
    score projections' gradients show), which must fail the limits
    (``FULL_GRAPH_PAIRS``).
 
-7. ``ell``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
+8. ``ell``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
    ``configs/arxiv_full_graph.yaml`` as written (``kernel_impl: ell``, its
    ``kernel_plan``: project-first tables, arithmetic widths of quantum 2,
    the degree reorder; no attention), 20 steps for the file's 200: K6
    (``grl_torch/csrc/ell.cu``) aggregates in all four directions. The same
    checks and measurements as ``full_graph`` (and the tables' planning
    seconds), with K6 with a wrong seed or rate planted as the faults.
-8. ``tile``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
+9. ``tile``: ``GNNLearningWarper.train`` -> ``FullGraphProcedure`` on
    ``configs/arxiv_full_graph.yaml`` with ``kernel_impl: tile``,
    ``kernel_plan: {tile_size: 128, tile_dtype: bfloat16, plan_projected:
    true}`` (the LPA order, tile's default) and the SBM at 661 communities
@@ -146,7 +165,7 @@ before the result line is printed; no phase's failure is passed over.
    planning seconds of the LPA order, the tile tables and the residual),
    with K7 under a wrong relation mix and K7's backward with its mask keyed
    on swapped endpoints planted as the faults.
-9. ``tile_variants``: the ``tile`` phase's config with ``tile_dtype`` left
+10. ``tile_variants``: the ``tile`` phase's config with ``tile_dtype`` left
    out of the kernel plan (float32 tiles, the default), in two legs: the
    config's bfloat16 compute (K7 on its ``persistent_f32tiles`` route) and
    ``compute_dtype: float32`` (``persistent_tf32``, 3xTF32). Each leg is
@@ -155,14 +174,14 @@ before the result line is printed; no phase's failure is passed over.
    the ``tile`` phase's by direction; a replayed chunk equal to the same
    chunk run eagerly; the replayed step's ms), and ``TILE_PAIRS`` in the
    leg's dtype.
-10. ``demo``: the entry points as subprocesses from a scratch working
+11. ``demo``: the entry points as subprocesses from a scratch working
    directory: ``python -m grl_torch.demo_training`` on
    ``configs/arxiv_full_graph.yaml`` for 20 epochs and on
    ``configs/synthetic_kv.yaml`` for one, then ``python -m
    grl_torch.demo_inference`` on ``configs/synthetic_kv_infer.yaml`` with
    that checkpoint and a synthetic page: exit codes, the printed lines and
    the annotated boxes.
-11. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
+12. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
    counterpart of ``scripts/probe_gather.py``: index_select rates (A-D) and
    the four Pallas probes as CUDA kernels (``grl_torch/csrc/
    gather_probe.cu``), each held against its plain version (E1, E2, F
@@ -3309,6 +3328,346 @@ def phase_ssl(torch, card: str):
 
 
 # ---------------------------------------------------------------------------
+# zoo
+# ---------------------------------------------------------------------------
+# The dense zoo's legs: (registered type, constructor arguments beyond the
+# sumi widths). Each network runs at its own default widths (rp_size 10000,
+# 29 layers, kk 20), float32 and the plain aggregation, as grl_tpu builds
+# them.
+ZOO_LEGS = {
+    "RobustGCN": ("RobustGCN", {}),
+    "RPGraphCNNDropEdge": ("RPGraphCNNDropEdge", {}),
+    "ModGCN": ("ModGCN", {}),
+    "DeepRPGCN": ("DeepRPGCN", {}),
+    "DeepRPRobustGCN": ("DeepRPRobustGCN", {}),
+    "GATV2": ("GATV2", {}),
+    "GATV2 v1": ("GATV2", {"use_v2": False}),
+    "DGCNN": ("DGCNN", {}),
+}
+# D's launches a train step, (forward, backward), worked out from the code:
+# RobustGCN: the trunk's four (after emb1 and each GraphConv,
+# gcn_family.py:125,149) and two more (:276,278); RPGraphCNNDropEdge and
+# ModGCN: the trunk's four and one on the head's input (:323, :366);
+# DeepRPGCN: one after emb2 (deep_gcn.py:75); DeepRPRobustGCN: after gcn3,
+# gcn6, gcn9 and the attention (:124,127,130,139); GATV2: five layers of 7
+# relations, each dropping its attention weights (gatv2.py:83, 133) and, in
+# V2, its input too (:123), whose backward does not run in gat_in, where the
+# input is the batch's features and needs no gradient; DGCNN has none.
+# Validation and serving run none.
+ZOO_DROPOUTS = {"RobustGCN": (6, 6), "RPGraphCNNDropEdge": (5, 5), "ModGCN": (5, 5), "DeepRPGCN": (1, 1),
+                "DeepRPRobustGCN": (4, 4), "GATV2": (70, 63), "GATV2 v1": (35, 35), "DGCNN": (0, 0)}
+# The learning check's limit a network: LEARN_SHARE, or grl_tpu's ratio
+# plus 0.1 where grl_tpu's own run of the recipe does not get under it.
+# tests/test_torch_zoo_learning.py runs the recipe in both packages on the
+# CPU at small widths (RobustGCN 0.94 and ModGCN 0.96 in grl_tpu there; a
+# cosine head's logits lie in [-sigma, sigma]) and holds this table to it.
+ZOO_LEARN_SHARE = {**dict.fromkeys(ZOO_LEGS, LEARN_SHARE), "RobustGCN": 1.04, "ModGCN": 1.06}
+# The learning check's learning rate a network: the train recipe's 5e-3,
+# but 1e-3 for the GAT networks. At 5e-3 both packages' GATV2 diverge at
+# the sumi shape: grl_tpu's ratio 1.51 for V2 and for V1, the port's 1.37
+# and 1.83, on 2 of these pages on the CPU (``python
+# tests/test_torch_zoo_learning_gat.py --pages 2 --lr 5e-3``; at 1e-3 0.42
+# and 0.40, the port's 0.42 and 0.41), and the port's V2 1.87 on the H100
+# (PERF.md §6), as the full-graph check runs at 1e-3 for the config's 0.01.
+ZOO_LEARN_LR = {**dict.fromkeys(ZOO_LEGS, 5e-3), "GATV2": 1e-3, "GATV2 v1": 1e-3}
+# The leg at scan_steps 4: its chunks replay one captured CUDA graph.
+ZOO_SCAN_LEG = "DeepRPRobustGCN"
+ZOO_STEPS, ZOO_VAL_BATCHES = TRAIN_PAGES // B, VAL_PAGES // B
+ZOO_SERVE_PAGES = 8
+ZOO_TIMED_STEPS = 5
+ZOO_BAYES = ("--init-points", "2", "--n-iter", "1", "--rp-size", "128")
+
+
+def zoo_args(kind: str, extra: dict) -> dict:
+    """A zoo network's constructor arguments at the sumi widths."""
+    if kind == "GATV2":
+        return {"input_feature": CHARSET_SIZE + 4, "no_A": L, "num_classes": NUM_CLASSES * 2 + 1, **extra}
+    if kind == "DGCNN":
+        return {"in_channels": CHARSET_SIZE + 4, "out_channels": NUM_CLASSES * 2 + 1, **extra}
+    return {"input_dim": CHARSET_SIZE + 4, "output_dim": NUM_CLASSES * 2 + 1, "num_edges": L,
+            "net_size": NET_SIZE, **extra}
+
+
+def model_state(torch, proc):
+    """Copies of ``proc``'s model state (parameters and buffers) and of its
+    optimizer's state tensors."""
+    optimizer = proc.state.optimizer
+    return ({k: v.detach().clone() for k, v in proc.model.state_dict().items()},
+            [v.clone() for state in optimizer.state.values() for v in state.values() if isinstance(v, torch.Tensor)])
+
+
+def same_state(torch, a, b):
+    """The names of the model tensors that differ between two
+    ``model_state``s, and whether the optimizer states are equal."""
+    differ = [k for k, v in a[0].items() if not torch.equal(v, b[0][k])]
+    return differ, len(a[1]) == len(b[1]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+def zoo_leg(torch, card: str, tmp: str, base, dirs, classes_path, charset_path, name: str):
+    """One network of the zoo: train, serve, learn, D against plain D,
+    timings."""
+    import grl_torch
+    from grl_torch.models import Rngs, create_model
+    from grl_torch.trainer.procedures import BaseProcedure
+    from grl_torch.utils.checkpoint import CheckpointHandler
+
+    kind, extra = ZOO_LEGS[name]
+    args = zoo_args(kind, extra)
+    tag = name.replace(" ", "_")
+    config = copy.deepcopy(base)
+    config.update(experiment_name=f"zoo-{tag}", num_epochs=1, output_dir=os.path.join(tmp, tag))
+    config["model"] = {"type": kind, "args": args}
+    config["logging"] = {"use_tensorboard": False, "summary_dir_name": "summary"}
+    warper = grl_torch.GNNLearningWarper(config=config)
+    trainer, model = warper.trainer, warper.model
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    buffers = [k for k, _ in model.named_buffers() if k.endswith((".mean", ".var"))]
+    d_forward, d_backward = ZOO_DROPOUTS[name]
+
+    # The main path: every launch count starts at 0 here.
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    warper.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launched = counts(("K3", "K1", "K2", *D_COUNTS))
+    expected = {"K3": 0, "K1": 0, "K2": 0, "D forward": d_forward * ZOO_STEPS, "D backward": d_backward * ZOO_STEPS}
+    require(launched == expected, f"zoo {name} launched {launched}, expected {expected}")
+    losses = series(warper, "Train/step_loss")
+    val_loss = series(warper, "Validation/loss")
+    require(len(losses) == ZOO_STEPS == trainer.state.step and all(math.isfinite(v) for v in losses + val_loss),
+            f"zoo {name}: train losses {losses}, validation losses {val_loss}, step {trainer.state.step}")
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    unmoved = [n for n, p in model.named_parameters()
+               if grads[n] is not None and bool((grads[n] != 0).any()) and torch.equal(initial[n], p.detach())]
+    require(not unmoved, f"zoo {name}: parameters with a nonzero gradient that did not move: {unmoved}")
+    final = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    still = [k for k in buffers if torch.equal(initial[k], final[k])]
+    require(not still, f"zoo {name}: BatchNorm statistics that did not move: {still}")
+    checkpoint = os.path.join(trainer.model_dir, CheckpointHandler.LATEST)
+    saved = CheckpointHandler().restore_checkpoint(checkpoint, map_location="cuda")["model"]
+    require(all(torch.equal(saved[k], final[k]) for k in buffers) and set(saved) == set(final),
+            f"zoo {name}: the checkpoint's BatchNorm statistics are not the run's last")
+    steps_per_s = [v / (B * 256) for v in series(warper, "Train/nodes_per_sec")]
+
+    # Serving the checkpoint: eval mode from its running statistics.
+    pages = []
+    for page_name in sorted(os.listdir(dirs["validation"]))[:ZOO_SERVE_PAGES]:
+        with open(os.path.join(dirs["validation"], page_name)) as handle:
+            pages.append([{"location": b["location"], "text": b["text"]} for b in json.load(handle)])
+    serve = serve_config(tmp, classes_path, charset_path, checkpoint, "xla", None)
+    serve.update(experiment_name=f"zoo-serve-{tag}", model={"type": kind, "args": args})
+    server = grl_torch.GNNLearningWarper(config=serve)
+    require(all(torch.equal(server.model.state_dict()[k], final[k]) for k in buffers),
+            f"zoo {name}: the server did not load the run's BatchNorm statistics")
+    reset_counts()
+    served = server.predict(pages)
+    torch.cuda.synchronize()
+    serve_launches = counts(("K3", "K1", "K2", *D_COUNTS))
+    require(not any(serve_launches.values()), f"zoo {name}: serving launched {serve_launches}")
+    check_pages(served, pages, set(server.inferencer.id_to_class.values()))
+    del server
+
+    # One step's device time, the peak memory and the device time by op.
+    V, A, labels = fixed_batches(trainer, 1)[0]
+    step = trainer._train_fn
+    for _ in range(2):
+        step(V, A, labels, trainer.rngs, trainer._lam)
+    torch.cuda.synchronize()
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(ZOO_TIMED_STEPS):
+        step(V, A, labels, trainer.rngs, trainer._lam)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = begin.elapsed_time(end) / ZOO_TIMED_STEPS
+    peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(V, A, labels, trainer.rngs, trainer._lam)
+        torch.cuda.synchronize()
+    trace = os.path.join(tmp, f"{tag}_trace.json")
+    prof.export_chrome_trace(trace)
+    idle, busy_ms, window_ms = device_idle_share(trace)
+    by_op = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                    if getattr(e, "device_time_total", 0) > 0), key=lambda item: -item[1])
+    del warper, trainer, model
+
+    # Learning check: 20 steps on one batch from fresh weights, at the
+    # network's ZOO_LEARN_LR.
+    learner_model = create_model(kind, **args, device="cuda", generator=torch.Generator().manual_seed(1))
+    learn_config = copy.deepcopy(config)
+    learn_config["optimizer"]["args"]["lr"] = ZOO_LEARN_LR[name]
+    learner = BaseProcedure(learner_model, {**learn_config, "output_dir": os.path.join(tmp, f"{tag}-learn")},
+                            device="cuda")
+    learner.init_state()
+    learn_step = learner.build_train_step(NUM_CLASSES * 2 + 1, (-100,))
+    learner.rngs = Rngs.from_seed(3, torch.device("cuda"))
+    learn = [float(learn_step(V, A, labels, learner.rngs, 1.0)[0]) for _ in range(LEARN_STEPS)]
+    tail = sum(learn[-5:]) / 5
+    limit = ZOO_LEARN_SHARE[name]
+    require(all(math.isfinite(v) for v in learn) and tail < limit * learn[0],
+            f"zoo {name}: learning check failed: {learn} (need the mean of the last 5 < {limit} of the first)")
+
+    # One step with D against the same step with D's plain version, from
+    # the learned state, under deterministic algorithms: the same bits.
+    snap = snapshot(torch, learner)
+    runs = {}
+    with deterministic(torch, True):
+        for which in ("kernel", "plain"):
+            restore(torch, learner, snap)
+            before = counts(D_COUNTS)
+            with plain_dropout() if which == "plain" else contextlib.nullcontext():
+                loss = float(learn_step(V, A, labels, learner.rngs, 1.0)[0])
+            ran = {k: v - before[k] for k, v in counts(D_COUNTS).items()}
+            runs[which] = (loss, model_state(torch, learner), ran)
+    require(runs["kernel"][2] == ({"D forward": d_forward, "D backward": d_backward})
+            and not any(runs["plain"][2].values()),
+            f"zoo {name}: the step launched D {runs['kernel'][2]}, its plain version {runs['plain'][2]}")
+    differ, optimizer_equal = same_state(torch, runs["kernel"][1], runs["plain"][1])
+    require(runs["kernel"][0] == runs["plain"][0] and not differ and optimizer_equal,
+            f"zoo {name}: D's step differs from plain D's: losses {runs['kernel'][0]} / {runs['plain'][0]}, "
+            f"{differ[:6]}, optimizer equal {optimizer_equal}")
+    del learner, learner_model, learn_step, snap
+
+    log(f"[zoo] {card}: {name} ({kind}{f' {extra}' if extra else ''}): {ZOO_STEPS} steps + {ZOO_VAL_BATCHES} "
+        f"validation batches in {wall:.3f} s, steps/s {[round(v, 3) for v in steps_per_s]}; launches {launched} "
+        f"(D {d_forward} forward "
+        f"and {d_backward} backward a step); losses {[round(v, 4) for v in losses]}; "
+        f"{len(buffers)} BatchNorm statistics moved and served from the checkpoint; served {len(pages)} pages "
+        f"with no launch")
+    log(f"[zoo] {name} learning check, {LEARN_STEPS} steps on one batch at lr {ZOO_LEARN_LR[name]}: first loss "
+        f"{learn[0]:.4f}, mean of "
+        f"the last 5 {tail:.4f} = {tail / learn[0]:.4f} of it (need < {limit}); one step with D equal to it with "
+        f"plain D bit for bit (loss {runs['kernel'][0]:.6f}, every parameter, buffer and Adam moment)")
+    log(f"[zoo] {card}: {name} one train step (forward, backward, clip, Adam; float32, B={B}, N=256) "
+        f"{step_ms:.3f} ms on the card (CUDA events, mean of {ZOO_TIMED_STEPS}); peak device memory allocated "
+        f"{peak_gb:.2f} GB; one traced step: device busy {busy_ms:.3f} ms of {window_ms:.3f} ms, idle share "
+        + ("not measured (no device events in the trace)" if idle is None else f"{idle:.4f}")
+        + "; device time by op (ops and the kernels under them):")
+    for key, ms, count in by_op[:8]:
+        log(f"[zoo]   {ms:8.3f} ms in {count:4d} launches: {key[:110]}")
+    torch.cuda.empty_cache()
+    return {"kind": kind, "args": extra, "wall_s": wall, "steps_per_s": steps_per_s, "launches": launched,
+            "losses": losses, "validation_loss": val_loss, "batchnorm_buffers": len(buffers),
+            "serve_launches": serve_launches, "step_ms": step_ms, "peak_gb": peak_gb, "traced_busy_ms": busy_ms,
+            "traced_window_ms": window_ms, "idle_share": idle,
+            "by_op": by_op[:12], "learning_losses": learn, "learn_share": tail / learn[0], "learn_limit": limit,
+            "learn_lr": ZOO_LEARN_LR[name],
+            "d_vs_plain_loss": runs["kernel"][0]}
+
+
+def zoo_scan(torch, card: str, tmp: str, base, name: str):
+    """``ZOO_SCAN_LEG`` at scan_steps 4: the second chunk of the epoch a
+    replay of a captured CUDA graph (BatchNorm's in-place updates and the
+    one-element lambda tensors inside it), then a chunk replayed against
+    the same chunk run eagerly from the same state, bit for bit:
+    parameters, BatchNorm buffers and Adam state."""
+    import grl_torch
+
+    kind, extra = ZOO_LEGS[name]
+    config = copy.deepcopy(base)
+    config.update(experiment_name="zoo-scan", num_epochs=1, output_dir=os.path.join(tmp, "zoo-scan"), scan_steps=SCAN_K)
+    config["model"] = {"type": kind, "args": zoo_args(kind, extra)}
+    config["logging"] = {"use_tensorboard": False, "summary_dir_name": "summary"}
+    warper = grl_torch.GNNLearningWarper(config=config)
+    trainer = warper.trainer
+    d_forward, d_backward = ZOO_DROPOUTS[name]
+    reset_counts()
+    warper.train()
+    torch.cuda.synchronize()
+    launched = counts(("K3", "K1", "K2", *D_COUNTS))
+    runner = trainer.chunk_runner()
+    expected = {"K3": 0, "K1": 0, "K2": 0, "D forward": d_forward * ZOO_STEPS, "D backward": d_backward * ZOO_STEPS}
+    require(runner.replays == ZOO_STEPS // SCAN_K - 1 and len(runner.graphs) == 1 and launched == expected,
+            f"zoo scan: {runner.replays} replays of {len(runner.graphs)} graphs, launches {launched} (expected "
+            f"{expected})")
+    losses = series(warper, "Train/step_loss")
+    require(len(losses) == ZOO_STEPS and all(math.isfinite(v) for v in losses), f"zoo scan losses {losses}")
+    items = []
+    for batch in trainer.train_loader:
+        V, A, labels = trainer._host_batch(batch)
+        items.append((V, A, labels, 0.3 + 0.1 * len(items)))
+        if len(items) == SCAN_K:
+            break
+    snap = snapshot(torch, trainer)
+    eager_losses = [float(v) for v in runner.eager(trainer.load_chunk(items)[1])[0]]
+    eager = model_state(torch, trainer)
+    restore(torch, trainer, snap)
+    before = runner.replays
+    replay_losses = [float(v) for v in trainer.run_chunk(items)[0]]
+    replayed = model_state(torch, trainer)
+    differ, optimizer_equal = same_state(torch, eager, replayed)
+    require(runner.replays == before + 1, "zoo scan: the chunk against its eager run did not replay the graph")
+    require(replay_losses == eager_losses and not differ and optimizer_equal,
+            f"zoo scan: a replayed chunk differs from the same chunk run eagerly: losses {replay_losses} / "
+            f"{eager_losses}, {differ[:6]}, Adam state equal {optimizer_equal}")
+    setup = next(iter(runner.setup.values()))
+    log(f"[zoo] {name} at scan_steps {SCAN_K}: {ZOO_STEPS} steps, {runner.replays - 1} replay(s) in the epoch and one "
+        f"against the eager chunk; launches {launched}; losses {[round(v, 4) for v in losses]}; the replayed chunk "
+        f"(lambdas {[item[3] for item in items]}) equal to it run eagerly bit for bit: losses, "
+        f"{len(eager[0])} parameters and buffers, Adam state; warm-up {setup['warmup_s']:.3f} s, capture "
+        f"{setup['capture_s']:.3f} s")
+    del warper, trainer, runner
+    torch.cuda.empty_cache()
+    return {"launches": launched, "losses": losses, "replay_losses": replay_losses, "setup": setup}
+
+
+def zoo_bayes(card: str, tmp: str):
+    """``python -m grl_torch.bayes_training`` as a subprocess from a scratch
+    directory, on a copy of configs/synthetic_kv.yaml at one epoch."""
+    import yaml
+
+    with open(os.path.join(REPO, "configs", "synthetic_kv.yaml")) as handle:
+        cfg = yaml.safe_load(handle)
+    cfg["num_epochs"] = 1
+    work = os.path.join(tmp, "bayes")
+    os.makedirs(work)
+    path = os.path.join(work, "synthetic_kv.yaml")
+    with open(path, "w") as handle:
+        yaml.safe_dump(cfg, handle)
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    start = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "grl_torch.bayes_training", "--config", path, *ZOO_BAYES], cwd=work,
+                          env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - start
+    best = [line for line in done.stdout.splitlines() if line.startswith("Best parameters: lambda=")]
+    log(f"[zoo] {card}: python -m grl_torch.bayes_training {' '.join(ZOO_BAYES)} (synthetic_kv, 1 epoch a probe): "
+        f"exit {done.returncode} in {seconds:.2f} s; {best}")
+    require(done.returncode == 0 and len(best) == 1,
+            f"bayes_training exited {done.returncode}: {done.stdout[-1500:]} {done.stderr[-3000:]}")
+    return {"seconds": seconds, "best": best[0]}
+
+
+def phase_zoo(torch, card: str):
+    """The dense zoo through ``GNNLearningWarper.train`` -> ``KVProcedure`` and
+    ``GNNLearningWarper.predict`` at the sumi width on the train phase's
+    pages, each leg with its launch counts set to 0 just before it and read
+    just after; ``ZOO_SCAN_LEG`` at scan_steps 4; the Bayesian lambda search
+    entry point."""
+    import numpy as np
+
+    np.random.seed(0)
+    tmp = tempfile.mkdtemp(prefix="grl_torch_zoo_")
+    dirs, classes_path, charset_path = write_training_files(tmp)
+    base = train_config(tmp, dirs, classes_path, charset_path)
+    log(f"[zoo] {len(ZOO_LEGS)} networks at the sumi width (input 4369, 53 classes, 6 relations, net_size "
+        f"{NET_SIZE}, their own default widths), float32; {TRAIN_PAGES} training + {VAL_PAGES} validation pages, "
+        f"batch {B}, one epoch a leg")
+    record = {"launches": {}}
+    for name in ZOO_LEGS:
+        record[name] = leg = zoo_leg(torch, card, tmp, base, dirs, classes_path, charset_path, name)
+        record["launches"][name] = leg["launches"]
+    record["scan"] = zoo_scan(torch, card, tmp, base, ZOO_SCAN_LEG)
+    record["launches"]["scan"] = record["scan"]["launches"]
+    record["bayes_training"] = zoo_bayes(card, tmp)
+    return record
+
+
+# ---------------------------------------------------------------------------
 # full_graph and ell
 # ---------------------------------------------------------------------------
 def sparse_counts():
@@ -4162,6 +4521,8 @@ def main() -> int:
         timed("train_variants")
         record["ssl"] = ssl = phase_ssl(torch, card)
         timed("ssl")
+        record["zoo"] = zoo = phase_zoo(torch, card)
+        timed("zoo")
         record["full_graph"] = full_graph = phase_full_graph(torch, card)
         timed("full_graph")
         record["ell"] = ell_path = phase_ell(torch, card)
@@ -4251,6 +4612,7 @@ def main() -> int:
             {"train": train["launches"][name], "train scan_steps 4": scan["launches"][name],
              "train_variants float32": f32["launches"][name], "train_variants bfloat16 ragged": ragged["launches"][name],
              **{f"ssl {leg}": n[name] for leg, n in ssl["launches"].items()},
+             **{f"zoo {leg}": n[name] for leg, n in zoo["launches"].items()},
              "full_graph": fg[name], "ell": el[name], "tile": tp[name]},
             main_row(name, F=dropout_main["F"]), f"bf16 ({dropout_main['N']}, {dropout_main['F']}) rate 0.5")
     for direction in ("forward", "backward", "projected forward", "projected backward"):

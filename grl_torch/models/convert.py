@@ -9,11 +9,14 @@ returns the matching ``state_dict`` of the port's module::
     params.trunk.gcn1.h_weights ((L+1)F, C)    -> trunk.gcn1.h_weights (kept whole)
     params.trunk.self_atten.gamma              -> trunk.self_atten.gamma
     constants.w_rand.kernel (in, out)          -> w_rand.kernel (RanPAC buffer)
+    params.emb1.norm.bn.scale                  -> emb1.norm.bn.scale
+    batch_stats.emb1.norm.bn.mean              -> emb1.norm.bn.mean (BatchNorm buffer)
 
 The module names are the same in both packages, so the rule is generic:
 a 2-D ``kernel`` under ``params`` (a flax ``Dense``) is transposed into
-``weight``; every other leaf keeps its path. ``batch_stats`` is accepted
-and must be empty: the flagship has no BatchNorm.
+``weight``; every other leaf keeps its path, and a ``constants`` or
+``batch_stats`` leaf lands on the buffer of that name (RanPAC's frozen
+kernel, BatchNorm's running ``mean`` / ``var``).
 
 :func:`optimizer_state_from_optax` carries the optimizer state across the
 same way, so a ``grl_tpu`` run can be resumed in the port: optax's Adam
@@ -45,13 +48,8 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
     unknown = set(variables) - {"params", "constants", "batch_stats"}
     if unknown:
         raise KeyError(f"Unexpected flax collections: {sorted(unknown)}")
-    if any(True for _ in _leaves(variables.get("batch_stats") or {})):
-        raise NotImplementedError(
-            "batch_stats (BatchNorm models) are not in the port yet; they "
-            "arrive with the dense-zoo slice (ROADMAP.md Queue 1, slice 2)."
-        )
     state: Dict[str, torch.Tensor] = OrderedDict()
-    for collection in ("params", "constants"):
+    for collection in ("params", "constants", "batch_stats"):
         for path, leaf in _leaves(variables.get(collection) or {}):
             array = np.asarray(leaf)
             if collection == "params" and path[-1] == "kernel" and array.ndim == 2:

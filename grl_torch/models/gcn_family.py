@@ -1,6 +1,7 @@
-"""The DropEdge GCN trunk and the flagship ``GraphCNNDropEdge``.
+"""The DropEdge GCN trunk, the flagship ``GraphCNNDropEdge`` and its
+family: ``RobustGCN``, ``RPGraphCNNDropEdge`` and ``ModGCN``.
 
-Counterparts of ``grl_tpu/models/gcn_family.py:40-248``. Call convention:
+Counterparts of ``grl_tpu/models/gcn_family.py``. Call convention:
 ``model((V, A), head_rows=None, rngs=None)`` with ``V (B, N, F_in)`` and
 ``A (B, N, L, N)`` in the dataset layout, or flat ``V (num_nodes, F_in)``
 and a :class:`grl_torch.ops.sparse.RelationalGraph` for the sparse path;
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from grl_torch.models.base import register_model
+from grl_torch.models.cosine_linear import CosineLinear, SplitCosineLinear
 from grl_torch.models.layers import (
     Dense,
     Dropout,
@@ -42,6 +44,7 @@ from grl_torch.models.layers import (
     Rngs,
     SparseNodeSelfAtten,
     is_sparse_adjacency,
+    leaky_relu,
     maybe_cast,
     require_rngs,
 )
@@ -49,6 +52,9 @@ from grl_torch.ops.relagg import dropedge_aggregate, neighbor_aggregate
 from grl_torch.utils.device import DeviceLike, optional_dtype, resolve_device
 
 Inputs = Tuple[torch.Tensor, Any]
+
+# Leaky ReLU slope after each RanPAC of RPGraphCNNDropEdge (gcn_family.py:313-322).
+RP_SLOPE = 0.01
 
 
 def _default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -132,13 +138,16 @@ class GCNTrunk(nn.Module):
             out = conv(feats, A_used, self_scale)
         return self.dropout(F.relu(out), rngs)
 
-    def forward(self, inputs: Inputs, rngs: Optional[Rngs] = None) -> torch.Tensor:
+    def forward(self, inputs: Inputs, rngs: Optional[Rngs] = None, first_only: bool = False) -> torch.Tensor:
         V, A = inputs
         sparse = is_sparse_adjacency(A)
         det = not self.training
         V = maybe_cast(V, self.dtype)
         if not sparse:
             A = maybe_cast(A, self.dtype)
+        if first_only:
+            # emb1 -> gcn1 -> relu, no dropout of any kind (gcn_family.py:117-123).
+            return F.relu(self.gcn1(self.emb1(V), A))
         embedding = self.dropout(self.emb1(V), rngs)
         g1 = self._gcn(self.gcn1, embedding, A, sparse, det, rngs)
         g2 = self._gcn(self.gcn2, g1, A, sparse, det, rngs)
@@ -241,3 +250,147 @@ class GraphCNNDropEdge(nn.Module):
         new_v = self.dropout(F.relu(self.w_rand(new_v)), rngs)
         # Loss/softmax always in float32.
         return self.classifier(new_v).float()
+
+
+@register_model
+class RobustGCN(nn.Module):
+    """No-DropEdge trunk + gcn4/gcn5 tail at ``net_size // 2``
+    (``gcn_family.py:251-280``): the trunk with ``g1_first=False``, then
+    dropout, ``gcn4`` -> relu -> dropout, ``gcn5`` -> relu, and the
+    classifier. float32 and the plain aggregation, as ``grl_tpu`` builds it
+    (no ``kernel_impl`` or ``compute_dtype``): D is its only kernel, in six
+    dropout layers a train-mode forward."""
+
+    def __init__(
+        self,
+        input_dim: int,
+        output_dim: int,
+        num_edges: int,
+        net_size: int = 256,
+        use_attention: bool = True,
+        dropout_rate: float = 0.5,
+        *,
+        device: DeviceLike = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        target = resolve_device(device)
+        gen = _default_generator(generator)
+        self.output_dim = output_dim
+        half = net_size // 2
+        self.trunk = GCNTrunk(input_dim, net_size=net_size, num_edges=num_edges, dropout_rate=dropout_rate,
+                              edge_dropout_rate=0.0, g1_first=False, use_attention=use_attention, generator=gen)
+        self.gcn4 = GraphConv(half, half, num_edges, generator=gen)
+        self.gcn5 = GraphConv(half, half, num_edges, generator=gen)
+        self.classifier = Dense(half, output_dim, generator=gen)
+        self.dropout = Dropout(dropout_rate)
+        self.to(target)
+
+    def forward(self, inputs: Inputs, rngs: Optional[Rngs] = None, lambda_value: Any = None) -> torch.Tensor:
+        del lambda_value  # passed to every network by the procedure; not read here
+        A = inputs[1]
+        new_v = self.dropout(self.trunk(inputs, rngs), rngs)
+        g4 = self.dropout(F.relu(self.gcn4(new_v, A)), rngs)
+        g5 = F.relu(self.gcn5(g4, A))
+        return self.classifier(g5)
+
+
+@register_model
+class RPGraphCNNDropEdge(nn.Module):
+    """DropEdge trunk + two scaled RanPAC layers (``gcn_family.py:283-324``).
+
+    Both frozen RanPAC kernels (``rp_emb``, ``rp_final``) are drawn at
+    ``init_scale = sqrt(rp_size) * lambda_value``, each followed by a leaky
+    ReLU at 0.01; ``NodeSelfAtten`` runs at ``rp_size`` width between them.
+    float32 and the plain aggregation, as in ``grl_tpu``: D is its only
+    kernel (five dropout layers a train-mode forward)."""
+
+    def __init__(
+        self,
+        input_dim: int,
+        output_dim: int,
+        num_edges: int,
+        net_size: int = 256,
+        use_attention: bool = True,
+        rp_size: int = 10000,
+        lambda_value: float = 0.05,
+        dropout_rate: float = 0.5,
+        edge_dropout_rate: float = 0.3,
+        *,
+        device: DeviceLike = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        target = resolve_device(device)
+        gen = _default_generator(generator)
+        self.output_dim = output_dim
+        self.trunk = GCNTrunk(input_dim, net_size=net_size, num_edges=num_edges, dropout_rate=dropout_rate,
+                              edge_dropout_rate=edge_dropout_rate, g1_first=True, use_attention=False,
+                              generator=gen)
+        init_scale = (rp_size ** 0.5) * lambda_value
+        self.rp_emb = RanPAC(net_size // 2, rp_size, init_scale=init_scale, generator=gen)
+        self.self_atten = NodeSelfAtten(rp_size, generator=gen) if use_attention else None
+        self.rp_final = RanPAC(rp_size, rp_size, init_scale=init_scale, generator=gen)
+        self.dropout = Dropout(dropout_rate)
+        self.classifier = Dense(rp_size, output_dim, generator=gen)
+        self.to(target)
+
+    def forward(self, inputs: Inputs, rngs: Optional[Rngs] = None, lambda_value: Any = None) -> torch.Tensor:
+        del lambda_value  # the RanPAC scale is fixed at init here
+        new_v = leaky_relu(self.rp_emb(self.trunk(inputs, rngs)), RP_SLOPE)
+        if self.self_atten is not None:
+            new_v = self.self_atten(new_v)
+        new_v = leaky_relu(self.rp_final(new_v), RP_SLOPE)
+        return self.classifier(self.dropout(new_v, rngs))
+
+
+@register_model
+class ModGCN(nn.Module):
+    """DropEdge trunk + cosine classifier for class-incremental learning
+    (``gcn_family.py:327-377``).
+
+    ``forward(inputs, rngs=None, mode=None, return_feats=False)``:
+    ``mode="first_node_emb"`` is the trunk's emb1 -> gcn1 -> relu with no
+    dropout; ``"node_emb"`` the trunk's features after dropout; otherwise
+    the cosine logits (``SplitCosineLinear(prev_output_dim, output_dim)``
+    when ``prev_output_dim`` is set, else ``CosineLinear``), with the
+    features too under ``return_feats``. float32 and the plain aggregation,
+    as in ``grl_tpu``."""
+
+    def __init__(
+        self,
+        input_dim: int,
+        output_dim: int,
+        num_edges: int,
+        prev_output_dim: Optional[int] = None,
+        net_size: int = 256,
+        use_attention: bool = True,
+        dropout_rate: float = 0.5,
+        edge_dropout_rate: float = 0.3,
+        *,
+        device: DeviceLike = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        target = resolve_device(device)
+        gen = _default_generator(generator)
+        self.output_dim = output_dim
+        self.trunk = GCNTrunk(input_dim, net_size=net_size, num_edges=num_edges, dropout_rate=dropout_rate,
+                              edge_dropout_rate=edge_dropout_rate, g1_first=True, use_attention=use_attention,
+                              generator=gen)
+        half = net_size // 2
+        self.classifier = (SplitCosineLinear(half, prev_output_dim, output_dim, generator=gen) if prev_output_dim
+                           else CosineLinear(half, output_dim, generator=gen))
+        self.dropout = Dropout(dropout_rate)
+        self.to(target)
+
+    def forward(self, inputs: Inputs, rngs: Optional[Rngs] = None, mode: Optional[str] = None,
+                return_feats: bool = False, lambda_value: Any = None):
+        del lambda_value  # passed to every network by the procedure; not read here
+        if mode == "first_node_emb":
+            return self.trunk(inputs, rngs, first_only=True)
+        feats = self.dropout(self.trunk(inputs, rngs), rngs)
+        if mode == "node_emb":
+            return feats
+        logits = self.classifier(feats)
+        return (logits, feats) if return_feats else logits

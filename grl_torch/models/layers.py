@@ -1,4 +1,4 @@
-"""Core layers of the flagship, as ``nn.Module``s.
+"""Core layers of the model family, as ``nn.Module``s.
 
 Counterparts of ``grl_tpu/models/layers.py``. Parameter names, shapes and
 init distributions follow the flax modules, so a flax variables tree maps
@@ -92,7 +92,7 @@ def is_sparse_adjacency(A: Any) -> bool:
         f"grl_torch takes a dense (B, N, L, N) tensor or a RelationalGraph, not "
         f"{type(A).__name__} (layout {getattr(A, 'layout', None)}); node-partitioned "
         "shards arrive with ROADMAP.md Queue 1, slice 4, and the sampled path's "
-        "TreeGraph with item 7."
+        "TreeGraph with slice 3."
     )
 
 
@@ -110,20 +110,23 @@ class Dense(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         # variance_scaling(1.0, "fan_in", "truncated_normal"): the std of a
         # standard normal truncated to [-2, 2] is 0.87962566103423978.
-        std = (1.0 / in_features) ** 0.5 / 0.87962566103423978
         weight = torch.empty(features, in_features)
-        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        if weight.numel():  # a 0-wide input (DiffPooling's 0-wide relations) has nothing to draw
+            std = (1.0 / in_features) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
         self.weight = nn.Parameter(weight)
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class LinearReLU(nn.Module):
@@ -334,5 +337,142 @@ class RanPAC(nn.Module):
         self.dtype = dtype
         self.register_buffer("kernel", _normal((in_features, features), generator) * init_scale)
 
-    def forward(self, x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale: Any = 1.0) -> torch.Tensor:
+        """``(x @ kernel) * scale``: ``scale`` is a float, or a one-element
+        tensor on the device (a captured chunk's per-step lambda), which
+        multiplies on the device with no host read."""
         return torch.matmul(x, maybe_cast(self.kernel, self.dtype)) * scale
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """flax's ``nn.leaky_relu``, ``where(x >= 0, x, slope * x)``: its
+    gradient at exactly 0 is 1, where ``F.leaky_relu``'s is the slope (a
+    BatchNorm or LayerNorm output on a padded row is its bias, 0 at init)."""
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def _moments(x: torch.Tensor, axes: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flax's statistics (``normalization._compute_stats``): the mean over
+    ``axes`` and the biased variance as ``E[x^2] - E[x]^2``, clipped at 0,
+    in at least float32 (``torch.maximum`` splits the gradient at a tie
+    with 0 as ``jnp.maximum`` does)."""
+    wide = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = wide.mean(dim=axes)
+    mean2 = (wide * wide).mean(dim=axes)
+    var = mean2 - mean * mean
+    return mean, torch.maximum(var, torch.zeros_like(var))
+
+
+def _normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, epsilon: float,
+               scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """flax's ``_normalize``: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    y = (x - mean) * (torch.rsqrt(var + epsilon) * scale) + bias
+    return y.to(torch.promote_types(x.dtype, scale.dtype))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: ``scale`` (ones) and
+    ``bias`` (zeros), flax's statistics (:func:`_moments`)."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean, var = _moments(x, (-1,))
+        return _normalize(x, mean[..., None], var[..., None], self.epsilon, self.scale, self.bias)
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over every axis but the last (padded nodes
+    included): parameters ``scale`` / ``bias``, running statistics in the
+    buffers ``mean`` (from 0) and ``var`` (from 1), as flax keeps them in
+    ``batch_stats``.
+
+    In train mode it normalises with the batch's mean and biased variance
+    (:func:`_moments`) and updates the buffers in place, ``mean <- m * mean
+    + (1 - m) * batch_mean`` and the same for ``var`` with the biased batch
+    variance (``torch.nn.BatchNorm1d`` and ``F.batch_norm`` keep the
+    unbiased one, so neither is used). In place, never rebound: a chunk of
+    steps captured as a CUDA graph updates the very buffers that eval and
+    the checkpoint read. In eval mode it normalises with the buffers.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return _normalize(x, self.mean, self.var, self.epsilon, self.scale, self.bias)
+        mean, var = _moments(x, tuple(range(x.dim() - 1)))
+        with torch.no_grad():
+            self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+            self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        return _normalize(x, mean, var, self.epsilon, self.scale, self.bias)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the (batch, node) axes per channel (``layers.py:335-369``):
+    flax's ``nn.BatchNorm`` as the submodule ``bn``.
+
+    With ``masked=True`` it also holds ``mask_scale`` / ``mask_bias``, and a
+    train-mode call with ``mask (B, N)`` normalises with the statistics of
+    the valid nodes alone and those parameters, leaving ``bn``'s running
+    statistics as they are (grl_tpu creates the two parameters at the first
+    such call). Eval mode, or no mask, is ``bn``.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5, masked: bool = False):
+        super().__init__()
+        self.epsilon = epsilon
+        self.bn = FlaxBatchNorm(features, momentum, epsilon)
+        if masked:
+            self.mask_scale = nn.Parameter(torch.ones(features))
+            self.mask_bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mask is None or not self.training:
+            return self.bn(x)
+        if not hasattr(self, "mask_scale"):
+            raise ValueError("a masked BatchNorm call needs BatchNorm(..., masked=True)")
+        w = mask[..., None].to(x.dtype)
+        count = torch.clamp(w.sum(), min=1.0)
+        mean = (x * w).sum(dim=(0, 1)) / count
+        var = ((x - mean) ** 2 * w).sum(dim=(0, 1)) / count
+        return (x - mean) * torch.rsqrt(var + self.epsilon) * self.mask_scale + self.mask_bias
+
+
+class GCNBlock(nn.Module):
+    """GraphConv + BatchNorm + LeakyReLU(0.2) (``layers.py:372-391``), as
+    ``gcn`` and ``norm``."""
+
+    def __init__(self, in_features: int, features: int, num_relations: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.gcn = GraphConv(in_features, features, num_relations, generator=generator)
+        self.norm = BatchNorm(features)
+
+    def forward(self, V: torch.Tensor, A: Any, self_scale: Optional[torch.Tensor] = None,
+                edge_keep: Any = None) -> torch.Tensor:
+        return leaky_relu(self.norm(self.gcn(V, A, self_scale, edge_keep)), 0.2)
+
+
+class EmbeddingBlock(nn.Module):
+    """Linear + BatchNorm + LeakyReLU(0.2) (``layers.py:394-403``), as
+    ``emb`` and ``norm``."""
+
+    def __init__(self, in_features: int, features: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.emb = Dense(in_features, features, generator=generator)
+        self.norm = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(self.norm(self.emb(x)), 0.2)

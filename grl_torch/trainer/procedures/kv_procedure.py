@@ -19,15 +19,16 @@ stepwise:
   scalar, filled in place (a chunk holds one a step);
 * validation sums the confusion matrices of the epoch for the epoch
   report;
-* checkpoints hold model, optimizer and step, saved on the best
-  validation loss and every ``save_interval`` steps.
-
-t-SNE of the representation space arrives with slice 2.
+* checkpoints hold model, optimizer and step (BatchNorm's running
+  statistics are buffers of the model), saved on the best validation loss
+  and every ``save_interval`` steps;
+* :meth:`KVProcedure.visualize_representation_space` plots a t-SNE of the
+  trunk's node embeddings.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -379,6 +380,54 @@ class KVProcedure(BaseProcedure):
             return
         for name, param in self.model.named_parameters():
             self.tb_writer.add_histogram(name.replace(".", "/"), param.detach().float().cpu().numpy(), epoch)
+
+    # ------------------------------------------------------------------
+    def visualize_representation_space(self, loader=None, out_path: Optional[str] = None) -> Optional[str]:
+        """2-D t-SNE plot of the trunk's node embeddings (``kv_procedure.py:418-459``):
+        the output of ``model.trunk``, read through a forward hook over an
+        eval-mode pass of ``loader`` (the validation loader by default),
+        padded nodes left out, written as a JPEG (``out_path``, else
+        ``<output_dir>/representation_space.jpg``), whose path it returns.
+        Needs sklearn and matplotlib: without them it logs a warning and
+        returns ``None``."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            from sklearn.manifold import TSNE
+        except Exception as err:
+            self.logger.warning(f"t-SNE viz unavailable: {err}")
+            return None
+        self._ensure_initialized()
+        loader = loader or self.val_loader
+        captured: List[torch.Tensor] = []
+        handle = self.model.trunk.register_forward_hook(
+            lambda module, inputs, output: captured.append(output.detach()))
+        reps, labels = [], []
+        try:
+            self.model.eval()
+            with torch.no_grad():
+                for batch in loader:
+                    V, A, y = self._prepare_batch(batch)
+                    self.model((V, A))
+                    emb = captured.pop()
+                    reps.append(emb.float().cpu().numpy().reshape(-1, emb.shape[-1]))
+                    labels.append(y.cpu().numpy().reshape(-1))
+        finally:
+            handle.remove()
+        reps = np.concatenate(reps)
+        labels = np.concatenate(labels)
+        keep = labels != self.pad_value
+        reduced = TSNE(n_components=2, random_state=42).fit_transform(reps[keep])
+        plt.figure(figsize=(10, 8))
+        sc = plt.scatter(reduced[:, 0], reduced[:, 1], c=labels[keep], cmap="jet", alpha=0.6)
+        plt.colorbar(sc, label="Class Labels")
+        plt.title("2D Visualization of Representation Space using t-SNE")
+        out_path = out_path or f"{self.config.get('output_dir', '.')}/representation_space.jpg"
+        plt.savefig(out_path)
+        plt.close()
+        return out_path
 
     # ------------------------------------------------------------------
     def __call__(self) -> float:

@@ -1,14 +1,18 @@
-"""Profiling: ``torch.profiler`` traces of a window of training steps.
+"""Profiling: ``torch.profiler`` traces and throughput counters.
 
-Counterpart of ``grl_tpu/utils/profiling.py``'s :class:`Profiler`, with
-``torch.profiler`` in place of ``jax.profiler``. Traces are Chrome-trace
-JSON files (``chrome://tracing``, Perfetto) under ``<output_dir>/traces``;
-the device's kernels are in them when a GPU is visible.
+Counterpart of ``grl_tpu/utils/profiling.py``, with ``torch.profiler`` in
+place of ``jax.profiler``: :func:`trace_window` traces a block,
+:class:`Profiler` a window of training steps, and :class:`StepTimer`
+keeps steps/s and other rates. Traces are Chrome-trace JSON files
+(``chrome://tracing``, Perfetto); the device's kernels are in them when a
+GPU is visible.
 """
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional
+import time
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -18,6 +22,51 @@ def _activities():
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     return activities
+
+
+@contextlib.contextmanager
+def trace_window(log_dir: str, enabled: bool = True) -> Iterator[Optional[str]]:
+    """Trace the block with ``torch.profiler`` into a Chrome trace under
+    ``log_dir`` (``trace_<n>.json``, ``n`` counting the traces already
+    there); yields the trace's path, or ``None`` when not ``enabled``."""
+    if not enabled:
+        yield None
+        return
+    os.makedirs(log_dir, exist_ok=True)
+    index = sum(name.startswith("trace_") for name in os.listdir(log_dir))
+    path = os.path.join(log_dir, f"trace_{index}.json")
+    prof = torch.profiler.profile(activities=_activities())
+    prof.start()
+    try:
+        yield path
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+
+
+class StepTimer:
+    """Rolling throughput counters for training loops (``profiling.py:33-56``)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self._start = time.perf_counter()
+        self._steps = 0
+        self._units: Dict[str, float] = {}
+
+    def step(self, **units: float) -> None:
+        """Record one step and any unit counts (nodes=..., edges=...)."""
+        self._steps += 1
+        for key, value in units.items():
+            self._units[key] = self._units.get(key, 0.0) + value
+
+    def rates(self) -> Dict[str, float]:
+        elapsed = max(time.perf_counter() - self._start, 1e-9)
+        out = {"steps_per_sec": self._steps / elapsed}
+        for key, value in self._units.items():
+            out[f"{key}_per_sec"] = value / elapsed
+        return out
 
 
 class Profiler:

@@ -256,6 +256,49 @@ SSL_THEN_FINETUNE = textwrap.dedent(
 )
 
 
+TRAIN_ZOO = textwrap.dedent(
+    """
+    import sys
+    for name in {blocked!r}:
+        sys.modules[name] = None
+    import torch
+    from grl_torch import bayes_training
+    from grl_torch.models import create_model
+    from grl_torch.trainer.procedures import BaseProcedure
+    from grl_torch.utils import bayes_opt, input_wrapper, profiling
+
+    gcn = dict(input_dim=24, output_dim=5, num_edges=6)
+    zoo = {{
+        "RobustGCN": dict(gcn, net_size=16), "RPGraphCNNDropEdge": dict(gcn, net_size=16, rp_size=32),
+        "ModGCN": dict(gcn, net_size=16), "DeepRPGCN": dict(gcn, net_size=8, num_layers=4),
+        "DeepRPRobustGCN": dict(gcn, net_size=8),
+        "GATV2": dict(input_feature=24, no_A=6, output_feature=8, num_classes=5),
+        "DGCNN": dict(in_channels=24, out_channels=5, kk=4),
+    }}
+    gen = torch.Generator().manual_seed(0)
+    V = torch.rand(2, 16, 24, generator=gen)
+    A = (torch.rand(2, 16, 6, 16, generator=gen) < 0.2).float()
+    labels = torch.randint(0, 5, (2, 16), generator=gen)
+    for kind, args in zoo.items():
+        model = create_model(kind, **args, device="cpu")
+        proc = BaseProcedure(model, {{"output_dir": {tmp!r}, "max_grad_norm": 1.0,
+                                      "logging": {{"use_tensorboard": False}}}}, device="cpu")
+        proc.init_state()
+        before = {{k: v.clone() for k, v in model.state_dict().items()}}
+        loss, cm = proc.build_train_step(5, (-100,))(V, A, labels, proc.rngs, 0.5)
+        assert torch.isfinite(loss), kind
+        assert any(not torch.equal(before[k], v) for k, v in model.state_dict().items()), kind
+        model.eval()
+        with torch.no_grad():
+            logits = model((V, A))
+        assert tuple(logits.shape) == (2, 16, 5), (kind, logits.shape)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("ZOO", len(zoo))
+    """
+)
+
+
 def run_blocked(script: str, tmp_path) -> str:
     # One OpenMP thread: the suite's worker processes share the cores.
     env = {**os.environ, "OMP_NUM_THREADS": "1",
@@ -300,6 +343,13 @@ def test_ssl_pretraining_then_finetuning_with_jax_and_grl_tpu_blocked(tmp_path):
     then one fine-tuning step of the flagship on the kernel path from its
     checkpoint (a DGI tree: nothing loads, as in grl_tpu)."""
     assert "SSL" in run_blocked(SSL_THEN_FINETUNE, tmp_path)
+
+
+def test_zoo_trains_with_jax_and_grl_tpu_blocked(tmp_path):
+    """One CPU train step and an eval forward of every network of the dense
+    zoo, dropout and DropEdge at their defaults, with the Bayesian search,
+    profiling and input-cast modules imported."""
+    assert "ZOO 7" in run_blocked(TRAIN_ZOO, tmp_path)
 
 
 def imported_roots(path: Path):

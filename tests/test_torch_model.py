@@ -139,11 +139,14 @@ def test_state_dict_layout():
 
 
 def test_converter_rejects_batch_stats_and_unknown_collections():
+    """batch_stats (BatchNorm's running statistics) carry across as leaves
+    of their own path, an empty collection adds nothing; an unknown
+    collection is refused."""
     _, variables, _ = flagship_pair()
     tree = dict(numpy_tree(variables))
-    models.state_dict_from_flax({**tree, "batch_stats": {}})  # empty: accepted
-    with pytest.raises(NotImplementedError):
-        models.state_dict_from_flax({**tree, "batch_stats": {"bn": {"mean": np.zeros(3)}}})
+    assert set(models.state_dict_from_flax({**tree, "batch_stats": {}})) == set(models.state_dict_from_flax(tree))
+    state = models.state_dict_from_flax({**tree, "batch_stats": {"bn": {"mean": np.arange(3.0, dtype=np.float32)}}})
+    np.testing.assert_array_equal(state["bn.mean"].numpy(), np.arange(3.0, dtype=np.float32))
     with pytest.raises(KeyError):
         models.state_dict_from_flax({**tree, "cache": {}})
 
