@@ -174,14 +174,39 @@ before the result line is printed; no phase's failure is passed over.
    the ``tile`` phase's by direction; a replayed chunk equal to the same
    chunk run eagerly; the replayed step's ms), and ``TILE_PAIRS`` in the
    leg's dtype.
-11. ``demo``: the entry points as subprocesses from a scratch working
+11. ``sampled``: the sampled path, ``GNNLearningWarper.train`` ->
+   ``SampledGraphProcedure`` on ``configs/arxiv_full_graph.yaml``'s graph
+   with ``bench.py``'s sampled overrides (fanouts 10x10, chunks of
+   ``scan_steps: 20``, Adam at lr 1e-3, the flagship at the arxiv widths
+   without attention, bf16, ``kernel_impl: xla``; dropout 0.5, DropEdge
+   0.3), each leg with its launch counts set to 0 just before it and read
+   just after: D (``grl_torch/csrc/dropout.cu``) 5 times a step each way
+   and no other kernel, the replays, finite losses and moved parameters.
+   ``tree B=256``: one whole epoch (397 steps: a warm-up chunk, 18 replays,
+   17 leftover steps) and its validation, the learning check
+   (``SAMPLED_LEARN_ACC``), a replayed chunk equal to its eager run and two
+   steps with D equal to two with plain D (deterministic algorithms), new
+   DropEdge and D masks at each replay. ``tree B=512`` (3 chunks) and ``coo
+   B=256`` (the COO route, 2 chunks; the two routes' eval forwards held to
+   ``SERVE_AGREEMENT``). Each prints ``sampled_target_nodes_per_s`` with
+   its split a step (``host_sample_ms``, ``h2d_ms``,
+   ``device_dispatch_ms``), one step's device ms eager and replayed, the
+   idle share of a traced replay, a traced step's device time by op and the
+   tree einsums' share, the warm-up and capture seconds and peak memory.
+   Then the sparse KV path: the ``train`` phase's pages and recipe with
+   ``SparseBucketPadding`` (quantum 64, edge quantum 256) and ``kernel_impl:
+   xla``, one epoch each with dense and with sparse attention and with dense
+   at ``scan_steps: 4`` (a replayed COO chunk equal to its eager run): D
+   counts and no K1/K2/K3, finite losses, moved parameters, the
+   checkpoint, steps/s and one step's device ms.
+12. ``demo``: the entry points as subprocesses from a scratch working
    directory: ``python -m grl_torch.demo_training`` on
    ``configs/arxiv_full_graph.yaml`` for 20 epochs and on
    ``configs/synthetic_kv.yaml`` for one, then ``python -m
    grl_torch.demo_inference`` on ``configs/synthetic_kv_infer.yaml`` with
    that checkpoint and a synthetic page: exit codes, the printed lines and
    the annotated boxes.
-12. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
+13. ``gather_probe``: ``grl_torch.probes.gather`` at full size, the
    counterpart of ``scripts/probe_gather.py``: index_select rates (A-D) and
    the four Pallas probes as CUDA kernels (``grl_torch/csrc/
    gather_probe.cu``), each held against its plain version (E1, E2, F
@@ -2789,7 +2814,7 @@ def train_scan(torch, card: str, tmp: str, dirs, classes_path, charset_path, eag
     require(all(tuple(V.shape) == (B, N, CHARSET_SIZE + 4) for V, *_ in items), "scan batches of other shapes")
 
     # One step on the card: eager back to back, and replayed.
-    require(key == (SCAN_K, *(tuple(t.shape) for t in items[0][:3])), f"the graph's key {key}")
+    require(key == (SCAN_K, *trainer.shape_key(*items[0][:3])), f"the graph's key {key}")
     slots = trainer._slots[key]
     V0, A0, labels0 = slots["V"][0], slots["A"][0], slots["labels"][0]
     begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4357,6 +4382,464 @@ def phase_tile_variants(torch, card: str, tile_launches):
 
 
 # ---------------------------------------------------------------------------
+# sampled
+# ---------------------------------------------------------------------------
+# The sampled path as bench.py's measure_sampled runs it (bench.py:912-934):
+# fanouts 10x10, chunks of 20 steps, Adam at lr 1e-3, the flagship at the
+# arxiv widths without attention, bf16, kernel_impl left at xla.
+SAMPLED_FANOUTS = (10, 10)
+SAMPLED_SCAN = 20
+SAMPLED_LR = 1e-3
+# Legs: (batch size, tree route, chunks of the training epoch (None: the
+# whole epoch), validation batches (None: every one)).
+SAMPLED_LEGS = {
+    "tree B=256": (256, True, None, None),
+    "tree B=512": (512, True, 3, 4),
+    "coo B=256": (256, False, 2, 4),
+}
+# Chunks timed for sampled_target_nodes_per_s after one untimed chunk
+# (bench.py times 2).
+SAMPLED_RATE_CHUNKS = {"tree B=256": 5, "tree B=512": 2, "coo B=256": 1}
+SAMPLED_TIMED_STEPS = 10
+SAMPLED_TRACED_STEPS = 3
+# The learning check: validation accuracy after the one epoch of the tree
+# B=256 leg (chance 1/40 = 0.025), set from the first H100 run's 0.7830 as
+# the full-graph limit was from its first run (PERF.md §2).
+SAMPLED_LEARN_ACC = 0.4
+# The sparse KV legs: the train phase's recipe with SparseBucketPadding.
+SPARSE_KV_COLLATE = {"SparseBucketPadding": {"quantum": 64, "edge_quantum": 256, "only_selected_items": True}}
+SPARSE_KV_LEGS = {"dense": ("dense", 1), "sparse": ("sparse", 1), "dense scan_steps 4": ("dense", SCAN_K)}
+
+
+def sampled_config(tmp: str, batch_size: int, tree: bool):
+    """configs/arxiv_full_graph.yaml with SampledGraphProcedure and
+    bench.py's sampled overrides, one epoch, its outputs under ``tmp``."""
+    from grl_torch.config import load_config
+
+    config = load_config(FULL_GRAPH_YAML)
+    config.update(
+        experiment_name="sampled", seed=0, num_epochs=1, max_grad_norm=5.0, scan_steps=SAMPLED_SCAN,
+        output_dir=os.path.join(tmp, "out"), procedure={"type": "SampledGraphProcedure", "args": {}},
+        sampler={"fanouts": list(SAMPLED_FANOUTS), "batch_size": batch_size, "tree_aggregation": tree},
+    )
+    config["optimizer"]["args"]["lr"] = SAMPLED_LR
+    config["model"]["args"].update(kernel_impl="xla", use_attention=False)
+    return config
+
+
+def cut_mask(mask, count):
+    """``mask`` with only its first ``count`` nodes left on (all if None)."""
+    import numpy as np
+
+    if count is None:
+        return mask
+    cut = mask.copy()
+    cut[np.flatnonzero(mask)[count:]] = False
+    return cut
+
+
+def sampled_rate(torch, trainer, chunks: int):
+    """bench.py's ``sampled_target_nodes_per_s`` on ``trainer``: one
+    untimed chunk, then ``chunks`` chunks of host sampling (waiting on the
+    prefetch thread), staging and copies to the card (``h2d``, synchronized)
+    and the replay with its loss read (``device_dispatch``); target nodes/s
+    over the timed chunks, and each part's ms a step."""
+    K = trainer._scan_k
+    it = trainer._batches(trainer.data.train_mask)
+    times = {"host_sample": 0.0, "h2d": 0.0, "device_dispatch": 0.0}
+    runner = trainer.chunk_runner()
+    start = None
+    for chunk in range(chunks + 1):
+        if chunk == 1:
+            start = time.perf_counter()
+        buffer = []
+        for _ in range(K):
+            t0 = time.perf_counter()
+            buffer.append(next(it))
+            times["host_sample"] += (time.perf_counter() - t0) * (chunk > 0)
+        t0 = time.perf_counter()
+        body = trainer.load_chunk(buffer)
+        torch.cuda.synchronize()
+        times["h2d"] += (time.perf_counter() - t0) * (chunk > 0)
+        t0 = time.perf_counter()
+        losses = runner.run(K, body).tolist()
+        trainer.state.step += K
+        times["device_dispatch"] += (time.perf_counter() - t0) * (chunk > 0)
+        require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    elapsed = time.perf_counter() - start
+    it.close()
+    steps = chunks * K
+    rate = steps * trainer.sampler.groups * trainer.sampler.batch_size / elapsed
+    return rate, {f"{k}_ms": v * 1e3 / steps for k, v in times.items()}
+
+
+def sampled_masks(torch, trainer, arrays):
+    """Replays draw new masks: a chunk that draws the tree's DropEdge masks
+    (``drop_edge_coo``) and a D seed from the trainer's generator and reads
+    D's mask back on ones of the trunk's width, run by a chunk runner of its
+    own (the warm-up, the capture, then replays). D's mask must be the hash
+    mask of the seed its replay drew, two replays' masks must differ, and
+    every keep share must hold."""
+    from grl_torch.ops import hashing
+    from grl_torch.ops.dropout import apply_dropout
+    from grl_torch.ops.sparse import drop_edge_coo
+    from grl_torch.trainer.captured import CapturedSteps
+
+    tree = trainer.graph(arrays)
+    trunk = trainer.model.trunk
+    ones = torch.ones(tree.num_nodes, NET_SIZE, device="cuda", dtype=torch.bfloat16)
+    runner = CapturedSteps(torch.device("cuda"), [trainer.rngs.device])
+
+    def chunk():
+        edge_keep, self_scale = drop_edge_coo(tree, trunk.edge_dropout_rate, trainer.rngs.device)
+        seed = trainer.rngs.kernel_seed()
+        return edge_keep != 0, self_scale != 0, seed, apply_dropout(ones, seed, trunk.dropout.rate) != 0
+
+    outs = [tuple(t.clone() for t in runner.run("masks", chunk)) for _ in range(4)][1:]
+    torch.cuda.synchronize()
+    require(runner.replays == 3, f"the mask chunk replayed {runner.replays} times, expected 3")
+    ids = torch.arange(ones.numel(), device="cuda")
+    rows = []
+    for edge, self_mask, seed, drop in outs:
+        require(torch.equal(drop, hashing.keep_bits(ids, seed, trunk.dropout.rate).view(drop.shape)),
+                "a replayed D mask is not the hash mask of the seed its replay drew")
+        row = {"seed": int(seed)}
+        for name, mask, rate in (("edge", edge, trunk.edge_dropout_rate), ("self", self_mask, trunk.edge_dropout_rate),
+                                 ("dropout", drop, trunk.dropout.rate)):
+            kept, total = int(mask.sum()), mask.numel()
+            row[f"{name}_keep_share"] = kept / total
+            require(keep_share_ok(kept, total, rate), f"replayed {name} keep share {kept / total} of {total}")
+        rows.append(row)
+    for a, b in zip(outs, outs[1:]):
+        require(all(not torch.equal(x, y) for x, y in zip(a, b)), "two replays drew the same DropEdge or D mask")
+    return rows
+
+
+def sampled_replay_check(torch, trainer, items, tag: str):
+    """A chunk of ``items`` replayed from a fresh runner's graph against the
+    same steps run eagerly from the same state, under deterministic
+    algorithms (the warm-up and the capture too): losses and parameters
+    equal bit for bit."""
+    saved, trainer._steps = trainer._steps, None
+    runner = trainer.chunk_runner()
+    with deterministic(torch, True):
+        trainer.run_chunk(items)  # the warm-up, eager
+        snap = snapshot(torch, trainer)
+        eager = runner.eager(trainer.load_chunk(items)).tolist()
+        eager_params = params_of(trainer.model)
+        restore(torch, trainer, snap)
+        replayed = trainer.run_chunk(items).tolist()  # the capture, then its replay
+        torch.cuda.synchronize()
+    trainer._steps = saved
+    differing = [n for n, v in params_of(trainer.model).items() if not torch.equal(v, eager_params[n])]
+    log(f"[sampled {tag}] replayed chunk of {len(items)} steps vs the same steps eager from one state "
+        f"(deterministic algorithms): losses equal {replayed == eager}; {len(differing)} parameter tensors differ "
+        f"{differing[:4]}")
+    require(runner.replays == 1 and replayed == eager and not differing,
+            f"{tag}: a replayed chunk differs from the same chunk run eagerly ({runner.replays} replays)")
+    return {"losses_replayed": replayed, "losses_eager": eager}
+
+
+def sampled_d_vs_plain(torch, trainer, batches, tag: str):
+    """Two eager steps with D against the same two with D's plain version,
+    from the same state, under deterministic algorithms: losses,
+    parameters and Adam state equal bit for bit."""
+    snap = snapshot(torch, trainer)
+    runs = []
+    for swap in (contextlib.nullcontext(), plain_dropout()):
+        restore(torch, trainer, snap)
+        with deterministic(torch, True), swap:
+            losses = [float(trainer.train_step(b)) for b in batches]
+        runs.append((losses, params_of(trainer.model), snapshot(torch, trainer)[1]))
+    (kl, kp, ks), (pl, pp, ps) = runs
+    same_state = all(torch.equal(a, b) for a, b in zip(ks, ps))
+    differing = [n for n in kp if not torch.equal(kp[n], pp[n])]
+    log(f"[sampled {tag}] two steps with D vs with D's plain version (deterministic algorithms): losses {kl} vs "
+        f"{pl}; {len(differing)} parameter tensors differ; Adam state equal {same_state}")
+    require(kl == pl and not differing and same_state, f"{tag}: D's steps differ from plain D's")
+    return {"losses_kernel": kl, "losses_plain": pl}
+
+
+def sampled_step_times(torch, trainer, card: str, tag: str, trace_dir: str):
+    """One step's device ms on the chunk's first static batch: eager (CUDA
+    events over SAMPLED_TIMED_STEPS back to back) and replayed (the captured
+    chunk, 3 replays); a traced eager window (device time by op, the tree
+    einsums' share) and a traced replay (idle share, device time by
+    kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    K = trainer._scan_k
+    arrays = {name: t[0] for name, t in trainer._slots[K]["static"].items()}
+    graph = trainer.chunk_runner().graphs[K][0]
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        trainer._step_body(arrays)
+    torch.cuda.synchronize()
+    host = time.perf_counter()
+    begin.record()
+    for _ in range(SAMPLED_TIMED_STEPS):
+        trainer._step_body(arrays)
+    end.record()
+    torch.cuda.synchronize()
+    eager_host_ms = (time.perf_counter() - host) * 1e3 / SAMPLED_TIMED_STEPS
+    eager_ms = begin.elapsed_time(end) / SAMPLED_TIMED_STEPS
+    begin.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = begin.elapsed_time(end) / (3 * K)
+    trace = os.path.join(trace_dir, "sampled_eager_trace.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(SAMPLED_TRACED_STEPS):
+            trainer._step_body(arrays)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    idle, busy_ms, window_ms = device_idle_share(trace)
+    averages = prof.key_averages()
+    by_op = sorted(((e.key, getattr(e, "self_device_time_total", 0) / 1e3 / SAMPLED_TRACED_STEPS,
+                     e.count // SAMPLED_TRACED_STEPS) for e in averages
+                    if getattr(e, "self_device_time_total", 0) > 0), key=lambda item: -item[1])[:12]
+    total = {e.key: getattr(e, "device_time_total", 0) / 1e3 / SAMPLED_TRACED_STEPS for e in averages}
+    busy_step = busy_ms / SAMPLED_TRACED_STEPS
+    einsum = {"aten::einsum (forward)": total.get("aten::einsum", 0.0),
+              "aten::bmm (the einsums, forward and backward)": total.get("aten::bmm", 0.0)}
+    replay_trace = os.path.join(trace_dir, "sampled_replay_trace.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(replay_trace)
+    replay_idle, replay_busy_ms, replay_window_ms = device_idle_share(replay_trace)
+    with open(replay_trace) as handle:
+        kernels = [e for e in json.load(handle)["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") == "kernel" and "dur" in e]
+    by_kernel = {}
+    for e in kernels:
+        by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"] / 1e3 / K
+    replay_by_kernel = sorted(by_kernel.items(), key=lambda item: -item[1])[:8]
+    log(f"[sampled {tag}] {card}: one train step eager {eager_ms:.3f} ms on the card (CUDA events, mean of "
+        f"{SAMPLED_TIMED_STEPS}; {eager_host_ms:.3f} ms host wall), replayed {replay_ms:.3f} ms (3 replays of {K}); "
+        f"traced eager: device busy {busy_step:.3f} ms a step, idle share "
+        + ("not measured" if idle is None else f"{idle:.4f}")
+        + f"; traced replay of {K} steps: device busy {replay_busy_ms:.3f} ms of {replay_window_ms:.3f} ms, idle share "
+        + ("not measured" if replay_idle is None else f"{replay_idle:.4f}"))
+    log(f"[sampled {tag}] the tree einsums a step: "
+        + "; ".join(f"{k} {v:.3f} ms = {v / max(busy_step, 1e-9):.3f} of the device busy time" for k, v in einsum.items()))
+    for name, ms, count in by_op:
+        log(f"[sampled {tag}]   {ms:8.3f} ms a step (self) in {count:3d} calls: {name[:110]}")
+    for name, ms in replay_by_kernel:
+        log(f"[sampled {tag}]   replayed: {ms:8.3f} ms a step: {name[:110]}")
+    return {"eager_step_ms": eager_ms, "replayed_ms_by_kernel": replay_by_kernel, "eager_step_host_ms": eager_host_ms, "replayed_step_ms": replay_ms,
+            "eager_idle_share": idle, "eager_busy_ms_a_step": busy_step, "replayed_idle_share": replay_idle,
+            "replayed_busy_ms": replay_busy_ms, "replayed_window_ms": replay_window_ms,
+            "einsum_ms_a_step": einsum, "device_ms_by_op": by_op}
+
+
+def sampled_leg(torch, card: str, tag: str):
+    """``GNNLearningWarper.train`` -> ``SampledGraphProcedure`` for one leg
+    of SAMPLED_LEGS: launch counts (D 5 x steps each way, no other kernel),
+    replays, finite losses, moved parameters, then the leg's measurements.
+    Returns the leg's record and its procedure."""
+    import grl_torch
+
+    batch_size, tree, chunks, val_batches = SAMPLED_LEGS[tag]
+    tmp = tempfile.mkdtemp(prefix="grl_torch_sampled_")
+    config = sampled_config(tmp, batch_size, tree)
+    start = time.perf_counter()
+    warper = grl_torch.GNNLearningWarper(config=config)
+    setup_s = time.perf_counter() - start
+    trainer = warper.trainer
+    require(type(trainer).__name__ == "SampledGraphProcedure", f"the warper built {type(trainer).__name__}")
+    data, K = trainer.data, trainer._scan_k
+    trainer.data = data._replace(
+        train_mask=cut_mask(data.train_mask, None if chunks is None else chunks * K * batch_size),
+        val_mask=cut_mask(data.val_mask, None if val_batches is None else val_batches * batch_size))
+    steps = -(-int(trainer.data.train_mask.sum()) // batch_size)
+    evals = -(-int(trainer.data.val_mask.sum()) // batch_size)
+    sampler = trainer.sampler
+    args = config["model"]["args"]
+    log(f"[sampled {tag}] configs/arxiv_full_graph.yaml with SampledGraphProcedure: {len(data.features)} nodes, "
+        f"{len(data.senders)} edges, L={data.num_relations}, widths {args['input_dim']}/{args['net_size']}/"
+        f"{args['output_dim']}, {args['compute_dtype']}, kernel_impl {args['kernel_impl']}, dropout "
+        f"{args.get('dropout_rate', 0.5)}, DropEdge {args.get('edge_dropout_rate', RATE)}; fanouts {SAMPLED_FANOUTS}, "
+        f"B={batch_size}: {sampler.num_nodes} tree slots and {sampler.num_edges} edges a batch, "
+        f"{'tree' if tree else 'COO'} route, head slice {trainer._head_slice}; {steps} steps in chunks of {K}, "
+        f"{evals} validation batches; graph built in {setup_s:.2f} s")
+    initial = params_of(warper.model)
+
+    # The main path: every launch count starts at 0 here.
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    acc = warper.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launched = sparse_counts()
+    expected = {**dict.fromkeys(launched, 0), **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * steps)}
+    require(launched == expected, f"sampled {tag} launched {launched}, expected {expected}")
+    runner = trainer.chunk_runner()
+    require(trainer.state.step == steps and runner.replays == steps // K - 1 and list(runner.graphs) == [K],
+            f"sampled {tag}: {trainer.state.step} steps, {runner.replays} replays of graphs {list(runner.graphs)}")
+    recorded = {name: n for name, n in runner.graphs[K][2].items() if n}
+    require(recorded == dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * K), f"the captured chunk recorded {recorded}")
+    losses = trainer.losses
+    require(len(losses) == steps and all(math.isfinite(v) for v in losses), f"losses {losses}")
+    changed = sum(not torch.equal(initial[n], p) for n, p in params_of(warper.model).items())
+    require(changed == len(initial), f"only {changed} of {len(initial)} parameter tensors changed")
+    setup = runner.setup[K]
+    log(f"[sampled {tag}] {card}: {steps} steps + {evals} validation batches in {wall:.3f} s "
+        f"({steps * batch_size / wall:.1f} target nodes/s with the validation); launches "
+        f"{ {k: v for k, v in launched.items() if v} } (every other kernel 0); {runner.replays} replays of one "
+        f"graph of {K} steps, {steps % K} leftover steps eager; validation accuracy {acc:.4f}; peak device memory "
+        f"{peak_gb:.2f} GB; warm-up chunk {setup['warmup_s']:.3f} s, capture {setup['capture_s']:.3f} s adding "
+        f"{setup['capture_bytes'] / 1e6:.1f} MB")
+    log(f"[sampled {tag}] losses: first {[round(v, 4) for v in losses[:3]]}, last {[round(v, 4) for v in losses[-3:]]}")
+    rate, split = sampled_rate(torch, trainer, SAMPLED_RATE_CHUNKS[tag])
+    log(f"[sampled {tag}] {card}: sampled_target_nodes_per_s {rate:.1f} over {SAMPLED_RATE_CHUNKS[tag]} replayed "
+        f"chunks of {K} after an untimed one, a step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    times = sampled_step_times(torch, trainer, card, tag, config["output_dir"])
+    return {"batch_size": batch_size, "route": "tree" if tree else "coo", "steps": steps, "evals": evals,
+            "scan_steps": K, "replays": runner.replays, "recorded": recorded, "launches": launched,
+            "wall_s": wall, "val_acc": acc, "losses": losses, "peak_memory_gb": peak_gb, "setup": setup,
+            "graph_setup_s": setup_s, "sampled_target_nodes_per_s": rate, "split": split, **times}, trainer
+
+
+def sparse_kv_leg(torch, card: str, tag: str, base):
+    """``GNNLearningWarper.train`` -> ``KVProcedure`` on SparseBucketPadding's
+    COO batches, one epoch: D counts, no K1/K2/K3, finite losses, moved
+    parameters, the checkpoint; steps/s and one step's device ms."""
+    import grl_torch
+    from grl_torch.trainer.procedures.kv_procedure import adjacency_leaves, adjacency_to
+    from grl_torch.utils.checkpoint import CheckpointHandler
+
+    attention_impl, scan_steps = SPARSE_KV_LEGS[tag]
+    config = copy.deepcopy(base)
+    config.update(num_epochs=1, scan_steps=scan_steps, experiment_name=f"sparse_kv {tag}")
+    config["output_dir"] = os.path.join(base["output_dir"], tag.replace(" ", "_"))
+    config["model"]["args"].update(kernel_impl="xla", attention_impl=attention_impl)
+    for split in ("training", "validation"):
+        config["data_config"][split]["data_collate"] = copy.deepcopy(SPARSE_KV_COLLATE)
+    config["logging"].pop("profile", None)
+    warper = grl_torch.GNNLearningWarper(config=config)
+    trainer = warper.trainer
+    initial = params_of(warper.model)
+    steps, evals = TRAIN_PAGES // B, VAL_PAGES // B
+    reset_counts()
+    start = time.perf_counter()
+    f1 = warper.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launched = sparse_counts()
+    expected = {**dict.fromkeys(launched, 0), **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * steps)}
+    require(launched == expected, f"sparse KV {tag} launched {launched}, expected {expected}")
+    losses = series(warper, "Train/step_loss")
+    require(len(losses) == steps and all(math.isfinite(v) for v in losses), f"sparse KV {tag} losses {losses}")
+    changed = sum(not torch.equal(initial[n], p) for n, p in params_of(warper.model).items())
+    require(changed == len(initial), f"only {changed} of {len(initial)} parameter tensors changed")
+    checkpoint = os.path.join(trainer.model_dir, CheckpointHandler.LATEST)
+    require(os.path.exists(checkpoint), f"no checkpoint at {checkpoint}")
+    items = [(*trainer._host_batch(batch), 1.0) for batch in trainer.train_loader]
+    keys = [trainer.shape_key(*item[:3]) for item in items]
+    buckets = sorted({tuple(adjacency_leaves(A)["senders"].shape) for _, A, _, _ in items})
+    V, A, labels, _ = items[0]
+    V, A, labels = V.cuda(), adjacency_to(A, torch.device("cuda")), labels.cuda()
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        trainer._train_fn(V, A, labels, trainer.rngs, 1.0)
+    torch.cuda.synchronize()
+    begin.record()
+    for _ in range(TIMED_STEPS):
+        trainer._train_fn(V, A, labels, trainer.rngs, 1.0)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = begin.elapsed_time(end) / TIMED_STEPS
+    record = {"steps": steps, "evals": evals, "wall_s": wall, "steps_per_s": steps / wall, "launches": launched,
+              "losses": losses, "macro_f1": f1, "step_ms": step_ms, "edge_buckets": buckets}
+    log(f"[sparse_kv {tag}] {card}: {steps} steps + {evals} validation batches in {wall:.3f} s "
+        f"({steps / wall:.3f} steps/s with the validation and the host data); attention_impl {attention_impl}, "
+        f"scan_steps {scan_steps}; edge buckets {buckets}; launches { {k: v for k, v in launched.items() if v} } "
+        f"(no K1/K2/K3); losses {[round(v, 4) for v in losses]}; one eager step {step_ms:.3f} ms on the card "
+        f"(CUDA events, mean of {TIMED_STEPS}, B={B}, N={labels.shape[1]})")
+    if scan_steps > 1:
+        # The main path's chunks: batches wait by edge bucket, so how many
+        # chunks replay depends on how the epoch's pages fell.
+        runner = trainer.chunk_runner()
+        record.update(replays=runner.replays, graphs=len(runner.graphs))
+        log(f"[sparse_kv {tag}] the epoch's chunks: {len(runner.graphs)} graph(s) captured, {runner.replays} "
+            f"replay(s)")
+        # A chunk of one edge bucket (its batches in turn, as many as it has).
+        key = max(set(keys), key=keys.count)
+        same = [item for item, k in zip(items, keys) if k == key]
+        chunk = [same[i % len(same)] for i in range(scan_steps)]
+        saved, trainer._steps = trainer._steps, None
+        with deterministic(torch, True):
+            trainer.run_chunk(chunk)  # the warm-up, eager
+            trainer.run_chunk(chunk)  # the capture, then its replay
+            replay_losses, eager_losses = replay_against_eager(torch, trainer, chunk, f"sparse KV {tag}")
+        trainer._steps = saved
+        record["replay_vs_eager_losses"] = [replay_losses, eager_losses]
+    return record
+
+
+def phase_sampled(torch, card: str):
+    """The sampled path (tree B=256 with its checks, tree B=512, COO
+    B=256) and the sparse KV path (dense and sparse attention, and dense
+    at scan_steps 4)."""
+    import itertools
+
+    import numpy as np
+
+    legs = {}
+    for tag in SAMPLED_LEGS:
+        legs[tag], trainer = sampled_leg(torch, card, tag)
+        K = trainer._scan_k
+        rng = np.random.RandomState(1)
+        if tag == "tree B=256":
+            items = list(itertools.islice(trainer.sampler.epoch_batches(rng, trainer.data.train_mask), K))
+            legs[tag]["captured_vs_eager"] = sampled_replay_check(torch, trainer, items, tag)
+            legs[tag]["replayed_masks"] = masks = sampled_masks(
+                torch, trainer, {name: t[0] for name, t in trainer._slots[K]["static"].items()})
+            log(f"[sampled {tag}] replays draw new masks: {masks}")
+            legs[tag]["d_vs_plain"] = sampled_d_vs_plain(torch, trainer, items[:2], tag)
+            require(legs[tag]["val_acc"] > SAMPLED_LEARN_ACC,
+                    f"sampled learning check failed: validation accuracy {legs[tag]['val_acc']}")
+            log(f"[sampled {tag}] learning check: validation accuracy {legs[tag]['val_acc']:.4f} after one epoch "
+                f"(need > {SAMPLED_LEARN_ACC}; chance {1 / trainer.data.num_classes:.4f})")
+        if tag == "coo B=256":
+            # Eval forwards of the same validation batches and weights through
+            # both routes, held as serving holds bf16 (SERVE_AGREEMENT).
+            routes = {True: [], False: []}
+            trainer.model.eval()
+            with torch.no_grad():
+                for batch in itertools.islice(trainer.sampler.epoch_batches(rng, trainer.data.val_mask), 4):
+                    arrays = trainer.device_arrays(batch)
+                    for route in routes:
+                        trainer._use_tree = route
+                        routes[route].append(trainer._logits(arrays)[0].float().flatten(0, -2))
+            trainer._use_tree = False
+            tree, coo = (torch.cat(routes[r]) for r in (True, False))
+            p_tree, p_coo = tree.softmax(-1), coo.softmax(-1)
+            same = float((tree.argmax(-1) == coo.argmax(-1)).float().mean())
+            conf = float((p_tree.max(-1).values - p_coo.max(-1).values).abs().max())
+            diff, scale = float((coo - tree).abs().max()), float(tree.abs().max())
+            min_same, max_conf = SERVE_AGREEMENT["bfloat16"]
+            log(f"[sampled {tag}] eval forwards of 4 validation batches ({len(tree)} targets) through the tree and "
+                f"the COO routes, same weights: classes agree on {same:.5f} (need >= {min_same}), max confidence "
+                f"diff {conf:.3e} (need <= {max_conf}); max logit difference {diff:.4e} of scale {scale:.3f}")
+            require(same >= min_same and conf <= max_conf, f"the tree and COO routes disagree: {same}, {conf}")
+            legs[tag]["tree_vs_coo"] = {"class_agreement": same, "max_confidence_diff": conf,
+                                        "max_logit_diff": diff, "logit_scale": scale}
+        del trainer
+    tmp = tempfile.mkdtemp(prefix="grl_torch_sparse_kv_")
+    dirs, classes_path, charset_path = write_training_files(tmp)
+    base = train_config(tmp, dirs, classes_path, charset_path)
+    legs["sparse_kv"] = {tag: sparse_kv_leg(torch, card, tag, base) for tag in SPARSE_KV_LEGS}
+    return legs
+
+
+# ---------------------------------------------------------------------------
 # demo
 # ---------------------------------------------------------------------------
 DEMO_PAGE_SEED = 3
@@ -4531,6 +5014,8 @@ def main() -> int:
         timed("tile")
         record["tile_variants"] = tile_variants = phase_tile_variants(torch, card, tile_path["launches"])
         timed("tile_variants")
+        record["sampled"] = sampled = phase_sampled(torch, card)
+        timed("sampled")
         record["demo"] = phase_demo(torch, card)
         timed("demo")
         record["gather_probe"] = probe = phase_gather_probe(torch, card, kernel_rows)
@@ -4613,7 +5098,9 @@ def main() -> int:
              "train_variants float32": f32["launches"][name], "train_variants bfloat16 ragged": ragged["launches"][name],
              **{f"ssl {leg}": n[name] for leg, n in ssl["launches"].items()},
              **{f"zoo {leg}": n[name] for leg, n in zoo["launches"].items()},
-             "full_graph": fg[name], "ell": el[name], "tile": tp[name]},
+             "full_graph": fg[name], "ell": el[name], "tile": tp[name],
+             **{f"sampled {leg}": sampled[leg]["launches"][name] for leg in SAMPLED_LEGS},
+             **{f"sparse_kv {leg}": n["launches"][name] for leg, n in sampled["sparse_kv"].items()}},
             main_row(name, F=dropout_main["F"]), f"bf16 ({dropout_main['N']}, {dropout_main['F']}) rate 0.5")
     for direction in ("forward", "backward", "projected forward", "projected backward"):
         sources[f"K6 {direction}"] = (

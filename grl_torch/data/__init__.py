@@ -1,5 +1,11 @@
 from grl_torch.data.augmentor import BaseAugmentor, DGINegativeSampling, NodeDropAugmentor
-from grl_torch.data.collate import BucketPadding, NumpyPadding, next_bucket, stack_batch
+from grl_torch.data.collate import (
+    BucketPadding,
+    NumpyPadding,
+    SparseBucketPadding,
+    next_bucket,
+    stack_batch,
+)
 from grl_torch.data.corpus import build_corpus_and_classes
 from grl_torch.data.dataloader import BaseDataLoader, DataLoader, prefetch_iter
 from grl_torch.data.datasets import (
@@ -32,6 +38,7 @@ __all__ = [
     "NodeDropAugmentor",
     "BucketPadding",
     "NumpyPadding",
+    "SparseBucketPadding",
     "next_bucket",
     "stack_batch",
     "build_corpus_and_classes",

@@ -1,12 +1,14 @@
 """Batch collation: padding strategies + array stacking.
 
 Copies of ``grl_tpu/data/collate.py`` (``NumpyPadding``, ``next_bucket``,
-``BucketPadding``, ``stack_batch``). :class:`BucketPadding` right-pads the
-node axis to a fixed bucket (a multiple of a quantum, or the next listed
-size), so batches fall into few shapes, and emits a ``node_mask`` so
-downstream losses and metrics ignore padding. :class:`NumpyPadding` pads
-named per-sample arrays (the self-supervised targets' index and target
-lists, say) symmetrically to one shape per batch.
+``BucketPadding``, ``SparseBucketPadding``, ``stack_batch``).
+:class:`BucketPadding` right-pads the node axis to a fixed bucket (a
+multiple of a quantum, or the next listed size), so batches fall into few
+shapes, and emits a ``node_mask`` so downstream losses and metrics ignore
+padding; :class:`SparseBucketPadding` then turns each page's dense
+adjacency into padded COO edge lists. :class:`NumpyPadding` pads named
+per-sample arrays (the self-supervised targets' index and target lists,
+say) symmetrically to one shape per batch.
 """
 from __future__ import annotations
 
@@ -129,6 +131,41 @@ class BucketPadding(BaseCollate):
                 "node_mask",
             } | set(self.extra_keys) | set(self.keep_keys)
             batch = [{k: v for k, v in item.items() if k in keep} for item in batch]
+        return batch
+
+
+class SparseBucketPadding(BucketPadding):
+    """BucketPadding, then COO conversion: the config's entry to the sparse
+    path (``grl_tpu/data/collate.py:142-172``).
+
+    After node bucketing, each page's dense ``(Nb, L, Nb)`` adjacency
+    becomes padded COO edge lists (``coo_senders``, ``coo_receivers``,
+    ``coo_relations``, ``coo_weights``, ``coo_mask``) that share one edge
+    bucket per batch, a multiple of ``edge_quantum``, and the dense tensor
+    is dropped: the batch is O(N·F + E), not O(N²·L). ``KVProcedure`` sees
+    the ``coo_*`` keys and feeds the model one flat batched
+    :class:`grl_torch.ops.sparse.RelationalGraph`.
+    """
+
+    def __init__(self, edge_quantum: int = 256, **kwargs: Any):
+        super().__init__(**kwargs)
+        self.edge_quantum = int(edge_quantum)
+
+    def __call__(self, batch: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        from grl_torch.ops.sparse import dense_to_relational_coo
+
+        batch = super().__call__(batch)
+        adjs = [np.asarray(item["adjacency_matrix"], np.float32) for item in batch]
+        counts = [int(np.count_nonzero(a)) for a in adjs]
+        bucket = next_bucket(max(max(counts), 1), self.edge_quantum)
+        for item, adj in zip(batch, adjs):
+            s, r, rel, w, m = dense_to_relational_coo(adj, edge_bucket=bucket)
+            item["coo_senders"] = s
+            item["coo_receivers"] = r
+            item["coo_relations"] = rel
+            item["coo_weights"] = w
+            item["coo_mask"] = m
+            del item["adjacency_matrix"]
         return batch
 
 

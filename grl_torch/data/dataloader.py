@@ -149,7 +149,7 @@ class BaseDataLoader:
             if cls is None:
                 raise KeyError(
                     f"Collate processor {name!r} is not in grl_torch.data.collate, "
-                    "which has BucketPadding and NumpyPadding (see ROADMAP.md for the others)."
+                    "which has BucketPadding, SparseBucketPadding and NumpyPadding."
                 )
             chain.append(cls._from_config(args))
         return chain

@@ -72,6 +72,7 @@ class DeepRPGCN(nn.Module):
         gen = _default_generator(generator)
         del rp_size
         self.output_dim = output_dim
+        self.num_edges = num_edges
         self.num_layers = num_layers
         self.skip_connection_pos = skip_connection_pos
         self.rp_relative_position = rp_relative_position
@@ -136,6 +137,7 @@ class DeepRPRobustGCN(nn.Module):
         gen = _default_generator(generator)
         del rp_size
         self.output_dim = output_dim
+        self.num_edges = num_edges
         self.lambda_value = lambda_value
         self.emb1 = EmbeddingBlock(input_dim, net_size, gen)
         for idx in range(1, 10):

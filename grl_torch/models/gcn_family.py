@@ -4,7 +4,8 @@ family: ``RobustGCN``, ``RPGraphCNNDropEdge`` and ``ModGCN``.
 Counterparts of ``grl_tpu/models/gcn_family.py``. Call convention:
 ``model((V, A), head_rows=None, rngs=None)`` with ``V (B, N, F_in)`` and
 ``A (B, N, L, N)`` in the dataset layout, or flat ``V (num_nodes, F_in)``
-and a :class:`grl_torch.ops.sparse.RelationalGraph` for the sparse path;
+and a :class:`grl_torch.ops.sparse.RelationalGraph` (or a sampled
+:class:`grl_torch.ops.tree.TreeGraph`) for the sparse path;
 train or eval mode is the module's own (``model.train()`` /
 ``model.eval()``), and a train-mode forward with dropout or DropEdge draws
 its masks from ``rngs`` (:class:`grl_torch.models.layers.Rngs`), as flax
@@ -49,6 +50,7 @@ from grl_torch.models.layers import (
     require_rngs,
 )
 from grl_torch.ops.relagg import dropedge_aggregate, neighbor_aggregate
+from grl_torch.ops.sparse import RelationalGraph
 from grl_torch.utils.device import DeviceLike, optional_dtype, resolve_device
 
 Inputs = Tuple[torch.Tensor, Any]
@@ -122,7 +124,10 @@ class GCNTrunk(nn.Module):
     def _gcn(self, conv: GraphConv, feats: torch.Tensor, A: Any, sparse: bool, det: bool,
              rngs: Optional[Rngs]) -> torch.Tensor:
         if sparse:
-            if self.kernel_impl != "xla" and getattr(A, "kernel", None) is None:
+            # Only a RelationalGraph can carry a kernel (gcn_family.py:128-131):
+            # a TreeGraph aggregates by its einsums whatever kernel_impl says.
+            if (self.kernel_impl != "xla" and isinstance(A, RelationalGraph)
+                    and getattr(A, "kernel", None) is None):
                 raise ValueError(
                     f"kernel_impl={self.kernel_impl!r} on a sparse RelationalGraph with no "
                     "planned kernel: attach one with grl_torch.ops.kernels.attach_kernel "
@@ -157,6 +162,12 @@ class GCNTrunk(nn.Module):
         new_v = self.emb2(torch.cat(cat13, dim=-1))
         if self.self_atten is None:
             return new_v
+        if sparse and not isinstance(A, RelationalGraph):
+            raise ValueError(
+                "NodeSelfAtten runs on a dense adjacency or a RelationalGraph, not on a "
+                f"{type(A).__name__} (gcn_family.py:160-166); build sampled and partitioned "
+                "models with use_attention=False."
+            )
         if sparse and self.attention_impl == "sparse":
             return self.self_atten(new_v, A)
         if sparse:
@@ -205,6 +216,7 @@ class GraphCNNDropEdge(nn.Module):
         dtype = optional_dtype(compute_dtype)
         # Read by the procedures, as grl_tpu reads the flax module's fields.
         self.output_dim = output_dim
+        self.num_edges = num_edges
         self.compute_dtype = compute_dtype
         self.net_size = net_size
         self.use_attention = use_attention
@@ -277,6 +289,7 @@ class RobustGCN(nn.Module):
         target = resolve_device(device)
         gen = _default_generator(generator)
         self.output_dim = output_dim
+        self.num_edges = num_edges
         half = net_size // 2
         self.trunk = GCNTrunk(input_dim, net_size=net_size, num_edges=num_edges, dropout_rate=dropout_rate,
                               edge_dropout_rate=0.0, g1_first=False, use_attention=use_attention, generator=gen)
@@ -324,6 +337,7 @@ class RPGraphCNNDropEdge(nn.Module):
         target = resolve_device(device)
         gen = _default_generator(generator)
         self.output_dim = output_dim
+        self.num_edges = num_edges
         self.trunk = GCNTrunk(input_dim, net_size=net_size, num_edges=num_edges, dropout_rate=dropout_rate,
                               edge_dropout_rate=edge_dropout_rate, g1_first=True, use_attention=False,
                               generator=gen)
@@ -375,6 +389,7 @@ class ModGCN(nn.Module):
         target = resolve_device(device)
         gen = _default_generator(generator)
         self.output_dim = output_dim
+        self.num_edges = num_edges
         self.trunk = GCNTrunk(input_dim, net_size=net_size, num_edges=num_edges, dropout_rate=dropout_rate,
                               edge_dropout_rate=edge_dropout_rate, g1_first=True, use_attention=use_attention,
                               generator=gen)

@@ -13,9 +13,10 @@ Randomness is explicit, as ``rngs={"dropout": key}`` is in flax: a
 train-mode forward takes an :class:`Rngs` whose generators draw every
 dropout and DropEdge mask; nothing reads PyTorch's global generator.
 
-The adjacency is a dense ``(B, N, L, N)`` tensor or a sparse
-:class:`~grl_torch.ops.sparse.RelationalGraph` with flat ``(num_nodes, F)``
-features; a graph with a planned K5 or K6 kernel
+The adjacency is a dense ``(B, N, L, N)`` tensor, or a sparse
+:class:`~grl_torch.ops.sparse.RelationalGraph` or sampled
+:class:`~grl_torch.ops.tree.TreeGraph` with flat ``(num_nodes, F)``
+features; a graph with a planned K5, K6 or K7 kernel
 (:class:`~grl_torch.ops.kernels.KernelAdjacency`) aggregates through it.
 """
 from __future__ import annotations
@@ -30,6 +31,7 @@ from grl_torch.ops.dropout import dropout
 from grl_torch.ops.relconv import drop_edge, relational_neighbor_aggregate
 from grl_torch.ops.segment import segment_softmax, segment_sum
 from grl_torch.ops.sparse import RelationalGraph, drop_edge_coo, relational_neighbor_coo
+from grl_torch.ops.tree import TreeGraph, tree_neighbor_aggregate
 
 
 def maybe_cast(x: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> Optional[torch.Tensor]:
@@ -82,17 +84,17 @@ def _normal(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def is_sparse_adjacency(A: Any) -> bool:
-    """True for a :class:`RelationalGraph`, False for a dense strided
-    tensor; any other adjacency raises, naming where it is queued."""
-    if isinstance(A, RelationalGraph):
+    """True for a :class:`RelationalGraph` or a :class:`TreeGraph`, False
+    for a dense strided tensor; any other adjacency raises, naming where it
+    is queued."""
+    if isinstance(A, (RelationalGraph, TreeGraph)):
         return True
     if isinstance(A, torch.Tensor) and A.layout == torch.strided:
         return False
     raise NotImplementedError(
-        f"grl_torch takes a dense (B, N, L, N) tensor or a RelationalGraph, not "
-        f"{type(A).__name__} (layout {getattr(A, 'layout', None)}); node-partitioned "
-        "shards arrive with ROADMAP.md Queue 1, slice 4, and the sampled path's "
-        "TreeGraph with slice 3."
+        f"grl_torch takes a dense (B, N, L, N) tensor, a RelationalGraph or a TreeGraph, "
+        f"not {type(A).__name__} (layout {getattr(A, 'layout', None)}); node-partitioned "
+        "shards arrive with ROADMAP.md Queue 1, slice 4."
     )
 
 
@@ -202,6 +204,10 @@ class GraphConv(nn.Module):
                            + maybe_cast(neigh_term, self.dtype))
                     return self._add_bias(out)
                 neigh = A.kernel.neighbor_aggregate(V, seed, rate)
+            elif isinstance(A, TreeGraph):
+                # The sampled minibatch: its endpoints are positional, so
+                # the aggregation is a reshape and an einsum a level.
+                neigh = tree_neighbor_aggregate(V, A, edge_keep)
             elif is_sparse_adjacency(A):
                 neigh = relational_neighbor_coo(V, A, edge_keep)
             else:
@@ -250,7 +256,8 @@ class EdgeDropout(nn.Module):
       — K5 or K6 regenerates the edge mask from the seed, a device tensor
       drawn as K1's is; only the self-loop mask is drawn here;
     * a plain RelationalGraph: ``(edge_keep (E,), self_scale (num_nodes,))``
-      (:func:`drop_edge_coo`);
+      (:func:`drop_edge_coo`); a TreeGraph the same, with ``edge_keep``
+      shaped as its ``(G, E)`` weights;
     * a sparse graph when deterministic or at rate 0: ``(None, None)``.
     """
 

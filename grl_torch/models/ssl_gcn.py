@@ -87,6 +87,7 @@ class SSLGCN(nn.Module):
         target = resolve_device(device)
         gen = _default_generator(generator)
         self.output_dim = output_dim
+        self.num_edges = num_edges
         self.n_graph_classes = n_graph_classes
         self.net_size = net_size
         # edge_dropout_rate is grl_tpu's field, read by nothing: SSLGCN's

@@ -21,12 +21,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from grl_torch.ops.segment import segment_sum
+from grl_torch.ops.tree import TreeGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,16 +155,17 @@ def relational_aggregate_coo(
 
 
 def drop_edge_coo(
-    graph: RelationalGraph,
+    graph: Union[RelationalGraph, TreeGraph],
     rate: float,
     generator: torch.Generator,
     deterministic: bool = False,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """DropEdge masks of the sparse path (``sparse.py:164-186``): iid keep
     with a ``1/(1-p)`` rescale over the edges and over the self-loops.
-    Returns ``(edge_keep (E,), self_scale (num_nodes,))`` in float32, both
-    ``None`` when deterministic or at rate 0. ``generator`` lives on the
-    graph's device."""
+    Returns ``(edge_keep, self_scale (num_nodes,))`` in float32, ``edge_keep``
+    shaped as the graph's weights (``(E,)``, or a TreeGraph's ``(G, E)``),
+    both ``None`` when deterministic or at rate 0. ``generator`` lives on
+    the graph's device."""
     if deterministic or rate <= 0.0:
         return None, None
     keep = 1.0 - rate

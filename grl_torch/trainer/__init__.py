@@ -1,16 +1,16 @@
 """Training: losses, metrics, schedules, optimizers and the procedures.
 
 Counterpart of ``grl_tpu/trainer``. The procedure registry holds
-``KVProcedure``, ``FullGraphProcedure`` and the self-supervised family
-(``SSLPretrainProcedure``, ``FinetuneKVProcedure``,
-``JointTrainingProcedure``, ``GraphClassificationProcedure``); the sampled
-procedure arrives with a later slice of ROADMAP.md.
+``KVProcedure``, ``FullGraphProcedure``, ``SampledGraphProcedure`` and the
+self-supervised family (``SSLPretrainProcedure``, ``FinetuneKVProcedure``,
+``JointTrainingProcedure``, ``GraphClassificationProcedure``).
 """
 from grl_torch.trainer import losses, lr_schedulers, metrics, optimizers, procedures
 from grl_torch.trainer.procedures import (
     BaseProcedure,
     FullGraphProcedure,
     KVProcedure,
+    SampledGraphProcedure,
     TrainState,
 )
 
@@ -23,5 +23,6 @@ __all__ = [
     "BaseProcedure",
     "FullGraphProcedure",
     "KVProcedure",
+    "SampledGraphProcedure",
     "TrainState",
 ]

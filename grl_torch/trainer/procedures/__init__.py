@@ -9,6 +9,7 @@ from grl_torch.trainer.procedures.graph_classification_procedure import (
 )
 from grl_torch.trainer.procedures.joint_training_procedure import JointTrainingProcedure
 from grl_torch.trainer.procedures.kv_procedure import KVProcedure
+from grl_torch.trainer.procedures.sampled_graph_procedure import SampledGraphProcedure
 from grl_torch.trainer.procedures.ssl_pretrain_procedure import SSLPretrainProcedure
 
 __all__ = [
@@ -18,6 +19,7 @@ __all__ = [
     "GraphClassificationProcedure",
     "JointTrainingProcedure",
     "KVProcedure",
+    "SampledGraphProcedure",
     "SSLPretrainProcedure",
     "TrainState",
     "merge_matching_leaves",

@@ -223,6 +223,9 @@ class BaseProcedure:
             model.train()
             state.optimizer.zero_grad(set_to_none=True)
             logits = model((V, A), rngs=rngs, lambda_value=lam)
+            if logits.dim() == labels.dim():
+                # The sparse path: flat (B*N, C) logits -> (B, N, C).
+                logits = logits.reshape(*labels.shape, -1)
             loss = criterion(logits, labels)
             loss.backward()
             apply_gradients(state.optimizer, params, max_grad_norm)
@@ -252,6 +255,8 @@ class BaseProcedure:
             model.eval()
             with torch.no_grad():
                 logits = model((V, A), lambda_value=lam)
+                if logits.dim() == labels.dim():
+                    logits = logits.reshape(*labels.shape, -1)
                 loss = criterion(logits, labels)
             preds = logits.argmax(dim=-1)
             return loss, confusion_matrix(preds, labels, num_classes, ignore_values), preds

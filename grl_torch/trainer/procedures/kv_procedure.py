@@ -17,6 +17,11 @@ stepwise:
   of an epoch run step by step;
 * the per-step cosine RanPAC lambda is passed to the model as a device
   scalar, filled in place (a chunk holds one a step);
+* a batch from ``SparseBucketPadding`` (``coo_*`` keys) reaches the model
+  as flat features ``(B*N, F)`` and one batched
+  :class:`~grl_torch.ops.sparse.RelationalGraph` with ``batch_shape (B, N)``
+  (``kv_procedure.py:108-129``); its chunks are keyed by the edge bucket
+  too;
 * validation sums the confusion matrices of the epoch for the epoch
   report;
 * checkpoints hold model, optimizer and step (BatchNorm's running
@@ -27,6 +32,7 @@ stepwise:
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -34,16 +40,43 @@ import numpy as np
 import torch
 
 from grl_torch.config import ConfigDict
-from grl_torch.data.collate import BucketPadding
+from grl_torch.data.collate import BucketPadding, SparseBucketPadding
 from grl_torch.data.dataloader import BaseDataLoader
 from grl_torch.models.gcn_family import GCNTrunk
 from grl_torch.ops.relagg import check_sm90_shape
+from grl_torch.ops.sparse import RelationalGraph, batch_relational_coo
 from grl_torch.trainer.lr_schedulers import cosine_schedule_lambda
 from grl_torch.trainer.metrics import macro_scores, per_class_report
 from grl_torch.trainer.procedures.base_procedure import BaseProcedure
 from grl_torch.utils.device import optional_dtype
 from grl_torch.utils.metric_tracker import Dictlist
 from grl_torch.utils.profiling import Profiler
+
+
+# The tensors of a COO batch's graph, each copied into a chunk's static
+# tensors; the rest of a RelationalGraph is its static metadata.
+COO_LEAVES = ("senders", "receivers", "relations", "weights", "mask")
+
+
+def adjacency_leaves(A: Any) -> Dict[str, torch.Tensor]:
+    """The tensors of a batch's adjacency by name: a dense ``A``, or a COO
+    graph's edge arrays."""
+    if isinstance(A, RelationalGraph):
+        return {name: getattr(A, name) for name in COO_LEAVES}
+    return {"A": A}
+
+
+def with_leaves(A: Any, leaves: Dict[str, torch.Tensor]) -> Any:
+    """``A`` with its tensors replaced by ``leaves``
+    (:func:`adjacency_leaves`' names), its metadata kept."""
+    if isinstance(A, RelationalGraph):
+        return dataclasses.replace(A, **leaves)
+    return leaves["A"]
+
+
+def adjacency_to(A: Any, device: torch.device) -> Any:
+    """``A``'s tensors copied to ``device``."""
+    return with_leaves(A, {name: t.to(device) for name, t in adjacency_leaves(A).items()})
 
 
 class KVProcedure(BaseProcedure):
@@ -104,7 +137,9 @@ class KVProcedure(BaseProcedure):
         which takes any N.)"""
         trunks = [m for m in self.model.modules() if isinstance(m, GCNTrunk)
                   and m.kernel_impl == "pallas" and m.edge_dropout_rate > 0.0 and m.dtype == torch.bfloat16]
-        if not trunks:
+        if not trunks or any(isinstance(p, SparseBucketPadding) for p in self.train_loader.collate_chain):
+            # COO batches never reach K1/K2: a kernel-less RelationalGraph
+            # takes kernel_impl: xla, and the model refuses any other.
             return
         if not any(isinstance(p, BucketPadding) for p in self.train_loader.collate_chain):
             raise ValueError(
@@ -132,24 +167,36 @@ class KVProcedure(BaseProcedure):
         """``(V, A, labels)`` on the host, features and adjacency cast to
         the compute dtype (half the bytes under bf16, and no cast pass on
         the device); in page-locked memory with ``pin``, for a copy to the
-        device that does not wait."""
-        if "coo_senders" in batch:
-            raise NotImplementedError(
-                "COO batches (SparseBucketPadding) are the sparse path, ROADMAP.md "
-                "Queue 1, slice 3."
-            )
+        device that does not wait. A COO batch (``coo_*`` keys) gives flat
+        ``V (B*N, F)`` and a :class:`RelationalGraph` with ``batch_shape
+        (B, N)``: int32 indices, weights in the compute dtype, a bool mask
+        (``kv_procedure.py:108-129``)."""
         dtype = optional_dtype(getattr(self.model, "compute_dtype", None)) or torch.float32
 
         def host(array, to_dtype):
             tensor = torch.from_numpy(np.ascontiguousarray(array)).to(to_dtype)
             return tensor.pin_memory() if pin else tensor
 
-        return (host(batch["textline_encoding"], dtype), host(batch["adjacency_matrix"], dtype),
-                host(batch["node_label"], torch.int64))
+        V, labels = host(batch["textline_encoding"], dtype), host(batch["node_label"], torch.int64)
+        if "coo_senders" not in batch:
+            return V, host(batch["adjacency_matrix"], dtype), labels
+        B, N = labels.shape
+        graph = batch_relational_coo(
+            *(torch.from_numpy(np.asarray(batch[f"coo_{name}"])).to(torch.int32)
+              for name in ("senders", "receivers", "relations")),
+            torch.from_numpy(np.asarray(batch["coo_weights"])).to(dtype),
+            torch.from_numpy(np.asarray(batch["coo_mask"])).to(torch.bool),
+            nodes_per_sample=N, num_relations=int(self.model.num_edges),
+        )
+        if pin:
+            graph = with_leaves(graph, {name: t.pin_memory() for name, t in adjacency_leaves(graph).items()})
+        return V.reshape(B * N, -1), graph, labels
 
     def _prepare_batch(self, batch: Dict[str, Any]):
-        """``(V, A, labels)`` on the device, with one copy each."""
-        return tuple(t.to(self.device) for t in self._host_batch(batch))
+        """``(V, A, labels)`` on the device, with one copy each (a copy
+        per edge array of a COO graph)."""
+        V, A, labels = self._host_batch(batch)
+        return V.to(self.device), adjacency_to(A, self.device), labels.to(self.device)
 
     def _ensure_initialized(self) -> None:
         if self.state is None:
@@ -234,19 +281,23 @@ class KVProcedure(BaseProcedure):
         self._ensure_initialized()
         K = len(items)
         V0, A0, labels0, _ = items[0]
-        key = (K, tuple(V0.shape), tuple(A0.shape), tuple(labels0.shape))
+        key = (K, *self.shape_key(V0, A0, labels0))
         slots = self._slots.get(key)
         if slots is None:
             def static(like):
-                return [torch.empty(like.shape, dtype=like.dtype, device=self.device) for _ in range(K)]
+                return torch.empty(like.shape, dtype=like.dtype, device=self.device)
 
+            leaves = [{name: static(t) for name, t in adjacency_leaves(A0).items()} for _ in range(K)]
             slots = self._slots[key] = {
-                "V": static(V0), "A": static(A0), "labels": static(labels0),
+                "V": [static(V0) for _ in range(K)], "leaves": leaves,
+                "A": [with_leaves(A0, leaves[k]) for k in range(K)],
+                "labels": [static(labels0) for _ in range(K)],
                 "lam": torch.zeros(K, dtype=torch.float32, device=self.device),
             }
         for k, (V, A, labels, _) in enumerate(items):
             slots["V"][k].copy_(V, non_blocking=True)
-            slots["A"][k].copy_(A, non_blocking=True)
+            for name, leaf in adjacency_leaves(A).items():
+                slots["leaves"][k][name].copy_(leaf, non_blocking=True)
             slots["labels"][k].copy_(labels, non_blocking=True)
         slots["lam"].copy_(torch.tensor([lam for *_, lam in items], dtype=torch.float32))
         body = self._train_body
@@ -257,6 +308,14 @@ class KVProcedure(BaseProcedure):
             return torch.stack([loss for loss, _ in out]), torch.stack([cm for _, cm in out])
 
         return key, chunk
+
+    @staticmethod
+    def shape_key(V: torch.Tensor, A: Any, labels: torch.Tensor) -> tuple:
+        """The shapes that select a chunk's graph: V's, the adjacency's
+        tensors' (a COO graph's edge bucket) and the labels'
+        (``kv_procedure.py:310-316``)."""
+        return (tuple(V.shape), tuple(tuple(t.shape) for t in adjacency_leaves(A).values()),
+                tuple(labels.shape))
 
     def run_chunk(self, items: List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, float]]
                   ) -> Tuple[np.ndarray, np.ndarray]:
@@ -298,15 +357,15 @@ class KVProcedure(BaseProcedure):
             lam = self._lambda_value(epoch)
             gstep = self.global_step
             self.global_step += 1
-            key = (tuple(V.shape), tuple(A.shape), tuple(labels.shape))
+            key = self.shape_key(V, A, labels)
             buffers.setdefault(key, []).append((V, A, labels, lam, gstep))
             if len(buffers[key]) == K:
                 flush(buffers.pop(key))
         for items in buffers.values():
             for V, A, labels, lam, gstep in items:
                 self._lam.fill_(lam)
-                loss, cm = self._train_fn(V.to(self.device), A.to(self.device), labels.to(self.device),
-                                          self.rngs, self._lam)
+                loss, cm = self._train_fn(V.to(self.device), adjacency_to(A, self.device),
+                                          labels.to(self.device), self.rngs, self._lam)
                 self._log_train_step(self._scores_from_cm(cm.cpu().numpy(), float(loss)), train_metrics, gstep)
         self._maybe_step_checkpoint(epoch)
         return num_nodes

@@ -1190,3 +1190,66 @@ def test_captured_optimizer_step_equals_eager(name, kwargs):
         runs.append([p.detach().clone() for p in params])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_captured_sampled_chunk_equals_the_same_chunk_run_eagerly(tmp_path):
+    """SampledGraphProcedure on both routes, bf16, DropEdge and dropout on:
+    a chunk of 3 replayed from its graph equals the same chunk run eagerly
+    from the same state, bit for bit, under deterministic algorithms (the
+    COO route's segment sums are index_add_); the next replay draws new
+    masks."""
+    import chip_smoke
+    from grl_torch.data.large_graph import sbm_relational_graph
+    from grl_torch.models import create_model
+    from grl_torch.trainer.procedures import SampledGraphProcedure
+
+    data = sbm_relational_graph(num_nodes=1024, num_classes=5, num_relations=2, avg_degree=8, feature_dim=24)
+    args = {"input_dim": 24, "output_dim": 5, "num_edges": 2, "net_size": 64, "use_attention": False,
+            "compute_dtype": "bfloat16"}
+    for tree in (True, False):
+        config = {"seed": 0, "output_dir": str(tmp_path / str(tree)), "num_epochs": 1, "scan_steps": 3,
+                  "max_grad_norm": 5.0, "sampler": {"fanouts": [4, 3], "batch_size": 32, "tree_aggregation": tree},
+                  "logging": {"use_tensorboard": False}}
+        proc = SampledGraphProcedure(create_model("GraphCNNDropEdge", **args, device="cuda"), config, data,
+                                     device="cuda")
+        items = [b for b, _ in zip(proc.sampler.epoch_batches(np.random.RandomState(0), data.train_mask), range(3))]
+        with chip_smoke.deterministic(torch, True):
+            proc.run_chunk(items)  # the warm-up, eager
+            snap = chip_smoke.snapshot(torch, proc)
+            eager = proc.chunk_runner().eager(proc.load_chunk(items)).tolist()
+            eager_params = chip_smoke.params_of(proc.model)
+            chip_smoke.restore(torch, proc, snap)
+            replayed = proc.run_chunk(items).tolist()  # the capture, then its replay
+            params = chip_smoke.params_of(proc.model)
+            again = proc.run_chunk(items).tolist()
+        assert proc.chunk_runner().replays == 2 and replayed == eager and again != replayed
+        assert all(torch.equal(v, eager_params[n]) for n, v in params.items())
+
+
+def test_captured_coo_kv_chunk_equals_the_same_chunk_run_eagerly(tmp_path):
+    """KVProcedure on SparseBucketPadding's COO batches (kernel_impl xla,
+    sparse attention, bf16, DropEdge and dropout on): a replayed chunk of 2
+    equals the same chunk run eagerly, bit for bit, under deterministic
+    algorithms."""
+    proc = small_kv_procedure(tmp_path)
+    config = dict(proc.config)
+    config["model"]["args"].update(kernel_impl="xla", attention_impl="sparse")
+    for split in ("training", "validation"):
+        config["data_config"][split]["data_collate"] = {
+            "SparseBucketPadding": {"quantum": 64, "edge_quantum": 256, "only_selected_items": True}}
+    from grl_torch.models import create_model
+    from grl_torch.trainer.procedures import KVProcedure
+
+    proc = KVProcedure(create_model("GraphCNNDropEdge", **config["model"]["args"], device="cuda"), config,
+                       device="cuda")
+    batch = next(iter(proc.train_loader))
+    V, A, labels = proc._host_batch(batch)
+    assert isinstance(A, sparse.RelationalGraph) and A.batch_shape == tuple(labels.shape)
+    items = [(V, A, labels, 0.5)] * 2
+    import chip_smoke
+
+    with chip_smoke.deterministic(torch, True):
+        proc.run_chunk(items)  # the warm-up, eager
+        proc.run_chunk(items)  # the capture
+        eager_losses, replayed_losses, differing = replay_against_eager(proc, items)
+    assert np.array_equal(eager_losses, replayed_losses) and not differing

@@ -174,5 +174,7 @@ def test_dataloader_matches_grl_tpu(files, shuffle, drop_last, prefetch):
         assert len(batches) == len(ours)
         for a, b in batches:
             assert_same_arrays(a, b, sorted(a))
-    with pytest.raises(KeyError, match="BucketPadding"):
-        BaseDataLoader({})._load_collate_processors({"SparseBucketPadding": {}})
+    chain = BaseDataLoader({})._load_collate_processors({"SparseBucketPadding": {"edge_quantum": 128}})
+    assert type(chain[0]).__name__ == "SparseBucketPadding" and chain[0].edge_quantum == 128
+    with pytest.raises(KeyError, match="SparseBucketPadding"):
+        BaseDataLoader({})._load_collate_processors({"NoSuchPadding": {}})

@@ -299,6 +299,54 @@ TRAIN_ZOO = textwrap.dedent(
 )
 
 
+TRAIN_SAMPLED_AND_COO = textwrap.dedent(
+    """
+    import sys
+    for name in {blocked!r}:
+        sys.modules[name] = None
+    import json
+    import grl_torch
+    from grl_torch.data.synthetic import synthetic_dataset_files
+    from grl_torch.ops import tree
+
+    graph = {{"large_graph": {{"type": "sbm", "args": {{
+        "num_nodes": 200, "num_classes": 3, "num_relations": 2, "avg_degree": 4, "feature_dim": 8}}}}}}
+    for route in (True, False):
+        config = {{
+            "seed": 0, "output_dir": {tmp!r}, "num_epochs": 1, "scan_steps": 2, "max_grad_norm": 5.0,
+            "sampler": {{"fanouts": [3, 2], "batch_size": 32, "tree_aggregation": route}},
+            "model": {{"type": "GraphCNNDropEdge", "args": {{
+                "input_dim": 8, "output_dim": 3, "num_edges": 2, "net_size": 16, "use_attention": False}}}},
+            "data_config": graph, "procedure": {{"type": "SampledGraphProcedure", "args": {{}}}},
+            "logging": {{"use_tensorboard": False, "experiment_tracking": False}},
+        }}
+        warper = grl_torch.GNNLearningWarper(config=config, device="cpu")
+        acc = warper.train()
+        assert warper.trainer.state.step == len(warper.trainer.losses) > 2 and 0.0 <= acc <= 1.0
+
+    data_dir, classes, charset = synthetic_dataset_files({tmp!r}, num_pages=2, seed=0)
+    split = {{"data_path": [data_dir], "class_path": classes, "charset_path": charset,
+              "key_types": ["key", "value"], "batch_size": 2,
+              "data_process": {{"TextlineEncoding": {{}}, "HeuristicGraphBuilder": {{}}, "NodeLabeling": {{}}}},
+              "data_collate": {{"SparseBucketPadding": {{"quantum": 64, "edge_quantum": 256,
+                                                       "only_selected_items": True}}}}}}
+    args = {{"input_dim": len(json.load(open(charset))["charset"]) + 4, "output_dim": 15, "num_edges": 6,
+             "net_size": 16, "attention_impl": "sparse"}}
+    config = {{"seed": 0, "output_dir": {tmp!r}, "experiment_name": "coo", "num_epochs": 1, "max_grad_norm": 5.0,
+               "model": {{"type": "GraphCNNDropEdge", "args": args}},
+               "procedure": {{"type": "KVProcedure", "args": {{}}}},
+               "data_config": {{"dataset": {{"type": "CassiaDataset"}}, "training": split, "validation": split}},
+               "logging": {{"use_tensorboard": False, "experiment_tracking": False}}}}
+    warper = grl_torch.GNNLearningWarper(config=config, device="cpu")
+    warper.train()
+    assert warper.trainer.state.step == 1
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in {blocked!r} and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("SAMPLED AND COO", warper.trainer.state.step)
+    """
+)
+
+
 def run_blocked(script: str, tmp_path) -> str:
     # One OpenMP thread: the suite's worker processes share the cores.
     env = {**os.environ, "OMP_NUM_THREADS": "1",
@@ -350,6 +398,14 @@ def test_zoo_trains_with_jax_and_grl_tpu_blocked(tmp_path):
     zoo, dropout and DropEdge at their defaults, with the Bayesian search,
     profiling and input-cast modules imported."""
     assert "ZOO 7" in run_blocked(TRAIN_ZOO, tmp_path)
+
+
+def test_sampled_and_coo_paths_train_with_jax_and_grl_tpu_blocked(tmp_path):
+    """A SampledGraphProcedure epoch on the tree and the COO routes in
+    chunks of 2 (DropEdge and dropout on), and one KVProcedure step on a
+    SparseBucketPadding COO batch with sparse attention, all through the
+    warper."""
+    assert "SAMPLED AND COO" in run_blocked(TRAIN_SAMPLED_AND_COO, tmp_path)
 
 
 def imported_roots(path: Path):
