@@ -214,6 +214,31 @@ before the result line is printed; no phase's failure is passed over.
    peak (G also by device time, with its cluster, warps and rows in
    flight), and the measured gather floors of K5, K6 (A rate) and K4 (C
    rate).
+14. ``parallel``: the multi-device slice. A world of two ranks started
+   through the ``GRL_*`` launch contract (this script with
+   ``--parallel-rank``): on one card both ranks share it over gloo (P2P,
+   all_gather and reduce_scatter staged through pinned host buffers), with
+   two cards or more NCCL runs one rank a card. Each rank runs, in turn,
+   ``dp`` (``KVProcedure`` at sumi width, bf16, DropEdge 0.3, dropout 0.5,
+   ``{data: 2}``, global batch 8: one epoch stepwise and one at
+   ``scan_steps: 4``; replicated parameters equal bit for bit after every
+   step, K1 = K2 = 3 x steps and K3 = 3 x validation batches on each rank;
+   two float32 rates-0 steps of the world against one process on the
+   whole batches under ``STEP_LIMITS``), ``tp`` (``{data: 1, model: 2}``:
+   the sharded serving forward against the unsharded one under
+   ``SERVE_AGREEMENT`` in both dtypes, one float32 step under
+   ``STEP_LIMITS``), ``partitioned`` (the arxiv config node-partitioned
+   over two ranks, the ring halo exchange, bf16, 20 steps and 2 evals at
+   ``scan_steps: 10``, D's launches, one float32 rates-0 step against the
+   single-device port under ``FULL_GRAPH_STEP_LIMITS``, the learning check
+   at lr 1e-3 over ``PARALLEL_LEARN_STEPS``) and ``sampled`` (the tree route at B = 256,
+   groups 2, cut to 3 chunks, a float32 rates-0 step against one
+   process); each prints its backend, transport and world, each rank's
+   step ms by CUDA events, its collectives' calls, MB and ms a step, the
+   plan's ``Ec`` and padding share and its rate. Then ``nccl`` in this
+   process: a one-rank NCCL group, the DP step with its gradient
+   all_reduce and a ring of one, each eager and as a captured chunk, equal
+   bit for bit.
 
 The ``kernel`` phase also holds K5 (forward and backward, on the arxiv
 graph at F = 256 and 512, and a small L = 3 graph), K4 and K4b (on the
@@ -4897,6 +4922,669 @@ def phase_demo(torch, card: str):
 
 
 # ---------------------------------------------------------------------------
+# parallel
+# ---------------------------------------------------------------------------
+# The parallel phase's world: two ranks started through the GRL_* launch
+# contract. Where they must share a card (one GPU) the backend is gloo,
+# with two cards or more NCCL, one rank a card
+# (grl_torch.parallel.distributed.choose_backend).
+PARALLEL_WORLD = 2
+# Seconds a collective may wait (every group of the world is made with
+# it), and seconds the world may take before the phase kills it and fails.
+PARALLEL_COLLECTIVE_TIMEOUT_S = 120
+PARALLEL_WORLD_TIMEOUT_S = 480
+# Steps timed by CUDA events (and, in a second window with the collectives
+# synchronized and timed, for their milliseconds) in each leg.
+PARALLEL_TIMED_STEPS = 5
+PARALLEL_COMM_STEPS = 3
+# The sampled leg: the tree route at B = 256, cut to this many chunks.
+PARALLEL_SAMPLED_B = 256
+PARALLEL_SAMPLED_CHUNKS = 3
+# The partitioned leg's learning check: steps at FULL_GRAPH_LEARN_LR, held
+# to FULL_GRAPH_LEARN_ACC. The config's 200 took 136.5 s on one card shared by
+# two ranks (0.9891 reached; a step 465 ms, the ring's 347 MB through gloo),
+# over the phase's budget alone. 60 reached 0.2927; a 100-step run read
+# 0.0722, 0.0927, 0.0556, 0.1302, 0.1905, 0.3220, 0.4309, 0.5255, 0.6531,
+# 0.7739 at steps 10, 20, ..., 100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+# 80 keeps the check well past the bound inside the phase's time.
+PARALLEL_LEARN_STEPS = 80
+# The nccl leg's ring of one runs on an SBM of this many nodes with the
+# arxiv config's widths; its chunks hold this many steps.
+PARALLEL_RING_NODES = 20_000
+PARALLEL_NCCL_K = 2
+PARALLEL_LEGS = ("dp", "tp", "partitioned", "sampled")
+
+
+def flagship_args(dtype_name, **rates):
+    """The sumi-width flagship on the kernel path."""
+    return {"input_dim": CHARSET_SIZE + 4, "output_dim": NUM_CLASSES * 2 + 1, "num_edges": 6, "net_size": NET_SIZE,
+            "kernel_impl": "pallas", "compute_dtype": None if dtype_name == "float32" else dtype_name,
+            "dropout_rate": 0.5, "edge_dropout_rate": RATE, **rates}
+
+
+def parallel_config(tmp: str, **extra):
+    """The distributed block every procedure of the world reads."""
+    return {"output_dir": tmp, "max_grad_norm": 5.0, "logging": {"use_tensorboard": False},
+            "optimizer": {"type": "BuiltinOptimizer", "args": {"type_optimizer": "Adam", "lr": STEP_LR}},
+            **extra}
+
+
+def mesh_block(mesh):
+    return {"mesh": mesh, "distributed": {"timeout": PARALLEL_COLLECTIVE_TIMEOUT_S}}
+
+
+def events_ms(torch, fn, reps: int) -> float:
+    """Milliseconds of one ``fn()`` by CUDA events over ``reps`` calls,
+    after one untimed call (this rank's stream; the collectives inside
+    wait for the other ranks)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def comm_window(fn, reps: int) -> dict:
+    """The collectives of ``reps`` calls of ``fn`` by kind, a call: calls,
+    bytes and milliseconds (each collective synchronized on both sides and
+    timed on the host, so the window runs slower than the steps above)."""
+    from grl_torch.parallel import distributed
+
+    distributed.comm_stats.clear()
+    distributed.timing = True
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        distributed.timing = False
+    return {kind: {"calls": s["calls"] / reps, "bytes": s["bytes"] / reps, "ms": s["ms"] / reps}
+            for kind, s in distributed.comm_stats.items()}
+
+
+def whole_params(torch, proc):
+    """``params_of`` with the tensor-parallel shards all-gathered."""
+    state = proc.state.state_dict()["model"]
+    return {name: state[name].detach().float().clone() for name, _ in proc.model.named_parameters()}
+
+
+def whole_grads(torch, proc):
+    """The parameters' (clipped) gradients, shards all-gathered over
+    ``model``."""
+    from grl_torch.parallel import distributed
+
+    sharded = {id(p) for p in proc.sharded}
+    return {name: (distributed.all_gather(p.grad, proc.model_group, dim=1) if id(p) in sharded else p.grad).float().clone()
+            for name, p in proc.model.named_parameters()}
+
+
+def world_and_whole_steps(torch, tmp, tag, mesh, args, batches, steps, seed=7):
+    """``steps`` train steps of the world (mesh ``mesh``, each rank on its
+    rows) and of the whole model in this process on the whole batches,
+    from the same seed-0 weights and masks from generators seeded
+    ``seed``: ``compare_steps``' inputs for both."""
+    from grl_torch.models import Rngs, create_model
+    from grl_torch.trainer.procedures import BaseProcedure
+
+    runs = []
+    for name, parallel in (("world", mesh_block(mesh)), ("whole", None)):
+        model = create_model("GraphCNNDropEdge", **args, device="cuda", generator=torch.Generator().manual_seed(0))
+        proc = BaseProcedure(model, parallel_config(os.path.join(tmp, f"{tag}-{name}"),
+                                                    **({"parallel": parallel} if parallel else {})), device="cuda")
+        proc.init_state()
+        step = proc.build_train_step(args["output_dim"], (-100,))
+        rngs = Rngs.from_seed(seed, torch.device("cuda"))
+        losses, snapshots, grads = [], [whole_params(torch, proc)], []
+        for V, A, labels in batches[:steps]:
+            if parallel:
+                rows = proc.place_batch({"V": V, "A": A, "labels": labels}, {"labels": -100})
+                V, A, labels = rows["V"], rows["A"], rows["labels"]
+            dtype = proc.model.trunk.dtype or torch.float32
+            loss, _ = step(torch.from_numpy(V).cuda().to(dtype), torch.from_numpy(A).cuda().to(dtype),
+                           torch.from_numpy(labels).cuda().long(), rngs, 1.0)
+            losses.append(float(loss))
+            snapshots.append(whole_params(torch, proc))
+            grads.append(whole_grads(torch, proc))
+        runs.append((losses, snapshots, grads))
+    return runs
+
+
+def global_batches(loader, count: int):
+    """The first ``count`` global batches of ``loader`` as host arrays."""
+    import numpy as np
+
+    out = []
+    for batch in loader:
+        out.append((np.asarray(batch["textline_encoding"], np.float32), np.asarray(batch["adjacency_matrix"], np.float32),
+                    np.asarray(batch["node_label"], np.int64)))
+        if len(out) == count:
+            break
+    return out
+
+
+def step_checker(proc, checks):
+    """Wraps ``proc``'s step log: after each logged step (each chunk's
+    steps, scanned) every rank checks its replicated parameters against the
+    world's, bit for bit."""
+    from grl_torch.parallel.distributed import equal_across
+
+    logged = proc._log_train_step
+
+    def log_and_check(scores, metrics, gstep):
+        checks.append(equal_across(list(proc.model.parameters())))
+        return logged(scores, metrics, gstep)
+
+    proc._log_train_step = log_and_check
+
+
+def parallel_dp(torch, tmp, pages, world):
+    """KVProcedure at sumi width, bf16, DropEdge and dropout on, {data: world}:
+    one epoch stepwise and one at scan_steps 4 through the warper, each
+    with its launch counts set to 0 just before it; then two float32 steps
+    at rates 0 against one process's. Returns the record and two global
+    batches of the loader (host arrays) for the tp leg."""
+    import grl_torch
+
+    dirs, classes_path, charset_path = pages
+    out = {}
+    for tag, K in (("stepwise", 1), ("scan_steps 4", SCAN_K)):
+        config = train_config(tmp, dirs, classes_path, charset_path)
+        config.update(experiment_name=f"dp-{K}", num_epochs=1, scan_steps=K, parallel=mesh_block({"data": world}))
+        config["logging"]["profile"] = {"start_step": -1, "num_steps": 0}
+        warper = grl_torch.GNNLearningWarper(config=config)
+        trainer = warper.trainer
+        checks = []
+        step_checker(trainer, checks)
+        steps, evals = TRAIN_PAGES // B, VAL_PAGES // B
+        reset_counts()
+        start = time.perf_counter()
+        f1 = warper.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launched = counts(("K3", "K1", "K2", *D_COUNTS))
+        expected = {"K3": 3 * evals, "K1": 3 * steps, "K2": 3 * steps,
+                    **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * steps)}
+        require(launched == expected, f"dp {tag} launched {launched}, expected {expected}")
+        require(len(checks) == steps and all(checks), f"dp {tag}: replicated parameters differ across ranks {checks}")
+        runner = trainer.chunk_runner()
+        require(trainer.state.step == steps and bool(runner.graphs) == (trainer.captures and K > 1),
+                f"dp {tag}: {trainer.state.step} steps, graphs {list(runner.graphs)}, captures {trainer.captures}")
+        out[tag] = {"f1": f1, "wall_s": wall, "steps_per_s": steps / wall, "launches": launched,
+                    "route_counts": route_counts(), "replays": runner.replays, "equal_checks": len(checks)}
+        if K == 1:
+            device_batches = fixed_batches(trainer, 2)
+            it = iter(range(10 ** 9))
+
+            def step():
+                V, A, labels = device_batches[next(it) % 2]
+                trainer._train_fn(V, A, labels, trainer.rngs, trainer._lam)
+
+            out["step_ms"] = events_ms(torch, step, PARALLEL_TIMED_STEPS)
+            out["comm"] = comm_window(step, PARALLEL_COMM_STEPS)
+            batches = global_batches(trainer.train_loader, 2)
+    # float32 at rates 0: the world's two steps against one process's on the
+    # whole batches.
+    world_run, whole_run = world_and_whole_steps(torch, tmp, "dp", {"data": world},
+                                                 flagship_args("float32", dropout_rate=0.0, edge_dropout_rate=0.0),
+                                                 batches, 2)
+    rows = compare_steps(world_run, whole_run)
+    failures = step_failures(rows, STEP_LIMITS["float32"])
+    require(not failures, f"dp: the world's float32 steps break STEP_LIMITS at steps {failures}: {rows}")
+    out["float32_steps"] = rows
+    return out, batches
+
+
+def parallel_tp(torch, tmp, world, batches):
+    """{data: 1, model: world}: the serving forward at sumi width against
+    the unsharded model, float32 and bfloat16 on K3, under
+    SERVE_AGREEMENT; one float32 train step (DropEdge 0.3, dropout 0) of the
+    sharded model against the unsharded one under STEP_LIMITS."""
+    from grl_torch.models import create_model
+    from grl_torch.trainer.procedures import BaseProcedure
+
+    out = {"routes": {}}
+    V, A, labels = batches[0]
+    valid = torch.from_numpy(labels).cuda() != -100
+    for dtype_name in ("float32", "bfloat16"):
+        args = flagship_args(dtype_name)
+        whole = create_model("GraphCNNDropEdge", **args, device="cuda", generator=torch.Generator().manual_seed(0))
+        model = create_model("GraphCNNDropEdge", **args, device="cuda", generator=torch.Generator().manual_seed(0))
+        proc = BaseProcedure(model, parallel_config(os.path.join(tmp, f"tp-{dtype_name}"),
+                                                    parallel=mesh_block({"data": 1, "model": world})), device="cuda")
+        proc.init_state()
+        require(tuple(model.w_rand.kernel.shape) == (NET_SIZE // 2, NET_SIZE // 2 * 10 // world),
+                f"w_rand not column-sharded: {tuple(model.w_rand.kernel.shape)}")
+        dtype = getattr(torch, dtype_name)
+        inputs = (torch.from_numpy(V).cuda().to(dtype), torch.from_numpy(A).cuda().to(dtype))
+        whole.eval()
+        model.eval()
+        with torch.no_grad():
+            p_whole = torch.softmax(whole(inputs).float(), -1)[valid]
+            # The main path: the sharded forward, its launches counted alone.
+            reset_counts()
+            p_tp = torch.softmax(model(inputs).float(), -1)[valid]
+            out["routes"][dtype_name] = route_counts()["K3"]
+        same = float((p_whole.argmax(-1) == p_tp.argmax(-1)).float().mean())
+        diff = float((p_whole - p_tp).abs().max())
+        min_same, max_diff = SERVE_AGREEMENT[dtype_name]
+        require(same >= min_same and diff <= max_diff, f"tp {dtype_name}: classes agree on {same}, max diff {diff}")
+        fn = (lambda m=model: m(inputs))
+        with torch.no_grad():
+            ms = events_ms(torch, fn, PARALLEL_TIMED_STEPS)
+            comm = comm_window(fn, PARALLEL_COMM_STEPS)
+        out[dtype_name] = {"class_agreement": same, "max_prob_diff": diff, "forward_ms": ms, "comm": comm}
+    sharded, whole_run = world_and_whole_steps(torch, tmp, "tp", {"data": 1, "model": world},
+                                               flagship_args("float32", dropout_rate=0.0), batches, 1)
+    rows = compare_steps(sharded, whole_run)
+    failures = step_failures(rows, STEP_LIMITS["float32"][:1])
+    require(not failures, f"tp: the sharded float32 step breaks STEP_LIMITS: {rows}")
+    out["float32_step"] = rows
+    return out
+
+
+def partitioned_model(torch, trainer, seed: int, lr: float, **args):
+    """``trainer``'s procedure with a fresh model of ``args`` drawn from
+    ``seed``, its state (and, partitioned, its step) made anew at ``lr``."""
+    from grl_torch.models import Rngs, create_model
+    from grl_torch.trainer.optimizers import set_learning_rate
+
+    trainer.model = create_model("GraphCNNDropEdge", **{**trainer.config["model"]["args"], **args},
+                                 device="cuda", generator=torch.Generator().manual_seed(seed))
+    trainer.state = None
+    trainer._ensure_initialized()
+    set_learning_rate(trainer.state.optimizer, lr)
+    trainer.rngs = Rngs.from_seed(seed, torch.device("cuda"))
+    return trainer
+
+
+def index_add_share(torch, fn, reps: int) -> float:
+    """The share of the device time of ``reps`` calls of ``fn`` that
+    ``aten::index_add_`` takes (the ring's local sum), by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    def device_us(event, name):
+        # torch >= 2.4 names the device totals device_time_*, older ones cuda_time_*.
+        return getattr(event, name, None) or getattr(event, name.replace("device", "cuda"), 0) or 0
+
+    total = sum(device_us(e, "self_device_time_total") for e in events)
+    ring = sum(device_us(e, "device_time_total") for e in events if e.key == "aten::index_add_")
+    return ring / total if total else float("nan")
+
+
+def parallel_partitioned(torch, tmp, world):
+    """configs/arxiv_full_graph.yaml at {data: world}, node-partitioned (the
+    ring halo exchange), bf16, dropout 0.5, DropEdge 0.3, scan_steps 10:
+    20 steps and 2 evals through the warper; a float32 rates-0 step against
+    the single-device port (kernel_impl xla); the learning check."""
+    import grl_torch
+    from grl_torch.config import load_config
+    from grl_torch.trainer.procedures import FullGraphProcedure
+
+    config = load_config(FULL_GRAPH_YAML)
+    config.update(num_epochs=FULL_GRAPH_STEPS, output_dir=os.path.join(tmp, "partitioned"),
+                  parallel=mesh_block({"data": world}))
+    warper = grl_torch.GNNLearningWarper(config=config)
+    trainer = warper.trainer
+    require(trainer._partitioned, "the arxiv config under a mesh did not partition")
+    part = trainer.part
+    edges, Ec = int(part.mask.sum()), int(part.senders.shape[-1])
+    reset_counts()
+    start = time.perf_counter()
+    acc = warper.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launched = sparse_counts()
+    expected = {**dict.fromkeys(launched, 0), **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * FULL_GRAPH_STEPS)}
+    require(launched == expected, f"partitioned launched {launched}, expected {expected}")
+    require(trainer.state.step == FULL_GRAPH_STEPS and all(math.isfinite(float(v)) for v in trainer.losses),
+            f"partitioned: {trainer.state.step} steps, losses {[float(v) for v in trainer.losses]}")
+    step_ms = events_ms(torch, trainer.train_step, PARALLEL_TIMED_STEPS)
+    comm = comm_window(trainer.train_step, PARALLEL_COMM_STEPS)
+    share = index_add_share(torch, trainer.train_step, 2)
+    shard_n = part.num_nodes // world
+    out = {"nodes": int(part.num_nodes), "edges": edges, "Ec": Ec, "cells": list(part.mask.shape),
+           "padding_share": 1 - edges / part.mask.size, "shard_n": shard_n, "wall_s": wall,
+           "edges_per_s": edges * FULL_GRAPH_STEPS / wall, "val_acc": acc, "launches": launched,
+           "step_ms": step_ms, "comm": comm, "index_add_share": share,
+           "halo_bytes_per_shift": comm.get("shift", {}).get("bytes", 0) / max(comm.get("shift", {}).get("calls", 1), 1)}
+    # float32 at rates 0: one step of the world against the single-device
+    # port on the whole graph (kernel_impl xla), from the same weights.
+    runs = []
+    f32 = {"compute_dtype": None, "dropout_rate": 0.0, "edge_dropout_rate": 0.0}
+    single_config = load_config(FULL_GRAPH_YAML)
+    single_config.update(num_epochs=1, output_dir=os.path.join(tmp, "partitioned-single"))
+    single_config["model"]["args"]["kernel_impl"] = "xla"
+    single = FullGraphProcedure(warper.model, single_config, data=trainer.data, device="cuda")
+    for proc in (trainer, single):
+        proc = partitioned_model(torch, proc, 11, FULL_GRAPH_LEARN_LR, **f32)
+        before = params_of(proc.model)
+        loss = float(proc.train_step())
+        runs.append(([loss], [before, params_of(proc.model)],
+                     [{n: p.grad.float().clone() for n, p in proc.model.named_parameters()}]))
+    rows = compare_steps(*runs, lr=FULL_GRAPH_LEARN_LR)
+    failures = step_failures(rows, FULL_GRAPH_STEP_LIMITS["float32"][:1])
+    require(not failures, f"partitioned: the float32 step breaks FULL_GRAPH_STEP_LIMITS: {rows}")
+    out["float32_step"] = rows
+    # The learning check: PARALLEL_LEARN_STEPS steps at lr 1e-3, the
+    # accuracy at each eval read back from the first rank's summaries.
+    config = load_config(FULL_GRAPH_YAML)
+    config.update(num_epochs=PARALLEL_LEARN_STEPS, output_dir=os.path.join(tmp, "partitioned-learn"),
+                  parallel=mesh_block({"data": world}))
+    config["optimizer"]["args"]["lr"] = FULL_GRAPH_LEARN_LR
+    start = time.perf_counter()
+    learner = grl_torch.GNNLearningWarper(config=config)
+    learn_acc = learner.train()
+    out["learn"] = {"steps": PARALLEL_LEARN_STEPS, "val_acc": learn_acc, "wall_s": time.perf_counter() - start}
+    summaries = os.path.join(learner.config["output_dir"], "summary", "metrics.jsonl")
+    if os.path.exists(summaries):
+        with open(summaries) as handle:
+            out["learn"]["curve"] = [[r["step"], r["value"]] for r in map(json.loads, handle)
+                                     if r["tag"] == "val_accuracy"]
+    require(learn_acc > FULL_GRAPH_LEARN_ACC, f"partitioned: validation accuracy {learn_acc} after "
+            f"{PARALLEL_LEARN_STEPS} steps (need > {FULL_GRAPH_LEARN_ACC})")
+    return out
+
+
+def parallel_sampled(torch, tmp, world):
+    """SampledGraphProcedure on the arxiv graph at {data: world} (groups
+    max(0, world)), the tree route at B = 256, cut to 3 chunks of 20; a
+    float32 rates-0 step of the world against one process's on the same
+    global batch."""
+    import grl_torch
+    from grl_torch.trainer.procedures import SampledGraphProcedure
+
+    config = sampled_config(os.path.join(tmp, "sampled"), PARALLEL_SAMPLED_B, True)
+    config["parallel"] = mesh_block({"data": world})
+    warper = grl_torch.GNNLearningWarper(config=config)
+    trainer = warper.trainer
+    K, G = trainer._scan_k, trainer.sampler.groups
+    require(G == world, f"sampled: {G} groups at data {world}")
+    data = trainer.data
+    trainer.data = data._replace(
+        train_mask=cut_mask(data.train_mask, PARALLEL_SAMPLED_CHUNKS * K * PARALLEL_SAMPLED_B * G),
+        val_mask=cut_mask(data.val_mask, 2 * PARALLEL_SAMPLED_B * G))
+    steps = PARALLEL_SAMPLED_CHUNKS * K
+    reset_counts()
+    start = time.perf_counter()
+    acc = warper.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launched = counts(("K3", "K1", "K2", *D_COUNTS))
+    expected = {"K3": 0, "K1": 0, "K2": 0, **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * steps)}
+    require(launched == expected and trainer.state.step == steps, f"sampled launched {launched} in "
+            f"{trainer.state.step} steps, expected {expected} in {steps}")
+    batch = next(iter(trainer._batches(trainer.data.train_mask)))
+    step_ms = events_ms(torch, lambda: trainer.train_step(batch), PARALLEL_TIMED_STEPS)
+    comm = comm_window(lambda: trainer.train_step(batch), PARALLEL_COMM_STEPS)
+    out = {"groups": G, "steps": steps, "wall_s": wall, "target_nodes_per_s": steps * G * PARALLEL_SAMPLED_B / wall,
+           "val_acc": acc, "launches": launched, "step_ms": step_ms, "comm": comm}
+    one = {k: v for k, v in config.items() if k != "parallel"}
+    one["output_dir"] = os.path.join(tmp, "sampled-one")
+    one["sampler"] = dict(config["sampler"], groups=G)
+    single = SampledGraphProcedure(warper.model, one, data=trainer.data, device="cuda")
+    runs = []
+    f32 = {"compute_dtype": None, "dropout_rate": 0.0, "edge_dropout_rate": 0.0}
+    for proc in (trainer, single):
+        proc = partitioned_model(torch, proc, 13, SAMPLED_LR, **f32)
+        before = params_of(proc.model)
+        loss = float(proc.train_step(batch))
+        runs.append(([loss], [before, params_of(proc.model)],
+                     [{n: p.grad.float().clone() for n, p in proc.model.named_parameters()}]))
+    rows = compare_steps(*runs, lr=SAMPLED_LR)
+    failures = step_failures(rows, STEP_LIMITS["float32"][:1])
+    require(not failures, f"sampled: the world's float32 step breaks STEP_LIMITS: {rows}")
+    out["float32_step"] = rows
+    return out
+
+
+def parallel_rank(tmp: str) -> int:
+    """One rank of the parallel phase's world (``chip_smoke.py
+    --parallel-rank DIR``, started by :func:`phase_parallel` with the
+    GRL_* variables): runs every leg of PARALLEL_LEGS in turn, each with its
+    launch counts set to 0 just before its main path, and writes its record
+    to ``DIR/rank<r>.json``."""
+    import torch
+
+    from grl_torch.config import ConfigDict
+    from grl_torch.parallel import initialize_distributed
+    from grl_torch.parallel.distributed import transport
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, backend = initialize_distributed(
+        ConfigDict({"parallel": {"distributed": {"timeout": PARALLEL_COLLECTIVE_TIMEOUT_S}}}))
+    with open(os.path.join(tmp, "spec.json")) as handle:
+        spec = json.load(handle)
+    device = torch.cuda.current_device()
+    record = {"rank": rank, "world": world, "backend": backend, "transport": transport(backend, "cuda"),
+              "device": device, "ranks_a_card": -(-world // torch.cuda.device_count()), "seconds": {}}
+    legs = {
+        "dp": lambda: parallel_dp(torch, os.path.join(tmp, "dp"), spec["pages"], world),
+        "tp": lambda: parallel_tp(torch, os.path.join(tmp, "tp"), world, batches),
+        "partitioned": lambda: parallel_partitioned(torch, os.path.join(tmp, "partitioned"), world),
+        "sampled": lambda: parallel_sampled(torch, os.path.join(tmp, "sampled"), world),
+    }
+    for leg in PARALLEL_LEGS:
+        start = time.perf_counter()
+        record[leg] = legs[leg]()
+        if leg == "dp":
+            record[leg], batches = record[leg]
+        record["seconds"][leg] = time.perf_counter() - start
+        torch.distributed.barrier()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as handle:
+        json.dump(record, handle, default=float)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def nccl_leg(torch, card: str):
+    """A one-rank NCCL group on the card: the DP step with its gradient
+    all_reduce over it, and the ring of one (the node-partitioned step of
+    one rank, its gradients reduced over it), each run eagerly and as a
+    captured chunk of PARALLEL_NCCL_K steps from the same state, equal bit
+    for bit (NCCL's collectives inside a CUDA graph)."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from grl_torch.data.large_graph import sbm_relational_graph
+    from grl_torch.models import Rngs, create_model
+    from grl_torch.parallel import make_partitioned_model_step, partition_graph
+    from grl_torch.parallel.mesh import Mesh
+    from grl_torch.parallel.sharded_flagship import reduce_gradients
+    from grl_torch.trainer.captured import CapturedSteps
+    from grl_torch.trainer.optimizers import BuiltinOptimizer
+    from grl_torch.trainer.procedures.base_procedure import apply_gradients
+    from grl_torch.trainer.losses import cross_entropy
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    out = {}
+    try:
+        group = dist.group.WORLD
+        gen = torch.Generator().manual_seed(3)
+        N, F_IN = 256, CHARSET_SIZE + 4
+        V = torch.rand(B, N, F_IN, generator=gen).cuda().to(torch.bfloat16)
+        A = (torch.rand(B, N, L, N, generator=gen) < SPARSE_DENSITY).float().cuda().to(torch.bfloat16)
+        labels = torch.randint(0, NUM_CLASSES * 2 + 1, (B, N), generator=gen).cuda()
+        model = create_model("GraphCNNDropEdge", **flagship_args("bfloat16"), device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+        params = [p for p in model.parameters() if p.requires_grad]
+        optimizer = BuiltinOptimizer("Adam", STEP_LR).make(params)
+        rngs = Rngs.from_seed(5, torch.device("cuda"))
+
+        def dp_step():
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            loss = cross_entropy(model((V, A), rngs=rngs), labels)
+            loss.backward()
+            summed = reduce_gradients(params, loss.detach().reshape(1), group)
+            apply_gradients(optimizer, params, 5.0)
+            return summed[0]
+
+        # The ring of one: the partitioned step on an SBM with the arxiv
+        # config's widths, one rank, its gradients reduced over the group.
+        sbm = sbm_relational_graph(num_nodes=PARALLEL_RING_NODES, num_classes=40, num_relations=1, avg_degree=7,
+                                   feature_dim=128, seed=0)
+        part = partition_graph(sbm.senders, sbm.receivers, sbm.relations, sbm.weights, len(sbm.features), 1, 1)
+        mesh = Mesh({"data": 1}, 0)
+        mesh.groups["data"], mesh.ranks["data"] = group, [0]
+        ring_model = create_model("GraphCNNDropEdge", input_dim=128, output_dim=40, num_edges=1, net_size=NET_SIZE,
+                                  use_attention=False, compute_dtype="bfloat16", device="cuda",
+                                  generator=torch.Generator().manual_seed(0))
+        ring_params = [p for p in ring_model.parameters() if p.requires_grad]
+        ring_optimizer = BuiltinOptimizer("Adam", FULL_GRAPH_LEARN_LR).make(ring_params)
+        ring_step, _ = make_partitioned_model_step(ring_model, mesh, part, ring_optimizer, max_grad_norm=5.0,
+                                                   device=torch.device("cuda"))
+        ring_rngs = Rngs.from_seed(6, torch.device("cuda"))
+        X = torch.from_numpy(np.asarray(sbm.features, np.float32)).cuda()
+        y = torch.from_numpy(np.where(sbm.train_mask, sbm.labels, -100).astype(np.int64)).cuda()
+
+        def state_of(mod, opt, generator):
+            tensors = list(mod.state_dict().values())
+            tensors += [v for st in opt.state.values() for v in st.values() if isinstance(v, torch.Tensor)]
+            tensors += [g["lr"] for g in opt.param_groups if isinstance(g["lr"], torch.Tensor)]
+            return tensors, [t.clone() for t in tensors], generator.get_state()
+
+        def put_back(snap, generator):
+            with torch.no_grad():
+                for t, c in zip(snap[0], snap[1]):
+                    t.copy_(c)
+            generator.set_state(snap[2])
+
+        reset_counts()
+        for tag, body, mod, opt, generator in (
+                ("dp", dp_step, model, optimizer, rngs.device),
+                ("ring", lambda: ring_step(X, y, ring_rngs), ring_model, ring_optimizer, ring_rngs.device)):
+            runner = CapturedSteps(torch.device("cuda"), [generator])
+            chunk = (lambda body=body: torch.stack([body() for _ in range(PARALLEL_NCCL_K)]))
+            with deterministic(torch, True):
+                runner.run(tag, chunk)  # the warm-up, eager
+                snap = state_of(mod, opt, generator)
+                eager_losses = runner.eager(chunk).clone()
+                eager_state = [t.clone() for t in state_of(mod, opt, generator)[0]]
+                put_back(snap, generator)
+                start = time.perf_counter()
+                replayed = runner.run(tag, chunk).clone()  # the capture, then its replay
+                torch.cuda.synchronize()
+                capture_s = time.perf_counter() - start
+            same = torch.equal(eager_losses, replayed) and all(
+                torch.equal(a, b) for a, b in zip(eager_state, state_of(mod, opt, generator)[0]))
+            require(same and runner.replays == 1, f"nccl {tag}: the replayed chunk differs from the eager one")
+            ms = events_ms(torch, lambda: runner.run(tag, chunk), PARALLEL_TIMED_STEPS) / PARALLEL_NCCL_K
+            out[tag] = {"losses": [float(v) for v in replayed], "equal_bits": same, "capture_s": capture_s,
+                        "replayed_step_ms": ms, "replays": runner.replays}
+        out["launches"] = counts(("K3", "K1", "K2", *D_COUNTS))
+        log(f"[parallel nccl] {card}: a one-rank NCCL group; the DP step (sumi width, bf16, K1/K2, gradient "
+            f"all_reduce) and the ring of one ({PARALLEL_RING_NODES} nodes), chunks of {PARALLEL_NCCL_K} eager and "
+            f"replayed equal bit for bit; replayed step ms dp {out['dp']['replayed_step_ms']:.3f}, ring "
+            f"{out['ring']['replayed_step_ms']:.3f}; launches {out['launches']}")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def comm_line(comm: dict) -> str:
+    return "; ".join(f"{kind} {s['calls']:g} a step, {s['bytes'] / 1e6:.3f} MB, {s['ms']:.3f} ms"
+                     for kind, s in sorted(comm.items())) or "none"
+
+
+def phase_parallel(torch, card: str):
+    """The multi-device slice: a world of PARALLEL_WORLD ranks through the
+    GRL_* contract (this script again, with ``--parallel-rank``), each
+    running the legs dp, tp, partitioned and sampled; then the nccl leg in
+    this process. A rank that fails, or a world that outlives
+    PARALLEL_WORLD_TIMEOUT_S, fails the phase."""
+    import socket
+
+    tmp = tempfile.mkdtemp(prefix="grl_torch_parallel_")
+    pages = write_training_files(tmp)
+    with open(os.path.join(tmp, "spec.json"), "w") as handle:
+        json.dump({"pages": pages}, handle)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "GRL_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "GRL_NUM_PROCESSES": str(PARALLEL_WORLD),
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(PARALLEL_WORLD)]
+    start = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", tmp], cwd=tmp,
+                              env={**env, "GRL_PROCESS_ID": str(r)}, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(PARALLEL_WORLD)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, PARALLEL_WORLD_TIMEOUT_S - (time.perf_counter() - start)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for handle in logs:
+            handle.close()
+    world_s = time.perf_counter() - start
+    for r, p in enumerate(procs):
+        with open(os.path.join(tmp, f"rank{r}.log")) as handle:
+            text = handle.read()
+        for line in text.splitlines():
+            if "WARNING" in line or "Error" in line or "error" in line:
+                log(f"[parallel rank {r}] {line}")
+        require(p.returncode == 0, f"parallel rank {r} exited {p.returncode} after {world_s:.1f} s:\n{text[-4000:]}")
+    ranks = []
+    for r in range(PARALLEL_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.json")) as handle:
+            ranks.append(json.load(handle))
+    head = ranks[0]
+    log(f"[parallel] {card}: world {head['world']}, backend {head['backend']} ({head['transport']}), "
+        f"{head['ranks_a_card']} rank(s) a card, in {world_s:.1f} s; seconds by leg "
+        f"{ {leg: round(v, 1) for leg, v in head['seconds'].items()} }")
+    for r, rec in enumerate(ranks):
+        dp, tp, pt, sm = rec["dp"], rec["tp"], rec["partitioned"], rec["sampled"]
+        where = f"rank {r} of {rec['world']} ({rec['backend']}, {rec['ranks_a_card']} rank(s) a card)"
+        log(f"[parallel dp] {where}: step {dp['step_ms']:.3f} ms (CUDA events), "
+            f"{dp['stepwise']['steps_per_s']:.2f} steps/s stepwise, {dp['scan_steps 4']['steps_per_s']:.2f} at "
+            f"scan_steps 4 (eager chunks: {dp['scan_steps 4']['replays']} replays); collectives a step: "
+            f"{comm_line(dp['comm'])}; launches {dp['stepwise']['launches']}, scanned {dp['scan_steps 4']['launches']}; "
+            f"F1 {dp['stepwise']['f1']:.4f}; float32 rates 0 vs one process: loss rel diff "
+            f"{[round(row['loss_rel_diff'], 8) for row in dp['float32_steps']]}, grad rel diff "
+            f"{[round(row['grad_rel_diff'], 8) for row in dp['float32_steps']]}")
+        log(f"[parallel tp] {where}: forward f32 {tp['float32']['forward_ms']:.3f} ms, bf16 "
+            f"{tp['bfloat16']['forward_ms']:.3f} ms; classes agree f32 {tp['float32']['class_agreement']:.5f} "
+            f"(max prob diff {tp['float32']['max_prob_diff']:.2e}), bf16 {tp['bfloat16']['class_agreement']:.5f} "
+            f"({tp['bfloat16']['max_prob_diff']:.2e}); collectives a bf16 forward: {comm_line(tp['bfloat16']['comm'])}; "
+            f"float32 step vs unsharded: grad rel diff {tp['float32_step'][0]['grad_rel_diff']:.2e}; K3 launches "
+            f"of the sharded forwards by route {tp['routes']}")
+        log(f"[parallel partitioned] {where}: {pt['nodes']} nodes over {head['world']} shards of {pt['shard_n']}, "
+            f"{pt['edges']} edges, cells {pt['cells']}, Ec {pt['Ec']}, padding share {pt['padding_share']:.4f}; "
+            f"step {pt['step_ms']:.3f} ms (CUDA events), {pt['edges_per_s']:.0f} edges/s over "
+            f"{FULL_GRAPH_STEPS} steps + {FULL_GRAPH_EVALS} evals; halo {pt['halo_bytes_per_shift'] / 1e6:.3f} MB a "
+            f"shift; collectives a step: {comm_line(pt['comm'])}; index_add_ share of device time "
+            f"{pt['index_add_share']:.3f}; launches {pt['launches']}; float32 step vs one device: grad rel diff "
+            f"{pt['float32_step'][0]['grad_rel_diff']:.2e}; learning: val acc {pt['learn']['val_acc']:.4f} after "
+            f"{pt['learn']['steps']} steps in {pt['learn']['wall_s']:.1f} s (by step: {pt['learn'].get('curve')})")
+        log(f"[parallel sampled] {where}: groups {sm['groups']}, {sm['steps']} steps, {sm['target_nodes_per_s']:.1f} "
+            f"target nodes/s, step {sm['step_ms']:.3f} ms; collectives a step: {comm_line(sm['comm'])}; launches "
+            f"{sm['launches']}; float32 step vs one process: grad rel diff {sm['float32_step'][0]['grad_rel_diff']:.2e}")
+    nccl = nccl_leg(torch, card)
+    return {"world": head["world"], "backend": head["backend"], "transport": head["transport"],
+            "ranks_a_card": head["ranks_a_card"], "world_s": world_s, "ranks": ranks, "nccl": nccl}
+
+
+# ---------------------------------------------------------------------------
 # gather_probe
 # ---------------------------------------------------------------------------
 def phase_gather_probe(torch, card: str, kernel_rows):
@@ -4978,6 +5666,9 @@ def main() -> int:
         log("FAIL: torch.cuda.is_available() is false; this smoke test runs on an NVIDIA GPU")
         return 1
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        # One rank of the parallel phase's world (phase_parallel starts it).
+        return parallel_rank(sys.argv[2])
     torch.cuda.set_device(0)
 
     # The record of every phase that finished is written even when a later
@@ -5020,6 +5711,8 @@ def main() -> int:
         timed("demo")
         record["gather_probe"] = probe = phase_gather_probe(torch, card, kernel_rows)
         timed("gather_probe")
+        record["parallel"] = parallel = phase_parallel(torch, card)
+        timed("parallel")
     finally:
         write_record(record)
     log(f"[done] seconds by phase: { {k: round(v, 1) for k, v in record['phase_seconds'].items()} }")
@@ -5136,6 +5829,23 @@ def main() -> int:
             row,
             f"f32 F=128, {row['rows']} rows gathered, window {shapes['window_rows']} rows"
             + (f", {shapes['G_blocks'][0]} blocks of {shapes['G_rows_per_block']} rows" if key == "G" else ""))
+    # The parallel phase's launches, rank by rank: K1/K2/K3 and D of the
+    # dp leg (bf16, the sm90 route), tp's sharded forwards' K3 by route, D of
+    # the partitioned and sampled legs, and the nccl leg's in this process.
+    for r, rank in enumerate(parallel["ranks"]):
+        legs = {"dp": rank["dp"]["stepwise"]["launches"], "dp scan_steps 4": rank["dp"]["scan_steps 4"]["launches"],
+                "partitioned": rank["partitioned"]["launches"], "sampled": rank["sampled"]["launches"]}
+        for leg, launched in legs.items():
+            for name in ("K3", "K1", "K2", *D_COUNTS):
+                if launched.get(name):
+                    sources[name][3][f"parallel {leg} rank {r}"] = launched[name]
+        for dtype_name, routes in rank["tp"]["routes"].items():
+            for route, name in (("sm90", "K3"), ("float32", "K3 f32")):
+                if routes.get(route):
+                    sources[name][3][f"parallel tp {dtype_name} rank {r}"] = routes[route]
+    for name in ("K1", "K2", *D_COUNTS):
+        if parallel["nccl"]["launches"].get(name):
+            sources[name][3]["parallel nccl"] = parallel["nccl"]["launches"][name]
     kernels = []
     for name, source, replaces, by_path, row, shape in sources.values():
         kernels.append({

@@ -5,8 +5,13 @@ Counterpart of ``grl_tpu/data/dataloader.py`` (:29-183), numpy only:
 * shuffling is an explicit numpy permutation per epoch, seeded by
   ``seed + epoch``, so both packages visit batches in the same order;
 * the collate chain runs processors then stacks numpy arrays;
-* every batch is read whole by the one process: ``grl_tpu``'s per-host
-  sharding (``host_id``/``num_hosts``) comes with the distributed runtime;
+* with ``num_hosts > 1`` each process reads only its shard of each
+  global batch, ``chunk[host_id::num_hosts]``, and a batch size that does
+  not divide raises (``dataloader.py:38-83``); the config factory reads
+  ``host_id``/``num_hosts`` from the config, which
+  :func:`grl_torch.parallel.distributed.initialize_distributed` writes. A
+  procedure under a mesh reads the whole batch on every rank and keeps its
+  rows itself, so it sets them to the whole batch;
 * a background thread prefetches the next batch while the device computes.
 
 :class:`BaseDataLoader` resolves datasets and collate processors by name
@@ -36,10 +41,17 @@ class DataLoader:
         drop_last: bool = False,
         collate_chain: Optional[Sequence[Callable]] = None,
         seed: int = 0,
+        host_id: int = 0,
+        num_hosts: int = 1,
         prefetch: int = 2,
     ):
+        if num_hosts > 1 and batch_size % num_hosts != 0:
+            raise ValueError("batch_size must divide evenly across hosts")
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.global_batch_size = batch_size
+        self.batch_size = batch_size // num_hosts
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.collate_chain = list(collate_chain or [])
@@ -49,7 +61,7 @@ class DataLoader:
 
     def __len__(self) -> int:
         n = len(self.dataset)
-        b = self.batch_size
+        b = self.global_batch_size
         return n // b if self.drop_last else (n + b - 1) // b
 
     def _epoch_order(self) -> np.ndarray:
@@ -66,12 +78,13 @@ class DataLoader:
 
     def _batch_indices(self) -> Iterator[np.ndarray]:
         order = self._epoch_order()
-        b = self.batch_size
+        b = self.global_batch_size
         for start in range(0, len(order), b):
             chunk = order[start:start + b]
             if len(chunk) < b and self.drop_last:
                 break
-            yield chunk
+            # This host's shard of the global batch.
+            yield chunk[self.host_id::self.num_hosts]
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         self.epoch += 1
@@ -164,6 +177,8 @@ class BaseDataLoader:
             drop_last=bool(data_config.get("drop_last", False)),
             collate_chain=chain,
             seed=int(self.config.get("seed", 0)),
+            host_id=int(self.config.get("host_id", 0)),
+            num_hosts=int(self.config.get("num_hosts", 1)),
             prefetch=int(data_config.get("prefetch", 2)),
             **kwargs,
         )

@@ -12,6 +12,16 @@ data paths and the model's ``input_dim``. ``--device`` is where the model
 runs: the GPU unless ``--device cpu`` is given; with no GPU the run stops
 and names the flag instead of carrying on on the CPU. Prints the final
 metric the procedure returns (``final macro F1: ...``).
+
+Several processes train one model through the ``GRL_*`` launch contract
+(:mod:`grl_torch.parallel.distributed`) and a ``parallel.mesh`` over as
+many devices, e.g. two on the CPU::
+
+    for i in 0 1; do GRL_COORDINATOR_ADDRESS=localhost:29511 GRL_NUM_PROCESSES=2 \
+      GRL_PROCESS_ID=$i python -m grl_torch.demo_training --config ... --device cpu & done
+
+Each rank generates its own copy of the synthetic dataset (the same seed
+gives the same pages).
 """
 from __future__ import annotations
 
@@ -34,7 +44,10 @@ def maybe_generate_synthetic(config):
         return config
     from grl_torch.data.synthetic import synthetic_dataset_files
 
-    out_dir = os.path.join(config.get("output_dir", "./outputs"), "synthetic_data")
+    from grl_torch.parallel.distributed import rank
+
+    name = "synthetic_data" if rank() == 0 else f"synthetic_data_rank{rank()}"
+    out_dir = os.path.join(config.get("output_dir", "./outputs"), name)
     num_pages = int(config.synthetic_data.get("num_pages", 64))
     data_dir, classes_path, charset_path = synthetic_dataset_files(
         out_dir, num_pages=num_pages, seed=int(config.get("seed", 0))
@@ -59,9 +72,12 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     device = resolve_device(args.device, flag="--device cpu")
 
     from grl_torch.config import load_config
+    from grl_torch.parallel.distributed import initialize_distributed
     from grl_torch.warper import GNNLearningWarper
 
-    config = maybe_generate_synthetic(load_config(args.config))
+    config = load_config(args.config)
+    initialize_distributed(config, device)
+    config = maybe_generate_synthetic(config)
     if args.epochs is not None:
         config["num_epochs"] = args.epochs
     warper = GNNLearningWarper(config=config, device=device)

@@ -191,7 +191,13 @@ class GraphCNNDropEdge(nn.Module):
     classifier; logits are returned in float32. Parameters are drawn from
     ``generator`` (a fresh one seeded 0 if omitted) and placed on
     ``device`` (CUDA unless ``device="cpu"`` is passed).
+
+    Under tensor parallelism (``grl_torch.parallel.mesh.shard_params``)
+    ``w_rand``'s columns stay sharded into the row-sharded classifier, and
+    the dropout between them sees one rank's columns.
     """
+
+    TP_SHARDED_OUTPUTS = ("w_rand", "dropout")
 
     def __init__(
         self,
@@ -316,7 +322,11 @@ class RPGraphCNNDropEdge(nn.Module):
     ``init_scale = sqrt(rp_size) * lambda_value``, each followed by a leaky
     ReLU at 0.01; ``NodeSelfAtten`` runs at ``rp_size`` width between them.
     float32 and the plain aggregation, as in ``grl_tpu``: D is its only
-    kernel (five dropout layers a train-mode forward)."""
+    kernel (five dropout layers a train-mode forward). Under tensor
+    parallelism ``rp_emb``'s columns are gathered for the attention and
+    ``rp_final``'s stay sharded into the row-sharded classifier."""
+
+    TP_SHARDED_OUTPUTS = ("rp_final", "dropout")
 
     def __init__(
         self,

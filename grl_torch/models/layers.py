@@ -14,9 +14,11 @@ train-mode forward takes an :class:`Rngs` whose generators draw every
 dropout and DropEdge mask; nothing reads PyTorch's global generator.
 
 The adjacency is a dense ``(B, N, L, N)`` tensor, or a sparse
-:class:`~grl_torch.ops.sparse.RelationalGraph` or sampled
-:class:`~grl_torch.ops.tree.TreeGraph` with flat ``(num_nodes, F)``
-features; a graph with a planned K5, K6 or K7 kernel
+:class:`~grl_torch.ops.sparse.RelationalGraph`, sampled
+:class:`~grl_torch.ops.tree.TreeGraph` or node-partitioned
+:class:`~grl_torch.parallel.graph_partition.LocalShardGraph` (one rank's
+block of a graph, aggregated by a ring halo exchange) with flat
+``(num_nodes, F)`` features; a graph with a planned K5, K6 or K7 kernel
 (:class:`~grl_torch.ops.kernels.KernelAdjacency`) aggregates through it.
 """
 from __future__ import annotations
@@ -28,10 +30,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from grl_torch.ops.dropout import dropout
+from grl_torch.parallel.graph_partition import LocalShardGraph, ring_aggregate
+from grl_torch.parallel.mesh import copy_to_model, gather_from_model, reduce_from_model, scatter_to_model
 from grl_torch.ops.relconv import drop_edge, relational_neighbor_aggregate
 from grl_torch.ops.segment import segment_softmax, segment_sum
 from grl_torch.ops.sparse import RelationalGraph, drop_edge_coo, relational_neighbor_coo
 from grl_torch.ops.tree import TreeGraph, tree_neighbor_aggregate
+
+
+# How far a Dropout layer's ``stream`` moves its seed (Dropout.stream).
+STREAM_STRIDE = 1_000_003
 
 
 def maybe_cast(x: Optional[torch.Tensor], dtype: Optional[torch.dtype]) -> Optional[torch.Tensor]:
@@ -84,17 +92,17 @@ def _normal(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def is_sparse_adjacency(A: Any) -> bool:
-    """True for a :class:`RelationalGraph` or a :class:`TreeGraph`, False
-    for a dense strided tensor; any other adjacency raises, naming where it
-    is queued."""
-    if isinstance(A, (RelationalGraph, TreeGraph)):
+    """True for a :class:`RelationalGraph`, a :class:`TreeGraph` or a
+    node-partitioned :class:`LocalShardGraph`, False for a dense strided
+    tensor; any other adjacency raises."""
+    if isinstance(A, (RelationalGraph, TreeGraph, LocalShardGraph)):
         return True
     if isinstance(A, torch.Tensor) and A.layout == torch.strided:
         return False
     raise NotImplementedError(
-        f"grl_torch takes a dense (B, N, L, N) tensor, a RelationalGraph or a TreeGraph, "
-        f"not {type(A).__name__} (layout {getattr(A, 'layout', None)}); node-partitioned "
-        "shards arrive with ROADMAP.md Queue 1, slice 4."
+        f"grl_torch takes a dense (B, N, L, N) tensor, a RelationalGraph, a TreeGraph or a "
+        f"LocalShardGraph, not {type(A).__name__} (layout {getattr(A, 'layout', None)}); torch "
+        "sparse layouts are not an adjacency of the model family."
     )
 
 
@@ -128,7 +136,17 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dtype)
-        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+        tp = getattr(self, "tensor_parallel", None)
+        if tp is None:
+            return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+        # Row-sharded (grl_torch.parallel.mesh.shard_params): this rank's
+        # input columns (taken here from a whole input) times its weight
+        # rows, the partial outputs summed over the model axis, the bias
+        # added once after the sum.
+        if x.shape[-1] != self.weight.shape[1]:
+            x = scatter_to_model(x, tp)
+        out = reduce_from_model(F.linear(x.to(dtype), self.weight.to(dtype)), tp)
+        return out if bias is None else out + bias
 
 
 class LinearReLU(nn.Module):
@@ -204,6 +222,11 @@ class GraphConv(nn.Module):
                            + maybe_cast(neigh_term, self.dtype))
                     return self._add_bias(out)
                 neigh = A.kernel.neighbor_aggregate(V, seed, rate)
+            elif isinstance(A, LocalShardGraph):
+                # Node-partitioned (layers.py:104-111): the ring halo
+                # exchange, overlapped with the local gather and sum.
+                w = A.weights if edge_keep is None else A.weights * edge_keep
+                neigh = ring_aggregate(V, A, w)
             elif isinstance(A, TreeGraph):
                 # The sampled minibatch: its endpoints are positional, so
                 # the aggregation is a reshape and an einsum a level.
@@ -234,13 +257,21 @@ class Dropout(nn.Module):
     def __init__(self, rate: float = 0.5):
         super().__init__()
         self.rate = rate
+        # Set on a layer that sees one rank's columns of a tensor-parallel
+        # activation (grl_torch.parallel.mesh.shard_params): its seed is
+        # moved by the rank's index, so the ranks' columns get masks of
+        # their own while the generators stay in step.
+        self.stream = 0
 
     def forward(self, x: torch.Tensor, rngs: Optional[Rngs] = None) -> torch.Tensor:
         if not self.training or self.rate <= 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        return dropout(x, require_rngs(rngs).kernel_seed(), self.rate)
+        seed = require_rngs(rngs).kernel_seed()
+        if self.stream:
+            seed = ((seed.long() + self.stream * STREAM_STRIDE) % (2**31 - 1)).to(torch.int32)
+        return dropout(x, seed, self.rate)
 
 
 class EdgeDropout(nn.Module):
@@ -348,7 +379,13 @@ class RanPAC(nn.Module):
         """``(x @ kernel) * scale``: ``scale`` is a float, or a one-element
         tensor on the device (a captured chunk's per-step lambda), which
         multiplies on the device with no host read."""
-        return torch.matmul(x, maybe_cast(self.kernel, self.dtype)) * scale
+        tp = getattr(self, "tensor_parallel", None)
+        if tp is None:
+            return torch.matmul(x, maybe_cast(self.kernel, self.dtype)) * scale
+        # Column-sharded (grl_torch.parallel.mesh.shard_params): this rank's
+        # output columns, gathered unless the consumer is row-sharded.
+        out = torch.matmul(copy_to_model(x, tp), maybe_cast(self.kernel, self.dtype)) * scale
+        return gather_from_model(out, tp) if tp.gather else out
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:

@@ -5,7 +5,10 @@ dispatch (``grl_tpu/trainer/procedures/kv_procedure.py:236-336``,
 ``full_graph_procedure.py:189-219``). On the card the port captures the K
 steps of a chunk into one CUDA graph, once for each shape of chunk (its
 key), and replays it: one host call enqueues every kernel of the K steps.
-On the CPU the same chunks run eagerly, in the same order.
+On the CPU the same chunks run eagerly, in the same order, and so they do
+on the card in a world whose backend is gloo (``capture=False``, chosen
+from the backend up front): a CUDA graph can capture NCCL's collectives,
+not gloo's.
 
 :class:`CapturedSteps` runs a chunk's ``body``: the device work of its
 steps, with no host read and no host-side bookkeeping, on inputs that stay
@@ -37,6 +40,7 @@ again at every replay. Each key's warm-up and capture are timed
 """
 from __future__ import annotations
 
+import gc
 import time
 from collections import Counter
 from typing import Any, Callable, Dict, Hashable, Sequence, Tuple
@@ -54,8 +58,11 @@ class CapturedSteps:
     chunk, to its end on the device) and capture, and the bytes the capture
     added to the device's reserved memory."""
 
-    def __init__(self, device: torch.device, generators: Sequence[torch.Generator]):
+    def __init__(self, device: torch.device, generators: Sequence[torch.Generator], capture: bool = True):
         self.device = device
+        # False where the steps' collectives cannot be captured (a gloo
+        # world): every chunk then runs eagerly, on the runner's stream.
+        self.capture = capture
         self.generators = tuple(generators)
         self.graphs: Dict[Hashable, Tuple[Any, Any, Counter]] = {}
         self.setup: Dict[Hashable, Dict[str, float]] = {}
@@ -69,6 +76,8 @@ class CapturedSteps:
         copy them first."""
         if self.device.type != "cuda":
             return body()
+        if not self.capture:
+            return self.eager(body)
         if key not in self.setup:
             start = time.perf_counter()
             outputs = self.eager(body)
@@ -105,11 +114,23 @@ class CapturedSteps:
         # torch.cuda.graph empties the allocator's cache as it starts: empty
         # it first, so the reserved bytes read here are those it starts from.
         torch.cuda.synchronize(self.device)
+        # No cyclic collection inside the capture: freeing a dead cycle's
+        # page-locked host tensor there records a CUDA event on another
+        # stream, which a global-mode capture forbids; the graph is then
+        # invalidated (cudaErrorStreamCaptureInvalidated, seen once in a
+        # full run of chip_smoke.py). Collect first, then hold the collector.
+        gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         start = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            outputs = body()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                outputs = body()
+        finally:
+            if collecting:
+                gc.enable()
         self.setup[key].update(capture_s=time.perf_counter() - start,
                                capture_bytes=torch.cuda.memory_reserved(self.device) - reserved)
         recorded = launches.device_counts() - before

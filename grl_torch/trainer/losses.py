@@ -128,3 +128,17 @@ class FocalLoss(BaseLoss):
 class MSELoss(BaseLoss):
     def __call__(self, logits, targets):
         return masked_mse(logits, targets)
+
+
+def denominator(criterion: "BaseLoss", targets: torch.Tensor) -> torch.Tensor:
+    """What ``criterion``'s mean over ``targets`` divides by before its
+    clamp at 1: the summed class weights of the kept targets for the
+    weighted losses, their count otherwise. ``criterion * max(denominator,
+    1)`` is then its sum, which data-parallel ranks add up
+    (:class:`grl_torch.trainer.procedures.base_procedure.BaseProcedure`)."""
+    keep = targets != IGNORE_INDEX
+    weight = getattr(criterion, "weight", None)
+    if weight is None:
+        return keep.sum().to(torch.float32)
+    safe = torch.where(keep, targets, 0).long()
+    return (weight.to(targets.device)[safe] * keep).sum().to(torch.float32)

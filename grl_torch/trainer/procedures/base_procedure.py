@@ -19,14 +19,28 @@ procedure's :class:`~grl_torch.models.layers.Rngs`, seeded from
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, Optional, Tuple
+from datetime import timedelta
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from grl_torch.config import ConfigDict, instantiate
 from grl_torch.models.base import count_parameters
-from grl_torch.models.layers import Rngs
+from grl_torch.models.layers import FlaxBatchNorm, Rngs
+from grl_torch.parallel import distributed
+from grl_torch.parallel.mesh import (
+    Mesh,
+    fold_seed,
+    make_mesh,
+    mesh_sizes,
+    replicate,
+    shard_batch,
+    shard_params,
+    sharded_parameters,
+    sharded_state_dims,
+)
+from grl_torch.parallel.sharded_flagship import reduce_gradients
 from grl_torch.trainer import losses as losses_module
 from grl_torch.trainer import lr_schedulers as lr_module
 from grl_torch.trainer import optimizers as optim_module
@@ -35,43 +49,134 @@ from grl_torch.trainer.metrics import confusion_matrix
 from grl_torch.utils.checkpoint import CheckpointHandler
 from grl_torch.utils.device import DeviceLike, resolve_device
 from grl_torch.utils.logging import get_logger
-from grl_torch.utils.tensorboard import MetricsWriter
+from grl_torch.utils.tensorboard import MetricsWriter, NullWriter
 
 
-def apply_gradients(optimizer: torch.optim.Optimizer, params, max_grad_norm: Optional[float]) -> None:
-    """The update after ``backward``: a zero gradient for each parameter the
-    loss did not reach (optax updates every leaf of the tree: Adam's step
-    count and any weight decay advance for all of them), the global-norm
-    clip where ``max_grad_norm`` is set, then the optimizer's step."""
+def apply_gradients(optimizer: torch.optim.Optimizer, params, max_grad_norm: Optional[float],
+                    sharded: Sequence[torch.nn.Parameter] = (), model_group=None) -> None:
+    """The update after ``backward`` (and, under a mesh, after the gradients
+    were summed over ``data``): a zero gradient for each parameter the loss
+    did not reach (optax updates every leaf of the tree: Adam's step count
+    and any weight decay advance for all of them), the global-norm clip
+    where ``max_grad_norm`` is set, then the optimizer's step, the same on
+    every rank. Under tensor parallelism the ``sharded`` parameters hold
+    this rank's share: the squares of their gradients are summed over
+    ``model_group``, so the clip sees the norm of the whole model."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     if max_grad_norm:
-        optim_module.clip_by_global_norm_(params, float(max_grad_norm))
+        if sharded:
+            clip_by_global_norm_sharded_(params, float(max_grad_norm), {id(p) for p in sharded}, model_group)
+        else:
+            optim_module.clip_by_global_norm_(params, float(max_grad_norm))
     optimizer.step()
 
 
-class TrainState:
-    """The train state a checkpoint holds: model, optimizer and step."""
+@torch.no_grad()
+def clip_by_global_norm_sharded_(params, max_norm: float, sharded, group) -> torch.Tensor:
+    """:func:`~grl_torch.trainer.optimizers.clip_by_global_norm_` where the
+    parameters whose ``id`` is in ``sharded`` hold one rank's share: their
+    squared norms are summed over ``group`` before the norm is taken."""
+    grads = [p.grad for p in params]
+    squares = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2 for g in grads]
+    whole = sum((sq for p, sq in zip(params, squares) if id(p) not in sharded), torch.zeros(()).to(grads[0].device))
+    shares = sum((sq for p, sq in zip(params, squares) if id(p) in sharded), torch.zeros(()).to(grads[0].device))
+    norm = torch.sqrt(whole + distributed.all_reduce_(shares.reshape(1), group, "tp_all_reduce")[0])
+    scale = max_norm / torch.clamp(norm, min=max_norm)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+    return norm
 
-    def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer, step: int = 0):
+
+def running_statistics(module: torch.nn.Module):
+    """The running-statistics buffers of ``module``'s BatchNorm layers,
+    which a train step moves."""
+    return [b for layer in module.modules() if isinstance(layer, FlaxBatchNorm) for b in (layer.mean, layer.var)]
+
+
+def reduce_step(mesh: Optional[Mesh], params, model: torch.nn.Module, extra: torch.Tensor) -> torch.Tensor:
+    """Under a mesh with ``data`` over several ranks: every gradient of
+    ``params``, ``extra`` (a flat float32 tensor of sums) and the BatchNorm
+    running statistics summed over ``data`` in one ``all_reduce`` (the
+    statistics then averaged, so the replicas stay equal); returns the
+    summed ``extra``. Without one, ``extra`` as it is."""
+    if mesh is None or mesh.axis_size("data") <= 1:
+        return extra
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    stats = running_statistics(model)
+    flat_extra = torch.cat([extra.reshape(-1).float()] + [b.reshape(-1).float() for b in stats])
+    summed = reduce_gradients(params, flat_extra, mesh.group("data"))
+    offset = extra.numel()
+    for b in stats:
+        b.copy_((summed[offset:offset + b.numel()] / mesh.axis_size("data")).view_as(b))
+        offset += b.numel()
+    return summed[:extra.numel()]
+
+
+class TrainState:
+    """The train state a checkpoint holds: model, optimizer and step.
+
+    Under tensor parallelism (``mesh`` with ``model`` over several ranks)
+    the checkpoint holds the whole model: :meth:`state_dict` all-gathers
+    the sharded leaves and their optimizer state over ``model`` (every
+    rank calls it; the first writes), and :meth:`load_state_dict` takes
+    this rank's share of a whole checkpoint."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer, step: int = 0,
+                 mesh: Optional[Mesh] = None):
         self.model = model
         self.optimizer = optimizer
         self.step = step
+        self.mesh = mesh if mesh is not None and mesh.axis_size("model") > 1 else None
+
+    def _sharded(self) -> Dict[str, Tuple[int, Optional[int]]]:
+        """Sharded state-dict names -> (dimension, optimizer index)."""
+        if self.mesh is None:
+            return {}
+        index = {id(p): i for i, p in enumerate(p for g in self.optimizer.param_groups for p in g["params"])}
+        params = dict(self.model.named_parameters())
+        return {name: (dim, index.get(id(params[name])) if name in params else None)
+                for name, dim in sharded_state_dims(self.model).items()}
+
+    def _reshard(self, model_state, optimizer_state, gather: bool):
+        """The sharded leaves (and their optimizer moments) all-gathered
+        whole, or cut to this rank's share."""
+        size, index, group = self.mesh.axis_size("model"), self.mesh.index("model"), self.mesh.group("model")
+
+        def cut(t, dim):
+            if gather:
+                return distributed.all_gather(t, group, dim=dim)
+            part = t.shape[dim] // size
+            return t.narrow(dim, index * part, part).clone()
+
+        model_state = dict(model_state)
+        for name, (dim, opt_i) in self._sharded().items():
+            ndim = model_state[name].dim()
+            model_state[name] = cut(model_state[name], dim)
+            moments = (optimizer_state or {}).get("state", {}).get(opt_i, {})
+            for key, value in moments.items():
+                if isinstance(value, torch.Tensor) and value.dim() == ndim:
+                    moments[key] = cut(value, dim)
+        return model_state, optimizer_state
 
     def state_dict(self) -> Dict[str, Any]:
-        return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "step": self.step,
-        }
+        model_state, optimizer_state = self.model.state_dict(), self.optimizer.state_dict()
+        if self.mesh is not None:
+            model_state, optimizer_state = self._reshard(model_state, optimizer_state, gather=True)
+        return {"model": model_state, "optimizer": optimizer_state, "step": self.step}
 
     def load_state_dict(self, raw: Dict[str, Any]) -> None:
         """Restore from a checkpoint; one holding only ``model`` (converted
         weights, say) restores the weights and keeps a fresh optimizer."""
-        self.model.load_state_dict(raw["model"])
-        if "optimizer" in raw:
-            self.optimizer.load_state_dict(raw["optimizer"])
+        model_state, optimizer_state = raw["model"], raw.get("optimizer")
+        if self.mesh is not None:
+            model_state, optimizer_state = self._reshard(model_state, optimizer_state, gather=False)
+        self.model.load_state_dict(model_state)
+        if optimizer_state is not None:
+            self.optimizer.load_state_dict(optimizer_state)
             optim_module.match_device(self.optimizer)
         self.step = int(raw.get("step", 0))
 
@@ -93,13 +198,20 @@ class BaseProcedure:
             self.config.get("model_dir_name", "models"),
         )
         os.makedirs(self.model_dir, exist_ok=True)
-        self.checkpointer = CheckpointHandler()
+        # SPMD mesh from ``config.parallel.mesh``: one process per device.
+        self.mesh = self._init_mesh()
+        self.is_chief = distributed.rank() == 0
+        # Only the first rank of a world writes checkpoints and summaries.
+        self.checkpointer = CheckpointHandler(writes=self.is_chief)
 
         self.seed = int(self.config.get("seed", 0))
         # config rng_impl picks grl_tpu's PRNG implementation (the TPU's
         # rbg); the port's masks come from torch generators, so it is
-        # ignored here.
-        self.rngs = Rngs.from_seed(self.seed, self.device)
+        # ignored here. Each rank along ``data`` draws masks of its own
+        # (grl_tpu folds the axis index into the key).
+        data_index = self.mesh.index("data") if self.mesh is not None and self.mesh.axis_size("data") > 1 else None
+        self.rngs = Rngs.from_seed(self.seed if data_index is None else fold_seed(self.seed, data_index),
+                                   self.device)
 
         self.criterion = self._init_criterion()
         self.optimizer_factory = self._init_optimizer()
@@ -113,26 +225,39 @@ class BaseProcedure:
         self.tb_writer = MetricsWriter(
             summary_dir,
             enable_tensorboard=bool(self.config.get_path("logging.use_tensorboard", True)),
-        )
+        ) if self.is_chief else NullWriter()
         self.state: Optional[TrainState] = None
         self._steps: Optional[CapturedSteps] = None
-        self._check_mesh()
 
-    def _check_mesh(self) -> None:
-        """``parallel.mesh`` over one device is a no-op, as in ``grl_tpu``
-        (:114-126); more devices are slice 4 of the port."""
+    def _init_mesh(self) -> Optional[Mesh]:
+        """The mesh of ``parallel.mesh`` over the world's processes (one per
+        device; :func:`grl_torch.parallel.mesh.make_mesh`), ``None`` over one
+        device, as in ``grl_tpu`` (:114-126). A mesh larger than the world
+        raises, naming the launch contract. Under a mesh every rank reads
+        the whole global batch and keeps its rows (:meth:`place_batch`), so
+        the loaders' host shard is the whole batch."""
         spec = self.config.get_path("parallel.mesh")
         if not spec:
-            return
-        devices = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        sizes = [int(v) for v in dict(spec).values()]
-        known = int(np.prod([s for s in sizes if s != -1]))
-        total = known * (devices // known if -1 in sizes else 1)
-        if total > 1:
-            raise NotImplementedError(
-                f"parallel.mesh {dict(spec)} spans {total} devices; multi-device "
-                "training arrives with ROADMAP.md Queue 1, slice 4."
-            )
+            return None
+        shape = mesh_sizes({k: int(v) for k, v in dict(spec).items()}, distributed.world_size())
+        if int(np.prod(list(shape.values()))) <= 1:
+            return None
+        timeout = self.config.get_path("parallel.distributed.timeout", distributed.DEFAULT_TIMEOUT_S)
+        mesh = make_mesh(shape, timeout=timedelta(seconds=float(timeout)))
+        self.config["host_id"], self.config["num_hosts"] = 0, 1
+        self.logger.info(
+            f"mesh over {mesh.size} processes: {mesh.shape}, this rank {mesh.rank} at {mesh.coords}, "
+            f"backend {torch.distributed.get_backend()}"
+        )
+        return mesh
+
+    @property
+    def captures(self) -> bool:
+        """Whether chunks of steps are captured as CUDA graphs: on the card,
+        unless the world's backend is gloo, whose collectives a graph cannot
+        capture (chosen from the backend, up front)."""
+        return self.device.type == "cuda" and not (self.mesh is not None
+                                                   and torch.distributed.get_backend() == "gloo")
 
     @classmethod
     def _from_config(cls, model: Any, config: ConfigDict, **kwargs: Any) -> "BaseProcedure":
@@ -168,12 +293,24 @@ class BaseProcedure:
     # State lifecycle
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
-        params = [p for p in self.model.parameters() if p.requires_grad]
+        """The model's optimizer and step. Under a mesh the replicas start
+        from the first rank's parameters (broadcast), and the leaves of the
+        tensor-parallel rules are cut to this rank's share
+        (:func:`grl_torch.parallel.mesh.shard_params`) before the optimizer
+        is made; a checkpoint loads whole on every rank and is cut the
+        same way."""
         self.logger.info(
             f"Num parameters of {self.model.__class__.__name__}: "
             f"{count_parameters(self.model):,}"
         )
-        self.state = TrainState(self.model, self.optimizer_factory.make(params))
+        if self.mesh is not None:
+            replicate(self.model)
+            self.placement = shard_params(self.model, self.mesh)
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        # The leaves this rank holds a share of, and the group of the shares.
+        self.sharded = sharded_parameters(self.model) if self.mesh is not None else []
+        self.model_group = self.mesh.group("model") if self.mesh is not None else None
+        self.state = TrainState(self.model, self.optimizer_factory.make(params), mesh=self.mesh)
         self._load_prev_checkpoint(self.state)
         self._steps = None
         return self.state
@@ -183,7 +320,7 @@ class BaseProcedure:
         at first use: its graphs capture this state's model and optimizer
         and register the generator of ``self.rngs`` as it is then."""
         if self._steps is None:
-            self._steps = CapturedSteps(self.device, [self.rngs.device])
+            self._steps = CapturedSteps(self.device, [self.rngs.device], capture=self.captures)
         return self._steps
 
     def _load_prev_checkpoint(self, state: TrainState) -> TrainState:
@@ -217,7 +354,6 @@ class BaseProcedure:
         scalar), so a CUDA graph can capture it."""
         model, criterion, state = self.model, self.criterion, self.state
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
-        max_grad_norm = self.max_grad_norm
 
         def body(V, A, labels, rngs: Rngs, lam):
             model.train()
@@ -227,12 +363,42 @@ class BaseProcedure:
                 # The sparse path: flat (B*N, C) logits -> (B, N, C).
                 logits = logits.reshape(*labels.shape, -1)
             loss = criterion(logits, labels)
-            loss.backward()
-            apply_gradients(state.optimizer, params, max_grad_norm)
             preds = logits.detach().argmax(dim=-1)
-            return loss.detach(), confusion_matrix(preds, labels, num_classes, ignore_values)
+            cm = confusion_matrix(preds, labels, num_classes, ignore_values)
+            loss, summed = self.update(loss, labels, params, criterion, cm.reshape(-1).float())
+            return loss, summed.reshape(cm.shape).to(cm.dtype)
 
         return body
+
+    def update(self, loss: torch.Tensor, labels: torch.Tensor, params, criterion: Any,
+               extra: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Backward, then the update (:func:`apply_gradients`); returns the
+        loss and ``extra`` (a flat float32 tensor of sums, e.g. confusion
+        counts) as the whole world's. With ``data`` over several ranks each
+        holds its rows of the global batch: the loss of the global masked
+        mean is the sum of each rank's summed loss (``loss`` times its
+        :func:`~grl_torch.trainer.losses.denominator`) over the global
+        denominator, so each rank's summed loss goes backward, the
+        gradients, the sums, the denominators and ``extra`` are summed over
+        ``data`` in one ``all_reduce`` (:func:`reduce_step`), and the
+        gradients are divided by the summed denominator before the clip:
+        every rank applies the gradient of the single-device step."""
+        extra = torch.zeros(0, device=loss.device) if extra is None else extra
+        mesh = self.mesh
+        if mesh is None or mesh.axis_size("data") <= 1:
+            loss.backward()
+            apply_gradients(self.state.optimizer, params, self.max_grad_norm, self.sharded, self.model_group)
+            return loss.detach(), extra
+        denominator = losses_module.denominator(criterion, labels)
+        rank_sum = loss * denominator.clamp(min=1.0)
+        rank_sum.backward()
+        summed = reduce_step(mesh, params, self.model,
+                             torch.cat([rank_sum.detach().reshape(1).float(), denominator.reshape(1), extra]))
+        total = summed[1].clamp(min=1.0)
+        for p in params:
+            p.grad.div_(total)
+        apply_gradients(self.state.optimizer, params, self.max_grad_norm, self.sharded, self.model_group)
+        return summed[0] / total, summed[2:]
 
     def build_train_step(self, num_classes: int, ignore_values: Tuple[int, ...]) -> Callable:
         """``train_step(V, A, labels, rngs, lam) -> (loss, cm)``: one
@@ -249,7 +415,7 @@ class BaseProcedure:
 
     def build_eval_step(self, num_classes: int, ignore_values: Tuple[int, ...]) -> Callable:
         """``eval_step(V, A, labels, lam) -> (loss, cm, preds)``."""
-        model, criterion = self.model, self.criterion
+        model, criterion, mesh = self.model, self.criterion, self.mesh
 
         def eval_step(V, A, labels, lam: float):
             model.eval()
@@ -259,9 +425,40 @@ class BaseProcedure:
                     logits = logits.reshape(*labels.shape, -1)
                 loss = criterion(logits, labels)
             preds = logits.argmax(dim=-1)
-            return loss, confusion_matrix(preds, labels, num_classes, ignore_values), preds
+            cm = confusion_matrix(preds, labels, num_classes, ignore_values)
+            if mesh is not None and mesh.axis_size("data") > 1:
+                # Loss and counts of the global batch, the same on every rank.
+                denominator = losses_module.denominator(criterion, labels)
+                extra = torch.cat([(loss * denominator.clamp(min=1.0)).reshape(1), denominator.reshape(1),
+                                   cm.reshape(-1).float()])
+                summed = distributed.all_reduce_(extra, mesh.group("data"), "eval all_reduce")
+                loss = summed[0] / summed[1].clamp(min=1.0)
+                cm = summed[2:].reshape(cm.shape).to(cm.dtype)
+            return loss, cm, preds
 
         return eval_step
+
+    # ------------------------------------------------------------------
+    # Batch placement
+    # ------------------------------------------------------------------
+    def place_batch(self, arrays: Dict[str, np.ndarray],
+                    pad_values: Optional[Dict[str, Any]] = None) -> Dict[str, np.ndarray]:
+        """Under a mesh, this rank's rows of a host batch (``grl_tpu``'s
+        :161-180): the batch dimension padded to a multiple of ``data``
+        (``pad_values`` per array, e.g. -100 labels so the masked loss and
+        metrics drop the rows; 0 elsewhere) and split evenly, in axis order
+        (:func:`grl_torch.parallel.mesh.shard_batch`). Without one, the
+        batch as it is."""
+        if self.mesh is None:
+            return arrays
+        d = self.mesh.axis_size("data")
+        B = next(iter(arrays.values())).shape[0]
+        pad = (-B) % d
+        if pad:
+            pad_values = pad_values or {}
+            arrays = {k: np.concatenate([v, np.full((pad, *v.shape[1:]), pad_values.get(k, 0), v.dtype)])
+                      for k, v in arrays.items()}
+        return shard_batch(arrays, self.mesh)
 
     # ------------------------------------------------------------------
     def _init_dataloaders(self):

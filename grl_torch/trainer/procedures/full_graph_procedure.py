@@ -20,13 +20,25 @@ once per ``k_eff`` (``_scan_fn``); here, with K > 1, a chunk is one replay
 of a CUDA graph captured once per ``k_eff`` on the card (the first chunk
 of a ``k_eff`` runs eagerly, as the warm-up; :mod:`grl_torch.trainer.captured`)
 and ``k_eff`` eager steps on the CPU. ``scan_steps: 1`` runs each step
-eagerly. ``parallel.mesh`` over more than one device (the partitioned
-path) raises, naming slice 4.
+eagerly.
+
+Under ``parallel.mesh`` (``full_graph_procedure.py:76-110, 286-356``) the
+graph is node-partitioned over ``data``: the plan
+(:func:`grl_torch.parallel.graph_partition.partition_graph`, degree-balanced
+with ``parallel.balance_partition``, features and labels then placed
+through its ``node_perm``) is made once, each rank keeps its block of
+features and labels, and every ``GraphConv`` of the model aggregates by the
+ring halo exchange
+(:func:`grl_torch.parallel.sharded_flagship.make_partitioned_model_step`).
+The partitioned path ignores ``kernel_impl`` as ``grl_tpu``'s does: no
+kernel is planned, the ring aggregates (D is its only kernel). Chunks of
+``scan_steps`` are captured on NCCL and run step by step on gloo; the
+validation accuracy sums the correct and labelled nodes over the world.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -34,6 +46,9 @@ import torch
 from grl_torch.config import ConfigDict
 from grl_torch.data.large_graph import LargeGraphData, sbm_relational_graph, to_relational_graph
 from grl_torch.ops.kernels import attach_kernel
+from grl_torch.parallel import distributed
+from grl_torch.parallel.graph_partition import partition_graph
+from grl_torch.parallel.sharded_flagship import make_partitioned_model_step, pad_node_arrays, scatter_node_arrays
 from grl_torch.trainer import optimizers as optim_module
 from grl_torch.trainer.losses import cross_entropy
 from grl_torch.trainer.procedures.base_procedure import BaseProcedure
@@ -69,22 +84,6 @@ def large_graph_from_config(config: ConfigDict) -> LargeGraphData:
     raise ValueError(f"Unknown large_graph type: {kind}")
 
 
-def scatter_node_arrays(
-    node_perm: np.ndarray, features: Optional[np.ndarray], labels: np.ndarray,
-    num_nodes_padded: int, label_pad: int = -100,
-) -> Tuple[Optional[np.ndarray], np.ndarray]:
-    """Row ``node_perm[i]`` holds original node ``i``; unassigned rows get
-    zero features and ignored labels (``sharded_flagship.py:52-69``).
-    ``features=None`` places the labels only."""
-    out_l = np.full(num_nodes_padded, label_pad, labels.dtype)
-    out_l[node_perm] = labels
-    if features is None:
-        return None, out_l
-    out_f = np.zeros((num_nodes_padded, features.shape[1]), features.dtype)
-    out_f[node_perm] = features
-    return out_f, out_l
-
-
 class FullGraphProcedure(BaseProcedure):
     """Train ``model`` on one LargeGraphData graph; returns the best
     validation accuracy. ``losses`` holds each train step's loss as a
@@ -94,6 +93,12 @@ class FullGraphProcedure(BaseProcedure):
                  data: Optional[LargeGraphData] = None, **kwargs: Any):
         super().__init__(model, config, **kwargs)
         self.data = data if data is not None else large_graph_from_config(self.config)
+        self._scan_k = max(1, int(self.config.get("scan_steps", 1)))
+        self.losses: List[torch.Tensor] = []
+        self._partitioned = self.mesh is not None
+        if self._partitioned:
+            self._init_partitioned()
+            return
         data = self.data
         labels = np.asarray(data.labels, np.int64)
         graph, features = to_relational_graph(data, device=self.device)
@@ -126,15 +131,54 @@ class FullGraphProcedure(BaseProcedure):
         self.features = torch.from_numpy(features).to(self.device)
         self.train_labels = torch.from_numpy(train_labels).to(self.device)
         self.val_labels = torch.from_numpy(val_labels).to(self.device)
-        self._scan_k = max(1, int(self.config.get("scan_steps", 1)))
-        self.losses: List[torch.Tensor] = []
+
+    def _init_partitioned(self) -> None:
+        """The node-partitioned plan, once, and this rank's block of
+        features and labels (``full_graph_procedure.py:76-110``)."""
+        data = self.data
+        labels = np.asarray(data.labels, np.int64)
+        train_labels = np.where(data.train_mask, labels, -100)
+        val_labels = np.where(data.val_mask, labels, -100)
+        D, d = self.mesh.axis_size("data"), self.mesh.index("data")
+        self.part = partition_graph(
+            np.asarray(data.senders), np.asarray(data.receivers), np.asarray(data.relations),
+            np.asarray(data.weights), num_nodes=len(data.features), num_relations=data.num_relations,
+            num_shards=D, balance=bool(self.config.get_path("parallel.balance_partition", False)),
+        )
+        features = np.asarray(data.features, np.float32)
+        if self.part.node_perm is not None:
+            features, train_labels = scatter_node_arrays(self.part.node_perm, features, train_labels,
+                                                         self.part.num_nodes)
+            _, val_labels = scatter_node_arrays(self.part.node_perm, None, val_labels, self.part.num_nodes)
+        else:
+            features, train_labels = pad_node_arrays(features, train_labels, self.part.num_nodes)
+            _, val_labels = pad_node_arrays(None, val_labels, self.part.num_nodes)
+        shard_n = self.part.num_nodes // D
+        rows = slice(d * shard_n, (d + 1) * shard_n)
+        self.graph = None
+        self.features = torch.from_numpy(np.ascontiguousarray(features[rows])).to(self.device)
+        self.train_labels = torch.from_numpy(np.ascontiguousarray(train_labels[rows])).to(self.device)
+        self.val_labels = torch.from_numpy(np.ascontiguousarray(val_labels[rows])).to(self.device)
+        self._partitioned_step = self._partitioned_forward = None
+
+    def num_edges(self) -> int:
+        return int(self.part.mask.sum()) if self._partitioned else self.graph.num_edges()
 
     def _ensure_initialized(self) -> None:
         if self.state is None:
             self.init_state()
-            self.logger.info(
-                f"nodes={self.graph.num_nodes:,} edges={self.graph.num_edges():,}"
-            )
+            if self._partitioned:
+                self._partitioned_step, self._partitioned_forward = make_partitioned_model_step(
+                    self.model, self.mesh, self.part, self.state.optimizer, max_grad_norm=self.max_grad_norm,
+                    device=self.device, sharded=self.sharded, model_group=self.model_group)
+                Ec = self.part.senders.shape[-1]
+                self.logger.info(
+                    f"partitioned over {self.mesh.axis_size('data')} ranks: nodes={self.part.num_nodes:,} "
+                    f"edges={self.num_edges():,} Ec={Ec:,} padding share="
+                    f"{1 - self.num_edges() / self.part.mask.size:.3f}"
+                )
+            else:
+                self.logger.info(f"nodes={self.graph.num_nodes:,} edges={self.graph.num_edges():,}")
 
     def train_step(self) -> torch.Tensor:
         """One full-graph optimizer step; the loss stays on the device."""
@@ -158,6 +202,8 @@ class FullGraphProcedure(BaseProcedure):
     def _step_body(self) -> torch.Tensor:
         """One step's device work, with no host read and no host-side
         count: a CUDA graph can capture it."""
+        if self._partitioned:
+            return self._partitioned_step(self.features, self.train_labels, self.rngs)
         model, optimizer = self.model, self.state.optimizer
         model.train()
         optimizer.zero_grad(set_to_none=True)
@@ -173,18 +219,26 @@ class FullGraphProcedure(BaseProcedure):
     def eval_step(self, labels: torch.Tensor) -> torch.Tensor:
         """Masked accuracy of the eval-mode forward on ``labels`` (-100
         marks the nodes left out), as a device scalar."""
-        self.model.eval()
-        with torch.no_grad():
-            logits = self.model((self.features, self.graph))
+        if self._partitioned:
+            logits = self._partitioned_forward(self.features)
+        else:
+            self.model.eval()
+            with torch.no_grad():
+                logits = self.model((self.features, self.graph))
         mask = labels != -100
         correct = ((logits.argmax(dim=-1) == labels) & mask).sum()
+        if self._partitioned:
+            # Correct and labelled nodes summed over the world.
+            counts = distributed.all_reduce_(torch.stack([correct, mask.sum()]).float(),
+                                             self.mesh.group("data"), "eval all_reduce")
+            return counts[0] / counts[1].clamp(min=1)
         return correct / mask.sum().clamp(min=1)
 
     def __call__(self) -> float:
         self._ensure_initialized()
         num_epochs = int(self.config.get("num_epochs", 100))
         best_acc = 0.0
-        edges = self.graph.num_edges()
+        edges = self.num_edges()
         start = time.time()
         K = self._scan_k
         total = 0

@@ -29,6 +29,21 @@ stepwise:
   and every ``save_interval`` steps;
 * :meth:`KVProcedure.visualize_representation_space` plots a t-SNE of the
   trunk's node embeddings.
+
+Under ``parallel.mesh`` (``kv_procedure.py:155-176, 294-296``) every rank
+reads the whole global batch and keeps its rows
+(:meth:`~grl_torch.trainer.procedures.base_procedure.BaseProcedure.place_batch`),
+so every rank buckets the same shapes and buffers its chunks by the same
+keys; the step sums the gradients over ``data``
+(:meth:`~grl_torch.trainer.procedures.base_procedure.BaseProcedure.build_train_body`)
+and the validation loss and confusion matrix too, so every rank sees the
+same F1 and saves at the same step. Chunks are captured where the world's
+backend is NCCL and run their steps one by one on gloo
+(``BaseProcedure.captures``); COO batches under a mesh step one at a time,
+as in ``grl_tpu``. Only the first rank writes checkpoints and summaries;
+every rank loads. The subclasses that run a train step of their own
+(self-supervised, joint, graph classification) refuse a mesh over more
+than one rank.
 """
 from __future__ import annotations
 
@@ -82,6 +97,12 @@ def adjacency_to(A: Any, device: torch.device) -> Any:
 class KVProcedure(BaseProcedure):
     def __init__(self, model: torch.nn.Module, config: ConfigDict, **kwargs: Any):
         super().__init__(model, config, **kwargs)
+        if self.mesh is not None and type(self)._run_train_batch is not KVProcedure._run_train_batch:
+            raise NotImplementedError(
+                f"{type(self).__name__} runs a train step of its own, which does not reduce over a mesh; "
+                f"parallel.mesh {self.mesh.shape} trains KVProcedure, FinetuneKVProcedure, "
+                "FullGraphProcedure and SampledGraphProcedure (ROADMAP.md Queue 1)."
+            )
         self._scan_k = max(1, int(self.config.get("scan_steps", 1)))
         self.global_step = 0
         self.train_loader, self.val_loader, self.class_names = self._init_dataloaders()
@@ -177,6 +198,12 @@ class KVProcedure(BaseProcedure):
             tensor = torch.from_numpy(np.ascontiguousarray(array)).to(to_dtype)
             return tensor.pin_memory() if pin else tensor
 
+        if self.mesh is not None:
+            # This rank's rows of the global batch.
+            used = [k for k in batch if k in ("textline_encoding", "node_label", "adjacency_matrix")
+                    or k.startswith("coo_")]
+            batch = self.place_batch({k: np.asarray(batch[k]) for k in used},
+                                     pad_values={"node_label": self.pad_value})
         V, labels = host(batch["textline_encoding"], dtype), host(batch["node_label"], torch.int64)
         if "coo_senders" not in batch:
             return V, host(batch["adjacency_matrix"], dtype), labels
@@ -357,6 +384,14 @@ class KVProcedure(BaseProcedure):
             lam = self._lambda_value(epoch)
             gstep = self.global_step
             self.global_step += 1
+            if self.mesh is not None and isinstance(A, RelationalGraph):
+                # Mesh-sharded COO batches step one at a time, as in
+                # grl_tpu (kv_procedure.py:294-296).
+                self._lam.fill_(lam)
+                loss, cm = self._train_fn(V.to(self.device), adjacency_to(A, self.device),
+                                          labels.to(self.device), self.rngs, self._lam)
+                self._log_train_step(self._scores_from_cm(cm.cpu().numpy(), float(loss)), train_metrics, gstep)
+                continue
             key = self.shape_key(V, A, labels)
             buffers.setdefault(key, []).append((V, A, labels, lam, gstep))
             if len(buffers[key]) == K:

@@ -30,8 +30,14 @@ chunk's static tensors; on the card the chunk is one replay of a CUDA graph
 warm-up) and on the CPU K eager steps. The loss is read once per chunk;
 the batches left over at the end of an epoch run step by step. Validation
 runs eagerly on the same static shapes and gives ``correct / total`` over
-the level-0 labels. ``parallel.mesh`` over more than one device raises,
-naming slice 4.
+the level-0 labels.
+
+Under ``parallel.mesh`` (``sampled_graph_procedure.py:47-50, 322-356``)
+``groups`` becomes ``max(groups, data)``: every rank samples the same
+global step from the same seed and keeps its share of the groups (the
+group axis padded to a multiple of ``data`` with empty trees), the step
+sums the gradients over ``data``, and validation sums the correct and
+labelled targets over the world.
 """
 from __future__ import annotations
 
@@ -49,7 +55,8 @@ from grl_torch.data.neighbor_sampler import NeighborSampler, SampledBatch
 from grl_torch.ops.sparse import batch_relational_coo
 from grl_torch.ops.tree import TreeGraph
 from grl_torch.trainer.losses import cross_entropy
-from grl_torch.trainer.procedures.base_procedure import BaseProcedure, apply_gradients
+from grl_torch.parallel import distributed
+from grl_torch.trainer.procedures.base_procedure import BaseProcedure
 from grl_torch.trainer.procedures.full_graph_procedure import large_graph_from_config
 
 # A batch's arrays on each route, with their device dtypes.
@@ -67,11 +74,14 @@ class SampledGraphProcedure(BaseProcedure):
         super().__init__(model, config, **kwargs)
         self.data = data if data is not None else large_graph_from_config(self.config)
         cfg = dict(self.config.get("sampler", {}) or {})
+        groups = int(cfg.get("groups", 0))
+        if self.mesh is not None:
+            groups = max(groups, self.mesh.axis_size("data"))
         self.sampler = NeighborSampler(
             self.data,
             fanouts=tuple(cfg.get("fanouts", (10, 10))),
             batch_size=int(cfg.get("batch_size", 256)),
-            groups=max(1, int(cfg.get("groups", 0))),
+            groups=max(1, groups),
             # The rows are gathered on the device from the resident
             # features: a step ships node ids, not rows.
             with_features=False,
@@ -104,9 +114,11 @@ class SampledGraphProcedure(BaseProcedure):
 
     def host_arrays(self, batch: SampledBatch) -> Dict[str, np.ndarray]:
         """The arrays of ``batch`` a step reads, ``(G, ...)`` each, in
-        their device dtypes."""
+        their device dtypes; under a mesh this rank's groups."""
         numpy_dtype = {torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32, torch.bool: bool}
-        return {name: np.asarray(getattr(batch, name), numpy_dtype[dtype]) for name, dtype in self._arrays.items()}
+        arrays = {name: np.asarray(getattr(batch, name), numpy_dtype[dtype]) for name, dtype in self._arrays.items()}
+        # Padding groups are empty trees: no node, no label, no edge weight.
+        return self.place_batch(arrays, pad_values={"nodes": -1, "labels": -100})
 
     def device_arrays(self, batch: SampledBatch) -> Dict[str, torch.Tensor]:
         """``batch``'s arrays on the device, a copy each."""
@@ -150,9 +162,7 @@ class SampledGraphProcedure(BaseProcedure):
         optimizer.zero_grad(set_to_none=True)
         logits, labels = self._logits(t, rngs=self.rngs)
         loss = cross_entropy(logits, labels)
-        loss.backward()
-        apply_gradients(optimizer, [p for g in optimizer.param_groups for p in g["params"]], self.max_grad_norm)
-        return loss.detach()
+        return self.update(loss, labels, [p for g in optimizer.param_groups for p in g["params"]], cross_entropy)[0]
 
     def train_step(self, batch: SampledBatch) -> torch.Tensor:
         """One optimizer step on ``batch``; the loss stays on the device."""
@@ -169,7 +179,11 @@ class SampledGraphProcedure(BaseProcedure):
         with torch.no_grad():
             logits, labels = self._logits(self.device_arrays(batch))
         mask = labels != -100
-        return ((logits.argmax(dim=-1) == labels) & mask).sum(), mask.sum().clamp(min=1)
+        counts = torch.stack([((logits.argmax(dim=-1) == labels) & mask).sum(), mask.sum()])
+        if self.mesh is not None and self.mesh.axis_size("data") > 1:
+            # The world's counts, the same on every rank.
+            counts = distributed.all_reduce_(counts.float(), self.mesh.group("data"), "eval all_reduce").long()
+        return counts[0], counts[1].clamp(min=1)
 
     # ------------------------------------------------------------------
     def load_chunk(self, batches: List[SampledBatch]) -> Callable[[], torch.Tensor]:

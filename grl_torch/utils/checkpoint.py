@@ -21,8 +21,11 @@ from grl_torch.utils.logging import get_logger
 class CheckpointHandler:
     LATEST = "model_latest"
 
-    def __init__(self):
+    def __init__(self, writes: bool = True):
+        """``writes=False`` (the ranks after the first of a world) names the
+        checkpoint a save would write and writes nothing."""
         self.logger = get_logger(self.__class__.__name__)
+        self.writes = writes
 
     def make_checkpoint_name(self, name: str, epoch: Optional[int] = None,
                              step: Optional[int] = None) -> str:
@@ -43,6 +46,8 @@ class CheckpointHandler:
         os.makedirs(output_dir, exist_ok=True)
         ckpt_name = self.make_checkpoint_name(name, epoch, step)
         path = os.path.abspath(os.path.join(output_dir, ckpt_name))
+        if not self.writes:
+            return path
         tmp = path + ".tmp"
         torch.save(state, tmp)
         os.replace(tmp, path)

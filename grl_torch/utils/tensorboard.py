@@ -62,3 +62,21 @@ class MetricsWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullWriter(MetricsWriter):
+    """A writer that writes nothing: the ranks after the first of a world,
+    whose summaries the first rank's writer already holds."""
+
+    def __init__(self):
+        self._tb = None
+        self._last_step_time = None
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -5,8 +5,14 @@ model from the registry (parameters drawn from a ``torch.Generator``
 seeded by ``config.seed``) and instantiates the configured procedure —
 a training procedure (``KVProcedure``) when ``is_train`` is true, an
 inference procedure (``KVInference``) otherwise — and exposes
-``.train()`` / ``.predict(samples)``. Multi-process runs (``grl_tpu``'s
-``initialize_distributed``) arrive with slice 4 of ROADMAP.md.
+``.train()`` / ``.predict(samples)``. Before the model is built it starts
+the process group where one is configured
+(:func:`grl_torch.parallel.distributed.initialize_distributed`, the
+``GRL_*`` launch contract, ``grl_tpu/warper.py:55-59``): N processes
+started with ``GRL_COORDINATOR_ADDRESS`` / ``GRL_NUM_PROCESSES`` /
+``GRL_PROCESS_ID`` and a ``parallel.mesh`` over N devices train one model,
+each on its own card (or on the CPU with ``device="cpu"``). Only the first
+rank keeps the experiment-tracking series.
 """
 from __future__ import annotations
 
@@ -42,6 +48,9 @@ class GNNLearningWarper:
             raise ValueError("GNNLearningWarper needs config_path or config.")
         self.config = load_config(config_path) if config_path else ConfigDict(config)
         self.logger = get_logger(__name__)
+        from grl_torch.parallel.distributed import initialize_distributed
+
+        host_id, _, _ = initialize_distributed(self.config, device)
         self.device = resolve_device(device)
         self.seed = int(self.config.get("seed", 0))
 
@@ -73,7 +82,7 @@ class GNNLearningWarper:
             # Experiment-tracking handle threaded into the procedure
             # (reference: cl_warper.py:52-53 passes the global NEPTUNE_RUN).
             ems_exp = None
-            if self.config.get_path("logging.experiment_tracking", True):
+            if self.config.get_path("logging.experiment_tracking", True) and host_id == 0:
                 ems_exp = ExperimentRun(output_dir)
             proc = self.config.get("procedure", {"type": "KVProcedure", "args": {}})
             cls = getattr(procedures, proc["type"])

@@ -289,7 +289,8 @@ def test_converter_maps_the_sparse_attention_parameters():
 
 def test_procedure_surface(tmp_path):
     """The registry reaches FullGraphProcedure; npz graphs load as in
-    grl_tpu; no graph is an error; a multi-device mesh raises naming slice 4."""
+    grl_tpu; no graph is an error; a mesh over more devices than the
+    world's processes raises, naming the launch contract."""
     assert procedures.FullGraphProcedure is FullGraphProcedure
     data = large_graph.sbm_relational_graph(num_nodes=50, num_classes=3, avg_degree=3, feature_dim=4)
     path = tmp_path / "graph.npz"
@@ -303,7 +304,7 @@ def test_procedure_surface(tmp_path):
         large_graph_from_config(ConfigDict({}))
     model = models.create_model("GraphCNNDropEdge", **dict(MODEL, input_dim=4, output_dim=3),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="GRL_NUM_PROCESSES=2"):
         FullGraphProcedure(model, {"output_dir": str(tmp_path), "parallel": {"mesh": {"data": 2}},
                                    "logging": {"use_tensorboard": False}}, data=data, device="cpu")
 

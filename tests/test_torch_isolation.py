@@ -9,7 +9,10 @@ under one of optax's rules, with the demo entry points imported), or
 pretrain SSLGCN self-supervised and fine-tune the flagship from its
 checkpoint, on ``device="cpu"``.
 A scan of the sources finds no import of either package in grl_torch/ or
-chip_smoke.py.
+chip_smoke.py, the multi-device modules (``grl_torch.parallel.*``,
+``grl_torch.utils.platform``) named one by one; two gloo ranks on the CPU
+import them all and take a data-parallel step with neither package in
+``sys.modules``.
 """
 from __future__ import annotations
 
@@ -406,6 +409,52 @@ def test_sampled_and_coo_paths_train_with_jax_and_grl_tpu_blocked(tmp_path):
     SparseBucketPadding COO batch with sparse attention, all through the
     warper."""
     assert "SAMPLED AND COO" in run_blocked(TRAIN_SAMPLED_AND_COO, tmp_path)
+
+
+PARALLEL_WORLD = """
+import importlib
+for name in ("grl_torch.parallel", "grl_torch.parallel.distributed", "grl_torch.parallel.mesh",
+             "grl_torch.parallel.graph_partition", "grl_torch.parallel.sharded_flagship",
+             "grl_torch.utils.platform"):
+    importlib.import_module(name)
+from grl_torch import models
+from grl_torch.config import ConfigDict
+from grl_torch.parallel import initialize_distributed
+from grl_torch.trainer.procedures import BaseProcedure
+
+initialize_distributed(ConfigDict({"parallel": {"distributed": {"timeout": 120}}}), "cpu")
+model = models.create_model("GraphCNNDropEdge", input_dim=24, output_dim=5, num_edges=6, net_size=16,
+                            device="cpu")
+proc = BaseProcedure(model, {"output_dir": OUT, "logging": {"use_tensorboard": False},
+                             "parallel": {"mesh": {"data": 2}}}, device="cpu")
+proc.init_state()
+gen = torch.Generator().manual_seed(RANK)
+V = torch.rand(1, 64, 24, generator=gen)
+A = (torch.rand(1, 64, 6, 64, generator=gen) < 0.1).float()
+loss, cm = proc.build_train_step(5, (-100,))(V, A, torch.randint(0, 5, (1, 64), generator=gen), proc.rngs, 1.0)
+assert torch.isfinite(loss) and float(cm.sum()) == 128
+no_jax()
+print("RANK TRAINED", RANK)
+"""
+
+
+def test_parallel_world_runs_with_jax_and_grl_tpu_blocked(tmp_path):
+    """Two gloo ranks import every module of grl_torch.parallel and
+    grl_torch.utils.platform and take one data-parallel step with dropout
+    and DropEdge on; neither rank has JAX or grl_tpu in sys.modules."""
+    from tests.test_torch_distributed import run_world
+
+    outputs = run_world(tmp_path, PARALLEL_WORLD, 2, "parallel")
+    assert all("RANK TRAINED" in out for out in outputs)
+
+
+@pytest.mark.parametrize("module", ["parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
+                                    "parallel/graph_partition.py", "parallel/sharded_flagship.py",
+                                    "utils/platform.py"])
+def test_multi_device_modules_import_neither_jax_nor_grl_tpu(module):
+    path = REPO / "grl_torch" / module
+    assert path.exists()
+    assert not set(imported_roots(path)) & set(BLOCKED)
 
 
 def imported_roots(path: Path):

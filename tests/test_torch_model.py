@@ -185,7 +185,7 @@ def test_entry_points_need_a_device():
 def test_sparse_adjacency_is_refused():
     _, _, model = flagship_pair()
     V, A = inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="LocalShardGraph, not Tensor"):
         model((torch.from_numpy(V), torch.from_numpy(A).to_sparse()))
 
 

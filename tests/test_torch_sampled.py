@@ -168,7 +168,10 @@ def test_learns_through_the_warper(tmp_path):
 
 
 def test_multi_device_mesh_raises(tmp_path):
+    """A mesh over more devices than the world's processes (one here)
+    raises, naming the launch contract; tests/test_torch_mesh.py trains
+    {data: 2} in a world of two."""
     model = models.create_model("GraphCNNDropEdge", **MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="GRL_NUM_PROCESSES=2"):
         SampledGraphProcedure(model, config(tmp_path, parallel={"mesh": {"data": 2}}),
                               large_graph.sbm_relational_graph(**SBM), device="cpu")

@@ -220,15 +220,17 @@ def test_optax_rule_state_round_trips_a_checkpoint():
 
 
 def test_one_device_mesh_is_a_no_op_and_the_rest_is_refused(tmp_path):
-    """parallel.mesh over one device is a no-op, as in grl_tpu; more
-    devices raise naming where they are queued. (scan_steps > 1 runs:
-    tests/test_torch_scan.py holds it to grl_tpu.)"""
+    """parallel.mesh over one device is a no-op, as in grl_tpu; a mesh over
+    more devices than the world's processes (one here) raises, naming the
+    launch contract (tests/test_torch_mesh.py trains the mesh in gloo
+    worlds). (scan_steps > 1 runs: tests/test_torch_scan.py holds it to
+    grl_tpu.)"""
     model = models.create_model("GraphCNNDropEdge", input_dim=8, output_dim=3, num_edges=6,
                                 net_size=16, device="cpu")
     base = {"output_dir": str(tmp_path), "logging": {"use_tensorboard": False}}
     for mesh in ({"data": -1}, {"data": 1, "model": 1}):
-        BaseProcedure(model, {**base, "parallel": {"mesh": mesh}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+        assert BaseProcedure(model, {**base, "parallel": {"mesh": mesh}}, device="cpu").mesh is None
+    with pytest.raises(ValueError, match="GRL_NUM_PROCESSES=2"):
         BaseProcedure(model, {**base, "parallel": {"mesh": {"data": 2}}}, device="cpu")
 
 
