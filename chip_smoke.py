@@ -233,9 +233,17 @@ before the result line is printed; no phase's failure is passed over.
    single-device port under ``FULL_GRAPH_STEP_LIMITS``, the learning check
    at lr 1e-3 over ``PARALLEL_LEARN_STEPS``) and ``sampled`` (the tree route at B = 256,
    groups 2, cut to 3 chunks, a float32 rates-0 step against one
-   process); each prints its backend, transport and world, each rank's
-   step ms by CUDA events, its collectives' calls, MB and ms a step, the
-   plan's ``Ec`` and padding share and its rate. Then ``nccl`` in this
+   process) and ``ssl`` (the ssl phase's sumi-width ``SSLGCN``, float32,
+   on the first 32 training pages: SSL pretraining with dgi, joint
+   training and graph classification at ``{data: 2}``, SSL pretraining
+   without dgi at ``{model: 2}``; one epoch each through the warper at
+   dropout 0.5, D's launches a rank checked, the replicas equal bit for
+   bit after every step; two float32 steps at dropout 0 (Adam eps 1e-3) of the world
+   against one process under ``STEP_LIMITS``); each prints its backend,
+   transport and world, each rank's step ms by CUDA events, its
+   collectives' calls, MB and ms a step (the ssl leg's denominator
+   all_reduce on a line of its own), the plan's ``Ec`` and padding share
+   and its rate. Then ``nccl`` in this
    process: a one-rank NCCL group, the DP step with its gradient
    all_reduce and a ring of one, each eager and as a captured chunk, equal
    bit for bit.
@@ -3108,12 +3116,40 @@ def ssl_launches(d_a_step: int, steps: int, **kernels):
     return {"K3": 0, "K1": 0, "K2": 0, **kernels, **dict.fromkeys(D_COUNTS, d_a_step * steps)}
 
 
+GRAPH_PROCEDURE = {"type": "GraphClassificationProcedure", "args": {"n_graph_classes": GRAPH_CLASSES}}
+
+
+@contextlib.contextmanager
+def graph_labels():
+    """``PageGraphLabel`` among the port's processors while the block runs:
+    a graph label of GRAPH_CLASSES classes, the page's characters."""
+    from grl_torch.data import processors
+
+    class PageGraphLabel(processors.BaseDataProcess):
+        def __call__(self, sample):
+            sample["graph_label"] = sum(len(line["text"]) for line in sample["label"].values()) % GRAPH_CLASSES
+            return sample
+
+    processors.PageGraphLabel = PageGraphLabel
+    try:
+        yield
+    finally:
+        del processors.PageGraphLabel
+
+
+def graph_split(split):
+    """A KV split that also labels each page's graph (``graph_labels``)."""
+    split = copy.deepcopy(split)
+    split["data_process"]["PageGraphLabel"] = {}
+    split["data_collate"]["BucketPadding"]["only_selected_items"] = False
+    return split
+
+
 def phase_ssl(torch, card: str):
     """The self-supervised family through ``GNNLearningWarper.train`` at the
     sumi width on the train phase's pages, each leg with its launch counts
     set to 0 just before it and read just after."""
     import grl_torch
-    from grl_torch.data import processors
     from grl_torch.models import Rngs, create_model
     from grl_torch.trainer.procedures import BaseProcedure
     from grl_torch.utils.checkpoint import CheckpointHandler
@@ -3346,29 +3382,12 @@ def phase_ssl(torch, card: str):
     log(f"[ssl] joint training {JOINT_TASKS}: {SSL_STEPS} steps (the KV loader's batches) in {leg['wall_s']:.3f} s, "
         f"launches {leg['launches']}; losses {[round(v, 4) for v in leg['losses']]}")
 
-    class PageGraphLabel(processors.BaseDataProcess):
-        """A graph label of GRAPH_CLASSES classes: the page's characters."""
-
-        def __call__(self, sample):
-            sample["graph_label"] = sum(len(line["text"]) for line in sample["label"].values()) % GRAPH_CLASSES
-            return sample
-
-    def graph_split(split):
-        split = copy.deepcopy(split)
-        split["data_process"]["PageGraphLabel"] = {}
-        split["data_collate"]["BucketPadding"]["only_selected_items"] = False
-        return split
-
-    processors.PageGraphLabel = PageGraphLabel
-    try:
+    with graph_labels():
         graphs = grl_torch.GNNLearningWarper(config=ssl_config(
             base, tmp, "graph-classification", "SSLGCN", {**ssl_args, "n_graph_classes": GRAPH_CLASSES},
-            {"type": "GraphClassificationProcedure", "args": {"n_graph_classes": GRAPH_CLASSES}},
-            graph_split(kv_train), graph_split(kv_val)))
+            GRAPH_PROCEDURE, graph_split(kv_train), graph_split(kv_val)))
         leg = train_leg(torch, graphs, "graph classification", SSL_STEPS,
                         ssl_launches(SSL_DROPOUTS_A_PASS, SSL_STEPS))
-    finally:
-        del processors.PageGraphLabel
     require(graphs.trainer.num_classes == GRAPH_CLASSES, f"{graphs.trainer.num_classes} graph classes")
     record["graph_classification"] = leg
     record["launches"]["graph_classification"] = leg["launches"]
@@ -4952,7 +4971,7 @@ PARALLEL_LEARN_STEPS = 80
 # arxiv config's widths; its chunks hold this many steps.
 PARALLEL_RING_NODES = 20_000
 PARALLEL_NCCL_K = 2
-PARALLEL_LEGS = ("dp", "tp", "partitioned", "sampled")
+PARALLEL_LEGS = ("dp", "tp", "partitioned", "sampled", "ssl")
 
 
 def flagship_args(dtype_name, **rates):
@@ -5006,19 +5025,20 @@ def comm_window(fn, reps: int) -> dict:
 
 
 def whole_params(torch, proc):
-    """``params_of`` with the tensor-parallel shards all-gathered."""
+    """``params_of`` the train state's module with the tensor-parallel
+    shards all-gathered."""
     state = proc.state.state_dict()["model"]
-    return {name: state[name].detach().float().clone() for name, _ in proc.model.named_parameters()}
+    return {name: state[name].detach().float().clone() for name, _ in proc.state.model.named_parameters()}
 
 
 def whole_grads(torch, proc):
-    """The parameters' (clipped) gradients, shards all-gathered over
-    ``model``."""
+    """The train state's parameters' (clipped) gradients, shards
+    all-gathered over ``model``."""
     from grl_torch.parallel import distributed
 
     sharded = {id(p) for p in proc.sharded}
     return {name: (distributed.all_gather(p.grad, proc.model_group, dim=1) if id(p) in sharded else p.grad).float().clone()
-            for name, p in proc.model.named_parameters()}
+            for name, p in proc.state.model.named_parameters()}
 
 
 def world_and_whole_steps(torch, tmp, tag, mesh, args, batches, steps, seed=7):
@@ -5346,6 +5366,194 @@ def parallel_sampled(torch, tmp, world):
     return out
 
 
+# The ssl leg: each procedure's epoch trains on the first
+# PARALLEL_SSL_PAGES training pages (the ssl phase's DGI leg cut), its
+# validation on the 16 validation pages. Runs: (procedure, the mesh axis
+# over the world, tasks).
+PARALLEL_SSL_PAGES = 32
+# Adam's eps in the ssl leg's float32 comparisons, as in the CPU tests of
+# these procedures (tests/test_torch_ssl_procedures.py): pretraining's
+# first loss is in the tens of thousands, so the clip leaves many gradient
+# entries near eps 1e-8, where Adam's step lr * g / (|g| + eps) turns the
+# summation-order noise of the world's all_reduce into parameter
+# differences of lr/30 at step 1 and held entries lr/10 apart at step 2
+# (the first H100 run: step 1 within STEP_LIMITS, gradient rel 1.6e-7;
+# PERF.md §6). At 1e-3 an entry moves by lr * g / eps, in proportion to
+# its gradient, so a wrong denominator or reduce still shows at step 1.
+PARALLEL_SSL_ADAM_EPS = 1e-3
+PARALLEL_SSL_RUNS = {
+    "pretrain": ("SSLPretrainProcedure", "data", SSL_TASKS + ["dgi"]),
+    "joint": ("JointTrainingProcedure", "data", JOINT_TASKS),
+    "graph classification": ("GraphClassificationProcedure", "data", None),
+    "pretrain tp": ("SSLPretrainProcedure", "model", SSL_TASKS),
+}
+
+
+def ssl_d_a_step(kind: str, tasks) -> int:
+    """D's launches a train step (each way) of an ssl-leg procedure."""
+    if kind == "GraphClassificationProcedure":
+        return SSL_DROPOUTS_A_PASS
+    passes = sum(SSL_TRUNK_PASSES[t] for t in tasks)
+    # The joint step's supervised forward runs the trunk and RanPAC's dropout too.
+    return SSL_DROPOUTS_A_PASS * (passes + 1) + 1 if kind == "JointTrainingProcedure" else SSL_DROPOUTS_A_PASS * passes
+
+
+def first_batches(loader, count: int):
+    """The first ``count`` batches of ``loader``, drawn without its prefetch
+    thread (a thread left running would draw from numpy's generator, which
+    every rank must draw from alike)."""
+    prefetch, loader.prefetch = loader.prefetch, 0
+    try:
+        out = []
+        for batch in loader:
+            out.append(batch)
+            if len(out) == count:
+                return out
+        return out
+    finally:
+        loader.prefetch = prefetch
+
+
+def ssl_step_fn(trainer, batch, ssl_batch):
+    """One train step of ``trainer`` (an ssl-leg procedure) on this rank's
+    rows of ``batch``, placed on the card once: the step alone, for timing."""
+    if hasattr(trainer, "_ssl_fn"):
+        data = trainer._task_batch(batch)
+        return lambda: trainer._ssl_fn(data)
+    V, A, labels = trainer._prepare_batch(batch)
+    if hasattr(trainer, "_joint_fn"):
+        ssl = trainer._ssl_arrays(ssl_batch)
+        return lambda: trainer._joint_fn(V, A, labels, ssl)
+    labels = trainer._graph_labels(batch)
+    return lambda: trainer._train_fn(V, A, labels, trainer.rngs, trainer._lam)
+
+
+def parallel_ssl(torch, tmp, pages, world):
+    """The self-supervised, joint and graph-classification procedures on the
+    mesh at the ssl phase's sumi widths (float32, the plain aggregation):
+    SSL pretraining with dgi, joint training and graph classification at
+    {data: world}, SSL pretraining without dgi at {model: world} (SSLGCN's
+    RanPAC and classifier sharded). For each: one epoch at the recipe's
+    dropout through the warper, its launch counts set to 0 just before it
+    and read just after, the replicas checked bit for bit after every step;
+    a rank's step ms by CUDA events and its collectives by kind; then two
+    float32 steps at dropout 0 (Adam eps PARALLEL_SSL_ADAM_EPS) of the
+    world against one process on the whole global batches under
+    STEP_LIMITS."""
+    import grl_torch
+    from grl_torch.models import create_model
+    from grl_torch.parallel import distributed
+    from grl_torch.parallel.distributed import equal_across
+    from grl_torch.parallel.mesh import sharded_parameters
+    from grl_torch.trainer import procedures
+
+    dirs, classes_path, charset_path = pages
+    base = train_config(tmp, dirs, classes_path, charset_path)
+    train_dir = os.path.join(tmp, f"training-rank{distributed.rank()}")
+    os.makedirs(train_dir)
+    for name in sorted(os.listdir(dirs["training"]))[:PARALLEL_SSL_PAGES]:
+        os.symlink(os.path.join(dirs["training"], name), os.path.join(train_dir, name))
+    kv_train = dict(base["data_config"]["training"], data_path=[train_dir])
+    kv_val = base["data_config"]["validation"]
+    ssl_train = ssl_split(train_dir, classes_path, charset_path, shuffle=True)
+    ssl_val = ssl_split(dirs["validation"], classes_path, charset_path, shuffle=False)
+    ssl_args = {key: base["model"]["args"][key] for key in ("input_dim", "output_dim", "num_edges", "net_size",
+                                                            "dropout_rate")}
+    steps = PARALLEL_SSL_PAGES // B
+    out = {}
+
+    def config(name, kind, tasks, parallel, dropout_rate):
+        args = dict(ssl_args, dropout_rate=dropout_rate)
+        train, val = ssl_train, ssl_val
+        procedure = {"type": kind, "args": {"tasks": tasks}}
+        if kind == "JointTrainingProcedure":
+            train, val = kv_train, kv_val
+        elif kind == "GraphClassificationProcedure":
+            train, val, procedure = graph_split(kv_train), graph_split(kv_val), GRAPH_PROCEDURE
+            args["n_graph_classes"] = GRAPH_CLASSES
+        cfg = ssl_config(base, tmp, name, "SSLGCN", args, procedure, train, val)
+        # The mesh of the world, or one process (the recipe's {data: -1} out).
+        cfg["parallel"] = parallel
+        if not parallel:
+            del cfg["parallel"]
+        if kind == "JointTrainingProcedure":
+            cfg["data_config"].update(ssl_training=ssl_train, ssl_validation=ssl_val)
+        return cfg
+
+    def replicas_equal(proc):
+        shards = sharded_parameters(proc.state.model)
+        whole = [p for p in proc.state.model.parameters() if all(p is not s for s in shards)]
+        return equal_across(whole) and (not shards or proc.mesh.axis_size("data") <= 1
+                                        or equal_across(shards, proc.mesh.group("data")))
+
+    with graph_labels():
+        for name, (kind, axis, tasks) in PARALLEL_SSL_RUNS.items():
+            mesh = mesh_block({axis: world})
+            tag = name.replace(" ", "-")
+            # The main path: one epoch through the warper at the recipe's dropout.
+            warper = grl_torch.GNNLearningWarper(config=config(f"par-{tag}", kind, tasks, mesh, ssl_args["dropout_rate"]))
+            trainer = warper.trainer
+            losses, checks = [], []
+            logged = trainer._log_train_step
+
+            def log_and_check(scores, metrics, gstep, logged=logged, losses=losses, checks=checks, trainer=trainer):
+                losses.append(scores["loss"])
+                checks.append(replicas_equal(trainer))
+                return logged(scores, metrics, gstep)
+
+            trainer._log_train_step = log_and_check
+            reset_counts()
+            start = time.perf_counter()
+            metric = warper.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launched = counts(("K3", "K1", "K2", *D_COUNTS))
+            expected = ssl_launches(ssl_d_a_step(kind, tasks), steps)
+            require(launched == expected, f"ssl {name} launched {launched}, expected {expected}")
+            require(len(checks) == steps == trainer.state.step and all(checks) and all(map(math.isfinite, losses)),
+                    f"ssl {name}: {trainer.state.step} steps, replicas equal {checks}, losses {losses}")
+            batch, = first_batches(trainer.train_loader, 1)
+            ssl_batch = first_batches(trainer.ssl_train_loader, 1)[0] if kind == "JointTrainingProcedure" else None
+            fn = ssl_step_fn(trainer, batch, ssl_batch)
+            step_ms = events_ms(torch, fn, PARALLEL_TIMED_STEPS)
+            comm = comm_window(fn, PARALLEL_COMM_STEPS)
+            record = {"mesh": mesh["mesh"], "tasks": tasks, "dropout_rate": ssl_args["dropout_rate"], "steps": steps,
+                      "wall_s": wall, "steps_per_s": steps / wall, "metric": metric, "losses": losses, "launches": launched, "d_a_step": expected["D forward"] // steps,
+                      "equal_checks": len(checks), "sharded": len(trainer.sharded), "step_ms": step_ms, "comm": comm}
+            # float32 at dropout 0: the world's two steps against one process's
+            # on the same global batches, from the same seed-0 weights.
+            runs, batches, ssl_batches = [], None, None
+            for parallel in (mesh, None):
+                cfg = config(f"par-{tag}-{'world' if parallel else 'one'}", kind, tasks, parallel, 0.0)
+                cfg["optimizer"]["args"]["eps"] = PARALLEL_SSL_ADAM_EPS
+                model = create_model("SSLGCN", **cfg["model"]["args"], device="cuda",
+                                     generator=torch.Generator().manual_seed(0))
+                proc = getattr(procedures, kind)(model, cfg, device="cuda", **cfg["procedure"]["args"])
+                if batches is None:
+                    batches = first_batches(proc.train_loader, 2)
+                    if kind == "JointTrainingProcedure":
+                        ssl_batches = first_batches(proc.ssl_train_loader, 2)
+                if ssl_batches is not None:
+                    proc.ssl_train_loader = list(ssl_batches)
+                proc._ensure_initialized()
+                step_losses, snapshots, grads, equal = [], [whole_params(torch, proc)], [], []
+                for b in batches:
+                    step_losses.append(proc._run_train_batch(b, 0)["loss"])
+                    snapshots.append(whole_params(torch, proc))
+                    grads.append(whole_grads(torch, proc))
+                    if parallel:
+                        equal.append(replicas_equal(proc))
+                runs.append((step_losses, snapshots, grads))
+                if parallel:
+                    require(all(equal), f"ssl {name} float32: replicas differ after the steps {equal}")
+            rows = compare_steps(*runs)
+            failures = step_failures(rows, STEP_LIMITS["float32"])
+            require(not failures, f"ssl {name}: the world's float32 steps break STEP_LIMITS at steps {failures}: {rows}")
+            record["float32_steps"] = rows
+            out[name] = record
+    return out
+
+
 def parallel_rank(tmp: str) -> int:
     """One rank of the parallel phase's world (``chip_smoke.py
     --parallel-rank DIR``, started by :func:`phase_parallel` with the
@@ -5372,6 +5580,7 @@ def parallel_rank(tmp: str) -> int:
         "tp": lambda: parallel_tp(torch, os.path.join(tmp, "tp"), world, batches),
         "partitioned": lambda: parallel_partitioned(torch, os.path.join(tmp, "partitioned"), world),
         "sampled": lambda: parallel_sampled(torch, os.path.join(tmp, "sampled"), world),
+        "ssl": lambda: parallel_ssl(torch, os.path.join(tmp, "ssl"), spec["pages"], world),
     }
     for leg in PARALLEL_LEGS:
         start = time.perf_counter()
@@ -5505,8 +5714,8 @@ def comm_line(comm: dict) -> str:
 def phase_parallel(torch, card: str):
     """The multi-device slice: a world of PARALLEL_WORLD ranks through the
     GRL_* contract (this script again, with ``--parallel-rank``), each
-    running the legs dp, tp, partitioned and sampled; then the nccl leg in
-    this process. A rank that fails, or a world that outlives
+    running the legs dp, tp, partitioned, sampled and ssl; then the nccl
+    leg in this process. A rank that fails, or a world that outlives
     PARALLEL_WORLD_TIMEOUT_S, fails the phase."""
     import socket
 
@@ -5579,6 +5788,19 @@ def phase_parallel(torch, card: str):
         log(f"[parallel sampled] {where}: groups {sm['groups']}, {sm['steps']} steps, {sm['target_nodes_per_s']:.1f} "
             f"target nodes/s, step {sm['step_ms']:.3f} ms; collectives a step: {comm_line(sm['comm'])}; launches "
             f"{sm['launches']}; float32 step vs one process: grad rel diff {sm['float32_step'][0]['grad_rel_diff']:.2e}")
+        for name, leg in rec["ssl"].items():
+            comm = dict(leg["comm"])
+            denominators = comm.pop("denominator all_reduce", None)
+            log(f"[parallel ssl {name}] {where}: mesh {leg['mesh']}, tasks {leg['tasks']}, {leg['sharded']} sharded "
+                f"parameter(s); one epoch at dropout {leg['dropout_rate']}: {leg['steps']} steps + validation in "
+                f"{leg['wall_s']:.3f} s = {leg['steps_per_s']:.3f} steps/s; step {leg['step_ms']:.3f} ms (CUDA events); "
+                f"launches {leg['launches']} (D {leg['d_a_step']} a step each way); replicas equal bit for bit after "
+                f"{leg['equal_checks']} steps; float32 dropout 0 vs one process: loss rel diff "
+                f"{[round(row['loss_rel_diff'], 8) for row in leg['float32_steps']]}, grad rel diff "
+                f"{[round(row['grad_rel_diff'], 8) for row in leg['float32_steps']]}")
+            log(f"[parallel ssl {name}] {where}: collectives a step: {comm_line(comm)}")
+            log(f"[parallel ssl {name}] {where}: denominator all_reduce a step: "
+                + (comm_line({"denominator all_reduce": denominators}) if denominators else "none (one loss term)"))
     nccl = nccl_leg(torch, card)
     return {"world": head["world"], "backend": head["backend"], "transport": head["transport"],
             "ranks_a_card": head["ranks_a_card"], "world_s": world_s, "ranks": ranks, "nccl": nccl}
@@ -5831,10 +6053,12 @@ def main() -> int:
             + (f", {shapes['G_blocks'][0]} blocks of {shapes['G_rows_per_block']} rows" if key == "G" else ""))
     # The parallel phase's launches, rank by rank: K1/K2/K3 and D of the
     # dp leg (bf16, the sm90 route), tp's sharded forwards' K3 by route, D of
-    # the partitioned and sampled legs, and the nccl leg's in this process.
+    # the partitioned, sampled and ssl legs, and the nccl leg's in this
+    # process.
     for r, rank in enumerate(parallel["ranks"]):
         legs = {"dp": rank["dp"]["stepwise"]["launches"], "dp scan_steps 4": rank["dp"]["scan_steps 4"]["launches"],
-                "partitioned": rank["partitioned"]["launches"], "sampled": rank["sampled"]["launches"]}
+                "partitioned": rank["partitioned"]["launches"], "sampled": rank["sampled"]["launches"],
+                **{f"ssl {name}": leg["launches"] for name, leg in rank["ssl"].items()}}
         for leg, launched in legs.items():
             for name in ("K3", "K1", "K2", *D_COUNTS):
                 if launched.get(name):

@@ -35,6 +35,7 @@ from collections import defaultdict
 from datetime import timedelta
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -271,6 +272,21 @@ def shift(t: torch.Tensor, group, ranks: Sequence[int], index: int, offset: int 
     ops = [dist.P2POp(dist.isend, src, ranks[(index + offset) % D], group),
            dist.P2POp(dist.irecv, received, ranks[(index - offset) % D], group)]
     return Shift(dist.batch_isend_irecv(ops), received, t.device, staged, start)
+
+
+def share_numpy_state() -> None:
+    """numpy's global generator set on every rank to the first rank's
+    state (that rank's unchanged): host processors that draw from it
+    (``SSLLabeling``'s pairs) then label every rank's copy of a global
+    batch alike, as every rank reads the whole batch and keeps its rows."""
+    if world_size() <= 1:
+        return
+    name, keys, pos, has_gauss, gauss = np.random.get_state()
+    device = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" else None
+    words = broadcast_(torch.tensor(np.concatenate([keys.astype(np.int64), [pos, has_gauss]]), device=device), 0)
+    cached = broadcast_(torch.tensor([gauss], dtype=torch.float64, device=device), 0)
+    words = words.cpu().numpy()
+    np.random.set_state((name, words[:-2].astype(np.uint32), int(words[-2]), int(words[-1]), float(cached[0])))
 
 
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}

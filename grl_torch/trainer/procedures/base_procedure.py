@@ -51,6 +51,10 @@ from grl_torch.utils.device import DeviceLike, resolve_device
 from grl_torch.utils.logging import get_logger
 from grl_torch.utils.tensorboard import MetricsWriter, NullWriter
 
+# One term of a loss made of several masked means: (mean, criterion,
+# targets), the criterion's denominator read from the targets.
+LossTerm = Tuple[torch.Tensor, Any, torch.Tensor]
+
 
 def apply_gradients(optimizer: torch.optim.Optimizer, params, max_grad_norm: Optional[float],
                     sharded: Sequence[torch.nn.Parameter] = (), model_group=None) -> None:
@@ -143,7 +147,9 @@ class TrainState:
 
     def _reshard(self, model_state, optimizer_state, gather: bool):
         """The sharded leaves (and their optimizer moments) all-gathered
-        whole, or cut to this rank's share."""
+        whole, or cut to this rank's share, in copies of the two dicts: an
+        optimizer's ``state_dict`` holds its live moment dicts, which must
+        keep this rank's share."""
         size, index, group = self.mesh.axis_size("model"), self.mesh.index("model"), self.mesh.group("model")
 
         def cut(t, dim):
@@ -153,7 +159,12 @@ class TrainState:
             return t.narrow(dim, index * part, part).clone()
 
         model_state = dict(model_state)
+        if optimizer_state is not None:
+            optimizer_state = {**optimizer_state,
+                               "state": {k: dict(v) for k, v in optimizer_state.get("state", {}).items()}}
         for name, (dim, opt_i) in self._sharded().items():
+            if name not in model_state:
+                continue
             ndim = model_state[name].dim()
             model_state[name] = cut(model_state[name], dim)
             moments = (optimizer_state or {}).get("state", {}).get(opt_i, {})
@@ -167,6 +178,12 @@ class TrainState:
         if self.mesh is not None:
             model_state, optimizer_state = self._reshard(model_state, optimizer_state, gather=True)
         return {"model": model_state, "optimizer": optimizer_state, "step": self.step}
+
+    def share_of(self, model_state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's share of a whole model state dict (a checkpoint's):
+        its sharded leaves cut as this rank holds them, names it lacks
+        skipped; as it is without tensor parallelism."""
+        return model_state if self.mesh is None else self._reshard(model_state, None, gather=False)[0]
 
     def load_state_dict(self, raw: Dict[str, Any]) -> None:
         """Restore from a checkpoint; one holding only ``model`` (converted
@@ -235,7 +252,9 @@ class BaseProcedure:
         device, as in ``grl_tpu`` (:114-126). A mesh larger than the world
         raises, naming the launch contract. Under a mesh every rank reads
         the whole global batch and keeps its rows (:meth:`place_batch`), so
-        the loaders' host shard is the whole batch."""
+        the loaders' host shard is the whole batch, and numpy's global
+        generator, which the SSL labels draw from, starts from the first
+        rank's state on every rank."""
         spec = self.config.get_path("parallel.mesh")
         if not spec:
             return None
@@ -245,6 +264,7 @@ class BaseProcedure:
         timeout = self.config.get_path("parallel.distributed.timeout", distributed.DEFAULT_TIMEOUT_S)
         mesh = make_mesh(shape, timeout=timedelta(seconds=float(timeout)))
         self.config["host_id"], self.config["num_hosts"] = 0, 1
+        distributed.share_numpy_state()
         self.logger.info(
             f"mesh over {mesh.size} processes: {mesh.shape}, this rank {mesh.rank} at {mesh.coords}, "
             f"backend {torch.distributed.get_backend()}"
@@ -365,40 +385,85 @@ class BaseProcedure:
             loss = criterion(logits, labels)
             preds = logits.detach().argmax(dim=-1)
             cm = confusion_matrix(preds, labels, num_classes, ignore_values)
-            loss, summed = self.update(loss, labels, params, criterion, cm.reshape(-1).float())
+            loss, summed = self.update([(loss, criterion, labels)], params, cm.reshape(-1).float())
             return loss, summed.reshape(cm.shape).to(cm.dtype)
 
         return body
 
-    def update(self, loss: torch.Tensor, labels: torch.Tensor, params, criterion: Any,
+    def update(self, terms: Sequence[LossTerm], params,
                extra: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Backward, then the update (:func:`apply_gradients`); returns the
-        loss and ``extra`` (a flat float32 tensor of sums, e.g. confusion
-        counts) as the whole world's. With ``data`` over several ranks each
-        holds its rows of the global batch: the loss of the global masked
-        mean is the sum of each rank's summed loss (``loss`` times its
-        :func:`~grl_torch.trainer.losses.denominator`) over the global
-        denominator, so each rank's summed loss goes backward, the
-        gradients, the sums, the denominators and ``extra`` are summed over
-        ``data`` in one ``all_reduce`` (:func:`reduce_step`), and the
-        gradients are divided by the summed denominator before the clip:
-        every rank applies the gradient of the single-device step."""
-        extra = torch.zeros(0, device=loss.device) if extra is None else extra
+        """Backward of the sum of ``terms``, then the update
+        (:func:`apply_gradients`); returns the summed loss and ``extra`` (a
+        flat float32 tensor of sums, e.g. confusion counts) as the whole
+        world's. Each term is ``(loss, criterion, targets)``: a masked mean
+        and what its :func:`~grl_torch.trainer.losses.denominator` is read
+        from. With ``data`` over several ranks each holds its rows of the
+        global batch, and a term's global mean is the sum over ranks of its
+        summed loss (``loss`` times its denominator) over the summed
+        denominator:
+
+        * one term: each rank's summed loss goes backward; the gradients,
+          the sums, the denominators and ``extra`` are summed over ``data``
+          in one ``all_reduce`` (:func:`reduce_step`), and the gradients are
+          divided by the summed denominator before the clip;
+        * several (the self-supervised tasks, the joint KV and task losses):
+          the denominators, which the targets alone give, are summed first
+          in one small ``all_reduce``; each rank's summed losses over their
+          global denominators go backward, and the gradients, the summed
+          losses and ``extra`` are summed in the one flat ``all_reduce``,
+          with no division after it.
+
+        Either way every rank applies the gradient of the single-device
+        step."""
+        extra = torch.zeros(0, device=terms[0][0].device) if extra is None else extra
         mesh = self.mesh
         if mesh is None or mesh.axis_size("data") <= 1:
+            loss = terms[0][0]
+            for term, _, _ in terms[1:]:
+                loss = loss + term
             loss.backward()
             apply_gradients(self.state.optimizer, params, self.max_grad_norm, self.sharded, self.model_group)
             return loss.detach(), extra
-        denominator = losses_module.denominator(criterion, labels)
-        rank_sum = loss * denominator.clamp(min=1.0)
-        rank_sum.backward()
-        summed = reduce_step(mesh, params, self.model,
-                             torch.cat([rank_sum.detach().reshape(1).float(), denominator.reshape(1), extra]))
-        total = summed[1].clamp(min=1.0)
-        for p in params:
-            p.grad.div_(total)
+        if len(terms) == 1:
+            (loss, criterion, targets), = terms
+            denominator = losses_module.denominator(criterion, targets)
+            rank_sum = loss * denominator.clamp(min=1.0)
+            rank_sum.backward()
+            summed = reduce_step(mesh, params, self.model,
+                                 torch.cat([rank_sum.detach().reshape(1).float(), denominator.reshape(1), extra]))
+            total = summed[1].clamp(min=1.0)
+            for p in params:
+                p.grad.div_(total)
+            apply_gradients(self.state.optimizer, params, self.max_grad_norm, self.sharded, self.model_group)
+            return summed[0] / total, summed[2:]
+        denominators = torch.stack([losses_module.denominator(criterion, targets) for _, criterion, targets in terms])
+        totals = distributed.all_reduce_(denominators.clone(), mesh.group("data"),
+                                         "denominator all_reduce").clamp(min=1.0)
+        rank_sums = torch.stack([loss.reshape(()) * d.clamp(min=1.0) for (loss, _, _), d in zip(terms, denominators)])
+        (rank_sums / totals).sum().backward()
+        summed = reduce_step(mesh, params, self.model, torch.cat([rank_sums.detach().float(), extra]))
         apply_gradients(self.state.optimizer, params, self.max_grad_norm, self.sharded, self.model_group)
-        return summed[0] / total, summed[2:]
+        return (summed[:len(terms)] / totals).sum(), summed[len(terms):]
+
+    def data_sum(self, values: torch.Tensor, kind: str) -> torch.Tensor:
+        """``values`` summed over ``data`` (in place), where the axis spans
+        several ranks; else as they are."""
+        if self.mesh is None or self.mesh.axis_size("data") <= 1:
+            return values
+        return distributed.all_reduce_(values, self.mesh.group("data"), kind)
+
+    def reduce_eval(self, loss: torch.Tensor, cm: torch.Tensor, criterion: Any,
+                    labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """An eval batch's masked-mean ``loss`` and confusion counts ``cm``
+        of this rank's rows as the global batch's, the same on every rank:
+        the summed loss, the denominator and the counts summed over
+        ``data`` in one ``all_reduce``. Without such a mesh, as they are."""
+        if self.mesh is None or self.mesh.axis_size("data") <= 1:
+            return loss, cm
+        denominator = losses_module.denominator(criterion, labels)
+        summed = self.data_sum(torch.cat([(loss * denominator.clamp(min=1.0)).reshape(1), denominator.reshape(1),
+                                          cm.reshape(-1).float()]), "eval all_reduce")
+        return summed[0] / summed[1].clamp(min=1.0), summed[2:].reshape(cm.shape).to(cm.dtype)
 
     def build_train_step(self, num_classes: int, ignore_values: Tuple[int, ...]) -> Callable:
         """``train_step(V, A, labels, rngs, lam) -> (loss, cm)``: one
@@ -415,7 +480,7 @@ class BaseProcedure:
 
     def build_eval_step(self, num_classes: int, ignore_values: Tuple[int, ...]) -> Callable:
         """``eval_step(V, A, labels, lam) -> (loss, cm, preds)``."""
-        model, criterion, mesh = self.model, self.criterion, self.mesh
+        model, criterion = self.model, self.criterion
 
         def eval_step(V, A, labels, lam: float):
             model.eval()
@@ -426,14 +491,7 @@ class BaseProcedure:
                 loss = criterion(logits, labels)
             preds = logits.argmax(dim=-1)
             cm = confusion_matrix(preds, labels, num_classes, ignore_values)
-            if mesh is not None and mesh.axis_size("data") > 1:
-                # Loss and counts of the global batch, the same on every rank.
-                denominator = losses_module.denominator(criterion, labels)
-                extra = torch.cat([(loss * denominator.clamp(min=1.0)).reshape(1), denominator.reshape(1),
-                                   cm.reshape(-1).float()])
-                summed = distributed.all_reduce_(extra, mesh.group("data"), "eval all_reduce")
-                loss = summed[0] / summed[1].clamp(min=1.0)
-                cm = summed[2:].reshape(cm.shape).to(cm.dtype)
+            loss, cm = self.reduce_eval(loss, cm, criterion, labels)
             return loss, cm, preds
 
         return eval_step

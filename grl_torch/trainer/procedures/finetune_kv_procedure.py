@@ -58,13 +58,18 @@ class FinetuneKVProcedure(KVProcedure):
         backbone merged in, before any step or capture: parameters and
         buffers (``grl_tpu``'s ``constants``: the RanPAC kernel) apart, as
         ``grl_tpu`` merges its two collections, each copied into the
-        model's own tensor so that the optimizer keeps its references."""
+        model's own tensor so that the optimizer keeps its references;
+        under tensor parallelism, this rank's share of each sharded leaf."""
         state = super().init_state()
         if not self._backbone_path:
             self.logger.info("Not found any pretrained model!")
             return state
         self.logger.info("Restoring pretrained backbone ...")
         source = self.checkpointer.restore_checkpoint(self._backbone_path, map_location=self.device)["model"]
+        # Under tensor parallelism the whole checkpoint's sharded leaves are
+        # cut to this rank's share first, so they match by shape as
+        # grl_tpu's global arrays do.
+        source = state.share_of(source)
         params = dict(self.model.named_parameters())
         buffers = dict(self.model.named_buffers())
         merged_params, n_params = merge_matching_leaves(params, source, self.logger)

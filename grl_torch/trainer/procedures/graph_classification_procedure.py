@@ -7,7 +7,10 @@ the model called in ``graph_classification`` task mode where it has
 logits; either is read as ``(B, C)``. The class count comes from
 ``procedure.args.n_graph_classes``, else the model's. It inherits the
 fine-tune's partial backbone load, and runs one step a batch
-(``KVProcedure._use_scan``).
+(``KVProcedure._use_scan``). Under ``parallel.mesh`` a rank's graph
+labels are its rows of the batch's (padded rows -100), its step goes
+through :meth:`~grl_torch.trainer.procedures.base_procedure.BaseProcedure.update`
+and its eval sums loss and counts over ``data``.
 """
 from __future__ import annotations
 
@@ -17,8 +20,8 @@ import numpy as np
 import torch
 
 from grl_torch.config import ConfigDict
+from grl_torch.trainer.losses import IGNORE_INDEX
 from grl_torch.trainer.metrics import confusion_matrix
-from grl_torch.trainer.procedures.base_procedure import apply_gradients
 from grl_torch.trainer.procedures.finetune_kv_procedure import FinetuneKVProcedure
 
 
@@ -33,7 +36,10 @@ class GraphClassificationProcedure(FinetuneKVProcedure):
         )
 
     def _graph_labels(self, batch: Dict[str, Any]) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(batch["graph_label"]).astype(np.int64).reshape(-1)).to(self.device)
+        """The batch's graph labels, this rank's rows under a mesh."""
+        labels = self.place_batch({"graph_label": np.asarray(batch["graph_label"]).astype(np.int64).reshape(-1)},
+                                  {"graph_label": IGNORE_INDEX})["graph_label"]
+        return torch.from_numpy(np.ascontiguousarray(labels)).to(self.device)
 
     def _forward_kwargs(self) -> Dict[str, str]:
         return {"task": "graph_classification"} if hasattr(self.model, "n_graph_classes") else {}
@@ -48,10 +54,9 @@ class GraphClassificationProcedure(FinetuneKVProcedure):
             state.optimizer.zero_grad(set_to_none=True)
             logits = model((V, A), rngs=rngs, **kwargs).reshape(labels.shape[0], -1)  # (B,1,C) -> (B,C)
             loss = criterion(logits, labels)
-            loss.backward()
-            apply_gradients(state.optimizer, params, self.max_grad_norm)
-            preds = logits.detach().argmax(dim=-1)
-            return loss.detach(), confusion_matrix(preds, labels, num_classes, ignore_values)
+            cm = confusion_matrix(logits.detach().argmax(dim=-1), labels, num_classes, ignore_values)
+            loss, summed = self.update([(loss, criterion, labels)], params, cm.reshape(-1))
+            return loss, summed.reshape(cm.shape)
 
         return body
 
@@ -65,7 +70,9 @@ class GraphClassificationProcedure(FinetuneKVProcedure):
                 logits = model((V, A), **kwargs).reshape(labels.shape[0], -1)
                 loss = criterion(logits, labels)
             preds = logits.argmax(dim=-1)
-            return loss, confusion_matrix(preds, labels, num_classes, ignore_values), preds
+            loss, cm = self.reduce_eval(loss, confusion_matrix(preds, labels, num_classes, ignore_values),
+                                        criterion, labels)
+            return loss, cm, preds
 
         return eval_step
 

@@ -7,6 +7,12 @@ The SSL iterator wraps around, so an epoch is as long as the KV loader;
 one step sums the supervised loss and every task's loss and takes one
 optimizer step. Without an SSL loader a step is the supervised loss alone.
 One step a batch (``KVProcedure._use_scan``).
+
+Under ``parallel.mesh`` both loaders read the whole global batch on every
+rank, which keeps its rows of each (``place_batch``), and the KV term and
+each task's term go through the multi-term
+:meth:`~grl_torch.trainer.procedures.base_procedure.BaseProcedure.update`;
+a step without SSL data is one term.
 """
 from __future__ import annotations
 
@@ -18,7 +24,6 @@ from grl_torch.config import ConfigDict
 from grl_torch.data.dataloader import BaseDataLoader
 from grl_torch.trainer import losses
 from grl_torch.trainer.metrics import confusion_matrix
-from grl_torch.trainer.procedures.base_procedure import apply_gradients
 from grl_torch.trainer.procedures.kv_procedure import KVProcedure
 from grl_torch.trainer.procedures.ssl_pretrain_procedure import task_arrays, task_target
 
@@ -68,7 +73,7 @@ class JointTrainingProcedure(KVProcedure):
         keys = {"textline_encoding", "adjacency_matrix"}
         for task in self.tasks:
             keys.update({task} if task == "node_property" else {f"{task}_indices", f"{task}_targets"})
-        return task_arrays(batch, keys, self.device)
+        return task_arrays(batch, keys, self.device, self.place_batch)
 
     def _build_joint_train_step(self) -> Callable:
         """``step(V, A, labels, ssl_data) -> (loss, cm)``; ``ssl_data``
@@ -80,19 +85,18 @@ class JointTrainingProcedure(KVProcedure):
             model.train()
             state.optimizer.zero_grad(set_to_none=True)
             logits = model((V, A), rngs=self.rngs)
-            total = criterion(logits, labels)
+            terms = [(criterion(logits, labels), criterion, labels)]
             if ssl_data is not None:
                 inputs = (ssl_data["textline_encoding"], ssl_data["adjacency_matrix"])
                 for task in tasks:
                     edges = None if task == "node_property" else ssl_data[f"{task}_indices"]
                     pred = model(inputs, rngs=self.rngs, task=task, edges=edges)
-                    target = ssl_data[task if task == "node_property" else f"{task}_targets"]
-                    total = total + JOINT_CRITERIONS[task](pred, task_target(task, target))
-            total.backward()
-            apply_gradients(state.optimizer, params, self.max_grad_norm)
+                    target = task_target(task, ssl_data[task if task == "node_property" else f"{task}_targets"])
+                    terms.append((JOINT_CRITERIONS[task](pred, target), JOINT_CRITERIONS[task], target))
+            cm = confusion_matrix(logits.detach().argmax(dim=-1), labels, self.num_classes, self._ignore)
+            total, summed = self.update(terms, params, cm.reshape(-1))
             state.step += 1
-            preds = logits.detach().argmax(dim=-1)
-            return total.detach(), confusion_matrix(preds, labels, self.num_classes, self._ignore)
+            return total, summed.reshape(cm.shape)
 
         return train_step
 

@@ -42,8 +42,8 @@ backend is NCCL and run their steps one by one on gloo
 (``BaseProcedure.captures``); COO batches under a mesh step one at a time,
 as in ``grl_tpu``. Only the first rank writes checkpoints and summaries;
 every rank loads. The subclasses that run a train step of their own
-(self-supervised, joint, graph classification) refuse a mesh over more
-than one rank.
+(self-supervised, joint, graph classification) place their batches and
+reduce their steps through the same ``place_batch`` and ``update``.
 """
 from __future__ import annotations
 
@@ -97,12 +97,6 @@ def adjacency_to(A: Any, device: torch.device) -> Any:
 class KVProcedure(BaseProcedure):
     def __init__(self, model: torch.nn.Module, config: ConfigDict, **kwargs: Any):
         super().__init__(model, config, **kwargs)
-        if self.mesh is not None and type(self)._run_train_batch is not KVProcedure._run_train_batch:
-            raise NotImplementedError(
-                f"{type(self).__name__} runs a train step of its own, which does not reduce over a mesh; "
-                f"parallel.mesh {self.mesh.shape} trains KVProcedure, FinetuneKVProcedure, "
-                "FullGraphProcedure and SampledGraphProcedure (ROADMAP.md Queue 1)."
-            )
         self._scan_k = max(1, int(self.config.get("scan_steps", 1)))
         self.global_step = 0
         self.train_loader, self.val_loader, self.class_names = self._init_dataloaders()

@@ -162,7 +162,7 @@ class SampledGraphProcedure(BaseProcedure):
         optimizer.zero_grad(set_to_none=True)
         logits, labels = self._logits(t, rngs=self.rngs)
         loss = cross_entropy(logits, labels)
-        return self.update(loss, labels, [p for g in optimizer.param_groups for p in g["params"]], cross_entropy)[0]
+        return self.update([(loss, cross_entropy, labels)], [p for g in optimizer.param_groups for p in g["params"]])[0]
 
     def train_step(self, batch: SampledBatch) -> torch.Tensor:
         """One optimizer step on ``batch``; the loss stays on the device."""

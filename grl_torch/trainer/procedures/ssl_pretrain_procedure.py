@@ -13,6 +13,17 @@ node-classification confusion matrix that the step reports
 
 One step a batch: the procedure overrides ``_run_train_batch``, so
 ``scan_steps`` does not chunk it (``KVProcedure._use_scan``).
+
+Under ``parallel.mesh`` every rank keeps its rows of the global batch
+(``place_batch``: targets padded with -100, everything else with 0), and
+the step's task losses go through the multi-term
+:meth:`~grl_torch.trainer.procedures.base_procedure.BaseProcedure.update`,
+so that every rank applies the single-device step's gradient; the
+monitoring forward's counts are summed over ``data``. Without ``dgi``
+the tensor-parallel rules place ``SSLGCN``'s RanPAC and classifier; with
+it the DGI tree stays whole on every rank, as ``grl_tpu``'s
+``_ensure_initialized`` builds its state without ``shard_params``
+(:48-68).
 """
 from __future__ import annotations
 
@@ -24,9 +35,11 @@ import torch
 from grl_torch.config import ConfigDict
 from grl_torch.models.base import count_parameters
 from grl_torch.models.ssl_gcn import DGI, PAIR_TASKS
+from grl_torch.parallel.mesh import replicate
 from grl_torch.trainer import losses
+from grl_torch.trainer.losses import IGNORE_INDEX
 from grl_torch.trainer.metrics import confusion_matrix
-from grl_torch.trainer.procedures.base_procedure import TrainState, apply_gradients
+from grl_torch.trainer.procedures.base_procedure import TrainState
 from grl_torch.trainer.procedures.kv_procedure import KVProcedure
 
 SSL_CRITERIONS = {
@@ -39,17 +52,27 @@ SSL_CRITERIONS = {
 }
 
 
-def task_arrays(batch: Dict[str, Any], keys, device: torch.device) -> Dict[str, torch.Tensor]:
+def is_target(key: str) -> bool:
+    """Whether a batch array is a task's target, padded with -100 (the
+    value ``BucketPadding`` and ``NumpyPadding`` give them) so that the
+    masked losses and counts drop a padded row."""
+    return key in ("node_label", "node_property", "graph_edit_distance", "dgi") or key.endswith("_targets")
+
+
+def task_arrays(batch: Dict[str, Any], keys, device: torch.device, place: Callable) -> Dict[str, torch.Tensor]:
     """The arrays ``keys`` of a host batch that it holds, on ``device``:
-    float16 and float64 cast to float32, as ``grl_tpu`` casts them."""
-    out = {}
+    float16 and float64 cast to float32, as ``grl_tpu`` casts them, and
+    each cut to this rank's rows by ``place`` (``BaseProcedure.place_batch``),
+    targets padded with -100 and the rest with 0."""
+    arrays = {}
     for key in keys:
         if key in batch:
             value = np.asarray(batch[key])
             if value.dtype in (np.float16, np.float64):
                 value = value.astype(np.float32)
-            out[key] = torch.from_numpy(np.ascontiguousarray(value)).to(device)
-    return out
+            arrays[key] = value
+    arrays = place(arrays, {key: IGNORE_INDEX for key in arrays if is_target(key)})
+    return {key: torch.from_numpy(np.ascontiguousarray(value)).to(device) for key, value in arrays.items()}
 
 
 def task_target(task: str, target: torch.Tensor) -> torch.Tensor:
@@ -69,10 +92,14 @@ class SSLPretrainProcedure(KVProcedure):
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
         """With ``dgi``, the state is the DGI wrapper's: the optimizer takes
-        the encoder's and the discriminator's parameters."""
+        the encoder's and the discriminator's parameters. Under a mesh the
+        replicas start from the first rank's, and no leaf is sharded."""
         if "dgi" not in self.tasks:
             return super().init_state()
         self.logger.info(f"Num parameters (incl. DGI head): {count_parameters(self.dgi):,}")
+        if self.mesh is not None:
+            replicate(self.dgi)
+        self.sharded, self.model_group = [], None
         params = [p for p in self.dgi.parameters() if p.requires_grad]
         self.state = TrainState(self.dgi, self.optimizer_factory.make(params))
         self._load_prev_checkpoint(self.state)
@@ -85,7 +112,8 @@ class SSLPretrainProcedure(KVProcedure):
             self._ssl_fn = self._build_ssl_train_step()
 
     def _task_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Device tensors of everything the configured tasks read."""
+        """Device tensors of everything the configured tasks read, this
+        rank's rows under a mesh."""
         wanted = {"textline_encoding", "adjacency_matrix", "node_label", "node_mask"}
         for task in self.tasks:
             if task == "node_property":
@@ -96,26 +124,27 @@ class SSLPretrainProcedure(KVProcedure):
                 wanted.update({"graph_edit_distance", "aug_textline_encoding", "aug_adjacency_matrix"})
             elif task == "dgi":
                 wanted.update({"dgi", "negative_textline_encoding", "negative_adjacency_matrix"})
-        return task_arrays(batch, wanted, self.device)
+        return task_arrays(batch, wanted, self.device, self.place_batch)
 
-    def _task_loss(self, task: str, data: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One task's loss, from its own forward(s) of the trunk."""
+    def _task_loss(self, task: str, data: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Callable, torch.Tensor]:
+        """One task's loss term ``(loss, criterion, target)``, from its own
+        forward(s) of the trunk."""
         model, rngs = self.model, self.rngs
         inputs = (data["textline_encoding"], data["adjacency_matrix"])
+        criterion = SSL_CRITERIONS.get(task)
         if task == "node_property":
-            pred = model(inputs, rngs=rngs, task=task)
-            return SSL_CRITERIONS[task](pred, data[task].float())
-        if task in PAIR_TASKS:
+            pred, target = model(inputs, rngs=rngs, task=task), data[task].float()
+        elif task in PAIR_TASKS:
             pred = model(inputs, rngs=rngs, task=task, edges=data[f"{task}_indices"])
-            return SSL_CRITERIONS[task](pred, task_target(task, data[f"{task}_targets"]))
-        if task == "graph_edit_distance":
+            target = task_target(task, data[f"{task}_targets"])
+        elif task == "graph_edit_distance":
             pred = model(inputs + (data["aug_textline_encoding"], data["aug_adjacency_matrix"]),
                          rngs=rngs, task=task)
-            return SSL_CRITERIONS[task](pred, data["graph_edit_distance"].float())
-        if task == "dgi":
+            target = data["graph_edit_distance"].float()
+        elif task == "dgi":
             pos, neg = model(inputs + (data["negative_textline_encoding"], data["negative_adjacency_matrix"]),
                              rngs=rngs, task=task)
-            scores = self.dgi.forward_contrastive(pos, neg)
+            pred = self.dgi.forward_contrastive(pos, neg)
             if "node_mask" in data:
                 # Padded nodes are excluded: -100 is masked out of the BCE.
                 mask = data["node_mask"] > 0
@@ -123,29 +152,28 @@ class SSLPretrainProcedure(KVProcedure):
                 target = torch.cat([torch.where(mask, 1.0, ignore), torch.where(mask, 0.0, ignore)], dim=1)
             else:
                 target = data["dgi"].float()
-            return SSL_CRITERIONS[task](scores, target)
-        raise ValueError(f"Unknown SSL task {task!r}; tasks: {sorted(SSL_CRITERIONS)}")
+        else:
+            raise ValueError(f"Unknown SSL task {task!r}; tasks: {sorted(SSL_CRITERIONS)}")
+        return criterion(pred, target), criterion, target
 
     def _build_ssl_train_step(self) -> Callable[[Dict[str, torch.Tensor]], Tuple[torch.Tensor, torch.Tensor]]:
-        """``step(data) -> (loss, cm)``: the summed task losses, one update,
-        then the monitoring forward; both results stay on the device."""
+        """``step(data) -> (loss, cm)``: the summed task losses, one update
+        (:meth:`update`, a term a task), then the monitoring forward of the
+        updated model; both results stay on the device, the whole batch's
+        under a mesh (the monitoring counts summed over ``data``)."""
         model, state = self.model, self.state
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
 
         def train_step(data):
             model.train()
             state.optimizer.zero_grad(set_to_none=True)
-            total = 0.0
-            for task in self.tasks:
-                total = total + self._task_loss(task, data)
-            total.backward()
-            apply_gradients(state.optimizer, params, self.max_grad_norm)
+            total, _ = self.update([self._task_loss(task, data) for task in self.tasks], params)
             state.step += 1
             model.eval()
             with torch.no_grad():
                 logits = model((data["textline_encoding"], data["adjacency_matrix"]))
             cm = confusion_matrix(logits.argmax(dim=-1), data["node_label"].long(), self.num_classes, self._ignore)
-            return total.detach(), cm
+            return total, self.data_sum(cm, "monitor all_reduce")
 
         return train_step
 
@@ -164,5 +192,7 @@ class SSLPretrainProcedure(KVProcedure):
         with torch.no_grad():
             logits = self.model((V, A))
         loss = losses.cross_entropy(logits, labels)
-        cm = confusion_matrix(logits.argmax(dim=-1), labels, self.num_classes, self._ignore).cpu().numpy()
+        cm = confusion_matrix(logits.argmax(dim=-1), labels, self.num_classes, self._ignore)
+        loss, cm = self.reduce_eval(loss, cm, losses.cross_entropy, labels)
+        cm = cm.cpu().numpy()
         return self._scores_from_cm(cm, float(loss)), cm
