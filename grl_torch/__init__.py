@@ -16,4 +16,15 @@ and no GPU they raise ``RuntimeError``.
 from grl_torch.version import __version__
 from grl_torch.warper import GNNLearningWarper
 
-__all__ = ["GNNLearningWarper", "__version__"]
+_packages = [
+    "grl_torch.ops",
+    "grl_torch.models",
+    "grl_torch.data",
+    "grl_torch.trainer",
+    "grl_torch.inferencer",
+    "grl_torch.parallel",
+    "grl_torch.utils",
+    "grl_torch.probes",
+]
+
+__all__ = ["GNNLearningWarper", "__version__", "_packages"]

@@ -21,6 +21,13 @@ from grl_torch.ops.relconv import (
     relational_aggregate_dense,
     relational_neighbor_aggregate,
 )
+from grl_torch.ops.segment import segment_softmax, segment_sum
+from grl_torch.ops.sparse import (
+    RelationalGraph,
+    dense_to_relational_coo,
+    relational_aggregate_coo,
+    relational_neighbor_coo,
+)
 
 __all__ = [
     "ELLGraphKernel",
@@ -40,4 +47,10 @@ __all__ = [
     "relational_aggregate",
     "relational_aggregate_dense",
     "relational_neighbor_aggregate",
+    "segment_softmax",
+    "segment_sum",
+    "RelationalGraph",
+    "dense_to_relational_coo",
+    "relational_aggregate_coo",
+    "relational_neighbor_coo",
 ]

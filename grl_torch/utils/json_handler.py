@@ -14,3 +14,15 @@ def write_json(data: Any, path: str, indent: int = 2) -> None:
     with open(path, "w", encoding="utf-8") as handle:
         json.dump(data, handle, ensure_ascii=False, indent=indent)
 
+
+
+class JsonHandler:
+    """Object-style wrapper kept for API familiarity."""
+
+    @staticmethod
+    def read_json_file(path: str) -> Any:
+        return read_json(path)
+
+    @staticmethod
+    def dump_json_file(data: Any, path: str) -> None:
+        write_json(data, path)
