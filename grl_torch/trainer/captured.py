@@ -36,7 +36,9 @@ key.
 Kernel wrappers count their launches at capture; the runner takes what a
 capture recorded back out of :data:`grl_torch.ops.launches.ran` and adds it
 again at every replay. Each key's warm-up and capture are timed
-(:attr:`CapturedSteps.setup`).
+(:attr:`CapturedSteps.setup`). A replay's host launch is the span
+``grl.chunk.replay`` (:func:`grl_torch.utils.profiling.span`) under an
+active ``torch.profiler``.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ from typing import Any, Callable, Dict, Hashable, Sequence, Tuple
 import torch
 
 from grl_torch.ops import launches
+from grl_torch.utils.profiling import span
 
 
 class CapturedSteps:
@@ -87,9 +90,10 @@ class CapturedSteps:
         if key not in self.graphs:
             self.graphs[key] = self._capture(key, body)
         graph, outputs, recorded = self.graphs[key]
-        graph.replay()
-        self.replays += 1
-        launches.ran.update(recorded)
+        with span("grl.chunk.replay"):
+            graph.replay()
+            self.replays += 1
+            launches.ran.update(recorded)
         return outputs
 
     def eager(self, body: Callable[[], Any]) -> Any:

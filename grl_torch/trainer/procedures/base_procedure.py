@@ -49,6 +49,7 @@ from grl_torch.trainer.metrics import confusion_matrix
 from grl_torch.utils.checkpoint import CheckpointHandler
 from grl_torch.utils.device import DeviceLike, resolve_device
 from grl_torch.utils.logging import get_logger
+from grl_torch.utils.profiling import span
 from grl_torch.utils.tensorboard import MetricsWriter, NullWriter
 
 # One term of a loss made of several masked means: (mean, criterion,
@@ -468,12 +469,14 @@ class BaseProcedure:
     def build_train_step(self, num_classes: int, ignore_values: Tuple[int, ...]) -> Callable:
         """``train_step(V, A, labels, rngs, lam) -> (loss, cm)``: one
         optimizer step on the device (:meth:`build_train_body`), counted in
-        ``state.step``; ``loss`` and ``cm`` stay there."""
+        ``state.step``; ``loss`` and ``cm`` stay there. Its enqueue (forward,
+        autograd's backward, clip, update) is the span ``grl.step.eager``."""
         body, state = self.build_train_body(num_classes, ignore_values), self.state
 
         def train_step(V, A, labels, rngs: Rngs, lam):
-            out = body(V, A, labels, rngs, lam)
-            state.step += 1
+            with span("grl.step.eager"):
+                out = body(V, A, labels, rngs, lam)
+                state.step += 1
             return out
 
         return train_step

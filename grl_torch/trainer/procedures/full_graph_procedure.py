@@ -52,6 +52,7 @@ from grl_torch.parallel.sharded_flagship import make_partitioned_model_step, pad
 from grl_torch.trainer import optimizers as optim_module
 from grl_torch.trainer.losses import cross_entropy
 from grl_torch.trainer.procedures.base_procedure import BaseProcedure
+from grl_torch.utils.profiling import span
 
 
 def large_graph_from_config(config: ConfigDict) -> LargeGraphData:
@@ -218,21 +219,23 @@ class FullGraphProcedure(BaseProcedure):
 
     def eval_step(self, labels: torch.Tensor) -> torch.Tensor:
         """Masked accuracy of the eval-mode forward on ``labels`` (-100
-        marks the nodes left out), as a device scalar."""
-        if self._partitioned:
-            logits = self._partitioned_forward(self.features)
-        else:
-            self.model.eval()
-            with torch.no_grad():
-                logits = self.model((self.features, self.graph))
-        mask = labels != -100
-        correct = ((logits.argmax(dim=-1) == labels) & mask).sum()
-        if self._partitioned:
-            # Correct and labelled nodes summed over the world.
-            counts = distributed.all_reduce_(torch.stack([correct, mask.sum()]).float(),
-                                             self.mesh.group("data"), "eval all_reduce")
-            return counts[0] / counts[1].clamp(min=1)
-        return correct / mask.sum().clamp(min=1)
+        marks the nodes left out), as a device scalar; its enqueue is the
+        span ``grl.eval``."""
+        with span("grl.eval"):
+            if self._partitioned:
+                logits = self._partitioned_forward(self.features)
+            else:
+                self.model.eval()
+                with torch.no_grad():
+                    logits = self.model((self.features, self.graph))
+            mask = labels != -100
+            correct = ((logits.argmax(dim=-1) == labels) & mask).sum()
+            if self._partitioned:
+                # Correct and labelled nodes summed over the world.
+                counts = distributed.all_reduce_(torch.stack([correct, mask.sum()]).float(),
+                                                 self.mesh.group("data"), "eval all_reduce")
+                return counts[0] / counts[1].clamp(min=1)
+            return correct / mask.sum().clamp(min=1)
 
     def __call__(self) -> float:
         self._ensure_initialized()

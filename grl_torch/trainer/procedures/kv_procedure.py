@@ -28,7 +28,14 @@ stepwise:
   statistics are buffers of the model), saved on the best validation loss
   and every ``save_interval`` steps;
 * :meth:`KVProcedure.visualize_representation_space` plots a t-SNE of the
-  trunk's node embeddings.
+  trunk's node embeddings;
+* under an active ``torch.profiler`` (``logging.profile``) the host work
+  between chunks and steps is named by spans
+  (:func:`grl_torch.utils.profiling.span`): ``grl.chunk`` around a chunk,
+  holding ``grl.chunk.load``, ``grl.chunk.replay`` and
+  ``grl.chunk.readback``; ``grl.step.eager``, ``grl.step.lambda``,
+  ``grl.step.scores`` and ``grl.step.log`` for each step; and
+  ``grl.checkpoint`` where a step checkpoint is saved.
 
 Under ``parallel.mesh`` (``kv_procedure.py:155-176, 294-296``) every rank
 reads the whole global batch and keeps its rows
@@ -65,7 +72,7 @@ from grl_torch.trainer.metrics import macro_scores, per_class_report
 from grl_torch.trainer.procedures.base_procedure import BaseProcedure
 from grl_torch.utils.device import optional_dtype
 from grl_torch.utils.metric_tracker import Dictlist
-from grl_torch.utils.profiling import Profiler
+from grl_torch.utils.profiling import Profiler, span
 
 
 # The tensors of a COO batch's graph, each copied into a chunk's static
@@ -245,25 +252,27 @@ class KVProcedure(BaseProcedure):
 
     def _lambda_value(self, epoch: int) -> float:
         """Per-step cosine lambda (reference: kv_procedure.py:201-204)."""
-        steps_per_epoch = max(1, len(self.train_loader))
-        lam = cosine_schedule_lambda(
-            self.global_step,
-            total_steps=int(self.config.get("num_epochs", 1)) * steps_per_epoch,
-            base_value=1e-4,
-            max_value=1.0,
-            warmup_steps=5 * steps_per_epoch,
-        )
-        self.tb_writer.add_scalar("RP/Lambda", lam, self.global_step)
-        if self.ems_exp:
-            self.ems_exp["RP/Lambda"].append(lam)
-        return lam
+        with span("grl.step.lambda"):
+            steps_per_epoch = max(1, len(self.train_loader))
+            lam = cosine_schedule_lambda(
+                self.global_step,
+                total_steps=int(self.config.get("num_epochs", 1)) * steps_per_epoch,
+                base_value=1e-4,
+                max_value=1.0,
+                warmup_steps=5 * steps_per_epoch,
+            )
+            self.tb_writer.add_scalar("RP/Lambda", lam, self.global_step)
+            if self.ems_exp:
+                self.ems_exp["RP/Lambda"].append(lam)
+            return lam
 
     def _scores_from_cm(self, cm: np.ndarray, loss: float,
                         item_name: str = "Node classification") -> Dict[str, float]:
-        scores = macro_scores(cm)
-        out = {f"{item_name}_{k}": v for k, v in scores.items()}
-        out["loss"] = float(loss)
-        return out
+        with span("grl.step.scores"):
+            scores = macro_scores(cm)
+            out = {f"{item_name}_{k}": v for k, v in scores.items()}
+            out["loss"] = float(loss)
+            return out
 
     # ------------------------------------------------------------------
     def _run_train_batch(self, batch: Dict[str, Any], epoch: int) -> Dict[str, float]:
@@ -300,27 +309,28 @@ class KVProcedure(BaseProcedure):
         the chunk's key and its body: the K steps in arrival order on those
         inputs, giving the K losses and confusion matrices on the device."""
         self._ensure_initialized()
-        K = len(items)
-        V0, A0, labels0, _ = items[0]
-        key = (K, *self.shape_key(V0, A0, labels0))
-        slots = self._slots.get(key)
-        if slots is None:
-            def static(like):
-                return torch.empty(like.shape, dtype=like.dtype, device=self.device)
+        with span("grl.chunk.load"):
+            K = len(items)
+            V0, A0, labels0, _ = items[0]
+            key = (K, *self.shape_key(V0, A0, labels0))
+            slots = self._slots.get(key)
+            if slots is None:
+                def static(like):
+                    return torch.empty(like.shape, dtype=like.dtype, device=self.device)
 
-            leaves = [{name: static(t) for name, t in adjacency_leaves(A0).items()} for _ in range(K)]
-            slots = self._slots[key] = {
-                "V": [static(V0) for _ in range(K)], "leaves": leaves,
-                "A": [with_leaves(A0, leaves[k]) for k in range(K)],
-                "labels": [static(labels0) for _ in range(K)],
-                "lam": torch.zeros(K, dtype=torch.float32, device=self.device),
-            }
-        for k, (V, A, labels, _) in enumerate(items):
-            slots["V"][k].copy_(V, non_blocking=True)
-            for name, leaf in adjacency_leaves(A).items():
-                slots["leaves"][k][name].copy_(leaf, non_blocking=True)
-            slots["labels"][k].copy_(labels, non_blocking=True)
-        slots["lam"].copy_(torch.tensor([lam for *_, lam in items], dtype=torch.float32))
+                leaves = [{name: static(t) for name, t in adjacency_leaves(A0).items()} for _ in range(K)]
+                slots = self._slots[key] = {
+                    "V": [static(V0) for _ in range(K)], "leaves": leaves,
+                    "A": [with_leaves(A0, leaves[k]) for k in range(K)],
+                    "labels": [static(labels0) for _ in range(K)],
+                    "lam": torch.zeros(K, dtype=torch.float32, device=self.device),
+                }
+            for k, (V, A, labels, _) in enumerate(items):
+                slots["V"][k].copy_(V, non_blocking=True)
+                for name, leaf in adjacency_leaves(A).items():
+                    slots["leaves"][k][name].copy_(leaf, non_blocking=True)
+                slots["labels"][k].copy_(labels, non_blocking=True)
+            slots["lam"].copy_(torch.tensor([lam for *_, lam in items], dtype=torch.float32))
         body = self._train_body
 
         def chunk():
@@ -343,11 +353,14 @@ class KVProcedure(BaseProcedure):
         """K buffered batches of one shape as one chunk of K steps
         (:meth:`load_chunk`), run by the chunk runner: one graph replay on
         the card. Returns the K losses and confusion matrices, read back
-        once."""
-        key, chunk = self.load_chunk(items)
-        losses, cms = self.chunk_runner().run(key, chunk)
-        self.state.step += len(items)
-        return losses.cpu().numpy(), cms.cpu().numpy()
+        once (the span ``grl.chunk.readback``: the host's wait for the
+        chunk's end, and the copy)."""
+        with span("grl.chunk"):
+            key, chunk = self.load_chunk(items)
+            losses, cms = self.chunk_runner().run(key, chunk)
+            self.state.step += len(items)
+            with span("grl.chunk.readback"):
+                return losses.cpu().numpy(), cms.cpu().numpy()
 
     def _train_epoch_scanned(self, epoch: int, train_metrics: Dictlist) -> int:
         """``scan_steps = K``: ``grl_tpu``'s ``_train_epoch_scanned``
@@ -401,21 +414,23 @@ class KVProcedure(BaseProcedure):
 
     def _log_train_step(self, step_scores: Dict[str, float],
                         train_metrics: Dictlist, gstep: int) -> None:
-        train_metrics.update_metrics(step_scores)
-        self.tb_writer.add_scalar("Train_step_loss", step_scores["loss"], gstep)
-        if self.ems_exp:
-            self.ems_exp["Train/step_loss"].append(step_scores["loss"])
+        with span("grl.step.log"):
+            train_metrics.update_metrics(step_scores)
+            self.tb_writer.add_scalar("Train_step_loss", step_scores["loss"], gstep)
+            if self.ems_exp:
+                self.ems_exp["Train/step_loss"].append(step_scores["loss"])
 
     def _maybe_step_checkpoint(self, epoch: int) -> None:
         """Step checkpoint every ``save_interval`` applied steps."""
         if not self.save_interval:
             return
         if self.state.step - self._last_ckpt_step >= int(self.save_interval):
-            self._last_ckpt_step = self.state.step
-            self.checkpointer.save_checkpoint(
-                self.state.state_dict(), self.model_dir,
-                meta={"epoch": epoch, "global_step": self.state.step},
-            )
+            with span("grl.checkpoint"):
+                self._last_ckpt_step = self.state.step
+                self.checkpointer.save_checkpoint(
+                    self.state.state_dict(), self.model_dir,
+                    meta={"epoch": epoch, "global_step": self.state.step},
+                )
 
     def _optimize_per_epoch(self, epoch: int) -> Dict[str, float]:
         """(reference: kv_procedure.py:180-244)."""

@@ -6,6 +6,11 @@ place of ``jax.profiler``: :func:`trace_window` traces a block,
 keeps steps/s and other rates. Traces are Chrome-trace JSON files
 (``chrome://tracing``, Perfetto); the device's kernels are in them when a
 GPU is visible.
+
+:func:`span` names the host work of the training loop (a chunk's load,
+replay and read-back, an eager step, the per-step scoring and logging) in
+whatever ``torch.profiler`` session is active, so that each idle gap of the
+device on a trace's timeline lies inside the host work that caused it.
 """
 from __future__ import annotations
 
@@ -15,6 +20,28 @@ import time
 from typing import Dict, Iterator, Optional
 
 import torch
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of host work while a ``torch.profiler`` session is
+    active, else one shared null context that records, reads and allocates
+    nothing.
+
+    The range is ``torch._C._profiler._RecordFunctionFast``: a ``cpu_op``
+    event on the same clock as the device's kernels and copies, entered in
+    C++. ``torch.profiler.record_function`` dispatches two profiler ops a
+    range and, over a chunk's 16 spans, slowed a traced KV training window
+    on an H100 by 7–9%, against 2–3% for this one.
+
+    Only around host work between chunks and steps: never inside a body
+    that :class:`~grl_torch.trainer.captured.CapturedSteps` captures, since
+    a range recorded at capture is not replayed."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def _activities():
