@@ -50,7 +50,8 @@ before the result line is printed; no phase's failure is passed over.
    (4 batches). Checks the K1/K2/K3 launch counts, finite losses, changed
    parameters and the checkpoint, which KVInference then serves; prints
    steps/s, nodes/s, the device idle share of a traced window with K1's
-   and K2's device ms a step in it, and one train step timed on the card. Then a learning check (20 steps on one
+   and K2's device ms a step in it, and one train step timed on the card (``_train_fn``: on the card
+   a replay of the step's one-step CUDA graph). Then a learning check (20 steps on one
    batch) and two full-width steps through the kernels against the same
    steps through their plain versions, float32 and bfloat16.
    Then the same recipe at ``scan_steps: 4``: chunks of 4 steps, each
@@ -59,7 +60,8 @@ before the result line is printed; no phase's failure is passed over.
    finite losses and the launch counts the device ran (the launches a
    capture recorded times its replays, plus the eager ones); prints the
    seconds of the warm-up chunk and of the capture; times one
-   step eagerly and replayed; holds a replayed chunk to the same chunk
+   step eagerly, replayed from its one-step graph and in the chunk's graph; holds a replayed chunk, and a
+   single step replayed from its one-step graph, to the same chunk or step
    run eagerly from the same state, bit for bit; adds a second bucket
    (the same pages cut to N = 192), whose graph must share the runner's
    memory pool, and holds replays of the two graphs in turn to their
@@ -2570,6 +2572,7 @@ def phase_train(torch, card: str):
     wall = time.perf_counter() - start
     launched = counts(("K3", "K1", "K2", *D_COUNTS))
     routes = route_counts()
+    single_steps = dict(trainer.single_steps)
     expected = {"K1": 3 * TRAIN_STEPS, "K2": 3 * TRAIN_STEPS, "K3": 3 * VAL_BATCHES,
                 **dict.fromkeys(D_COUNTS, DROPOUTS_A_FORWARD * TRAIN_STEPS)}
     require(launched == expected and routes["K3"]["sm90"] == expected["K3"]
@@ -2656,7 +2659,8 @@ def phase_train(torch, card: str):
     adj_per_s = 3 * B * (L + 1) * N * N / (step_ms / 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(
-        f"[train] {card}: one train step (forward, backward, clip, Adam; bf16, B={B}, N={N}) "
+        f"[train] {card}: one train step (forward, backward, clip, Adam; bf16, B={B}, N={N}; replayed from its "
+        f"one-step graph) "
         f"{step_ms:.3f} ms on the card (mean of {TIMED_STEPS}), of which bf16 K1 {per_step['K1']['ms']:.4f} ms "
         f"and K2 {per_step['K2']['ms']:.4f} ms (traced window); dropedge_train_dense_adj_throughput "
         f"{adj_per_s:.4e} adj_entries/s/chip; peak device memory {peak_gb:.2f} GB"
@@ -2709,7 +2713,7 @@ def phase_train(torch, card: str):
         "steps_per_s": steps_per_s, "idle_share": idle, "traced_busy_ms": busy_ms,
         "traced_window_ms": window_ms, "traced_kernels_per_step": per_step, "step_ms": step_ms,
         "dropedge_train_dense_adj_throughput": adj_per_s, "peak_memory_gb": peak_gb,
-        "learning_losses": learn, "kernel_vs_plain": comparison,
+        "learning_losses": learn, "kernel_vs_plain": comparison, "single_steps": single_steps,
     }
 
 
@@ -2772,9 +2776,10 @@ def train_scan(torch, card: str, tmp: str, dirs, classes_path, charset_path, eag
     """The train recipe at scan_steps 4 through ``GNNLearningWarper.train``:
     every chunk after the first a CUDA-graph replay. Checks the step count,
     finite losses, the checkpoint and the launch counts under replay; times
-    a step eagerly and replayed in this call; holds a replayed chunk to the
-    same chunk run eagerly from the same state, bit for bit; and shows that
-    replays draw new masks."""
+    a step eagerly and replayed in this call; holds a replayed chunk, and a
+    single step replayed from its one-step graph, to the same chunk or step
+    run eagerly from the same state, bit for bit; and shows that replays
+    draw new masks."""
     import grl_torch
     from grl_torch.utils.checkpoint import CheckpointHandler
 
@@ -2846,20 +2851,25 @@ def train_scan(torch, card: str, tmp: str, dirs, classes_path, charset_path, eag
             break
     require(all(tuple(V.shape) == (B, N, CHARSET_SIZE + 4) for V, *_ in items), "scan batches of other shapes")
 
-    # One step on the card: eager back to back, and replayed.
+    # One step on the card: eager back to back, replayed from the step's
+    # one-step graph (the single step, _train_fn), and in the chunk's graph.
     require(key == (SCAN_K, *trainer.shape_key(*items[0][:3])), f"the graph's key {key}")
     slots = trainer._slots[key]
     V0, A0, labels0 = slots["V"][0], slots["A"][0], slots["labels"][0]
     begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(3):
-        trainer._train_fn(V0, A0, labels0, trainer.rngs, trainer._lam)
-    torch.cuda.synchronize()
-    begin.record()
-    for _ in range(TIMED_STEPS):
-        trainer._train_fn(V0, A0, labels0, trainer.rngs, trainer._lam)
-    end.record()
-    torch.cuda.synchronize()
-    eager_ms = begin.elapsed_time(end) / TIMED_STEPS
+    timed = {}
+    for name, step in (("eager", trainer.build_train_step(trainer.num_classes, trainer._ignore)),
+                       ("single", trainer._train_fn)):
+        for _ in range(3):
+            step(V0, A0, labels0, trainer.rngs, trainer._lam)
+        torch.cuda.synchronize()
+        begin.record()
+        for _ in range(TIMED_STEPS):
+            step(V0, A0, labels0, trainer.rngs, trainer._lam)
+        end.record()
+        torch.cuda.synchronize()
+        timed[name] = begin.elapsed_time(end) / TIMED_STEPS
+    eager_ms, single_ms = timed["eager"], timed["single"]
     graph.replay()
     torch.cuda.synchronize()
     replays = TIMED_STEPS
@@ -2871,13 +2881,17 @@ def train_scan(torch, card: str, tmp: str, dirs, classes_path, charset_path, eag
     replay_ms = begin.elapsed_time(end) / (replays * SCAN_K)
     log(
         f"[train scan] {card}: one train step on the card (B={B}, N={N}, bf16): eager {eager_ms:.3f} ms (mean of "
-        f"{TIMED_STEPS} back to back; the train phase's eager step {eager_step_ms:.3f} ms), replayed "
-        f"{replay_ms:.3f} ms (mean over {replays} replays of {SCAN_K} steps)"
+        f"{TIMED_STEPS} back to back; the train phase's single step {eager_step_ms:.3f} ms), replayed from "
+        f"its one-step graph {single_ms:.3f} ms, replayed in the chunk's {replay_ms:.3f} ms (mean over "
+        f"{replays} replays of {SCAN_K} steps)"
     )
 
-    # A replayed chunk against the same chunk run eagerly from one state.
+    # A replayed chunk against the same chunk run eagerly from one state,
+    # and the single step, replayed from its one-step graph, against the
+    # same step run eagerly.
     trainer.model.train()
     replay_losses, eager_losses = replay_against_eager(torch, trainer, items, "N=256")
+    single_losses = [single_against_eager(torch, trainer, (V0, A0, labels0), "N=256")]
 
     # Two buckets: the same pages cut to N = 192, a second graph in the
     # runner's pool; replays of the two in turn, each against its chunk
@@ -2891,6 +2905,13 @@ def train_scan(torch, card: str, tmp: str, dirs, classes_path, charset_path, eag
     narrow_key = next(k for k in runner.graphs if k != key)
     second = runner.setup[narrow_key]
     for tag, bucket in (("N=256", items), ("N=192", narrow), ("N=192", narrow), ("N=256", items)):
+        replay_against_eager(torch, trainer, bucket, tag)
+    # The single step of N = 192: the first records its one-step graph;
+    # then the two shapes' single steps between chunk replays, in one pool.
+    V1, A1, labels1 = (t.cuda() for t in narrow[0][:3])
+    single_losses.append(single_against_eager(torch, trainer, (V1, A1, labels1), "N=192"))
+    for tag, batch, bucket in (("N=192", (V1, A1, labels1), narrow), ("N=256", (V0, A0, labels0), items)):
+        single_losses.append(single_against_eager(torch, trainer, batch, tag))
         replay_against_eager(torch, trainer, bucket, tag)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(
@@ -2910,10 +2931,63 @@ def train_scan(torch, card: str, tmp: str, dirs, classes_path, charset_path, eag
         "replays": runner.replays, "losses": losses, "macro_f1": f1, "nodes_per_s": nodes_per_s,
         "steps_per_s": steps_per_s, "idle_share": idle, "traced_busy_ms": busy_ms,
         "traced_window_ms": window_ms, "traced_k1_k2": traced, "eager_step_ms": eager_ms,
-        "replayed_step_ms": replay_ms, "replay_vs_eager_losses": [replay_losses, eager_losses],
+        "single_step_ms": single_ms, "replayed_step_ms": replay_ms,
+        "replay_vs_eager_losses": [replay_losses, eager_losses], "single_vs_eager_losses": single_losses,
+        "single_steps": dict(trainer.single_steps),
         "replayed_masks": masks, "setup": {str(k): v for k, v in runner.setup.items()},
         "two_bucket_peak_memory_gb": peak_gb,
     }
+
+
+def grads_of(model):
+    return {name: None if p.grad is None else p.grad.detach().float().clone() for name, p in model.named_parameters()}
+
+
+def step_against_eager(torch, trainer, batch, lam=1.0):
+    """The single step on ``batch`` (``V, A, labels`` on the card) run
+    eagerly (the step's body on the runner's stream) and then through
+    ``_train_fn`` from the same state (weights, buffers, Adam state,
+    generator, step): (the eager (loss, cm), the step's (loss, cm), names
+    of the parameters, and of the gradients they hold after the step
+    (``name.grad``), that differ, whether the generator's states agree)."""
+    runner = trainer.step_runner()
+    snap = snapshot(torch, trainer)
+    trainer._lam.fill_(lam)
+    eager = [t.clone() for t in runner.eager(lambda: trainer._train_body(*batch, trainer.rngs, trainer._lam))]
+    eager_params, eager_grads = params_of(trainer.model), grads_of(trainer.model)
+    eager_draws = trainer.rngs.device.get_state()
+    restore(torch, trainer, snap)
+    trainer._lam.fill_(lam)
+    step = trainer.state.step
+    got = trainer._train_fn(*batch, trainer.rngs, trainer._lam)
+    require(trainer.state.step == step + 1, f"the single step counted {trainer.state.step - step} steps")
+    differing = [n for n, v in params_of(trainer.model).items() if not torch.equal(v, eager_params[n])]
+    differing += [f"{n}.grad" for n, v in grads_of(trainer.model).items()
+                  if not (v is None and eager_grads[n] is None
+                          or v is not None and eager_grads[n] is not None and torch.equal(v, eager_grads[n]))]
+    return eager, got, differing, torch.equal(trainer.rngs.device.get_state(), eager_draws)
+
+
+def single_against_eager(torch, trainer, batch, tag: str):
+    """``step_against_eager`` where ``_train_fn`` must replay the batch's
+    one-step graph, or record it (the shape's first step), and equal the
+    eager step bit for bit: loss, confusion matrix, parameters, their
+    gradients and the generator's state. Returns (the step's loss, the
+    eager loss)."""
+    runner = trainer.step_runner()
+    before = runner.replays, len(runner.graphs)
+    (eager_loss, eager_cm), (loss, cm), differing, draws = step_against_eager(torch, trainer, batch)
+    how = {(1, 0): "replayed from its one-step graph", (0, 1): "run eagerly, recording its one-step graph"}.get(
+        (runner.replays - before[0], len(runner.graphs) - before[1]))
+    require(how is not None, f"{tag}: the single step neither replayed nor recorded a one-step graph")
+    same = torch.equal(loss, eager_loss) and torch.equal(cm, eager_cm)
+    log(
+        f"[train scan] {tag}: a single step {how} vs the same step eager from one state: loss {float(loss)} vs "
+        f"{float(eager_loss)}, loss and confusion matrix equal: {same}; generator states equal: {draws}; "
+        f"{len(differing)} parameter and gradient tensors differ {differing[:4]}"
+    )
+    require(same and draws and not differing, f"{tag}: a single step ({how}) differs from the same step run eagerly")
+    return float(loss), float(eager_loss)
 
 
 def replay_against_eager(torch, trainer, items, tag: str):
@@ -3108,7 +3182,8 @@ def train_leg(torch, warper, tag: str, steps: int, expected: dict):
     val_loss = series(warper, "Validation/loss")
     require(len(losses) == steps and all(math.isfinite(v) for v in losses + val_loss),
             f"ssl {tag}: train losses {losses}, validation losses {val_loss}")
-    return {"wall_s": wall, "launches": launched, "losses": losses, "validation_loss": val_loss}
+    return {"wall_s": wall, "launches": launched, "losses": losses, "validation_loss": val_loss,
+            "single_steps": dict(warper.trainer.single_steps)}
 
 
 def ssl_launches(d_a_step: int, steps: int, **kernels):
@@ -3504,6 +3579,7 @@ def zoo_leg(torch, card: str, tmp: str, base, dirs, classes_path, charset_path, 
     launched = counts(("K3", "K1", "K2", *D_COUNTS))
     expected = {"K3": 0, "K1": 0, "K2": 0, "D forward": d_forward * ZOO_STEPS, "D backward": d_backward * ZOO_STEPS}
     require(launched == expected, f"zoo {name} launched {launched}, expected {expected}")
+    single_steps = dict(trainer.single_steps)
     losses = series(warper, "Train/step_loss")
     val_loss = series(warper, "Validation/loss")
     require(len(losses) == ZOO_STEPS == trainer.state.step and all(math.isfinite(v) for v in losses + val_loss),
@@ -3539,19 +3615,24 @@ def zoo_leg(torch, card: str, tmp: str, base, dirs, classes_path, charset_path, 
     check_pages(served, pages, set(server.inferencer.id_to_class.values()))
     del server
 
-    # One step's device time, the peak memory and the device time by op.
+    # One step's device time, eager and replayed from its one-step graph
+    # (the single step, _train_fn), the peak memory and the eager step's
+    # device time by op.
     V, A, labels = fixed_batches(trainer, 1)[0]
-    step = trainer._train_fn
-    for _ in range(2):
-        step(V, A, labels, trainer.rngs, trainer._lam)
-    torch.cuda.synchronize()
     begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    begin.record()
-    for _ in range(ZOO_TIMED_STEPS):
-        step(V, A, labels, trainer.rngs, trainer._lam)
-    end.record()
-    torch.cuda.synchronize()
-    step_ms = begin.elapsed_time(end) / ZOO_TIMED_STEPS
+    timed = {}
+    for which, step in (("replayed", trainer._train_fn),
+                        ("eager", trainer.build_train_step(trainer.num_classes, trainer._ignore))):
+        for _ in range(2):
+            step(V, A, labels, trainer.rngs, trainer._lam)
+        torch.cuda.synchronize()
+        begin.record()
+        for _ in range(ZOO_TIMED_STEPS):
+            step(V, A, labels, trainer.rngs, trainer._lam)
+        end.record()
+        torch.cuda.synchronize()
+        timed[which] = begin.elapsed_time(end) / ZOO_TIMED_STEPS
+    step_ms, replayed_ms = timed["eager"], timed["replayed"]
     peak_gb = max(peak_gb, torch.cuda.max_memory_allocated() / 1e9)
     from torch.profiler import ProfilerActivity, profile
 
@@ -3613,7 +3694,8 @@ def zoo_leg(torch, card: str, tmp: str, base, dirs, classes_path, charset_path, 
         f"the last 5 {tail:.4f} = {tail / learn[0]:.4f} of it (need < {limit}); one step with D equal to it with "
         f"plain D bit for bit (loss {runs['kernel'][0]:.6f}, every parameter, buffer and Adam moment)")
     log(f"[zoo] {card}: {name} one train step (forward, backward, clip, Adam; float32, B={B}, N=256) "
-        f"{step_ms:.3f} ms on the card (CUDA events, mean of {ZOO_TIMED_STEPS}); peak device memory allocated "
+        f"{step_ms:.3f} ms eagerly and {replayed_ms:.3f} ms replayed from its one-step graph on the card (CUDA "
+        f"events, mean of {ZOO_TIMED_STEPS}); single steps of the epoch {single_steps}; peak device memory allocated "
         f"{peak_gb:.2f} GB; one traced step: device busy {busy_ms:.3f} ms of {window_ms:.3f} ms, idle share "
         + ("not measured (no device events in the trace)" if idle is None else f"{idle:.4f}")
         + "; device time by op (ops and the kernels under them):")
@@ -3622,7 +3704,8 @@ def zoo_leg(torch, card: str, tmp: str, base, dirs, classes_path, charset_path, 
     torch.cuda.empty_cache()
     return {"kind": kind, "args": extra, "wall_s": wall, "steps_per_s": steps_per_s, "launches": launched,
             "losses": losses, "validation_loss": val_loss, "batchnorm_buffers": len(buffers),
-            "serve_launches": serve_launches, "step_ms": step_ms, "peak_gb": peak_gb, "traced_busy_ms": busy_ms,
+            "serve_launches": serve_launches, "step_ms": step_ms, "replayed_step_ms": replayed_ms,
+            "single_steps": single_steps, "peak_gb": peak_gb, "traced_busy_ms": busy_ms,
             "traced_window_ms": window_ms, "idle_share": idle,
             "by_op": by_op[:12], "learning_losses": learn, "learn_share": tail / learn[0], "learn_limit": limit,
             "learn_lr": ZOO_LEARN_LR[name],
@@ -4800,12 +4883,14 @@ def sparse_kv_leg(torch, card: str, tag: str, base):
     torch.cuda.synchronize()
     step_ms = begin.elapsed_time(end) / TIMED_STEPS
     record = {"steps": steps, "evals": evals, "wall_s": wall, "steps_per_s": steps / wall, "launches": launched,
-              "losses": losses, "macro_f1": f1, "step_ms": step_ms, "edge_buckets": buckets}
+              "losses": losses, "macro_f1": f1, "step_ms": step_ms, "edge_buckets": buckets,
+              "single_steps": dict(trainer.single_steps)}
     log(f"[sparse_kv {tag}] {card}: {steps} steps + {evals} validation batches in {wall:.3f} s "
         f"({steps / wall:.3f} steps/s with the validation and the host data); attention_impl {attention_impl}, "
         f"scan_steps {scan_steps}; edge buckets {buckets}; launches { {k: v for k, v in launched.items() if v} } "
-        f"(no K1/K2/K3); losses {[round(v, 4) for v in losses]}; one eager step {step_ms:.3f} ms on the card "
-        f"(CUDA events, mean of {TIMED_STEPS}, B={B}, N={labels.shape[1]})")
+        f"(no K1/K2/K3); losses {[round(v, 4) for v in losses]}; one single step (replayed from its one-step "
+        f"graph) {step_ms:.3f} ms on the card (CUDA events, mean of {TIMED_STEPS}, B={B}, N={labels.shape[1]}); "
+        f"single steps {record['single_steps']}")
     if scan_steps > 1:
         # The main path's chunks: batches wait by edge bucket, so how many
         # chunks replay depends on how the epoch's pages fell.

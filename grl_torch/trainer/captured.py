@@ -36,16 +36,27 @@ key.
 Kernel wrappers count their launches at capture; the runner takes what a
 capture recorded back out of :data:`grl_torch.ops.launches.ran` and adds it
 again at every replay. Each key's warm-up and capture are timed
-(:attr:`CapturedSteps.setup`). A replay's host launch is the span
+(:attr:`CapturedSteps.setup`). A chunk's replay is the span
 ``grl.chunk.replay`` (:func:`grl_torch.utils.profiling.span`) under an
 active ``torch.profiler``.
+
+A procedure also replays its single train steps (``KVProcedure``'s
+``_train_fn``: an epoch's leftovers, ``scan_steps: 1``) from one-step
+graphs, one a batch shape, in a second runner, the step runner
+(:meth:`CapturedSteps.sharing`): its own graphs, replay count and set-up
+times, on the chunk runner's stream and in its memory pool. The procedure
+records a key's one-step graph (:meth:`CapturedSteps.record`) right after
+the step that warms it up (recording runs nothing), so the key's second
+step is a replay; a step runner's replays enter no span of their own,
+since the procedure's ``grl.step.replay`` holds the step's copy-in and
+launch.
 """
 from __future__ import annotations
 
 import gc
 import time
 from collections import Counter
-from typing import Any, Callable, Dict, Hashable, Sequence, Tuple
+from typing import Any, Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,10 +67,12 @@ from grl_torch.utils.profiling import span
 class CapturedSteps:
     """Runs chunks of train steps, replaying one CUDA graph per key on a
     CUDA device (eager on the CPU). ``replays`` counts this runner's
-    replays; ``graphs`` holds each key's graph, its outputs and the launches
-    it recorded; ``setup`` each key's seconds of warm-up (the eager first
-    chunk, to its end on the device) and capture, and the bytes the capture
-    added to the device's reserved memory."""
+    replays, each inside the span ``replay_span`` (``grl.chunk.replay``;
+    none in a step runner, :meth:`sharing`); ``graphs`` holds each key's
+    graph, its outputs and the launches it recorded; ``setup`` each key's
+    seconds of warm-up (the eager first chunk, to its end on the device)
+    and capture, and the bytes the capture added to the device's reserved
+    memory."""
 
     def __init__(self, device: torch.device, generators: Sequence[torch.Generator], capture: bool = True):
         self.device = device
@@ -70,8 +83,17 @@ class CapturedSteps:
         self.graphs: Dict[Hashable, Tuple[Any, Any, Counter]] = {}
         self.setup: Dict[Hashable, Dict[str, float]] = {}
         self.replays = 0
+        self.replay_span: Optional[str] = "grl.chunk.replay"
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+
+    def sharing(self) -> "CapturedSteps":
+        """A step runner: one of other graphs on this runner's stream and in
+        its memory pool, registering the same generators, with graphs,
+        replays and set-up of its own; its replays enter no span."""
+        runner = CapturedSteps(self.device, self.generators, self.capture)
+        runner.stream, runner.pool, runner.replay_span = self.stream, self.pool, None
+        return runner
 
     def run(self, key: Hashable, body: Callable[[], Any]) -> Any:
         """``body()``'s outputs for this chunk. After a replay they are the
@@ -90,11 +112,18 @@ class CapturedSteps:
         if key not in self.graphs:
             self.graphs[key] = self._capture(key, body)
         graph, outputs, recorded = self.graphs[key]
-        with span("grl.chunk.replay"):
+        with span(self.replay_span):
             graph.replay()
             self.replays += 1
             launches.ran.update(recorded)
         return outputs
+
+    def record(self, key: Hashable, body: Callable[[], Any]) -> None:
+        """Captures ``key``'s graph of ``body`` now, after the key's warm-up
+        (its first :meth:`run`), so that its next run replays: a capture
+        runs nothing, and leaves what ``body`` assigns (a parameter's
+        ``.grad``) on the graph's outputs."""
+        self.graphs[key] = self._capture(key, body)
 
     def eager(self, body: Callable[[], Any]) -> Any:
         """``body()`` run eagerly where the runner runs its chunks (the side

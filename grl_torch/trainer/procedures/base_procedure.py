@@ -9,7 +9,8 @@ confusion matrix, all enqueued on the device without a host sync. The
 step's device work (:meth:`BaseProcedure.build_train_body`) reads nothing
 back and counts nothing on the host, so that ``scan_steps`` can capture a
 chunk of steps in a CUDA graph (:mod:`grl_torch.trainer.captured`,
-:meth:`BaseProcedure.chunk_runner`).
+:meth:`BaseProcedure.chunk_runner`), and ``KVProcedure`` a single step in
+a one-step graph (:meth:`BaseProcedure.step_runner`).
 
 Every random mask of a train step (dropout, DropEdge) is drawn from the
 procedure's :class:`~grl_torch.models.layers.Rngs`, seeded from
@@ -19,6 +20,7 @@ procedure's :class:`~grl_torch.models.layers.Rngs`, seeded from
 from __future__ import annotations
 
 import os
+from collections import Counter
 from datetime import timedelta
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -246,6 +248,10 @@ class BaseProcedure:
         ) if self.is_chief else NullWriter()
         self.state: Optional[TrainState] = None
         self._steps: Optional[CapturedSteps] = None
+        self._single: Optional[CapturedSteps] = None
+        # How the single train steps ran (build_train_step, KVProcedure's
+        # replayed step): "eager", "replayed", and one-step graphs "recorded".
+        self.single_steps: Counter = Counter()
 
     def _init_mesh(self) -> Optional[Mesh]:
         """The mesh of ``parallel.mesh`` over the world's processes (one per
@@ -342,7 +348,17 @@ class BaseProcedure:
         and register the generator of ``self.rngs`` as it is then."""
         if self._steps is None:
             self._steps = CapturedSteps(self.device, [self.rngs.device], capture=self.captures)
+            self._single = self._steps.sharing()
         return self._steps
+
+    def step_runner(self) -> CapturedSteps:
+        """The runner of this state's single train steps, one graph a batch
+        shape (:meth:`KVProcedure._replayed_step
+        <grl_torch.trainer.procedures.kv_procedure.KVProcedure._replayed_step>`),
+        made with the chunk runner, on its stream and in its memory pool; its
+        replays are not the chunk runner's."""
+        self.chunk_runner()
+        return self._single
 
     def _load_prev_checkpoint(self, state: TrainState) -> TrainState:
         path = self.config.get("checkpoint_path")
@@ -468,15 +484,19 @@ class BaseProcedure:
 
     def build_train_step(self, num_classes: int, ignore_values: Tuple[int, ...]) -> Callable:
         """``train_step(V, A, labels, rngs, lam) -> (loss, cm)``: one
-        optimizer step on the device (:meth:`build_train_body`), counted in
-        ``state.step``; ``loss`` and ``cm`` stay there. Its enqueue (forward,
-        autograd's backward, clip, update) is the span ``grl.step.eager``."""
+        optimizer step run eagerly on the device (:meth:`build_train_body`),
+        counted in ``state.step`` and as ``single_steps["eager"]``; ``loss``
+        and ``cm`` stay there. Its enqueue (forward, autograd's backward,
+        clip, update) is the span ``grl.step.eager``. Where chunks are
+        captured, ``KVProcedure`` replays its steps from one-step graphs
+        instead (:meth:`~grl_torch.trainer.procedures.kv_procedure.KVProcedure._replayed_step`)."""
         body, state = self.build_train_body(num_classes, ignore_values), self.state
 
         def train_step(V, A, labels, rngs: Rngs, lam):
             with span("grl.step.eager"):
                 out = body(V, A, labels, rngs, lam)
                 state.step += 1
+                self.single_steps["eager"] += 1
             return out
 
         return train_step

@@ -6,7 +6,11 @@ stepwise:
 * one train step per batch (forward + backward + clip + update +
   confusion counts on the device); the host reads the loss and the
   ``C x C`` matrix once per step, as ``grl_tpu`` does, and derives macro
-  P/R/F1 from it;
+  P/R/F1 from it. Where chunks are captured (the card, not a gloo world)
+  the single step (``_train_fn``) replays a one-step CUDA graph of its
+  batch shape (:meth:`KVProcedure._replayed_step`), recorded in set-up's
+  first step of a shape where the train loader pads to buckets, else at
+  the shape's second step; elsewhere it runs eagerly;
 * ``scan_steps = K > 1`` is ``grl_tpu``'s ``_train_epoch_scanned``
   (:meth:`KVProcedure._train_epoch_scanned`; this class's own step only,
   :meth:`KVProcedure._use_scan`): batches wait in buffers by
@@ -14,7 +18,8 @@ stepwise:
   the card is one replay of a CUDA graph captured once for that shape
   (:mod:`grl_torch.trainer.captured`; the first chunk of a shape runs
   eagerly, as the warm-up), and on the CPU K eager steps; the leftovers
-  of an epoch run step by step;
+  of an epoch run step by step, each through the single step (so on the
+  card replayed from its shape's one-step graph);
 * the per-step cosine RanPAC lambda is passed to the model as a device
   scalar, filled in place (a chunk holds one a step);
 * a batch from ``SparseBucketPadding`` (``coo_*`` keys) reaches the model
@@ -33,9 +38,12 @@ stepwise:
   between chunks and steps is named by spans
   (:func:`grl_torch.utils.profiling.span`): ``grl.chunk`` around a chunk,
   holding ``grl.chunk.load``, ``grl.chunk.replay`` and
-  ``grl.chunk.readback``; ``grl.step.eager``, ``grl.step.lambda``,
-  ``grl.step.scores`` and ``grl.step.log`` for each step; and
-  ``grl.checkpoint`` where a step checkpoint is saved.
+  ``grl.chunk.readback``; ``grl.step.replay`` (a single step's copy-in
+  and graph launch) or ``grl.step.eager`` (a single step run eagerly),
+  ``grl.step.lambda``, ``grl.step.scores`` and ``grl.step.log`` for each
+  step; and ``grl.checkpoint`` where a step checkpoint is saved. The
+  counter ``single_steps`` holds how many single steps were replayed and
+  run eagerly, and how many one-step graphs were recorded.
 
 Under ``parallel.mesh`` (``kv_procedure.py:155-176, 294-296``) every rank
 reads the whole global batch and keeps its rows
@@ -44,11 +52,12 @@ so every rank buckets the same shapes and buffers its chunks by the same
 keys; the step sums the gradients over ``data``
 (:meth:`~grl_torch.trainer.procedures.base_procedure.BaseProcedure.build_train_body`)
 and the validation loss and confusion matrix too, so every rank sees the
-same F1 and saves at the same step. Chunks are captured where the world's
-backend is NCCL and run their steps one by one on gloo
-(``BaseProcedure.captures``); COO batches under a mesh step one at a time,
-as in ``grl_tpu``. Only the first rank writes checkpoints and summaries;
-every rank loads. The subclasses that run a train step of their own
+same F1 and saves at the same step. Chunks and one-step graphs are
+captured where the world's backend is NCCL, and steps run one by one,
+eagerly, on gloo (``BaseProcedure.captures``); COO batches under a mesh
+step one at a time, as in ``grl_tpu``. Only the first rank writes
+checkpoints and summaries; every rank loads. The subclasses that run a
+train step of their own
 (self-supervised, joint, graph classification) place their batches and
 reduce their steps through the same ``place_batch`` and ``update``.
 """
@@ -238,6 +247,8 @@ class KVProcedure(BaseProcedure):
                 self._last_ckpt_step = restored
         if self._train_fn is None:
             self._train_fn = self.build_train_step(self.num_classes, self._ignore)
+            if self.captures:
+                self._train_fn = self._replayed_step(self._train_fn)
             self._train_body = self.build_train_body(self.num_classes, self._ignore)
             self._eval_fn = self.build_eval_step(self.num_classes, self._ignore)
             self._lam = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -310,27 +321,36 @@ class KVProcedure(BaseProcedure):
         inputs, giving the K losses and confusion matrices on the device."""
         self._ensure_initialized()
         with span("grl.chunk.load"):
-            K = len(items)
-            V0, A0, labels0, _ = items[0]
-            key = (K, *self.shape_key(V0, A0, labels0))
-            slots = self._slots.get(key)
-            if slots is None:
-                def static(like):
-                    return torch.empty(like.shape, dtype=like.dtype, device=self.device)
-
-                leaves = [{name: static(t) for name, t in adjacency_leaves(A0).items()} for _ in range(K)]
-                slots = self._slots[key] = {
-                    "V": [static(V0) for _ in range(K)], "leaves": leaves,
-                    "A": [with_leaves(A0, leaves[k]) for k in range(K)],
-                    "labels": [static(labels0) for _ in range(K)],
-                    "lam": torch.zeros(K, dtype=torch.float32, device=self.device),
-                }
-            for k, (V, A, labels, _) in enumerate(items):
-                slots["V"][k].copy_(V, non_blocking=True)
-                for name, leaf in adjacency_leaves(A).items():
-                    slots["leaves"][k][name].copy_(leaf, non_blocking=True)
-                slots["labels"][k].copy_(labels, non_blocking=True)
+            key, slots, chunk = self._load([item[:3] for item in items])
             slots["lam"].copy_(torch.tensor([lam for *_, lam in items], dtype=torch.float32))
+        return key, chunk
+
+    def _load(self, batches: List[Tuple[torch.Tensor, Any, torch.Tensor]]
+              ) -> Tuple[tuple, Dict[str, Any], Callable[[], Tuple[torch.Tensor, torch.Tensor]]]:
+        """:meth:`load_chunk` but the lambdas: K batches ``(V, A, labels)``
+        copied into their shape's static inputs. Returns the key ``(K,
+        *shape_key)``, the static inputs (``slots["lam"]`` for the caller to
+        fill) and the chunk's body."""
+        K = len(batches)
+        V0, A0, labels0 = batches[0]
+        key = (K, *self.shape_key(V0, A0, labels0))
+        slots = self._slots.get(key)
+        if slots is None:
+            def static(like):
+                return torch.empty(like.shape, dtype=like.dtype, device=self.device)
+
+            leaves = [{name: static(t) for name, t in adjacency_leaves(A0).items()} for _ in range(K)]
+            slots = self._slots[key] = {
+                "V": [static(V0) for _ in range(K)], "leaves": leaves,
+                "A": [with_leaves(A0, leaves[k]) for k in range(K)],
+                "labels": [static(labels0) for _ in range(K)],
+                "lam": torch.zeros(K, dtype=torch.float32, device=self.device),
+            }
+        for k, (V, A, labels) in enumerate(batches):
+            slots["V"][k].copy_(V, non_blocking=True)
+            for name, leaf in adjacency_leaves(A).items():
+                slots["leaves"][k][name].copy_(leaf, non_blocking=True)
+            slots["labels"][k].copy_(labels, non_blocking=True)
         body = self._train_body
 
         def chunk():
@@ -338,7 +358,57 @@ class KVProcedure(BaseProcedure):
                    for k in range(K)]
             return torch.stack([loss for loss, _ in out]), torch.stack([cm for _, cm in out])
 
-        return key, chunk
+        return key, slots, chunk
+
+    def _replayed_step(self, eager: Callable) -> Callable:
+        """The single train step where chunks are captured: ``eager``'s
+        signature and results (:meth:`build_train_step`), each step replayed
+        from a one-step graph of its batch shape, run by the step runner
+        (:meth:`step_runner`). A step copies its batch into the one-step
+        static inputs of its shape (:meth:`_load` with one batch; ``lam``,
+        a device scalar, by a copy on the device) and replays; the loss and
+        confusion matrix come back as copies, since the next replay
+        overwrites the graph's. ``rngs`` must be ``self.rngs``, whose
+        generator the graphs register. After every step the parameters'
+        ``.grad`` hold that step's gradients, as after the eager step: a
+        capture leaves them on its graph's outputs, so the step points them
+        at the warm-up's after recording and at the graph's after a replay.
+
+        A shape's graph is recorded in the step that warms it up, eagerly on
+        the runner's stream, as soon as the shape is known to repeat: at its
+        first step where the train loader pads to buckets
+        (``BucketPadding``, ``SparseBucketPadding``), which bound the shapes,
+        else at its second, so that a shape met once costs no capture and no
+        static inputs; before that, ``eager`` runs the step. A replayed step
+        is the span ``grl.step.replay`` (copy-in and launch), a warm-up
+        ``grl.step.eager``; ``single_steps`` counts them (``"replayed"``,
+        ``"eager"``) and the graphs recorded."""
+        bucketed = any(isinstance(p, (BucketPadding, SparseBucketPadding)) for p in self.train_loader.collate_chain)
+        params = list(self.model.parameters())
+        seen, grads = set(), {}
+
+        def train_step(V, A, labels, rngs, lam):
+            key = (1, *self.shape_key(V, A, labels))
+            runner = self.step_runner()
+            replay = key in runner.graphs
+            if not replay and not bucketed and key not in seen:
+                seen.add(key)
+                return eager(V, A, labels, rngs, lam)
+            with span("grl.step.replay" if replay else "grl.step.eager"):
+                key, slots, step = self._load([(V, A, labels)])
+                slots["lam"].fill_(lam)
+                losses, cms = runner.run(key, step)
+                if not replay:
+                    warmed = [p.grad for p in params]
+                    runner.record(key, step)
+                    grads[key] = [p.grad for p in params]
+                for p, grad in zip(params, grads[key] if replay else warmed):
+                    p.grad = grad
+                self.state.step += 1
+            self.single_steps.update({"replayed": 1} if replay else {"eager": 1, "recorded": 1})
+            return losses[0].clone(), cms[0].clone()
+
+        return train_step
 
     @staticmethod
     def shape_key(V: torch.Tensor, A: Any, labels: torch.Tensor) -> tuple:
@@ -370,8 +440,9 @@ class KVProcedure(BaseProcedure):
         arrival order, across shapes they are grouped. The profiler hooks
         bracket the chunk, and each step is logged under its batch's own
         ``global_step``. At the end of the epoch the leftover buffers drain
-        step by step, and the drain gets its checkpoint opportunity.
-        Returns the (padded) nodes seen."""
+        step by step through ``_train_fn`` (on the card each a replay of
+        its shape's one-step graph, :meth:`_replayed_step`), and the drain
+        gets its checkpoint opportunity. Returns the (padded) nodes seen."""
         K = self._scan_k
         buffers: Dict[tuple, list] = {}
         num_nodes = 0

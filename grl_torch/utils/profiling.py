@@ -25,10 +25,10 @@ import torch
 _NO_SPAN = contextlib.nullcontext()
 
 
-def span(name: str):
+def span(name: Optional[str]):
     """A named range of host work while a ``torch.profiler`` session is
-    active, else one shared null context that records, reads and allocates
-    nothing.
+    active, else (or where ``name`` is ``None``) one shared null context
+    that records, reads and allocates nothing.
 
     The range is ``torch._C._profiler._RecordFunctionFast``: a ``cpu_op``
     event on the same clock as the device's kernels and copies, entered in
@@ -39,7 +39,7 @@ def span(name: str):
     Only around host work between chunks and steps: never inside a body
     that :class:`~grl_torch.trainer.captured.CapturedSteps` captures, since
     a range recorded at capture is not replayed."""
-    if torch.autograd._profiler_enabled():
+    if name is not None and torch.autograd._profiler_enabled():
         return torch._C._profiler._RecordFunctionFast(name)
     return _NO_SPAN
 

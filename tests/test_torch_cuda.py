@@ -939,6 +939,83 @@ def test_two_bucket_chunks_share_one_pool_and_equal_eager(tmp_path):
         assert np.array_equal(eager_losses, replayed_losses) and not differing
 
 
+def test_single_steps_replay_one_step_graphs_bit_for_bit(tmp_path):
+    """Single steps through ``_train_fn`` on the card, the train loader
+    padding to buckets: the first step of a shape runs eagerly and records
+    the shape's one-step graph, and every later step replays it; each
+    leaves the loss, confusion matrix, parameters, their gradients and
+    generator state of the same step run eagerly from the same state, bit
+    for bit. The steps run interleaved with chunk replays of their own
+    shape (2 pages at N = 64) and of a second (N = 32), all in the chunk
+    runner's one pool; a third shape (1 page at N = 64) no chunk ever ran.
+    The chunk runner counts only chunks."""
+    import chip_smoke
+
+    proc = small_kv_procedure(tmp_path)
+    batches = [proc._prepare_batch(batch) for batch, _ in zip(proc.train_loader, range(2))]
+    wide = [(*b, 0.5) for b in batches]
+    narrow = [(V[:, :32].contiguous(), A[:, :32, :, :32].contiguous(), labels[:, :32].contiguous(), 0.5)
+              for V, A, labels, _ in wide]
+    step_wide, step_one = batches[0], tuple(t[:1].contiguous() for t in batches[1])
+    for items in (wide, narrow):
+        proc.run_chunk(items)  # the warm-up, eager
+        proc.run_chunk(items)  # the capture and its replay
+    chunks, steps = proc.chunk_runner(), proc.step_runner()
+    assert steps.pool == chunks.pool and steps.stream is chunks.stream
+    for batch in (step_wide, step_one):  # the warm-up, and the recording
+        eager, got, differing, draws = chip_smoke.step_against_eager(torch, proc, batch, 0.5)
+        (eager_loss, eager_cm), (loss, cm) = eager, got
+        assert torch.equal(loss, eager_loss) and torch.equal(cm, eager_cm) and not differing and draws
+        assert torch.isfinite(loss) and int(cm.sum()) > 0
+    assert dict(proc.single_steps) == {"eager": 2, "recorded": 2} and steps.replays == 0
+    assert len(steps.graphs) == 2 and len(chunks.graphs) == 2 and chunks.replays == 2
+    assert all({"warmup_s", "capture_s", "capture_bytes"} <= set(steps.setup[key]) for key in steps.graphs)
+    replayed = 0
+    for what in (step_wide, wide, step_one, narrow, step_wide, step_one, wide, step_one):
+        if isinstance(what, tuple):
+            eager, got, differing, draws = chip_smoke.step_against_eager(torch, proc, what, 0.5)
+            (eager_loss, eager_cm), (loss, cm) = eager, got
+            replayed += 1
+            assert torch.equal(loss, eager_loss) and torch.equal(cm, eager_cm) and not differing and draws
+        else:
+            eager_losses, replayed_losses, differing = replay_against_eager(proc, what)
+            assert np.array_equal(eager_losses, replayed_losses) and not differing
+    assert dict(proc.single_steps) == {"eager": 2, "recorded": 2, "replayed": replayed}
+    assert steps.replays == replayed and chunks.replays == 2 + 3
+    # A replay's outputs are the caller's: the next replay draws new masks
+    # and leaves them as they were.
+    first = proc._train_fn(*step_wide, proc.rngs, proc._lam)
+    kept = [t.clone() for t in first]
+    second = proc._train_fn(*step_wide, proc.rngs, proc._lam)
+    assert all(torch.equal(a, b) for a, b in zip(first, kept)) and not torch.equal(first[0], second[0])
+
+
+def test_single_steps_of_unbucketed_shapes_record_at_their_second_step(tmp_path):
+    """A train loader that does not pad to buckets: a shape's first single
+    step runs eagerly and records nothing, its second warms up and records
+    the one-step graph, its third replays it, equal to the same step run
+    eagerly."""
+    import chip_smoke
+    from grl_torch.data.collate import BucketPadding
+
+    proc = small_kv_procedure(tmp_path)
+    batch = proc._prepare_batch(next(iter(proc.train_loader)))
+    proc.train_loader.collate_chain = [p for p in proc.train_loader.collate_chain
+                                       if not isinstance(p, BucketPadding)]
+    proc._ensure_initialized()
+    steps = proc.step_runner()
+    proc._lam.fill_(0.5)
+    proc._train_fn(*batch, proc.rngs, proc._lam)  # the shape's first step (and Adam's state)
+    assert steps.replays == 0 and not steps.graphs
+    eager, got, differing, draws = chip_smoke.step_against_eager(torch, proc, batch, 0.5)  # the recording
+    assert all(torch.equal(a, b) for a, b in zip(eager, got)) and not differing and draws
+    assert steps.replays == 0
+    assert dict(proc.single_steps) == {"eager": 2, "recorded": 1} and len(steps.graphs) == 1
+    (eager_loss, eager_cm), (loss, cm), differing, draws = chip_smoke.step_against_eager(torch, proc, batch, 0.5)
+    assert torch.equal(loss, eager_loss) and torch.equal(cm, eager_cm) and not differing and draws
+    assert steps.replays == 1 and proc.single_steps["replayed"] == 1
+
+
 # ---------------------------------------------------------------------------
 # K7 (the tile-dense hybrid's tiles) and the optimizers of optax's rules.
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ eager step, the per-step lambda, scores and log, or a step checkpoint.
 Under the profiler the spans land in the exported Chrome trace as
 ``cpu_op`` events named ``grl.*``, nested and in call order; the losses and
 parameters are the same bits either way. On the card, a replayed chunk's
-launch is ``grl.chunk.replay`` inside ``grl.chunk``.
+launch is ``grl.chunk.replay`` inside ``grl.chunk``, and a replayed single
+step's graph launch lies inside ``grl.step.replay``.
 
 This file imports neither JAX nor grl_tpu; its ``cuda`` case runs on a
 card with::
@@ -96,10 +97,11 @@ def kv_round(proc, chunks=1):
     return losses + [float(loss)]
 
 
-def traced(tmp_path, work):
+def traced(tmp_path, work, prefixes=("grl.",)):
     """``work()`` under ``torch.profiler``; its result and the ``grl.*``
-    spans of the exported trace as ``(name, start, end)`` in start order
-    (a parent before the child that starts with it)."""
+    spans (host events whose names start with one of ``prefixes``) of the
+    exported trace as ``(name, start, end)`` in start order (a parent
+    before the child that starts with it)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -110,7 +112,8 @@ def traced(tmp_path, work):
     with open(path) as handle:
         events = json.load(handle)["traceEvents"]
     spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("ph") == "X" and e.get("cat") == "cpu_op" and e["name"].startswith("grl.")]
+             if e.get("ph") == "X" and e.get("cat") in ("cpu_op", "cuda_runtime")
+             and e["name"].startswith(tuple(prefixes))]
     return out, sorted(spans, key=lambda s: (s[1], -s[2]))
 
 
@@ -177,6 +180,43 @@ def test_the_profiler_changes_no_bit(pages, tmp_path):
     assert spans and got == want
     for (name, a), b in zip(plain.model.state_dict().items(), profiled.model.state_dict().values()):
         assert torch.equal(a, b), name
+
+
+def test_single_steps_off_the_card_run_the_eager_step(pages, tmp_path):
+    """Where chunks are not captured (the CPU), ``_train_fn`` is the eager
+    step: the losses and parameters of the step body run by hand, bit for
+    bit, every step counted as eager, no one-step graph and no static
+    inputs."""
+    proc, plain = kv_procedure(pages, tmp_path / "a"), kv_procedure(pages, tmp_path / "b")
+    assert not proc.captures
+    batches = [proc._prepare_batch(batch) for batch in proc.train_loader]
+    body = plain.build_train_body(plain.num_classes, plain._ignore)
+    for V, A, labels in batches[:3]:
+        proc._lam.fill_(0.25)
+        loss, cm = proc._train_fn(V, A, labels, proc.rngs, proc._lam)
+        plain._lam.fill_(0.25)
+        want_loss, want_cm = body(V, A, labels, plain.rngs, plain._lam)
+        assert torch.equal(loss, want_loss) and torch.equal(cm, want_cm)
+    for (name, a), b in zip(proc.model.state_dict().items(), plain.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    assert dict(proc.single_steps) == {"eager": 3} and proc.state.step == 3
+    assert not proc.step_runner().graphs and not proc.step_runner().setup and not proc._slots
+
+
+@pytest.mark.cuda
+def test_a_replayed_single_step_launches_inside_its_replay_span(pages, tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: a single step is a CUDA-graph replay only there")
+    proc = kv_procedure(pages, tmp_path, device="cuda", rates=(0.0, 0.0))
+    kv_round(proc, chunks=2)  # the chunk's warm-up, capture and replay; the step's warm-up and recording
+    assert dict(proc.single_steps) == {"eager": 1, "recorded": 1}
+    _, spans = traced(tmp_path, lambda: kv_round(proc), prefixes=("grl.", "cudaGraphLaunch"))
+    assert dict(proc.single_steps) == {"eager": 1, "recorded": 1, "replayed": 1}
+    names = [name for name, *_ in spans]
+    assert "grl.step.eager" not in names and names.count("grl.step.replay") == 1
+    replay = next(s for s in spans if s[0] == "grl.step.replay")
+    launched = [s for s in spans if s[0] == "cudaGraphLaunch" and inside(s, replay)]
+    assert len(launched) == 1 and proc.step_runner().replays == 1
 
 
 @pytest.mark.cuda
